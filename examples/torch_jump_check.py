@@ -57,7 +57,7 @@ def inspect_jump(t, cfg, acc, params, bufs, grams, X, Y):
     before = float(mse_loss(params, X, Y))
     relax = float(acc.relax_vector(t)[0])
     for key, b in acc.arena_for(params).items():
-        buf, g = bufs[key], grams[key]
+        buf, g = bufs["__arena__"][key], grams["__arena__"][key]
         seg = b.tables_on(buf.device)
         full = ka.gram(buf, seg, anchor_first=cfg.anchor == "first")
         gerr = float((g - full).abs().max() / full.abs().max())

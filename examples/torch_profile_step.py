@@ -1,15 +1,18 @@
 """Where a step of the port's paper loop spends its time, on a CUDA card.
 
     PYTHONPATH=src python examples/torch_profile_step.py [--steps 300]
+        [--no-arena]
 
 Runs ``repro_torch.train.paper_loop.train`` at the paper's full width
 three times: a short warm-up (kernel build, cuBLAS start-up), one timed
 run (host clock, synchronised) and one under ``torch.profiler``. Prints
 ms per step, the device's busy share of the profiled wall (summed kernel
 time over wall: one stream, so kernels do not overlap) and the kernels
-that take the most device time.
+that take the most device time. ``--no-arena`` profiles the per-leaf
+route (``DMDConfig(arena=False)``) instead of the packed arenas.
 """
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -41,9 +44,10 @@ def main():
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--rows", type=int, default=1000)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--no-arena", action="store_true")
     args = ap.parse_args()
     X, Y = synthetic_regression(seed=0, n=args.rows, n_out=PAPER_SIZES[-1])
-    cfg = DMDConfig()
+    cfg = dataclasses.replace(DMDConfig(), arena=not args.no_arena)
     train(X, Y, PAPER_SIZES, cfg, 20, device="cuda")
     torch.cuda.synchronize()
 
@@ -51,8 +55,8 @@ def main():
     train(X, Y, PAPER_SIZES, cfg, args.steps, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    print(f"{torch.cuda.get_device_name(0)}: {args.steps} steps in {wall} s, "
-          f"ms/step {wall / args.steps * 1e3}")
+    print(f"{torch.cuda.get_device_name(0)} arena={cfg.arena}: {args.steps} "
+          f"steps in {wall} s, ms/step {wall / args.steps * 1e3}")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -62,8 +66,9 @@ def main():
         pwall = time.perf_counter() - t0
     rows = [(device_us(e), e.count, e.key) for e in prof.key_averages()]
     ours = sum(r[0] for r in rows
-               if any(k in r[2] for k in ("gram_row_part", "gram_part",
-                                          "seg_sum", "combine<")))
+               if any(k in r[2] for k in ("row_part", "gram_part", "seg_sum",
+                                          "chunk_sum", "combine<",
+                                          "combine_flat<")))
     rows = [r for r in rows if r[0] > 0]
     busy_us = sum(r[0] for r in rows)
     print(f"profiled: wall {pwall} s, device kernel time {busy_us / 1e6} s, "

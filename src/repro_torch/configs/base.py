@@ -53,8 +53,8 @@ class DMDConfig:
     gram_upcast: bool = True
     streaming_gram: bool = True     # carry the (n_sys, m, m) Gram; False =
                                     # recompute it at every jump
-    arena: bool = True              # packed block-major buckets (the only
-                                    # route the port has so far)
+    arena: bool = True              # packed block-major buckets; False =
+                                    # per-leaf buffers (the A/B oracle)
     arena_block_n: int = 512
     arena_native: bool = True
     scope: str = "leaf"             # leaf | bucket (bucket: not ported yet)

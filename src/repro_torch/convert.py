@@ -6,7 +6,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.kernels.device import resolve_device
 
 
 def params_from_jax(tree: Any, device="cuda") -> Any:

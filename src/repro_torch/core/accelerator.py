@@ -9,27 +9,120 @@
     if acc.should_apply(step):               # some group's window closed
         params, stats = acc.apply(params, buffers, grams=grams, step=step)
 
-Only the packed-arena route is ported (``core/arena.py``): one segmented
-kernel launch per bucket per recorded step and one batched coefficient
-solve per group per jump. A leaf the arena would not take (``arena=False``
-or ``kernel_route="dot_general"``) raises ``NotImplementedError``: the
-per-leaf route is still to port (ROADMAP Queue 1). The schedule is the
-group table of ``core/schedule.py``; per-group queries take ``group=``
-(default 0).
+Two routes, as in the reference. With ``cfg.arena`` (the default) every
+leaf is packed into a block-major arena bucket (``core/arena.py``): one
+segmented kernel launch per bucket per recorded step and one batched
+coefficient solve per group per jump. With ``arena=False``, or with the
+route forced to ``kernel_route="dot_general"``, every leaf keeps its own
+``(m, *shape)`` buffer (``core/snapshots.py``) and jumps alone
+(``dmd_leaf_jump``): the flat kernels K4-K6 per leaf, or the plain
+contractions of ``core/dmd.py`` on the ``dot_general`` route. The state is
+the per-leaf tree when no leaf is packed, else the two-route wrapper
+``{"__arena__": {bucket: ...}, "leaf": per-leaf tree}``. The schedule is
+the group table of ``core/schedule.py``; per-group queries take ``group=``
+(default 0). Not ported yet: a mesh, residency and the controller
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import arena as arena_mod
-from repro_torch.core import leafplan, schedule as sched_mod
-from repro_torch.core.paths import leaves_with_paths, map_with_paths
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.core import dmd, leafplan, schedule as sched_mod
+from repro_torch.core import snapshots as snap
+from repro_torch.core.paths import by_path, leaves_with_paths, map_with_paths
+from repro_torch.kernels import ops
+from repro_torch.kernels.device import resolve_device
 
 PyTree = Any
+
+
+@dataclass
+class LeafJump:
+    """Result of one leaf's DMD jump: the new leaf and its mean rank."""
+    params: torch.Tensor
+    rank: torch.Tensor
+
+
+def dmd_leaf_jump(cfg, plan: leafplan.LeafPlan, p: torch.Tensor,
+                  buf: torch.Tensor, gram: Optional[torch.Tensor], relax
+                  ) -> LeafJump:
+    """One leaf of the DMD jump: coefficients from `gram` (the carried
+    streaming Gram; recomputed from the buffer when None) and one combine
+    pass, both routed by the leaf's plan. The horizon, energy target and
+    ridge are the leaf's group's. The result is cast to the param's
+    dtype."""
+    nstack = plan.stack_dims
+    kernel = plan.route in snap.KERNEL_ROUTES
+    if gram is None:
+        if kernel and plan.anchor_ok:
+            gram = ops.gram(buf, anchor_first=cfg.anchor == "first",
+                            stack_dims=nstack)
+        else:
+            gram = dmd.gram_matrix(buf, anchor=cfg.anchor, stack_dims=nstack,
+                                   upcast=cfg.gram_upcast)
+    sched = plan.sched
+    c, info = dmd.dmd_coefficients(
+        gram, s=sched.s, tol=cfg.tol, mode=cfg.mode, anchor=cfg.anchor,
+        affine=cfg.affine, trust_region=cfg.trust_region, relax=relax,
+        energy=sched.energy, atol=cfg.atol, ridge=sched.ridge)
+    if kernel:
+        w = ops.combine(buf, c, stack_dims=nstack)
+    else:
+        w = dmd.combine_snapshots(buf, c, stack_dims=nstack,
+                                  upcast=cfg.gram_upcast)
+    # even c = e_last cannot save a non-finite BUFFER (0 * inf = NaN): never
+    # leave params less finite than the last snapshot (the last ring row,
+    # as the reference does, not the just-written slot)
+    w = torch.where(torch.isfinite(w), w, buf[-1].to(w.dtype))
+    return LeafJump(w.to(p.dtype), info["rank"].float().mean())
+
+
+def jump_tree(cfg, plans: PyTree, params: PyTree, buffers: PyTree,
+              grams: Optional[PyTree], relax,
+              groups: Optional[frozenset] = None,
+              arena: Optional[Dict[str, arena_mod.ArenaBucket]] = None
+              ) -> Tuple[PyTree, torch.Tensor]:
+    """Whole-tree DMD jump: returns (new params, the mean over the jumped
+    leaves of each leaf's mean rank). The arena route serves the packed
+    leaves (`arena` is
+    the accelerator's bucket table); every other selected leaf of a
+    jumping group takes ``dmd_leaf_jump``. `groups` (None: all) masks the
+    jump to those schedule groups; `relax` is a scalar or a per-group
+    vector. `grams` None means no carried Grams (recompute)."""
+    per_group = np.ndim(relax) == 1
+    updates: Dict[str, torch.Tensor] = {}
+    ranks = []
+    if arena_mod.is_arena_state(buffers):
+        if not arena:
+            raise ValueError(
+                "buffers are arena-packed but no bucket table was given: "
+                "pass arena=acc.arena_for(params)")
+        arenas, buffers = arena_mod.split_state(buffers)
+        agrams = None
+        if grams is not None:
+            agrams, grams = arena_mod.split_state(grams)
+        updates, ranks = arena_mod.jump(cfg, arena, params, arenas, agrams,
+                                        relax, groups=groups)
+    p_of = by_path(params)
+    g_of = by_path(grams) if grams is not None else {}
+    plan_of = by_path(plans)
+    for path, buf in leaves_with_paths(buffers):
+        plan = plan_of[path]
+        if groups is not None and plan.group not in groups:
+            continue
+        r = float(relax[plan.group]) if per_group else float(relax)
+        jump = dmd_leaf_jump(cfg, plan, p_of[path], buf, g_of.get(path), r)
+        updates[path] = jump.params
+        ranks.append(jump.rank)
+    new_params = map_with_paths(lambda path, x: updates.get(path, x), params)
+    mean_rank = (torch.stack(ranks).mean() if ranks
+                 else torch.zeros((), dtype=torch.float32))
+    return new_params, mean_rank
 
 
 class DMDAccelerator:
@@ -67,16 +160,8 @@ class DMDAccelerator:
         key = tuple((p, tuple(x.shape), str(x.dtype))
                     for p, x in leaves_with_paths(params))
         if self._plans is None or self._plans_key != key:
-            plans = leafplan.build_plans(params, self.cfg, self.stack_dims)
-            if self.cfg.enabled:
-                for plan in leafplan.plan_entries(plans):
-                    if not arena_mod.arena_eligible(plan, self.cfg):
-                        raise NotImplementedError(
-                            f"{plan.path}: the per-leaf DMD route "
-                            f"(arena={self.cfg.arena}, route={plan.route}) "
-                            "is not ported yet (ROADMAP Queue 1: the "
-                            "per-leaf DMD route)")
-            self._plans = plans
+            self._plans = leafplan.build_plans(params, self.cfg,
+                                               self.stack_dims)
             self._plans_key = key
             self._arena = None
         return self._plans
@@ -153,25 +238,40 @@ class DMDAccelerator:
         return tuple(g for g in src if self.groups[g].reset_opt)
 
     # ---- state ------------------------------------------------------------
-    def init(self, params: PyTree) -> Optional[Dict[str, torch.Tensor]]:
-        """Zeroed ring buffers, {bucket_key: (n_blocks, m, block_n)}."""
+    def init(self, params: PyTree) -> Optional[PyTree]:
+        """Zeroed snapshot state: the per-leaf buffer tree
+        (``core/snapshots.py``) when no leaf is packed, else
+        ``{"__arena__": {bucket_key: (n_blocks, m, block_n)}, "leaf":
+        per-leaf tree with None at the packed paths}``."""
         if not self.cfg.enabled:
             return None
-        return arena_mod.init_arena_buffers(self.arena_for(params), self.cfg,
-                                            self.device)
+        plans = self.plans_for(params)
+        table = self.arena_for(params)
+        leaf = snap.init_buffers(params, self.cfg, plans, self.device,
+                                 skip_paths=arena_mod.arena_paths(table))
+        if not table:
+            return leaf
+        return arena_mod.make_state(
+            arena_mod.init_arena_buffers(table, self.cfg, self.device), leaf)
 
-    def init_grams(self, buffers) -> Optional[Dict[str, torch.Tensor]]:
-        """Zeroed streaming Grams, {bucket_key: (n_sys, m, m)} fp32, or None
-        when not streaming."""
+    def init_grams(self, buffers) -> Optional[PyTree]:
+        """Zeroed streaming Grams mirroring `buffers`, or None when not
+        streaming: (n_sys, m, m) fp32 per bucket, (stack..., m, m) fp32 per
+        per-leaf buffer."""
         if buffers is None or not self.streaming:
             return None
-        if self._arena is None:
-            raise ValueError("init_grams before init: no bucket table yet")
-        return arena_mod.init_arena_grams(self._arena, self.device)
+        if self._plans is None:
+            raise ValueError("init_grams before init: no plan table yet")
+        if not arena_mod.is_arena_state(buffers):
+            return snap.init_grams(buffers, self._plans)
+        leaf = arena_mod.split_state(buffers)[1]
+        return arena_mod.make_state(
+            arena_mod.init_arena_grams(self._arena, self.device),
+            snap.init_grams(leaf, self._plans))
 
     @torch.no_grad()
     def record(self, buffers, params: PyTree, slot, grams=None):
-        """Write params into each bucket's row `slot` (a scalar, or the
+        """Write params into each buffer's row `slot` (a scalar, or the
         per-group vector from ``slots(step)``; negative entries are
         skipped) and, with `grams`, refresh the streaming Gram rows. Both
         are updated in place; returns (buffers, grams)."""
@@ -181,10 +281,18 @@ class DMDAccelerator:
             raise ValueError(
                 f"{self.n_groups} schedule groups need the per-group slot "
                 "vector: pass acc.slots(step), not a scalar slot")
-        table = self.arena_for(params)
-        arena_mod.record(buffers, params, slot, table, self.cfg)
-        if grams is not None:
-            arena_mod.update_grams(grams, buffers, slot, self.cfg, table)
+        plans = self.plans_for(params)
+        leaf, lgrams = buffers, grams
+        if arena_mod.is_arena_state(buffers):
+            table = self.arena_for(params)
+            arenas, leaf = arena_mod.split_state(buffers)
+            arena_mod.record(arenas, params, slot, table, self.cfg)
+            if grams is not None:
+                agrams, lgrams = arena_mod.split_state(grams)
+                arena_mod.update_grams(agrams, arenas, slot, self.cfg, table)
+        snap.record(leaf, params, slot, plans)
+        if lgrams is not None:
+            snap.update_grams(lgrams, leaf, slot, self.cfg, plans)
         return buffers, grams
 
     @torch.no_grad()
@@ -205,7 +313,6 @@ class DMDAccelerator:
             return params, {}
         if not self.streaming:
             grams = None
-        table = self.arena_for(params)
         if step is not None:
             if groups is None:
                 groups = self.apply_groups(step)
@@ -214,9 +321,7 @@ class DMDAccelerator:
             relax = np.asarray([self.relax_for_round(round_idx, g)
                                 for g in range(self.n_groups)], np.float32)
         gset = None if groups is None else frozenset(int(g) for g in groups)
-        updates, ranks = arena_mod.jump(self.cfg, table, params, buffers,
-                                        grams, relax, groups=gset)
-        new_params = map_with_paths(lambda p, x: updates.get(p, x), params)
-        mean_rank = (torch.stack(ranks).mean() if ranks
-                     else torch.zeros((), device=self.device))
-        return new_params, {"mean_rank": mean_rank}
+        new_params, mean_rank = jump_tree(
+            self.cfg, self.plans_for(params), params, buffers, grams, relax,
+            groups=gset, arena=self.arena_for(params))
+        return new_params, {"mean_rank": mean_rank.to(self.device)}

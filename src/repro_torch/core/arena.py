@@ -6,6 +6,11 @@ unstacked leaf, or one layer of a stacked leaf) is padded to a multiple of
 the bucket's ``block_n``, so the segmented kernels of ``kernels/arena.py``
 walk the whole bucket in one launch with no block straddling two systems.
 
+The accelerator's state is the reference's two-route wrapper
+``{"__arena__": {bucket_key: ...}, "leaf": per-leaf tree}`` whenever a
+bucket exists (``make_state`` / ``split_state``); the per-leaf tree holds
+None at every packed path and the ``core/snapshots.py`` state elsewhere.
+
 State, per bucket key:
 
     buffers  (n_blocks, m, block_n)  snapshot ring buffer, BLOCK-MAJOR
@@ -36,6 +41,8 @@ from repro_torch.core.paths import by_path
 from repro_torch.core.schedule import GroupSchedule
 from repro_torch.kernels import arena as ka
 from repro_torch.kernels.ops import lane_block
+
+ARENA_KEY = "__arena__"
 
 
 @dataclass(frozen=True)
@@ -168,6 +175,22 @@ def layout_table(table: Dict[str, ArenaBucket]) -> list:
             } for s in b.segments],
         })
     return out
+
+
+# ---------------------------------------------------------------------------
+# State: the {"__arena__": ..., "leaf": ...} wrapper
+# ---------------------------------------------------------------------------
+
+def is_arena_state(x) -> bool:
+    return isinstance(x, dict) and ARENA_KEY in x
+
+
+def make_state(arenas: Dict[str, torch.Tensor], leaf) -> dict:
+    return {ARENA_KEY: arenas, "leaf": leaf}
+
+
+def split_state(x) -> Tuple[Dict[str, torch.Tensor], object]:
+    return x[ARENA_KEY], x["leaf"]
 
 
 def snapshot_dtype(cfg) -> torch.dtype:

@@ -24,31 +24,71 @@ from typing import Tuple
 import torch
 
 
-def gram_matrix(snapshots: torch.Tensor, anchor: str = "none"
-                ) -> torch.Tensor:
-    """(m, ...) -> (m, m) fp32 ``D D^T`` over the flattened trailing axes
-    (the oracle for the arena kernels)."""
-    x = snapshots.float().reshape(snapshots.shape[0], -1)
+def _systems(x: torch.Tensor, stack_dims: int):
+    """(m, stack..., rest...) -> fp32 (m, S, n) and the stack shape. The
+    callers contract each system's (m, n) slice with a 2-D product, as the
+    reference contracts each leaf."""
+    stack = tuple(x.shape[1:1 + stack_dims])
+    n_sys = 1
+    for d in stack:
+        n_sys *= int(d)
+    return x.float().reshape(x.shape[0], n_sys, -1), stack
+
+
+def gram_matrix(snapshots: torch.Tensor, anchor: str = "none",
+                stack_dims: int = 0, upcast: bool = True) -> torch.Tensor:
+    """(m, stack..., param...) -> (stack..., m, m) fp32 ``D D^T`` over the
+    trailing axes, one Gram per stacked system (the oracle for the
+    kernels, and the route of mean-anchored and ``dot_general`` leaves).
+
+    ``upcast=False`` (bf16 buffers) anchors in the storage dtype and then
+    contracts in fp32, as the reference's bf16 x bf16 -> fp32 product does:
+    a product of two bf16 values is exact in fp32."""
+    x = snapshots.float() if upcast else snapshots
     if anchor == "first":
         x = x - x[:1]
     elif anchor == "mean":
-        x = x - x.mean(dim=0, keepdim=True)
+        x = x - x.float().mean(dim=0, keepdim=True).to(x.dtype)
     elif anchor != "none":
         raise ValueError(f"unknown anchor {anchor!r}")
-    return x @ x.T
+    xs, stack = _systems(x, stack_dims)
+    m = xs.shape[0]
+    return torch.stack([d @ d.T for d in xs.unbind(1)]).reshape(
+        stack + (m, m))
 
 
 def gram_row_matrix(snapshots: torch.Tensor, p: torch.Tensor,
-                    anchor: str = "none") -> torch.Tensor:
-    """(m,) streaming Gram row ``<d_p, d_j>`` for every buffer row j."""
-    x = snapshots.float().reshape(snapshots.shape[0], -1)
-    q = p.float().reshape(-1)
+                    anchor: str = "none", stack_dims: int = 0,
+                    upcast: bool = True) -> torch.Tensor:
+    """(stack..., m) streaming Gram row ``<d_p, d_j>`` for every buffer row
+    j of every stacked system. When `p` is the new anchor (slot 0 just
+    rewritten) the row is exactly zero."""
+    x = snapshots.float() if upcast else snapshots
+    q = p.float() if upcast else p.to(x.dtype)
     if anchor == "first":
         q = q - x[0]
         x = x - x[:1]
     elif anchor != "none":
         raise ValueError(f"streaming gram does not support anchor {anchor!r}")
-    return x @ q
+    xs, stack = _systems(x, stack_dims)
+    qs = q.float().reshape(xs.shape[1], -1)
+    return torch.stack([d @ v for d, v in zip(xs.unbind(1), qs)]).reshape(
+        stack + xs.shape[:1])
+
+
+def combine_snapshots(snapshots: torch.Tensor, c: torch.Tensor,
+                      stack_dims: int = 0, upcast: bool = True
+                      ) -> torch.Tensor:
+    """w = S^T c in fp32: (m, stack..., param...) x (stack..., m) ->
+    (stack..., param...), one coefficient row per stacked system.
+    ``upcast=False`` rounds c to the buffer's dtype first, as the
+    reference does."""
+    x = snapshots.float() if upcast else snapshots
+    cf = c.float() if upcast else c.to(x.dtype)
+    xs, _ = _systems(x, stack_dims)
+    cs = cf.float().reshape(xs.shape[1], -1)
+    w = torch.stack([v @ d for v, d in zip(cs, xs.unbind(1))])
+    return w.reshape(snapshots.shape[1:])
 
 
 def set_gram_row(gram: torch.Tensor, row: torch.Tensor, slot: int
@@ -151,6 +191,11 @@ def dmd_coefficients(gram: torch.Tensor, *, s: int, tol: float = 1e-10,
     m = gram.shape[-1]
     if m < 3:
         raise ValueError("DMD needs at least 3 snapshots (m >= 3)")
+    # always one (batch, m, m) stack: a 2-D matmul on the CPU rounds
+    # differently from the batched one, and the per-leaf and arena routes
+    # must solve the same Gram to the same bits
+    lead = gram.shape[:-2]
+    gram = gram.reshape(-1, m, m)
     raw_gram = gram
     if affine:
         # rank-one Gram update G + gamma^2 1 1^T, gamma^2 = mean(diag(G))
@@ -230,4 +275,23 @@ def dmd_coefficients(gram: torch.Tensor, *, s: int, tol: float = 1e-10,
         "step_rms": torch.sqrt(torch.clamp_min(torch.where(
             torch.isfinite(step2), step2, torch.zeros_like(step2)), 0.0)),
     }
-    return c, info
+    return c.reshape(lead + (m,)), {k: v.reshape(lead)
+                                    for k, v in info.items()}
+
+
+def dmd_extrapolate(snapshots: torch.Tensor, *, s: int, tol: float = 1e-10,
+                    mode: str = "matpow", anchor: str = "none",
+                    affine: bool = False, trust_region: float = 0.0,
+                    relax: float = 1.0, atol: float = 0.0,
+                    ridge: float = 0.0) -> Tuple[torch.Tensor, dict]:
+    """One-leaf convenience wrapper: snapshots (m, ...) -> the extrapolated
+    (...) in fp32, and the coefficient info. A non-finite snapshot poisons
+    the combine even under the c = e_last guard (0 * inf = NaN), so it
+    never returns less finite than the last snapshot."""
+    gram = gram_matrix(snapshots, anchor=anchor)
+    c, info = dmd_coefficients(gram, s=s, tol=tol, mode=mode, anchor=anchor,
+                               affine=affine, trust_region=trust_region,
+                               relax=relax, atol=atol, ridge=ridge)
+    w = combine_snapshots(snapshots, c)
+    return torch.where(torch.isfinite(w), w,
+                       snapshots[-1].to(w.dtype)), info

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
-interface, named by a hash of the sources and flags, under ``_build/``
-beside this file (listed in ``.gitignore``). The first call that needs a
-kernel builds it; later calls in the process, and later processes on the
-same checkout, reuse the file. The library is bound with ``ctypes``: every
-pointer and the stream are ``c_void_p``. A missing ``nvcc`` raises.
+``nvcc`` compiles each ``csrc/*.cu`` file to an object, all files at
+once in parallel processes, and links the objects into one shared library
+with a plain C interface, named by a hash of the sources and flags, under
+``_build/`` beside this file (listed in ``.gitignore``). The first call
+that needs a kernel builds it; later calls in the process, and later
+processes on the same checkout, reuse the file. The library is bound with
+``ctypes``: every pointer and the stream are ``c_void_p``. A missing
+``nvcc`` raises.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +33,10 @@ SIGNATURES = {
     "arena_gram_row": (_I, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "arena_gram": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "arena_combine": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "flat_gram_row": (_I, _P, _LL, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _I,
+                      _P),
+    "flat_gram": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _P),
+    "flat_combine": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -59,27 +65,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; wait for every one, then raise on the
+    first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the sources unless the library for their hash exists. The
-    output is written under a temporary name and renamed into place, so a
-    concurrent build never leaves a half-written library behind."""
+    objects and the library are written in a temporary directory and the
+    library is renamed into place, so a concurrent build never leaves a
+    half-written library behind."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for obj, src in zip(objs, sources())])
+        lib = str(Path(tmp) / "lib.so")
+        _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

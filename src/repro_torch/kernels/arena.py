@@ -23,10 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.kernels.ops import on_cuda, resolve_device
-
-MAX_M = 32                                   # the kernels' register/smem cap
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+from repro_torch.kernels.device import (DTYPES, MAX_M, launch, on_cuda,
+                                        resolve_device, stream)
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"gram_row": 0, "gram": 0, "combine": 0}
@@ -122,7 +120,7 @@ def combine_ref(x: torch.Tensor, c: torch.Tensor, block_sys) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _check_buffer(x: torch.Tensor) -> None:
-    if x.dim() != 3 or x.dtype not in _DTYPES:
+    if x.dim() != 3 or x.dtype not in DTYPES:
         raise ValueError(f"buffer must be (nb, m, bn) float32/bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
     nb, m, bn = x.shape
@@ -140,18 +138,6 @@ def _check_segments(seg: Segments, nb: int, device: torch.device) -> None:
     for t in (seg.block_sys, seg.sys_off):
         if t.dtype != torch.int32 or t.device != device:
             raise ValueError(f"segment tables must be int32 on {device}")
-
-
-def _launch(name: str, *args) -> None:
-    from repro_torch.kernels._build import library
-
-    err = getattr(library(), name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 def gram_row(buf: torch.Tensor, q: torch.Tensor, seg: Segments, *,
@@ -173,10 +159,10 @@ def gram_row(buf: torch.Tensor, q: torch.Tensor, seg: Segments, *,
                             anchor_first=anchor_first)
     part = torch.empty((nb, m), dtype=torch.float32, device=buf.device)
     out = torch.empty((seg.n_sys, m), dtype=torch.float32, device=buf.device)
-    _launch("arena_gram_row", _DTYPES[buf.dtype], buf.data_ptr(),
+    launch("arena_gram_row", DTYPES[buf.dtype], buf.data_ptr(),
             q.data_ptr(), q.stride(0), part.data_ptr(),
             seg.sys_off.data_ptr(), out.data_ptr(), nb, m, bn, seg.n_sys,
-            int(anchor_first), _stream())
+            int(anchor_first), stream())
     LAUNCHES["gram_row"] += 1
     return out
 
@@ -198,9 +184,9 @@ def gram(buf: torch.Tensor, seg: Segments, *, anchor_first: bool = False,
     out = torch.empty((seg.n_sys, m, m), dtype=torch.float32,
                       device=buf.device)
     anchor = 1 if anchor_first else (2 if anchor_mean else 0)
-    _launch("arena_gram", _DTYPES[buf.dtype], buf.data_ptr(),
+    launch("arena_gram", DTYPES[buf.dtype], buf.data_ptr(),
             part.data_ptr(), seg.sys_off.data_ptr(), out.data_ptr(), nb, m,
-            bn, seg.n_sys, anchor, _stream())
+            bn, seg.n_sys, anchor, stream())
     LAUNCHES["gram"] += 1
     return out
 
@@ -221,8 +207,8 @@ def combine(buf: torch.Tensor, c: torch.Tensor, seg: Segments
     if not cuda:
         return combine_ref(buf, c, seg.block_sys)
     out = torch.empty((nb * bn,), dtype=torch.float32, device=buf.device)
-    _launch("arena_combine", _DTYPES[buf.dtype], buf.data_ptr(),
+    launch("arena_combine", DTYPES[buf.dtype], buf.data_ptr(),
             c.data_ptr(), seg.block_sys.data_ptr(), out.data_ptr(), nb, m,
-            bn, _stream())
+            bn, stream())
     LAUNCHES["combine"] += 1
     return out

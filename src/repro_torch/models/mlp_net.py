@@ -13,7 +13,7 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.kernels.device import resolve_device
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 

@@ -1,14 +1,17 @@
 """The paper's experiment loop: Adam on the softsign MLP with DMD jumps.
 
     python -m repro_torch.train.paper_loop [--steps 300] [--rows 1000]
-        [--no-streaming] [--device cuda]
+        [--no-streaming] [--no-arena] [--device cuda]
 
 Each step takes an Adam step; on recorded steps the params go into the
 arena ring buffer and one streaming Gram row is refreshed (kernel K1);
 when a window closes the accelerator jumps (coefficient solve, kernel K2)
 and the optimizer moments of the jumped groups reset. A jump that raises
 the training loss is reverted (the guard). With ``streaming_gram=False``
-no Gram is carried and each jump recomputes it (kernel K3).
+no Gram is carried and each jump recomputes it (kernel K3). With
+``arena=False`` (``--no-arena``) every leaf keeps its own ring buffer and
+the same steps run once per leaf through the flat kernels: K4 for the
+Gram row, K5 for the combine and K6 for the recompute.
 
 Data: the numpy-seeded teacher of ``data/synthetic.py`` at the paper's
 output width, until the PDE dataset is ported.
@@ -28,7 +31,7 @@ from repro_torch.configs.pollutant_mlp import PAPER_SIZES
 from repro_torch.core.accelerator import DMDAccelerator
 from repro_torch.core.paths import leaves_with_paths, map_with_paths
 from repro_torch.data.synthetic import synthetic_regression
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.kernels.device import resolve_device
 from repro_torch.models.mlp_net import init_mlp, mse_loss
 from repro_torch.optim.optimizers import apply_updates, make_optimizer
 from repro_torch.train.step import reset_opt_state_after_jump
@@ -37,8 +40,8 @@ from repro_torch.train.step import reset_opt_state_after_jump
 class TrainResult(NamedTuple):
     params: Any
     acc: DMDAccelerator
-    buffers: Any                 # {bucket: (n_blocks, m, block_n)} or None
-    grams: Any                   # {bucket: (n_sys, m, m)} or None
+    buffers: Any                 # the accelerator's snapshot state, or None
+    grams: Any                   # its streaming Grams, or None
     losses: np.ndarray           # (steps,) loss before each step's update
     jumps: List[float]           # loss after / before, per jump
     reverted: List[int]          # steps whose jump the guard reverted
@@ -112,12 +115,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-streaming", action="store_true",
                     help="recompute the Gram at every jump")
+    ap.add_argument("--no-arena", action="store_true",
+                    help="per-leaf ring buffers instead of packed arenas")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     X, Y = synthetic_regression(seed=args.seed, n=args.rows,
                                 n_out=PAPER_SIZES[-1])
     cfg = dataclasses.replace(DMDConfig(),
-                              streaming_gram=not args.no_streaming)
+                              streaming_gram=not args.no_streaming,
+                              arena=not args.no_arena)
     t0 = time.perf_counter()
     res = train(X, Y, PAPER_SIZES, cfg, args.steps, seed=args.seed,
                 device=args.device)

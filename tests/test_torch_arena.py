@@ -125,13 +125,14 @@ def _cycles(jcfg, tcfg, sizes, steps, seed):
         if jacc.should_record(t):
             jb, jg = jacc.record(jb, jp, jacc.slots(t), jg)
             tb, tg = tacc.record(tb, tp, tacc.slots(t), tg)
-        for key in tb:
+        for key in tb["__arena__"]:
             np.testing.assert_array_equal(
-                tb[key].float().numpy(),
+                tb["__arena__"][key].float().numpy(),
                 np.asarray(jb["__arena__"][key].astype(jnp.float32)))
             if tg is not None:
                 np.testing.assert_array_equal(
-                    tg[key].numpy(), np.asarray(jg["__arena__"][key]))
+                    tg["__arena__"][key].numpy(),
+                    np.asarray(jg["__arena__"][key]))
         if jacc.should_apply(t):
             assert tacc.should_apply(t)
             jcopy = jax.tree_util.tree_map(lambda x: x.copy(), jp)
@@ -189,10 +190,14 @@ def test_accelerator_legacy_apply_and_schedule_views():
 
 
 def test_unported_routes_raise():
+    """Bucket scope and eig mode are not ported; the per-leaf route is, so
+    `arena=False` and a forced `dot_general` route give the plain per-leaf
+    buffer tree instead of raising."""
     _, tp = _both_params(_mlp_shapes((6, 8, 3)))
     for kw in (dict(arena=False), dict(kernel_route="dot_general")):
-        with pytest.raises(NotImplementedError, match="per-leaf"):
-            TAcc(TCfg(**kw), device="cpu").init(tp)
+        bufs = TAcc(TCfg(**kw), device="cpu").init(tp)
+        assert "__arena__" not in bufs
+        assert bufs["l0"]["w"].shape == (14, 6, 8)
     with pytest.raises(NotImplementedError, match="bucket"):
         TAcc(TCfg(scope="bucket"), device="cpu")
     with pytest.raises(NotImplementedError, match="eig"):
@@ -217,11 +222,14 @@ def test_streaming_gram_equals_recompute_at_window_end():
             for k, v in d.items()} for lk, d in tp.items()}
         bufs, grams = acc.record(bufs, tp, acc.slots(t), grams)
     assert acc.should_apply(7)          # second window complete
+    assert bufs["leaf"] == {"l0": {"w": None, "b": None},
+                            "l1": {"w": None, "b": None},
+                            "l2": {"w": None, "b": None}}
     for key, b in acc.arena_for(tp).items():
-        full = tka.gram(bufs[key], b.tables_on(torch.device("cpu")),
-                        anchor_first=True)
-        np.testing.assert_allclose(grams[key].numpy(), full.numpy(),
-                                   rtol=1e-5, atol=1e-6)
+        full = tka.gram(bufs["__arena__"][key],
+                        b.tables_on(torch.device("cpu")), anchor_first=True)
+        np.testing.assert_allclose(grams["__arena__"][key].numpy(),
+                                   full.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_plans_cache_and_dtype_names():

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+"""The port's CUDA kernels (the arena kernels K1-K3 and the flat per-leaf
+kernels K4-K6) against their plain PyTorch twins, on the card.
 
 Marked ``gpu``; every test takes the ``cuda`` fixture, which skips (with a
 reason) where there is no CUDA device, so every process collects the same
@@ -18,6 +19,9 @@ import torch
 from repro_torch.configs.base import DMDConfig
 from repro_torch.data.synthetic import synthetic_regression
 from repro_torch.kernels import arena as ka
+from repro_torch.kernels import combine as kc
+from repro_torch.kernels import gram as kg
+from repro_torch.kernels import gram_row as kgr
 from repro_torch.models.mlp_net import init_mlp
 from repro_torch.train import paper_loop
 
@@ -128,4 +132,81 @@ def test_paper_loop_on_card_matches_cpu(cuda):
                               params=params, device="cpu")
     assert ka.LAUNCHES["gram_row"] - before["gram_row"] == 16
     assert ka.LAUNCHES["combine"] - before["combine"] == 4
+    np.testing.assert_allclose(on_card.losses, on_cpu.losses, rtol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# The flat per-leaf kernels K4-K6 (csrc/flat.cu)
+# ---------------------------------------------------------------------------
+
+def _flat(m, n_sys, n, dtype, integer, device, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    if integer:
+        x = torch.randint(-8, 9, (m, n_sys, n), generator=gen).float()
+        c = torch.randint(-4, 5, (n_sys, m), generator=gen).float()
+    else:
+        x = torch.randn((m, n_sys, n), generator=gen)
+        c = torch.randn((n_sys, m), generator=gen)
+    return x.to(device, dtype), c.to(device)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 40), (3, 1, 200), (14, 1, 240),
+                                   (14, 1, 2670), (14, 1, 8000),
+                                   (17, 4, 5000), (32, 2, 4097)])
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_kernels_match_twins(cuda, shape, integer, dtype):
+    m, n_sys, n = shape
+    x, c = _flat(m, n_sys, n, dtype, integer, cuda)
+    for slot in {0, m - 1}:
+        for anchor_first in (False, True):
+            got = kgr.gram_row(x, x[slot], anchor_first=anchor_first)
+            want = kgr.gram_row_ref(x, x[slot], anchor_first=anchor_first)
+            _compare(got, want, integer)
+            assert torch.equal(got, kgr.gram_row(x, x[slot],
+                                                 anchor_first=anchor_first))
+            if anchor_first and slot == 0:
+                assert torch.equal(got, torch.zeros_like(got))
+    for anchor_first in (False, True):
+        got = kg.gram(x, anchor_first=anchor_first)
+        _compare(got, kg.gram_ref(x, anchor_first=anchor_first), integer)
+        assert torch.equal(got, kg.gram(x, anchor_first=anchor_first))
+        assert torch.equal(got, got.transpose(1, 2))
+    got = kc.combine(x, c)
+    _compare(got, kc.combine_ref(x, c), integer)
+    assert torch.equal(got, kc.combine(x, c))
+
+
+def test_flat_kernels_read_strided_stacks(cuda):
+    """A stacked (m, S, n) buffer and a query that is a slot of it go in
+    where they lie: the same numbers as on contiguous copies."""
+    x, c = _flat(14, 4, 1000, torch.float32, True, cuda)
+    wide = torch.zeros((14, 4, 1500), device=cuda)
+    wide[:, :, :1000] = x
+    view = wide[:, :, :1000]                 # system stride 1500, not 1000
+    _compare(kgr.gram_row(view, view[5], anchor_first=True),
+             kgr.gram_row_ref(x, x[5], anchor_first=True), True)
+    _compare(kg.gram(view, anchor_first=True),
+             kg.gram_ref(x, anchor_first=True), True)
+    _compare(kc.combine(view, c), kc.combine_ref(x, c), True)
+
+
+def test_flat_launch_counts_and_per_leaf_loop(cuda):
+    """Each wrapper counts its launches; the per-leaf paper loop at small
+    size launches K4 once per leaf per record and K5 once per leaf per
+    jump, and its losses match the CPU run's within rtol 2e-3."""
+    X, Y = synthetic_regression(seed=0, n=64, n_out=130)
+    cfg = DMDConfig(m=4, s=5, warmup_steps=5, cooldown_steps=2, arena=False)
+    params = init_mlp(torch.Generator().manual_seed(0), (6, 16, 40, 130),
+                      device="cpu")
+    before = {**kgr.LAUNCHES, **kc.LAUNCHES, **kg.LAUNCHES,
+              **ka.LAUNCHES}
+    on_card = paper_loop.train(X, Y, (6, 16, 40, 130), cfg, 30,
+                               params=params, device=cuda)
+    on_cpu = paper_loop.train(X, Y, (6, 16, 40, 130), cfg, 30,
+                              params=params, device="cpu")
+    after = {**kgr.LAUNCHES, **kc.LAUNCHES, **kg.LAUNCHES, **ka.LAUNCHES}
+    diff = {k: after[k] - before[k] for k in before}
+    assert diff == {"flat_gram_row": 16 * 6, "flat_combine": 4 * 6,
+                    "flat_gram": 0, "gram_row": 0, "gram": 0, "combine": 0}
     np.testing.assert_allclose(on_card.losses, on_cpu.losses, rtol=2e-3)

@@ -72,11 +72,13 @@ def _jax_loop(X, Y, cfg, steps, params):
     return np.asarray(losses), jumps, reverted
 
 
-@pytest.mark.parametrize("variant", ["streaming", "recompute", "staggered"])
+@pytest.mark.parametrize("variant", ["streaming", "recompute", "staggered",
+                                     "perleaf", "perleaf-recompute"])
 def test_paper_loop_matches_reference_loop(variant):
     X, Y = synthetic_regression(seed=0, n=64, n_out=SIZES[-1])
     kw = dict(m=4, s=5, warmup_steps=5, cooldown_steps=2, arena_block_n=128,
-              streaming_gram=variant != "recompute")
+              streaming_gram=not variant.endswith("recompute"),
+              arena=not variant.startswith("perleaf"))
     jrules = trules = ()
     if variant == "staggered":
         # biases in their own group, jumping between the matrices' jumps
@@ -177,8 +179,11 @@ def test_data_and_init():
     assert bf["a"].dtype == torch.bfloat16
 
 
-def test_cli_runs_on_cpu(capsys):
-    paper_loop.main(["--steps", "3", "--rows", "8", "--device", "cpu"])
+@pytest.mark.parametrize("flags", [[], ["--no-arena"],
+                                   ["--no-arena", "--no-streaming"]])
+def test_cli_runs_on_cpu(capsys, flags):
+    paper_loop.main(["--steps", "3", "--rows", "8", "--device", "cpu",
+                     *flags])
     out = capsys.readouterr().out
     assert "3 steps" in out and "0 jumps" in out
 
@@ -194,3 +199,5 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
         init_mlp(torch.Generator(), (6, 4, 3))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_jax({"a": np.ones(3, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paper_loop.main(["--steps", "1", "--rows", "4", "--no-arena"])

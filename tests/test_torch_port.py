@@ -22,6 +22,7 @@ from repro.kernels.ops import LANES as J_LANES, lane_block as j_lane_block
 from repro_torch.configs import base as tbase
 from repro_torch.core import paths as tpaths
 from repro_torch.core import schedule as tsched
+from repro_torch.kernels import device as tdev
 from repro_torch.kernels import ops as tops
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -120,13 +121,13 @@ def test_lane_block_matches_reference():
 
 def test_device_routing():
     cpu = torch.zeros(2)
-    assert tops.on_cuda(cpu, cpu) is False
+    assert tdev.on_cuda(cpu, cpu) is False
     with pytest.raises(ValueError, match="devices"):
-        tops.on_cuda(cpu, torch.zeros(2, device="meta"))
-    assert tops.resolve_device("cpu") == torch.device("cpu")
+        tdev.on_cuda(cpu, torch.zeros(2, device="meta"))
+    assert tdev.resolve_device("cpu") == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            tops.resolve_device("cuda")
+            tdev.resolve_device("cuda")
 
 
 def test_tf32_is_off_after_import():
