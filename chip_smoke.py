@@ -36,6 +36,20 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    system.
 7. The per-leaf recompute path (``arena=False, streaming_gram=False``) for
    150 steps: K6 and K5 16 launches each, no K4.
+8. The flash-attention kernel K7 against its plain twin: every prefill
+   shape the serve phase launches, (1, 4096, 32, 4, 64) bf16 causal, and
+   windowed, non-causal, ragged, Sq != Sk, d 16 and 128, GQA rep 1 and 8
+   cases in fp32 and bf16; repeat launches bit-identical; timings at the
+   4096 shape and the largest serve prefill shape beside the bound and
+   ``scaled_dot_product_attention``.
+9. The serving path at TinyLlama-1.1B's full width (22 layers, d 2048,
+   32/4 heads, vocab 32000, bf16, random weights from a seeded generator on
+   the card) through ``repro_torch.launch.serve``: the launcher's stream of
+   12 requests, 16 new tokens, 8 slots, greedy. Every request completes;
+   K7 launches 22 times per prefill dispatch and no other kernel runs;
+   each request's first-token logits match the exact-length
+   prefill + decode loop; a run with a hot-swap every 8 steps; a 4096-token
+   ``forward`` with 22 K7 launches and a finite loss.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -55,25 +69,37 @@ import torch  # noqa: E402
 from repro_torch.configs.base import DMDConfig  # noqa: E402
 from repro_torch.configs.pollutant_mlp import PAPER_SIZES  # noqa: E402
 from repro_torch.core.accelerator import DMDAccelerator  # noqa: E402
-from repro_torch.core.paths import leaves_with_paths  # noqa: E402
+from repro_torch.core.paths import leaves_with_paths, tree_map  # noqa: E402
 from repro_torch.data.synthetic import synthetic_regression  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import arena as ka  # noqa: E402
 from repro_torch.kernels import combine as kc  # noqa: E402
+from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import gram as kg  # noqa: E402
 from repro_torch.kernels import gram_row as kgr  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.mlp_net import init_mlp  # noqa: E402
 from repro_torch.train import paper_loop  # noqa: E402
 
 # H100 SXM data sheet (the least-time bound): HBM3 bytes/s, fp32 flop/s
-# outside the tensor cores (the kernels are IEEE fp32, no TF32)
+# outside the tensor cores (K1-K6 are IEEE fp32, no TF32), dense bf16
+# flop/s on the tensor cores (K7 in bf16)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 SRC = "src/repro_torch/kernels/csrc/arena.cu"
 FLAT_SRC = "src/repro_torch/kernels/csrc/flat.cu"
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash.cu"
 STEPS, ROWS = 300, 1000
 # every wrapper's launch counter
-COUNTERS = (ka.LAUNCHES, kgr.LAUNCHES, kc.LAUNCHES, kg.LAUNCHES)
+COUNTERS = (ka.LAUNCHES, kgr.LAUNCHES, kc.LAUNCHES, kg.LAUNCHES,
+            kf.LAUNCHES)
+# each served request's first-token logits (padded prefill + one decode
+# step) against the exact-length loop's (prefill alone), bf16 model:
+# |diff| <= tol * max(1, max |logits|). The two differ by bf16 rounding on
+# different paths (cuBLAS at another M, K7's bf16 softmax weights against
+# the decode core's fp32 ones) through 22 layers.
+SERVE_LOGIT_TOL = 5e-2
 # tolerance of a kernel against its twin on random data: fp32 sums over
 # up to 5215 blocks x 512 lanes in two different orders. It is relative to
 # each system's own largest entry (each block's, for the combine), so a
@@ -119,9 +145,9 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=FP32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -425,6 +451,207 @@ def run_recompute_path(dev, X, Y, what, cfg, want):
     require(np.isfinite(res.losses).all(), f"{what}: non-finite loss")
     return launches
 
+# K7 on unit-normal inputs, over the rows that see at least one key: fp32
+# within 2e-5 + 1e-5 |twin| (online softmax over key tiles against one
+# softmax per row); bf16 within 1e-2 + 1.6e-2 |twin| (one bf16 rounding of
+# the output, 2^-7 relative, plus the kernel's bf16 softmax weights)
+FLASH_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-2, 1.6e-2)}
+SERVE_SHAPES = [(b, s, s, 32, 4, 64, True, 0) for b in (1, 4)
+                for s in (16, 64)]
+LONG = (1, 4096, 4096, 32, 4, 64, True, 0)
+# (B, Sq, Sk, H, K, d, causal, window) beyond the serve shapes
+FLASH_EDGES = [
+    (1, 256, 256, 8, 4, 64, True, 64),        # window
+    (2, 100, 100, 16, 2, 16, False, 0),       # non-causal, ragged, d 16
+    (1, 100, 100, 8, 8, 128, True, 0),        # ragged, d 128, rep 1
+    (1, 64, 192, 32, 4, 64, True, 0),         # Sq < Sk
+    (1, 192, 64, 8, 1, 32, True, 0),          # Sq > Sk, rep 8
+    (2, 333, 333, 16, 2, 128, False, 100),    # non-causal window
+]
+
+
+def _flash_inputs(case, dtype, dev, seed):
+    B, Sq, Sk, H, K, d = case[:6]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, Sq, H, d), (B, Sk, K, d), (B, Sk, K, d))]
+
+
+def _flash_pairs(Sq, Sk, causal, window):
+    """Visible (query, key) pairs of one head: the work the data needs."""
+    return int(kf._mask(Sq, Sk, causal, window, "cpu").sum())
+
+
+def _check_flash_case(case, dtype, dev, seed):
+    causal, window = case[6], case[7]
+    q, k, v = _flash_inputs(case, dtype, dev, seed)
+    got = kf.flash_attention(q, k, v, causal=causal, window=window)
+    require(torch.equal(got, kf.flash_attention(q, k, v, causal=causal,
+                                                window=window)),
+            f"flash {case} {dtype} not repeatable")
+    want = kf.flash_attention_ref(q, k, v, causal=causal, window=window)
+    rows = kf._mask(case[1], case[2], causal, window, dev).any(dim=1)
+    diff = (got[:, rows].float() - want[:, rows].float()).abs()
+    atol, rtol = FLASH_TOL[dtype]
+    limit = atol + rtol * want[:, rows].float().abs()
+    require(torch.isfinite(got.float()).all(), f"flash {case}: non-finite")
+    require(bool((diff <= limit).all()), f"flash {case} {dtype}: max "
+            f"|kernel - twin| {float(diff.max())} beyond {atol} + "
+            f"{rtol}|twin|")
+    return float(diff.max()), (q, k, v)
+
+
+def check_flash(dev):
+    """Phase 8. Returns the record of K7 at the 4096 shape."""
+    n = 0
+    for case in SERVE_SHAPES + FLASH_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            if case in SERVE_SHAPES and dtype == torch.float32:
+                continue                  # the serve path is bf16
+            _check_flash_case(case, dtype, dev, seed=100 + n)
+            n += 1
+    torch.cuda.synchronize()
+    print(f"flash: {n} cases match the twin within {FLASH_TOL}; repeat "
+          "launches bit-identical")
+
+    record = None
+    for case in (LONG, SERVE_SHAPES[-1]):
+        err, (q, k, v) = _check_flash_case(case, torch.bfloat16, dev, 7)
+        B, Sq, Sk, H, K, d = case[:6]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        k_ms = cuda_ms(lambda: kf.flash_attention(q, k, v))
+        p_ms = cuda_ms(lambda: kf.flash_attention_ref(q, k, v), iters=5)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        l_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                    enable_gqa=True))
+        flops = 4.0 * d * _flash_pairs(Sq, Sk, True, 0) * B * H
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        print(f"kernel flash_attention bf16 {case[:6]} causal: kernel_ms "
+              f"{k_ms} ref_ms {p_ms} sdpa_ms {l_ms} bound_ms {b_ms} ({b_by})"
+              f" max_abs_err {err} TFLOP/s {flops / k_ms / 1e9}")
+        if record is None:
+            record = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=l_ms, max_abs_err=err)
+    return record
+
+
+def _serve_counted(what, engine, prompts, swap_every=0, swap=None):
+    """One counted serve run: counts set to 0 just before, read just after;
+    K7 must have launched once per layer per prefill dispatch and nothing
+    else at all."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    done, steps, wall = launch_serve.serve(engine, prompts, swap_every, swap)
+    s = engine.stats
+    per_prefill = engine.model.cfg.n_layers
+    launches = require_counts(what, {
+        "flash_attention": per_prefill * s["prefill_dispatches"]})
+    require(len(done) == len(prompts), f"{what}: {len(done)} of "
+            f"{len(prompts)} requests completed")
+    for r in done:
+        require(len(r.tokens) == engine.cfg.max_new_tokens and
+                np.isfinite(r.last_logits).all(),
+                f"{what}: request {r.uid} gave {len(r.tokens)} tokens")
+    print(f"{what}: {len(done)} requests, {s['tokens_emitted']} tokens, "
+          f"{steps} steps, {s['prefill_dispatches']} prefills, "
+          f"{s['decode_dispatches']} decodes, swaps {s['swaps']} in {wall} s"
+          f": tokens/s {s['tokens_emitted'] / wall}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30} GiB; launches "
+          f"{launches}")
+    return done, launches
+
+
+def run_serve(dev):
+    """Phase 9: the serving path at TinyLlama-1.1B's full width."""
+    t0 = time.perf_counter()
+    model, params, engine = launch_serve.build("tinyllama-1.1b", device=dev)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+             cfg.vocab_size, cfg.dtype) == (22, 2048, 32, 4, 32000,
+                                            "bfloat16"), f"config {cfg}")
+    print(f"serve: tinyllama-1.1b {model.param_count(params)} params, built "
+          f"in {time.perf_counter() - t0} s")
+    prompts = launch_serve.request_stream(12, cfg.vocab_size)
+    done, launches = _serve_counted("serve path", engine, prompts)
+
+    # the breakdown, on a second engine: host clock around each engine step,
+    # synchronised; a step that admitted requests ran their prefill
+    del engine
+    eng = launch_serve.make_engine(model, params)
+    for p in prompts:
+        eng.submit(p)
+    pre_ms, dec_ms = [], []
+    while eng.queue_len or eng.active_slots:
+        n_pre = eng.stats["prefill_dispatches"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        kind = pre_ms if eng.stats["prefill_dispatches"] > n_pre else dec_ms
+        kind.append((time.perf_counter() - t0) * 1e3)
+    print(f"serve: decode-only step ms median {float(np.median(dec_ms))} "
+          f"(of {len(dec_ms)}); steps with prefill ms {pre_ms}")
+    # one prefill dispatch as the engine makes it, at the smallest and the
+    # largest (batch, prompt) bucket: fresh caches, then the prompt pass
+    s_max = max(launch_serve.PROMPT_BUCKETS) + 16
+    for shape in ((1, 16), (4, 64)):
+        toks = torch.ones(shape, dtype=torch.long, device=dev)
+        ms = cuda_ms(lambda: model.prefill(
+            params, {"tokens": toks}, model.init_cache(shape[0], s_max)),
+            iters=5, warmup=1)
+        print(f"serve: prefill dispatch {shape} ms {ms}")
+
+    # first-token logits against the exact-length prefill + decode loop
+    del eng
+    eng = launch_serve.make_engine(model, params, new_tokens=1)
+    firsts = {r.uid: r.last_logits for r in
+              launch_serve.serve(eng, prompts)[0]}
+    del eng
+    equal, worst = 0, 0.0
+    for r in done:
+        toks, first = launch_serve.exact_greedy(model, params,
+                                                prompts[r.uid], 16)
+        first = first.cpu().numpy()
+        err = float(np.abs(firsts[r.uid] - first).max())
+        scale = max(1.0, float(np.abs(first).max()))
+        require(err <= SERVE_LOGIT_TOL * scale,
+                f"request {r.uid}: first-token logits off by {err} (scale "
+                f"{scale})")
+        worst = max(worst, err / scale)
+        equal += sum(a == b for a, b in zip(r.tokens, toks))
+    print(f"serve: first-token logits vs the exact-length loop: worst "
+          f"|diff| / max(1, max|logits|) {worst} (limit {SERVE_LOGIT_TOL}); "
+          f"equal tokens {equal} of {16 * len(done)}")
+
+    # hot-swap every 8 steps
+    eng = launch_serve.make_engine(model, params)
+    swap = tree_map(lambda t: t * 1.001, params)
+    done2, _ = _serve_counted("serve path, swap every 8", eng, prompts, 8,
+                              swap)
+    require(eng.stats["swaps"] >= 1 and any(
+        r.version_end > r.version_start for r in done2), "no swap adopted")
+    del swap, eng
+
+    # one 4096-token sequence through forward
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(1, cfg.vocab_size, (1, 4096), generator=g,
+                         device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = model.loss(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    require_counts("forward 4096", {"flash_attention": cfg.n_layers})
+    require(bool(torch.isfinite(loss)), f"forward 4096: loss {loss}")
+    print(f"forward 4096: loss {float(loss)} in {ms} ms, {cfg.n_layers} K7 "
+          "launches")
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -445,6 +672,7 @@ def main():
 
     records = check_kernels(dev)
     records.update(check_flat_kernels(dev))
+    records["flash_attention"] = check_flash(dev)
 
     X, Y = synthetic_regression(seed=0, n=ROWS, n_out=PAPER_SIZES[-1])
     main_launches = run_main_path(dev, X, Y)
@@ -462,21 +690,26 @@ def main():
         dev, X, Y, "per-leaf recompute path",
         dataclasses.replace(DMDConfig(), arena=False, streaming_gram=False),
         {"flat_gram": 2 * 8, "flat_combine": 2 * 8})
+    serve_launches = run_serve(dev)
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",
                 "gram": "src/repro/kernels/arena.py:258",
                 "flat_gram_row": "src/repro/kernels/gram_row.py:48",
                 "flat_combine": "src/repro/kernels/combine.py:27",
-                "flat_gram": "src/repro/kernels/gram.py:45"}
+                "flat_gram": "src/repro/kernels/gram.py:45",
+                "flash_attention": "src/repro/kernels/flash_attention.py:82"}
     launches = {"gram_row": main_launches["gram_row"],
                 "combine": main_launches["combine"],
                 "gram": rec_launches["gram"],
                 "flat_gram_row": leaf_launches["flat_gram_row"],
                 "flat_combine": leaf_launches["flat_combine"],
-                "flat_gram": leaf_rec_launches["flat_gram"]}
-    kernels = [dict(name=name, route="cuda",
-                    source=FLAT_SRC if name.startswith("flat") else SRC,
+                "flat_gram": leaf_rec_launches["flat_gram"],
+                "flash_attention": serve_launches["flash_attention"]}
+    sources = {"gram_row": SRC, "combine": SRC, "gram": SRC,
+               "flat_gram_row": FLAT_SRC, "flat_combine": FLAT_SRC,
+               "flat_gram": FLAT_SRC, "flash_attention": FLASH_SRC}
+    kernels = [dict(name=name, route="cuda", source=sources[name],
                     replaces=replaces[name], launches=launches[name],
                     **records[name])
                for name in replaces]

@@ -37,6 +37,8 @@ SIGNATURES = {
                       _P),
     "flat_gram": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _P),
     "flat_combine": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _P),
+    "flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        *(_LL,) * 12, _I, _I, _P),
 }
 
 

@@ -12,6 +12,9 @@ kernels or raise.
     gram      (m, stack..., rest...)                      -> (stack..., m, m)
     combine   (m, stack..., rest...), (stack..., m)       -> (stack..., rest...)
 
+``flash_attention`` is the attention core of the dense LM (kernel K7,
+``kernels/flash_attention.py``), routed the same way.
+
 With ``stack_dims > 0`` they are the reference's ``kernels/sharded.py``
 passes without a mesh: one launch over all stacked systems, reading the
 buffer through its system stride instead of moving the stack axes first.
@@ -23,6 +26,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import combine as _combine
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import gram_row as _gram_row
 
@@ -78,3 +82,10 @@ def combine(snapshots: torch.Tensor, c: torch.Tensor, *,
     x, _ = _systems(snapshots, stack_dims)
     w = _combine.combine(x, c.reshape(x.shape[1], x.shape[0]).contiguous())
     return w.reshape(snapshots.shape[1:])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, d), k/v (B, Sk, K, d) -> (B, Sq, H, d): flash-attention
+    forward with GQA (kv head h // (H / K)), both positions from 0."""
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)

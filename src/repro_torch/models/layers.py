@@ -1,0 +1,94 @@
+"""Layer primitives of the dense LM: init, RMS norm, rotary embeddings,
+the SwiGLU MLP and logit soft-capping.
+
+Plain functions over explicit param dicts, computing what the reference's
+``repro.models.layers`` computes (not Hugging Face's Llama): the norm
+scales by ``1 + scale`` in fp32, rotary embeddings rotate split halves at
+fp32 angles. Initialisers draw from a ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
+               device) -> torch.Tensor:
+    """Normal / sqrt(fan_in), drawn in fp32 and then cast; fan_in is the
+    second-to-last axis, so a stacked (layers, d_in, d_out) leaf is drawn
+    as its layers would be."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w / math.sqrt(shape[-2])).to(dtype)
+
+
+def norm_init(cfg, device, stack: Tuple[int, ...] = ()) -> dict:
+    if cfg.norm != "rms":
+        raise NotImplementedError(f"norm {cfg.norm!r}: the port builds the "
+                                  "rms norm only")
+    return {"scale": torch.zeros(stack + (cfg.d_model,), dtype=torch.float32,
+                                 device=device)}
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
+    if cfg.norm != "rms":
+        raise NotImplementedError(f"norm {cfg.norm!r}: the port builds the "
+                                  "rms norm only")
+    return rms_norm(x, p["scale"])
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """x (B, S, H, hd), positions (B, S): rotate the two halves of each
+    head by fp32 angles position * freq."""
+    if mrope_sections:
+        raise NotImplementedError("M-RoPE is not ported yet")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = (positions.float()[..., None] * freqs)[:, :, None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _check_act(cfg) -> None:
+    if cfg.act != "silu":
+        raise NotImplementedError(f"activation {cfg.act!r}: the port builds "
+                                  "the SwiGLU MLP only")
+
+
+def mlp_init(gen: torch.Generator, cfg, device,
+             stack: Tuple[int, ...] = ()) -> dict:
+    _check_act(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_in": dense_init(gen, stack + (d, f), dtype, device),
+            "w_out": dense_init(gen, stack + (f, d), dtype, device),
+            "w_gate": dense_init(gen, stack + (d, f), dtype, device)}
+
+
+def apply_mlp(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
+    """SwiGLU: (silu(x W_gate) * x W_in) W_out."""
+    _check_act(cfg)
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap

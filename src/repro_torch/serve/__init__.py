@@ -1,0 +1,7 @@
+"""Continuous-batching serving of the dense LM (``engine``) over a
+double-buffered, version-stamped weight store (``store``)."""
+from repro_torch.serve.engine import (Request, Result, ServeConfig,
+                                      ServeEngine)
+from repro_torch.serve.store import ParamStore
+
+__all__ = ["ParamStore", "Request", "Result", "ServeConfig", "ServeEngine"]

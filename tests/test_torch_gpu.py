@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (the arena kernels K1-K3 and the flat per-leaf
-kernels K4-K6) against their plain PyTorch twins, on the card.
+"""The port's CUDA kernels (the arena kernels K1-K3, the flat per-leaf
+kernels K4-K6 and flash attention K7) against their plain PyTorch twins,
+on the card.
 
 Marked ``gpu``; every test takes the ``cuda`` fixture, which skips (with a
 reason) where there is no CUDA device, so every process collects the same
@@ -10,7 +11,11 @@ tests. Run on a card with:
 Tolerances: integer-valued data must match exactly (every fp32 sum is
 exact in any order); random data |diff| <= 1e-5 * max(1, max|twin|) (fp32
 summation order over up to a few thousand lanes per block); two launches
-on the same inputs must be bit-identical (no atomics).
+on the same inputs must be bit-identical (no atomics). K7 on unit-normal
+inputs, over the rows that see at least one key: fp32 within 2e-5 + 1e-5 *
+|twin| (online softmax over key tiles against one softmax over the row);
+bf16 within 1e-2 + 1.6e-2 * |twin| (one bf16 rounding step of the output,
+2^-7 relative, plus the kernel's bf16 rounding of the softmax weights).
 """
 import numpy as np
 import pytest
@@ -20,6 +25,7 @@ from repro_torch.configs.base import DMDConfig
 from repro_torch.data.synthetic import synthetic_regression
 from repro_torch.kernels import arena as ka
 from repro_torch.kernels import combine as kc
+from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import gram as kg
 from repro_torch.kernels import gram_row as kgr
 from repro_torch.models.mlp_net import init_mlp
@@ -210,3 +216,81 @@ def test_flat_launch_counts_and_per_leaf_loop(cuda):
     assert diff == {"flat_gram_row": 16 * 6, "flat_combine": 4 * 6,
                     "flat_gram": 0, "gram_row": 0, "gram": 0, "combine": 0}
     np.testing.assert_allclose(on_card.losses, on_cpu.losses, rtol=2e-3)
+
+
+# (B, Sq, Sk, H, K, d, causal, window): the serve prefill shapes of
+# TinyLlama, the reference's kernel-test cases, and the edges (d 16 and
+# 128, GQA rep 1 and 8, ragged S, Sq != Sk both ways, windows)
+FLASH_CASES = [
+    (1, 16, 16, 32, 4, 64, True, 0),
+    (4, 64, 64, 32, 4, 64, True, 0),
+    (1, 128, 128, 4, 4, 64, True, 0),
+    (2, 256, 256, 4, 2, 64, True, 0),
+    (1, 256, 256, 2, 2, 64, True, 64),
+    (1, 100, 100, 2, 1, 32, False, 0),
+    (1, 64, 192, 2, 2, 128, True, 0),
+    (1, 192, 64, 8, 1, 16, True, 0),
+    (2, 100, 100, 16, 2, 16, False, 40),
+    (1, 333, 333, 8, 8, 128, True, 100),
+]
+
+
+def _flash_inputs(case, dtype, device, seed=0):
+    B, Sq, Sk, H, K, d, _, _ = case
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        device, dtype) for shape in ((B, Sq, H, d), (B, Sk, K, d),
+                                     (B, Sk, K, d))]
+
+
+def _seen_rows(Sq, Sk, causal, window):
+    return kf._mask(Sq, Sk, causal, window, "cpu").any(dim=1)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_twin(cuda, case, dtype):
+    causal, window = case[6], case[7]
+    q, k, v = _flash_inputs(case, dtype, cuda)
+    n0 = kf.LAUNCHES["flash_attention"]
+    got = kf.flash_attention(q, k, v, causal=causal, window=window)
+    again = kf.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kf.LAUNCHES["flash_attention"] == n0 + 2
+    assert torch.equal(got, again)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    want = kf.flash_attention_ref(q, k, v, causal=causal, window=window)
+    rows = _seen_rows(case[1], case[2], causal, window).to(cuda)
+    atol, rtol = (2e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1.6e-2)
+    torch.testing.assert_close(got[:, rows].float(), want[:, rows].float(),
+                               atol=atol, rtol=rtol)
+
+
+def test_flash_attention_reads_strided_views(cuda):
+    """q, k and v as head slices of one fused (B, S, H + 2K, d) projection:
+    read through their strides, no copy, same result as contiguous."""
+    B, S, H, K, d = 2, 96, 8, 2, 64
+    g = torch.Generator(device="cpu").manual_seed(0)
+    qkv = torch.randn((B, S, H + 2 * K, d), generator=g).to(
+        cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+    got = kf.flash_attention(q, k, v)
+    want = kf.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_refusals(cuda):
+    q = torch.randn((1, 8, 4, 64), device=cuda)
+    with pytest.raises(ValueError, match="head size"):
+        kf.flash_attention(q[..., :40], q[..., :40], q[..., :40])
+    with pytest.raises(ValueError, match="multiple"):
+        kf.flash_attention(q, q[:, :, :3], q[:, :, :3])
+    with pytest.raises(ValueError, match="gradient"):
+        kf.flash_attention(q.requires_grad_(), q, q)
+    with pytest.raises(ValueError, match="devices"):
+        kf.flash_attention(q.detach(), q.detach().cpu(), q.detach().cpu())
+    odd = torch.zeros((1, 8, 4 * 64 + 4), device=cuda)[..., 4:]
+    odd = odd.view(1, 8, 4, 64)                   # rows 16 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        kf.flash_attention(odd, odd, odd)

@@ -33,23 +33,49 @@ def _fields(cls):
     for f in dataclasses.fields(cls):
         if f.default is not dataclasses.MISSING:
             default = f.default
-        else:
+        elif f.default_factory is not dataclasses.MISSING:
             default = f.default_factory()
+        else:
+            default = dataclasses.MISSING         # a required field
         out.append((f.name, default))
     return out
 
 
 @pytest.mark.parametrize("name", ["DMDConfig", "DMDControllerConfig",
-                                  "OptimizerConfig"])
+                                  "OptimizerConfig", "MoEConfig",
+                                  "SSMConfig", "ModelConfig",
+                                  "ParallelConfig", "TrainConfig",
+                                  "ArchConfig"])
 def test_config_fields_and_defaults_mirror_reference(name):
-    ref = _fields(getattr(jbase, name))
-    port = _fields(getattr(tbase, name))
-    assert [n for n, _ in port] == [n for n, _ in ref]
+    _assert_mirrors(getattr(tbase, name), getattr(jbase, name), name)
+
+
+def _assert_mirrors(port_cls, ref_cls, where):
+    """Same field names in the same order and equal defaults, nested
+    config dataclasses compared field by field the same way."""
+    port, ref = _fields(port_cls), _fields(ref_cls)
+    assert [n for n, _ in port] == [n for n, _ in ref], where
     for (n, dp), (_, dr) in zip(port, ref):
         if dataclasses.is_dataclass(dp):
-            assert _fields(type(dp)) == _fields(type(dr)), n
+            _assert_mirrors(type(dp), type(dr), f"{where}.{n}")
         else:
-            assert dp == dr, n
+            assert dp == dr, f"{where}.{n}"
+
+
+def test_tinyllama_config_and_reduced_mirror_reference():
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config as t_get_config
+    jc, tc = j_get_config("tinyllama-1.1b"), t_get_config("tinyllama-1.1b")
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    for kw in ({}, dict(n_layers=2, d_model=32, n_kv_heads=1),
+               dict(dtype="float32")):
+        assert dataclasses.asdict(tbase.reduced(tc.model, **kw)) == \
+            dataclasses.asdict(jbase.reduced(jc.model, **kw))
+    for cfg in (tc.model, tbase.ModelConfig(vocab_size=1000)):
+        j = jbase.ModelConfig(**dataclasses.asdict(cfg) | {
+            "moe": jbase.MoEConfig(), "ssm": jbase.SSMConfig()})
+        assert (cfg.padded_vocab, cfg.q_dim, cfg.kv_dim) == \
+            (j.padded_vocab, j.q_dim, j.kv_dim)
 
 
 def test_group_rule_mirrors_reference():
@@ -143,7 +169,12 @@ def test_port_imports_neither_jax_nor_reference():
         "import pkgutil, sys, importlib, repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
         " 'repro_torch.')]\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 30, mods\n"
+        "for m in ('configs.tinyllama_1_1b', 'models.layers', "
+        "'models.attention', 'models.transformer', "
+        "'kernels.flash_attention', 'serve.engine', 'serve.store', "
+        "'launch.serve'):\n"
+        "    assert 'repro_torch.' + m in mods, m\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
