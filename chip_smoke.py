@@ -8,7 +8,9 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
 1. The card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions.
 2. Build the CUDA kernels (``src/repro_torch/kernels/csrc/*.cu``, one
-   ``nvcc`` per source, in parallel).
+   ``nvcc`` per source, in parallel) and print ptxas's registers, shared
+   memory and spills (``-Xptxas -v``) of the Hopper flash-attention design
+   and of K4; the former must not spill.
 3. The arena kernels K1-K3 against their plain PyTorch twins at the paper
    MLP's arena shape, (5633, 14, 512), with the paper bucket's real block
    -> system table: fp32 and bf16 buffers, both anchors of the Gram row,
@@ -20,7 +22,10 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    leaves' buffers (14, n) and one stacked (14, 4, 131072) buffer: fp32
    and bf16, with and without the anchor, per-system tolerance, repeat
    launches bit-identical, integer-valued data exact; timings at the
-   largest leaf, /l3/w (14, 2670000).
+   largest leaf, /l3/w (14, 2670000), with K4's time over ``torch.mv``'s
+   in the same call (fp32; bf16 has no library call: its GB/s), and K4's
+   load width on the ragged n = 2670 leaf (one lane) and on /l3/w (16
+   bytes).
 4. The main path: ``paper_loop.train`` for 300 steps at the paper's full
    width (2,882,150 params), default DMDConfig, 1000 teacher rows. It must
    launch the Gram-row kernel 112 times and the combine kernel 8 times,
@@ -39,14 +44,17 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
 8. The flash-attention kernel K7 against its plain twin: every prefill
    shape the serve phase launches, (1, 4096, 32, 4, 64) bf16 causal, and
    windowed, non-causal, ragged, Sq != Sk, d 16 and 128, GQA rep 1 and 8
-   cases in fp32 and bf16; repeat launches bit-identical; timings at the
-   4096 shape and the largest serve prefill shape beside the bound and
-   ``scaled_dot_product_attention``.
+   cases in fp32 and bf16; the Hopper design's tile edges (Sq, Sk of 127,
+   128, 129, 257 at d 64 and 128, every mask, GQA rep 1 and 8, q/k/v as
+   slices of one fused tensor); repeat launches bit-identical; timings at
+   the 4096 shape and the largest serve prefill shape beside the bound and
+   ``scaled_dot_product_attention``, with K7's time over SDPA's.
 9. The serving path at TinyLlama-1.1B's full width (22 layers, d 2048,
    32/4 heads, vocab 32000, bf16, random weights from a seeded generator on
    the card) through ``repro_torch.launch.serve``: the launcher's stream of
    12 requests, 16 new tokens, 8 slots, greedy. Every request completes;
-   K7 launches 22 times per prefill dispatch and no other kernel runs;
+   K7 launches 22 times per prefill dispatch, every launch through its
+   Hopper (wgmma) design, and no other kernel runs;
    each request's first-token logits match the exact-length
    prefill + decode loop; a run with a hot-swap every 8 steps; a 4096-token
    ``forward`` with 22 K7 launches and a finite loss.
@@ -56,6 +64,7 @@ The line before the last is the kernels' JSON record; the last line is
 """
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -118,16 +127,34 @@ def reset_counts():
             counter[key] = 0
 
 
+# design counters: a subset of their kernel's launches, not another kernel
+DESIGNS = {"flash_attention_wgmma": "flash_attention"}
+
+
 def counts():
-    return {k: v for counter in COUNTERS for k, v in counter.items()}
+    return {k: v for counter in COUNTERS for k, v in counter.items()
+            if k not in DESIGNS}
 
 
 def require_counts(what, want):
-    """Every kernel of `want` launched exactly so often, all others 0."""
+    """Every kernel of `want` launched exactly so often, all others 0; a
+    design counter never exceeds its kernel's count."""
     got = counts()
     full = {k: want.get(k, 0) for k in got}
     require(got == full, f"{what}: launches {got}, expected {full}")
+    for design, kernel in DESIGNS.items():
+        require(kf.LAUNCHES[design] <= got[kernel], f"{what}: {design} "
+                f"{kf.LAUNCHES[design]} > {kernel} {got[kernel]}")
     return got
+
+
+def require_wgmma(what):
+    """Every K7 launch since the counts were set to 0 ran the Hopper
+    design."""
+    n, w = kf.LAUNCHES["flash_attention"], kf.LAUNCHES["flash_attention_wgmma"]
+    require(n > 0 and w == n, f"{what}: {w} of {n} K7 launches through the "
+            "wgmma design")
+    print(f"{what}: {w} of {n} K7 launches through the wgmma design")
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -143,6 +170,16 @@ def cuda_ms(fn, iters=20, warmup=3):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def in_turns(kern, lib, iters=50):
+    """Kernel and library call timed in turns (kernel, library, library,
+    kernel), each by cuda_ms over `iters` launches: the two means. Without a
+    library call, the kernel alone (library None)."""
+    if lib is None:
+        return cuda_ms(kern, iters), None
+    k1, l1, l2, k2 = (cuda_ms(f, iters) for f in (kern, lib, lib, kern))
+    return (k1 + k2) / 2, (l1 + l2) / 2
 
 
 def bound_ms(nbytes, flops, peak=FP32_FLOPS):
@@ -270,6 +307,17 @@ def check_flat_kernels(dev):
         torch.cuda.synchronize()
     print(f"flat kernels: {len(shapes)} shapes x fp32/bf16 x random/integer "
           f"match their twins")
+    # K4's two load paths: one lane per load on the ragged leaf, 16 bytes
+    # on /l3/w (both were checked against the twin just above)
+    for path, want in ((next(p for p, n in leaves.items() if n == 2670),
+                        False), ("/l3/w", True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.zeros((m, 1, leaves[path]), dtype=dtype, device=dev)
+            vec = kgr.vector_lanes(x, x[m - 1])
+            require(vec is want, f"K4 on {path} {dtype}: 16-byte loads {vec}")
+            print(f"K4 load path on {path} (n {leaves[path]}) "
+                  f"{str(dtype).removeprefix('torch.')}: "
+                  f"{'16 bytes' if vec else 'one lane'} per row per step")
 
     # timings at the largest leaf, /l3/w, as the main path gives it
     n = leaves["/l3/w"]
@@ -308,14 +356,23 @@ def check_flat_kernels(dev):
                                         kc.combine_ref(x, c32)),
                 "flat_gram": max_err(kg.gram(x), kg.gram_ref(x))}
         for name, (kern, twin, lib, anchored, nbytes, flops) in runs.items():
-            k_ms, p_ms = cuda_ms(kern), cuda_ms(twin)
-            l_ms = cuda_ms(lib) if lib is not None else None
+            if name == "flat_gram_row":
+                k_ms, l_ms = in_turns(kern, lib)
+            else:
+                k_ms = cuda_ms(kern)
+                l_ms = cuda_ms(lib) if lib is not None else None
+            p_ms = cuda_ms(twin)
             a_ms = cuda_ms(anchored) if anchored is not None else None
             b_ms, b_by = bound_ms(nbytes, flops)
             print(f"kernel {name} {tag} /l3/w {(m, n)}: kernel_ms {k_ms} "
                   f"anchored_ms {a_ms} ref_ms {p_ms} bound_ms {b_ms} "
                   f"({b_by}) library_ms {l_ms} max_abs_err {errs[name]} "
                   f"GB/s {nbytes / k_ms / 1e6}")
+            if name == "flat_gram_row":
+                print(f"K4 /l3/w {tag}: " + (
+                    f"kernel / torch.mv {k_ms / l_ms} (same call, in turns)"
+                    if l_ms else f"no library call; {nbytes / k_ms / 1e6} "
+                    f"GB/s, {b_ms / k_ms} of the bound"))
             if fp32:
                 records[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=l_ms,
@@ -356,6 +413,35 @@ def _check_flat(tag, x, c, n_sys, exact):
     close("flat_combine", got, kc.combine_ref(x, c))
     require(torch.equal(got, kc.combine(x, c)),
             f"flat_combine {tag} not repeatable")
+
+
+def _kernel_name(mangled):
+    """flash_wgmma<64>, row_part<float,16,vec=1> from ptxas's mangled
+    names."""
+    if m := re.search(r"flash_wgmmaILi(\d+)E", mangled):
+        return f"flash_wgmma<{m.group(1)}>"
+    if m := re.search(r"row_partI(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
+                      mangled):
+        dtype = "float" if m.group(1) == "f" else "bf16"
+        return f"row_part<{dtype},{m.group(2)},vec={m.group(3)}>"
+    return None
+
+
+def report_ptxas():
+    """Phase 2: registers, shared memory and spills of the Hopper K7 design
+    and of K4, from ptxas -v; the K7 design must not spill."""
+    for mangled, res in sorted(_build.kernel_resources(
+            _build.ptxas_log()).items()):
+        name = _kernel_name(mangled)
+        if name is None:
+            continue
+        print(f"ptxas {name}: {res.get('registers')} registers, static smem "
+              f"{res['smem']} B, stack {res.get('stack')} B, spill stores "
+              f"{res.get('spill_stores')} B, spill loads "
+              f"{res.get('spill_loads')} B")
+        if name.startswith("flash_wgmma"):
+            require(res.get("spill_stores") == 0 and
+                    res.get("spill_loads") == 0, f"{name} spills: {res}")
 
 
 def run_main_path(dev, X, Y):
@@ -468,6 +554,16 @@ FLASH_EDGES = [
     (1, 192, 64, 8, 1, 32, True, 0),          # Sq > Sk, rep 8
     (2, 333, 333, 16, 2, 128, False, 100),    # non-causal window
 ]
+# the Hopper design's tile edges (128 queries per CTA; 128 keys per tile at
+# d 64, 64 at d 128): lengths 127 ... 257 under every mask, GQA rep 1 and
+# 8, Sq != Sk both ways
+FLASH_TILE_EDGES = [
+    case for d in (64, 128) for case in
+    [(1, s, s, 8, 1, d, True, 0) for s in (127, 128, 129, 257)]
+    + [(2, s, s, 4, 4, d, False, 0) for s in (127, 128, 129, 257)]
+    + [(1, s, s, 8, 2, d, True, 100) for s in (127, 257)]
+    + [(1, 129, 257, 8, 1, d, True, 0), (1, 257, 127, 8, 8, d, True, 0),
+       (1, 127, 129, 4, 1, d, False, 64), (1, 257, 128, 4, 4, d, False, 0)]]
 
 
 def _flash_inputs(case, dtype, dev, seed):
@@ -482,13 +578,19 @@ def _flash_pairs(Sq, Sk, causal, window):
     return int(kf._mask(Sq, Sk, causal, window, "cpu").sum())
 
 
-def _check_flash_case(case, dtype, dev, seed):
+def _check_flash_case(case, dtype, dev, seed, qkv=None):
+    """K7 on one case against its twin; both launches through the design
+    its dtype and d select. `qkv` replaces the drawn inputs."""
     causal, window = case[6], case[7]
-    q, k, v = _flash_inputs(case, dtype, dev, seed)
+    q, k, v = qkv or _flash_inputs(case, dtype, dev, seed)
+    w0 = kf.LAUNCHES["flash_attention_wgmma"]
     got = kf.flash_attention(q, k, v, causal=causal, window=window)
     require(torch.equal(got, kf.flash_attention(q, k, v, causal=causal,
                                                 window=window)),
             f"flash {case} {dtype} not repeatable")
+    require(kf.LAUNCHES["flash_attention_wgmma"] - w0 ==
+            2 * kf.uses_wgmma(dtype, case[5]),
+            f"flash {case} {dtype}: wrong design launched")
     want = kf.flash_attention_ref(q, k, v, causal=causal, window=window)
     rows = kf._mask(case[1], case[2], causal, window, dev).any(dim=1)
     diff = (got[:, rows].float() - want[:, rows].float()).abs()
@@ -510,26 +612,44 @@ def check_flash(dev):
                 continue                  # the serve path is bf16
             _check_flash_case(case, dtype, dev, seed=100 + n)
             n += 1
+    for case in FLASH_TILE_EDGES:
+        _check_flash_case(case, torch.bfloat16, dev, seed=100 + n)
+        n += 1
+    # q, k and v as head slices of one fused (B, S, H + 2K, d) projection
+    for d in (64, 128):
+        case = (2, 257, 257, 8, 2, d, True, 0)
+        g = torch.Generator(device=dev).manual_seed(100 + n)
+        qkv = torch.randn((2, 257, 12, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+        _check_flash_case(case, torch.bfloat16, dev, 0, (q, k, v))
+        require(torch.equal(kf.flash_attention(q, k, v), kf.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous())),
+            f"flash {case}: strided views differ from contiguous copies")
+        n += 1
     torch.cuda.synchronize()
     print(f"flash: {n} cases match the twin within {FLASH_TOL}; repeat "
-          "launches bit-identical")
+          f"launches bit-identical; {len(FLASH_TILE_EDGES) + 2} of them at "
+          "the wgmma design's tile edges and on strided views")
 
     record = None
     for case in (LONG, SERVE_SHAPES[-1]):
         err, (q, k, v) = _check_flash_case(case, torch.bfloat16, dev, 7)
         B, Sq, Sk, H, K, d = case[:6]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        k_ms = cuda_ms(lambda: kf.flash_attention(q, k, v))
-        p_ms = cuda_ms(lambda: kf.flash_attention_ref(q, k, v), iters=5)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        l_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                    enable_gqa=True))
+        k_ms, l_ms = in_turns(
+            lambda: kf.flash_attention(q, k, v),
+            lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+        p_ms = cuda_ms(lambda: kf.flash_attention_ref(q, k, v), iters=5)
         flops = 4.0 * d * _flash_pairs(Sq, Sk, True, 0) * B * H
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
         print(f"kernel flash_attention bf16 {case[:6]} causal: kernel_ms "
               f"{k_ms} ref_ms {p_ms} sdpa_ms {l_ms} bound_ms {b_ms} ({b_by})"
               f" max_abs_err {err} TFLOP/s {flops / k_ms / 1e9}")
+        print(f"K7 {case[:6]}: kernel / sdpa {k_ms / l_ms} (same call, in "
+              f"turns); {b_ms / k_ms} of the bound")
         if record is None:
             record = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=l_ms, max_abs_err=err)
@@ -548,6 +668,7 @@ def _serve_counted(what, engine, prompts, swap_every=0, swap=None):
     per_prefill = engine.model.cfg.n_layers
     launches = require_counts(what, {
         "flash_attention": per_prefill * s["prefill_dispatches"]})
+    require_wgmma(what)
     require(len(done) == len(prompts), f"{what}: {len(done)} of "
             f"{len(prompts)} requests completed")
     for r in done:
@@ -647,6 +768,7 @@ def run_serve(dev):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     require_counts("forward 4096", {"flash_attention": cfg.n_layers})
+    require_wgmma("forward 4096")
     require(bool(torch.isfinite(loss)), f"forward 4096: loss {loss}")
     print(f"forward 4096: loss {float(loss)} in {ms} ms, {cfg.n_layers} K7 "
           "launches")
@@ -669,6 +791,7 @@ def main():
     lib = _build.build()
     _build.library()
     print(f"build: {lib.name} in {time.perf_counter() - t0} s")
+    report_ptxas()
 
     records = check_kernels(dev)
     records.update(check_flat_kernels(dev))

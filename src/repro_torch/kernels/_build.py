@@ -7,7 +7,9 @@ with a plain C interface, named by a hash of the sources and flags, under
 that needs a kernel builds it; later calls in the process, and later
 processes on the same checkout, reuse the file. The library is bound with
 ``ctypes``: every pointer and the stream are ``c_void_p``. A missing
-``nvcc`` raises.
+``nvcc`` raises. ``ptxas`` reports each kernel's registers, shared memory
+and spills (``-Xptxas -v``); the report is kept beside the library
+(``ptxas_log``).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,12 +36,14 @@ SIGNATURES = {
     "arena_gram_row": (_I, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "arena_gram": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "arena_combine": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
-    "flat_gram_row": (_I, _P, _LL, _LL, _P, _LL, _P, _P, _I, _I, _I, _I, _I,
-                      _P),
+    "flat_gram_row": (_I, _P, _LL, _LL, _P, _LL, _I, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _P),
     "flat_gram": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _P),
     "flat_combine": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _P),
     "flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         *(_LL,) * 12, _I, _I, _P),
+    "flash_attention_wgmma": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              *(_LL,) * 12, _I, _I, _P),
 }
 
 
@@ -67,9 +72,9 @@ def library_path() -> Path:
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds) -> None:
+def _run_all(cmds) -> list:
     """Run the commands in parallel; wait for every one, then raise on the
-    first that failed."""
+    first that failed. Returns their outputs."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
@@ -78,6 +83,7 @@ def _run_all(cmds) -> None:
         if p.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return outs
 
 
 def build() -> Path:
@@ -92,11 +98,48 @@ def build() -> Path:
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                  for obj, src in zip(objs, sources())])
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                         for obj, src in zip(objs, sources())])
+        log = Path(tmp) / "ptxas.txt"
+        log.write_text("".join(f"== {src.name}\n{text}"
+                               for src, text in zip(sources(), logs)))
         lib = str(Path(tmp) / "lib.so")
         _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(log, _log_path(out))
         os.replace(lib, out)
+    return out
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_log() -> str:
+    """ptxas's report of the build (-Xptxas -v): per kernel, registers,
+    shared memory, stack and spills."""
+    return _log_path(build()).read_text()
+
+
+def kernel_resources(log: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "stack", "smem"}} parsed from a ptxas -v report (smem is the static
+    shared memory in bytes; dynamic shared memory is not in the report)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?", line):
+            name = m.group(1)
+            out.setdefault(name, {"smem": 0})
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) "
+                                      r"bytes spill stores, (\d+) bytes "
+                                      r"spill loads", line)):
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                out[name]["smem"] = int(sm.group(1))
     return out
 
 

@@ -11,6 +11,8 @@ when CUDA is absent, unless the caller asks for ``"cpu"``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 MAX_M = 32                                   # the kernels' register/smem cap
@@ -48,6 +50,17 @@ def launch(name: str, *args) -> None:
     err = getattr(library(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device (grids are sized to it)."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def stream() -> int:

@@ -10,10 +10,14 @@ i when j < Sk, i - j >= 0 if ``causal`` and i - j < ``window`` if
 ``window > 0``; masked scores are the finite -1e30 and the softmax runs in
 fp32; the scale is 1/sqrt(d); query head h reads kv head h // (H / K).
 
-``flash_attention`` launches the hand-written CUDA kernel
-(``csrc/flash.cu``) on CUDA tensors and the plain PyTorch twin
-``flash_attention_ref`` on CPU tensors; every kernel launch adds one to
-``LAUNCHES["flash_attention"]``. There is no backward pass yet, so an input
+``flash_attention`` launches a hand-written CUDA kernel (``csrc/flash.cu``)
+on CUDA tensors and the plain PyTorch twin ``flash_attention_ref`` on CPU
+tensors. The kernel's design is chosen by dtype and head size alone
+(``uses_wgmma``): bf16 at d = 64 or 128 runs the Hopper design (TMA,
+mbarriers, wgmma), every other case the sm_80-unit kernels. Every kernel
+launch adds one to ``LAUNCHES["flash_attention"]``, and a launch of the
+Hopper design one more to ``LAUNCHES["flash_attention_wgmma"]``, so a run
+shows which design served it. There is no backward pass yet, so an input
 that requires a gradient raises instead of losing it.
 """
 from __future__ import annotations
@@ -24,9 +28,18 @@ from repro_torch.kernels.device import DTYPES, launch, on_cuda, stream
 
 NEG_INF = -1e30
 HEAD_DIMS = tuple(range(16, 129, 16))    # the head sizes the kernel takes
+WGMMA_HEAD_DIMS = (64, 128)              # bf16 head sizes of the Hopper design
 
-# kernel launches since the counter was last set to 0
-LAUNCHES = {"flash_attention": 0}
+# kernel launches since the counter was last set to 0: every K7 launch, and
+# the subset that ran the Hopper (wgmma) design
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0}
+
+
+def uses_wgmma(dtype: torch.dtype, d: int) -> bool:
+    """True when a CUDA call of this dtype and head size runs the Hopper
+    design (``flash_wgmma``), False when it runs ``flash_bf16`` or
+    ``flash_f32``."""
+    return dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
 
 
 def _mask(sq: int, sk: int, causal: bool, window: int,
@@ -83,8 +96,8 @@ def _check(q, k, v, window):
 
 
 def _check_layout(*ts):
-    """The kernel reads d with unit stride and stages K and V rows in
-    16-byte copies: the other strides multiples of 8 elements, pointers
+    """The kernels read d with unit stride and stage rows in 16-byte copies
+    (cp.async or TMA): the other strides multiples of 8 elements, pointers
     16-byte aligned; grid extents H and B at most 65535."""
     for t in ts:
         if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
@@ -106,9 +119,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, d = q.shape
     Sk, K = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
-    launch("flash_attention", DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-           v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, d,
-           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-           *out.stride()[:3], int(causal), int(window), stream())
+    wgmma = uses_wgmma(q.dtype, d)
+    launch("flash_attention_wgmma" if wgmma else "flash_attention",
+           DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), B, Sq, Sk, H, K, d, *q.stride()[:3],
+           *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], int(causal),
+           int(window), stream())
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES["flash_attention_wgmma"] += wgmma
     return out

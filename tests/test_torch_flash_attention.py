@@ -84,3 +84,21 @@ def test_refusals():
         kf.flash_attention(q, q, q, window=-1)
     with pytest.raises(ValueError, match="devices"):
         kf.flash_attention(q, q, q.to("meta"))
+
+
+@pytest.mark.parametrize("d", kf.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_design_follows_dtype_and_head_size(dtype, d):
+    """bf16 at d = 64 and 128 runs the Hopper (wgmma) design, every other
+    dtype and head size the sm_80-unit kernels; nothing else enters the
+    choice."""
+    assert kf.uses_wgmma(dtype, d) == (dtype == torch.bfloat16
+                                       and d in (64, 128))
+
+
+def test_cpu_calls_count_no_launch_of_either_design():
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
+    before = dict(kf.LAUNCHES)
+    kf.flash_attention(q, q, q)
+    assert kf.LAUNCHES == before
+    assert set(before) == {"flash_attention", "flash_attention_wgmma"}

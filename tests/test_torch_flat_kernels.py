@@ -151,3 +151,54 @@ def test_cpu_tensors_take_the_twins_and_count_no_launch():
     assert {**tgram_row.LAUNCHES, **tgram.LAUNCHES,
             **tcombine.LAUNCHES} == before
     assert set(before) == {"flat_gram_row", "flat_gram", "flat_combine"}
+
+
+def _view(m, n_sys, n, dtype=torch.float32, pad=0, offset=0):
+    """An (m, S, n) view into one allocation: `pad` more lanes per system
+    (the system stride is n + pad) and `offset` elements in."""
+    flat = torch.zeros(offset + m * n_sys * (n + pad), dtype=dtype)
+    return flat[offset:].view(m, n_sys, n + pad)[:, :, :n]
+
+
+# (m, S, n, dtype, pad, offset) -> 16-byte loads? 4 fp32 / 8 bf16 lanes per
+# load need every row and system to start 16-byte aligned and n whole units
+@pytest.mark.parametrize("m,n_sys,n,dtype,pad,offset,want", [
+    (14, 1, 2670000, torch.float32, 0, 0, True),    # /l3/w
+    (14, 1, 2670000, torch.bfloat16, 0, 0, True),
+    (14, 1, 2670, torch.float32, 0, 0, False),      # the ragged leaf
+    (14, 1, 2670, torch.bfloat16, 0, 0, False),
+    (14, 1, 2668, torch.float32, 0, 0, True),
+    (14, 1, 2668, torch.bfloat16, 0, 0, False),     # not whole 8-lane units
+    (14, 4, 131072, torch.float32, 0, 0, True),     # the stacked buffer
+    (14, 4, 1000, torch.float32, 500, 0, True),     # system stride 1500
+    (14, 4, 1000, torch.float32, 2, 0, False),      # system stride 1002
+    (14, 1, 4096, torch.float32, 0, 1, False),      # 4 bytes off
+    (14, 1, 4096, torch.float32, 0, 4, True),       # 16 bytes off
+    (1, 1, 40, torch.float32, 0, 0, True),
+])
+def test_gram_row_load_width_choice(m, n_sys, n, dtype, pad, offset, want):
+    x = _view(m, n_sys, n, dtype, pad, offset)
+    assert tgram_row.vector_lanes(x, x[m - 1]) is want
+    if want:                                 # a query 4 bytes off is not
+        q = torch.zeros(n_sys * n + 2, dtype=dtype)[2:].view(n_sys, n)
+        assert tgram_row.vector_lanes(x, q) is False
+
+
+def test_gram_row_finds_the_query_slot():
+    x = _view(14, 4, 1000, pad=500)
+    for j in (0, 5, 13):
+        assert tgram_row.query_slot(x, x[j]) == j
+    assert tgram_row.query_slot(x, x[5].clone()) == -1
+    assert tgram_row.query_slot(x, torch.zeros(4, 1000)) == -1
+    assert tgram_row.query_slot(x, x[5].flip(0)) == -1
+    flat = _view(3, 1, 8)
+    assert tgram_row.query_slot(flat, flat[2]) == 2
+
+
+def test_gram_row_grid_fills_the_card_once():
+    fill = tgram_row.CTAS_PER_SM * 132
+    assert tgram_row.grid_ctas(2670000 // 4, 1, 132) == fill
+    assert tgram_row.grid_ctas(131072 // 4, 4, 132) == -(-fill // 4)
+    assert tgram_row.grid_ctas(1000, 1, 132) == 4       # one per 256 units
+    assert tgram_row.grid_ctas(10, 1, 132) == 1
+    assert tgram_row.grid_ctas(10, 65535, 132) == 1

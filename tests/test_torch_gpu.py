@@ -294,3 +294,86 @@ def test_flash_attention_refusals(cuda):
     odd = odd.view(1, 8, 4, 64)                   # rows 16 bytes off
     with pytest.raises(ValueError, match="16-byte"):
         kf.flash_attention(odd, odd, odd)
+
+
+# The Hopper design of K7 (bf16 at d 64 and 128; 128 queries per CTA, 128
+# keys per tile at d 64 and 64 at d 128) at the edges of its tiles: lengths
+# 127 ... 257 under every mask, GQA rep 1 and 8, Sq != Sk both ways
+WGMMA_CASES = [
+    case for d in (64, 128) for case in
+    [(1, s, s, 8, 1, d, True, 0) for s in (127, 128, 129, 257)]
+    + [(2, s, s, 4, 4, d, False, 0) for s in (127, 129)]
+    + [(1, 257, 257, 8, 2, d, True, 100), (1, 129, 257, 8, 1, d, True, 0),
+       (1, 257, 127, 8, 8, d, True, 0), (1, 127, 129, 4, 1, d, False, 64)]]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_flash_wgmma_design_at_tile_edges(cuda, case):
+    causal, window = case[6], case[7]
+    q, k, v = _flash_inputs(case, torch.bfloat16, cuda, seed=1)
+    before = dict(kf.LAUNCHES)
+    got = kf.flash_attention(q, k, v, causal=causal, window=window)
+    again = kf.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert {k_: kf.LAUNCHES[k_] - before[k_] for k_ in before} == {
+        "flash_attention": 2, "flash_attention_wgmma": 2}
+    assert torch.equal(got, again)
+    want = kf.flash_attention_ref(q, k, v, causal=causal, window=window)
+    rows = _seen_rows(case[1], case[2], causal, window).to(cuda)
+    torch.testing.assert_close(got[:, rows].float(), want[:, rows].float(),
+                               atol=1e-2, rtol=1.6e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_reads_strided_views(cuda, d):
+    """Through the TMA tensor maps: q, k and v as head slices of one fused
+    projection give the same bits as contiguous copies."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    qkv = torch.randn((2, 257, 12, d), generator=g).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = kf.flash_attention(q, k, v)
+    assert torch.equal(got, kf.flash_attention(q.contiguous(), k.contiguous(),
+                                               v.contiguous()))
+    want = kf.flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1.6e-2)
+
+
+def test_flash_design_counter(cuda):
+    """Only bf16 at d 64 and 128 counts as the wgmma design."""
+    for dtype, d, wgmma in ((torch.bfloat16, 64, 1), (torch.bfloat16, 128, 1),
+                            (torch.bfloat16, 32, 0), (torch.float32, 64, 0)):
+        q = torch.randn((1, 64, 4, d), device=cuda).to(dtype)
+        n0 = dict(kf.LAUNCHES)
+        kf.flash_attention(q, q[:, :, :2], q[:, :, :2])
+        assert kf.LAUNCHES["flash_attention"] == n0["flash_attention"] + 1
+        assert kf.LAUNCHES["flash_attention_wgmma"] == \
+            n0["flash_attention_wgmma"] + wgmma
+
+
+# K4's two load paths: (m, S, n, 16-byte loads?)
+K4_PATHS = [(14, 1, 2670, False), (14, 1, 2672 * 8, True),
+            (14, 4, 131072, True), (17, 2, 5000, True), (3, 1, 41, False)]
+
+
+@pytest.mark.parametrize("shape", K4_PATHS)
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_gram_row_load_paths(cuda, shape, integer, dtype):
+    m, n_sys, n, vec = shape
+    x, _ = _flat(m, n_sys, n, dtype, integer, cuda, seed=3)
+    per = 16 // x.element_size()
+    assert kgr.vector_lanes(x, x[m - 1]) is (vec and n % per == 0)
+    for slot in (0, m - 1):
+        for anchor_first in (False, True):
+            got = kgr.gram_row(x, x[slot], anchor_first=anchor_first)
+            want = kgr.gram_row_ref(x, x[slot], anchor_first=anchor_first)
+            _compare(got, want, integer)
+            assert torch.equal(got, kgr.gram_row(x, x[slot],
+                                                 anchor_first=anchor_first))
+            # the query as a copy, not a slot of the buffer
+            _compare(kgr.gram_row(x, x[slot].clone(),
+                                  anchor_first=anchor_first), want, integer)
+    torch.cuda.synchronize()
+    assert not kgr._TICKETS[(x.device, torch.cuda.current_stream()
+                             .cuda_stream)].any()       # left at zero

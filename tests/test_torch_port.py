@@ -210,3 +210,25 @@ def test_default_schedule_counts_in_300_steps():
     jumps = [t for t in range(300) if tg[0].should_apply(t)]
     assert jumps == list(range(123, 300, 24)) and len(jumps) == 8
     assert int(jnp.asarray(jsched.slots_for_step(jg, 123))[0]) == 13
+
+
+def test_ptxas_report_is_parsed_per_kernel():
+    """The build keeps ptxas's -v report; chip_smoke.py reads registers and
+    spills per kernel from it (spills of K7's Hopper design fail it)."""
+    from repro_torch.kernels._build import kernel_resources
+
+    log = """== flash.cu
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3barPf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 512 bytes smem
+"""
+    assert kernel_resources(log) == {
+        "_Z3fooPf": {"smem": 0, "stack": 0, "spill_stores": 0,
+                     "spill_loads": 0, "registers": 168},
+        "_Z3barPf": {"smem": 512, "stack": 8, "spill_stores": 4,
+                     "spill_loads": 12, "registers": 40}}
