@@ -9,23 +9,27 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    versions.
 2. Build the CUDA kernels (``src/repro_torch/kernels/csrc/*.cu``, one
    ``nvcc`` per source, in parallel) and print ptxas's registers, shared
-   memory and spills (``-Xptxas -v``) of the Hopper flash-attention design
-   and of K4; the former must not spill.
+   memory and spills (``-Xptxas -v``) of the Hopper flash-attention design,
+   of K1, K4 and K5; K7's design, K1 and K5 must not spill.
 3. The arena kernels K1-K3 against their plain PyTorch twins at the paper
    MLP's arena shape, (5633, 14, 512), with the paper bucket's real block
    -> system table: fp32 and bf16 buffers, both anchors of the Gram row,
-   first and mean anchor of the Gram, bit-identical repeat launches; then
-   timings of the kernel, the twin and (where one PyTorch call computes
-   the same function) that call, beside the least time the card could
-   take.
+   first and mean anchor of the Gram, bit-identical repeat launches, K1's
+   tickets left at zero; then timings of the kernel, the twin and (where
+   one PyTorch call computes the same function) that call, beside the
+   least time the card could take. K1 takes 16-byte loads on this arena,
+   and is timed in turns with its twin (no single call computes it); its
+   CUDA-graph replay time (device time without the host's time per call)
+   is printed and recorded beside, as ``graph_ms``.
 3b. The flat per-leaf kernels K4-K6 against their twins at the 8 paper
    leaves' buffers (14, n) and one stacked (14, 4, 131072) buffer: fp32
    and bf16, with and without the anchor, per-system tolerance, repeat
    launches bit-identical, integer-valued data exact; timings at the
    largest leaf, /l3/w (14, 2670000), with K4's time over ``torch.mv``'s
-   in the same call (fp32; bf16 has no library call: its GB/s), and K4's
-   load width on the ragged n = 2670 leaf (one lane) and on /l3/w (16
-   bytes).
+   and K5's over ``c @ x``'s in the same call (fp32; bf16 has no library
+   call: its GB/s; K5's CUDA-graph replay time beside, as for K1), and
+   K4's and K5's load width on the ragged n = 2670 leaf (one lane) and on
+   /l3/w (16 bytes).
 4. The main path: ``paper_loop.train`` for 300 steps at the paper's full
    width (2,882,150 params), default DMDConfig, 1000 teacher rows. It must
    launch the Gram-row kernel 112 times and the combine kernel 8 times,
@@ -83,6 +87,7 @@ from repro_torch.data.synthetic import synthetic_regression  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import arena as ka  # noqa: E402
 from repro_torch.kernels import combine as kc  # noqa: E402
+from repro_torch.kernels import device as kd  # noqa: E402
 from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import gram as kg  # noqa: E402
 from repro_torch.kernels import gram_row as kgr  # noqa: E402
@@ -182,6 +187,35 @@ def in_turns(kern, lib, iters=50):
     return (k1 + k2) / 2, (l1 + l2) / 2
 
 
+def graph_ms(fn, iters=20):
+    """Mean device time of fn() over `iters` launches captured in one CUDA
+    graph and replayed, by CUDA events: the kernels back to back, without
+    the host's time per call (a wrapper's Python is tens of µs, close to a
+    bandwidth-bound pass at these sizes). Recorded beside the eager time,
+    as ``graph_ms``, for K1 and K5."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):                # warm-up on the capture stream
+            fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    stop.record()
+    stop.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (2 * iters)
+
+
 def bound_ms(nbytes, flops, peak=FP32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -246,6 +280,15 @@ def check_kernels(dev):
         require(torch.equal(got, ka.combine(x, c, seg)),
                 f"combine {tag} not repeatable")
         torch.cuda.synchronize()
+        require(not kd.tickets(x.device, kd.stream(), seg.n_sys).any(),
+                f"gram_row {tag}: tickets not left at zero")
+        # K1's per-call choices on the main path's arena and query
+        vec, qslot = kd.vector_lanes(x, q), kd.query_slot(x, q, axis=1)
+        require(vec and qslot == slot, f"K1 on the paper arena {tag}: "
+                f"16-byte loads {vec}, query slot {qslot}")
+        print(f"K1 load path on the paper arena {tag}: 16 bytes per row per "
+              f"step, query read as slot {qslot}, "
+              f"{ka.grid_ctas(nb, m, kd.sm_count(x.device))} CTAs")
 
         xbytes = x.numel() * x.element_size()
         cb = c[seg.block_sys.long()]
@@ -270,16 +313,26 @@ def check_kernels(dev):
                 None, xbytes + seg.n_sys * m * m * 4, 2.0 * nb * m * m * bn),
         }
         for name, (kern, twin, lib, nbytes, flops) in runs.items():
-            k_ms, p_ms = cuda_ms(kern), cuda_ms(twin)
+            extra = {}
+            if name == "gram_row":
+                k_ms, p_ms = in_turns(kern, twin)
+                extra["graph_ms"] = graph_ms(kern)
+            else:
+                k_ms, p_ms = cuda_ms(kern), cuda_ms(twin)
             l_ms = cuda_ms(lib) if lib is not None else None
             b_ms, b_by = bound_ms(nbytes, flops)
             print(f"kernel {name} {tag}: kernel_ms {k_ms} ref_ms {p_ms} "
                   f"bound_ms {b_ms} ({b_by}) library_ms {l_ms} "
                   f"max_abs_err {errs[name]} GB/s {nbytes / k_ms / 1e6}")
+            if name == "gram_row":
+                print(f"K1 {(nb, m, bn)} {tag}: kernel / twin {k_ms / p_ms} "
+                      f"(same call, in turns); {nbytes / k_ms / 1e6} GB/s, "
+                      f"{b_ms / k_ms} of the bound; CUDA-graph replay "
+                      f"{extra['graph_ms']} ms")
             if dtype == torch.float32:
                 records[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=l_ms,
-                                     max_abs_err=errs[name])
+                                     max_abs_err=errs[name], **extra)
     return records
 
 
@@ -307,17 +360,19 @@ def check_flat_kernels(dev):
         torch.cuda.synchronize()
     print(f"flat kernels: {len(shapes)} shapes x fp32/bf16 x random/integer "
           f"match their twins")
-    # K4's two load paths: one lane per load on the ragged leaf, 16 bytes
-    # on /l3/w (both were checked against the twin just above)
+    # K4's and K5's two load paths: one lane per load on the ragged leaf,
+    # 16 bytes on /l3/w (both were checked against the twin just above)
     for path, want in ((next(p for p, n in leaves.items() if n == 2670),
                         False), ("/l3/w", True)):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.zeros((m, 1, leaves[path]), dtype=dtype, device=dev)
-            vec = kgr.vector_lanes(x, x[m - 1])
-            require(vec is want, f"K4 on {path} {dtype}: 16-byte loads {vec}")
-            print(f"K4 load path on {path} (n {leaves[path]}) "
-                  f"{str(dtype).removeprefix('torch.')}: "
-                  f"{'16 bytes' if vec else 'one lane'} per row per step")
+            for kernel, vec in (("K4", kd.vector_lanes(x, x[m - 1])),
+                                ("K5", kd.vector_lanes(x))):
+                require(vec is want,
+                        f"{kernel} on {path} {dtype}: 16-byte loads {vec}")
+                print(f"{kernel} load path on {path} (n {leaves[path]}) "
+                      f"{str(dtype).removeprefix('torch.')}: "
+                      f"{'16 bytes' if vec else 'one lane'} per row per step")
 
     # timings at the largest leaf, /l3/w, as the main path gives it
     n = leaves["/l3/w"]
@@ -356,11 +411,14 @@ def check_flat_kernels(dev):
                                         kc.combine_ref(x, c32)),
                 "flat_gram": max_err(kg.gram(x), kg.gram_ref(x))}
         for name, (kern, twin, lib, anchored, nbytes, flops) in runs.items():
-            if name == "flat_gram_row":
+            extra = {}
+            if name in ("flat_gram_row", "flat_combine"):
                 k_ms, l_ms = in_turns(kern, lib)
             else:
                 k_ms = cuda_ms(kern)
                 l_ms = cuda_ms(lib) if lib is not None else None
+            if name == "flat_combine":
+                extra["graph_ms"] = graph_ms(kern)
             p_ms = cuda_ms(twin)
             a_ms = cuda_ms(anchored) if anchored is not None else None
             b_ms, b_by = bound_ms(nbytes, flops)
@@ -373,10 +431,16 @@ def check_flat_kernels(dev):
                     f"kernel / torch.mv {k_ms / l_ms} (same call, in turns)"
                     if l_ms else f"no library call; {nbytes / k_ms / 1e6} "
                     f"GB/s, {b_ms / k_ms} of the bound"))
+            if name == "flat_combine":
+                print(f"K5 /l3/w {tag}: " + (
+                    f"kernel / c @ x {k_ms / l_ms} (same call, in turns)"
+                    if l_ms else "no library call")
+                    + f"; {nbytes / k_ms / 1e6} GB/s, {b_ms / k_ms} of the "
+                    f"bound; CUDA-graph replay {extra['graph_ms']} ms")
             if fp32:
                 records[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=l_ms,
-                                     max_abs_err=errs[name])
+                                     max_abs_err=errs[name], **extra)
     return records
 
 
@@ -415,21 +479,26 @@ def _check_flat(tag, x, c, n_sys, exact):
             f"flat_combine {tag} not repeatable")
 
 
+# kernels whose ptxas report must show no spill: K7's Hopper design, K1, K5
+NO_SPILL = ("flash_wgmma", "arena_row", "combine_flat")
+
+
 def _kernel_name(mangled):
-    """flash_wgmma<64>, row_part<float,16,vec=1> from ptxas's mangled
-    names."""
+    """flash_wgmma<64>, row_part<float,16,vec=1> (K4), arena_row<...> (K1)
+    and combine_flat<...> (K5) from ptxas's mangled names."""
     if m := re.search(r"flash_wgmmaILi(\d+)E", mangled):
         return f"flash_wgmma<{m.group(1)}>"
-    if m := re.search(r"row_partI(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
-                      mangled):
-        dtype = "float" if m.group(1) == "f" else "bf16"
-        return f"row_part<{dtype},{m.group(2)},vec={m.group(3)}>"
+    if m := re.search(r"(row_part|arena_row|combine_flat)I"
+                      r"(f|13__nv_bfloat16)Li(\d+)ELb([01])E", mangled):
+        dtype = "float" if m.group(2) == "f" else "bf16"
+        return f"{m.group(1)}<{dtype},{m.group(3)},vec={m.group(4)}>"
     return None
 
 
 def report_ptxas():
     """Phase 2: registers, shared memory and spills of the Hopper K7 design
-    and of K4, from ptxas -v; the K7 design must not spill."""
+    and of K1, K4 and K5, from ptxas -v; those in NO_SPILL must not
+    spill."""
     for mangled, res in sorted(_build.kernel_resources(
             _build.ptxas_log()).items()):
         name = _kernel_name(mangled)
@@ -439,7 +508,7 @@ def report_ptxas():
               f"{res['smem']} B, stack {res.get('stack')} B, spill stores "
               f"{res.get('spill_stores')} B, spill loads "
               f"{res.get('spill_loads')} B")
-        if name.startswith("flash_wgmma"):
+        if name.startswith(NO_SPILL):
             require(res.get("spill_stores") == 0 and
                     res.get("spill_loads") == 0, f"{name} spills: {res}")
 

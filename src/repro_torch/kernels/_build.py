@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles each ``csrc/*.cu`` file to an object, all files at
 once in parallel processes, and links the objects into one shared library
-with a plain C interface, named by a hash of the sources and flags, under
+with a plain C interface, named by a hash of the flags and of every file
+under ``csrc/`` (the sources and the headers they include), under
 ``_build/`` beside this file (listed in ``.gitignore``). The first call
 that needs a kernel builds it; later calls in the process, and later
 processes on the same checkout, reuse the file. The library is bound with
@@ -33,13 +34,14 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> argtypes of each extern "C" launcher (all return cudaError_t as int)
 SIGNATURES = {
-    "arena_gram_row": (_I, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "arena_gram_row": (_I, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _I, _P),
     "arena_gram": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "arena_combine": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
     "flat_gram_row": (_I, _P, _LL, _LL, _P, _LL, _I, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _P),
     "flat_gram": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _P),
-    "flat_combine": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _P),
+    "flat_combine": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _P),
     "flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         *(_LL,) * 12, _I, _I, _P),
     "flash_attention_wgmma": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -48,7 +50,13 @@ SIGNATURES = {
 
 
 def sources():
+    """The translation units: one nvcc each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def _inputs():
+    """Every file under csrc/ (sources and the headers they include)."""
+    return sorted(p for p in CSRC.rglob("*") if p.is_file())
 
 
 def nvcc_path() -> str:
@@ -66,9 +74,9 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for path in _inputs():
+        h.update(path.relative_to(CSRC).as_posix().encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 

@@ -15,6 +15,13 @@ PyTorch twin (``*_ref``). The wrappers route by device: CPU tensors take
 the twin, CUDA tensors take the kernel or raise. Every kernel launch adds
 one to its entry in ``LAUNCHES``. Pad lanes are zero, so padding is exact
 in every inner product.
+
+``gram_row`` (K1, every recorded step) makes its kernel's choices for each
+call, in plain Python: whether its loads are 16 bytes wide
+(``device.vector_lanes``), whether the query is a slot of the buffer
+(``device.query_slot`` along the slot axis) and how many CTAs the grid has
+(``grid_ctas``: one wave over all blocks, two CTAs per SM where m <= 16);
+its per-system integer tickets are ``device.tickets``.
 """
 from __future__ import annotations
 
@@ -23,8 +30,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.kernels import device as _device
 from repro_torch.kernels.device import (DTYPES, MAX_M, launch, on_cuda,
-                                        resolve_device, stream)
+                                        resolve_device, sm_count, stream)
+
+CTAS_PER_SM = 2                  # K1's CTAs per SM for m <= 16 (one above)
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"gram_row": 0, "gram": 0, "combine": 0}
@@ -140,6 +150,14 @@ def _check_segments(seg: Segments, nb: int, device: torch.device) -> None:
             raise ValueError(f"segment tables must be int32 on {device}")
 
 
+def grid_ctas(nb: int, m: int, sms: int) -> int:
+    """K1's grid, one wave: CTAS_PER_SM CTAs per SM where m <= 16 (the
+    registers of two fit on an SM), else one; each CTA a contiguous range
+    of at least one block."""
+    per_sm = CTAS_PER_SM if m <= 16 else 1
+    return max(1, min(nb, per_sm * sms))
+
+
 def gram_row(buf: torch.Tensor, q: torch.Tensor, seg: Segments, *,
              anchor_first: bool = False) -> torch.Tensor:
     """One streaming Gram row per system, one launch for the whole arena.
@@ -157,12 +175,21 @@ def gram_row(buf: torch.Tensor, q: torch.Tensor, seg: Segments, *,
     if not cuda:
         return gram_row_ref(buf, q, seg.block_sys, seg.n_sys,
                             anchor_first=anchor_first)
-    part = torch.empty((nb, m), dtype=torch.float32, device=buf.device)
+    ctas = grid_ctas(nb, m, sm_count(buf.device))
+    # one partial per (CTA, system) pair; CTA c's pair with system s is row
+    # c + s, so ctas + n_sys rows hold them all
+    part = torch.empty((ctas + seg.n_sys, m), dtype=torch.float32,
+                       device=buf.device)
     out = torch.empty((seg.n_sys, m), dtype=torch.float32, device=buf.device)
+    st = stream()
     launch("arena_gram_row", DTYPES[buf.dtype], buf.data_ptr(),
-            q.data_ptr(), q.stride(0), part.data_ptr(),
-            seg.sys_off.data_ptr(), out.data_ptr(), nb, m, bn, seg.n_sys,
-            int(anchor_first), stream())
+           q.data_ptr(), q.stride(0),
+           _device.query_slot(buf, q, axis=1),
+           seg.block_sys.data_ptr(), seg.sys_off.data_ptr(),
+           part.data_ptr(),
+           _device.tickets(buf.device, st, seg.n_sys).data_ptr(),
+           out.data_ptr(), nb, m, bn, seg.n_sys, ctas,
+           int(_device.vector_lanes(buf, q)), int(anchor_first), st)
     LAUNCHES["gram_row"] += 1
     return out
 

@@ -19,18 +19,24 @@
 // What bounds these passes on an H100: bytes. Each reads the buffer once
 // (149.5 MB for the paper MLP's largest leaf) and does 2 to 2m flops per
 // element read. The design:
-//   * K4 (the pass of every recorded step) sizes its grid to the card: one
-//     CTA per SM over all systems (gram_row.py CTAS_PER_SM), each striding
-//     over its system's lanes, so the grid is one wave and every CTA pays
-//     its reduction tail once. Where every row starts 16-byte aligned and n is whole 16-byte
-//     units (the wrapper decides per call: /l3/w does, the ragged n = 2670
-//     leaf does not) a thread reads 16 bytes per row per step (4 fp32 or 8
-//     bf16 lanes), else one lane. Each of the m rows is read once: the
-//     anchor (row 0) once, its own term (zero) skipped, and the query once
-//     when it is the buffer's own slot, as it always is on the main path.
-//     Its 16-byte loads skip L1 and ask L2 to fetch the 256 bytes around
-//     them (the next lanes of the same row).
-//   * K5 and K6 split n into chunks of `chunk` lanes, one CTA per (chunk,
+//   * K4 (the pass of every recorded step) and K5 (the jump blend) size
+//     their grid to the card: CTAS_PER_SM CTAs per SM over all systems
+//     (gram_row.py, combine.py), each striding over its system's lanes, so
+//     the grid is one wave and K4's CTAs pay their reduction tail once.
+//   * Loads (lanes.cuh): where every row starts 16-byte aligned and n is
+//     whole 16-byte units (the wrapper decides per call: /l3/w does, the
+//     ragged n = 2670 leaf does not) a thread reads 16 bytes per row per
+//     step (4 fp32 or 8 bf16 lanes), else one lane. The 16-byte loads skip
+//     L1 and ask L2 to fetch the 256 bytes around them (the next lanes of
+//     the same row). MMAX >= m is a template argument, so all m row loads
+//     of a step are in flight before the first FMA.
+//   * K4 reads each of the m rows once: the anchor (row 0) once, its own
+//     term (zero) skipped, and the query once when it is the buffer's own
+//     slot, as it always is on the main path.
+//   * K5 keeps its system's m coefficients in registers, sums the rows in
+//     order j = 0..m-1 and writes its output with streaming stores: the
+//     host's write-back is the next reader.
+//   * K6 splits n into chunks of `chunk` lanes, one CTA per (chunk,
 //     system): the largest leaf has 2.67M lanes, and one CTA per system
 //     would leave most of the 132 SMs idle.
 //   * Consecutive threads read consecutive lanes of each row, so every row
@@ -45,20 +51,13 @@
 //     by guarding l < n; nothing is padded.
 //   * bf16 buffers are upcast per element; all sums are fp32 (IEEE, no
 //     TF32).
-// Not done yet (later work): K5 and K6 on the grid and loads of K4.
+// Left for later: K6 on K4's grid and loads (it is at a third of its bound).
 // Each launcher returns cudaGetLastError(); the Python wrapper raises if it
 // is not 0. Launches go to the caller's stream and do not synchronise.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "lanes.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 constexpr int kMaxM = 32;
 constexpr int kThreads = 256;                        // K5
@@ -68,60 +67,6 @@ constexpr int kGramThreads = 256;                    // K6 pass 1
 constexpr int kGramTile = 256;                       // lanes staged per step
 constexpr int kGramMaxPairs =                        // upper-triangle (j, k)
     (kMaxM * (kMaxM + 1) / 2 + kGramThreads - 1) / kGramThreads;  // per thread
-
-// 16 bytes at unit u of a row, read once: not kept in L1, and the L2 asked
-// to fetch the surrounding 256 bytes (the next lanes of the same row).
-template <typename Raw>
-__device__ __forceinline__ Raw load16(const void* row, int u) {
-  const uint4* ptr = static_cast<const uint4*>(row) + u;
-  uint4 r;
-  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(ptr));
-  return *reinterpret_cast<Raw*>(&r);
-}
-
-// The lanes one load of a K4 thread covers: one element, or 16 bytes (4
-// fp32 or 8 bf16) when VEC. `Raw` holds the loaded bits until use, so the
-// m rows of a step are in flight at once in few registers.
-template <typename T, bool VEC>
-struct Lanes {
-  static constexpr int kPer = 1;
-  using Raw = T;
-  __device__ static Raw load(const T* row, int u) { return __ldg(row + u); }
-  __device__ static void unpack(Raw r, float (&v)[kPer]) { v[0] = to_f32(r); }
-};
-
-template <>
-struct Lanes<float, true> {
-  static constexpr int kPer = 4;
-  using Raw = float4;
-  __device__ static Raw load(const float* row, int u) {
-    return load16<Raw>(row, u);
-  }
-  __device__ static void unpack(Raw r, float (&v)[kPer]) {
-    v[0] = r.x;
-    v[1] = r.y;
-    v[2] = r.z;
-    v[3] = r.w;
-  }
-};
-
-template <>
-struct Lanes<__nv_bfloat16, true> {
-  static constexpr int kPer = 8;
-  using Raw = uint4;
-  __device__ static Raw load(const __nv_bfloat16* row, int u) {
-    return load16<Raw>(row, u);
-  }
-  __device__ static void unpack(Raw r, float (&v)[kPer]) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {            // bf16 -> fp32 is exact
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
 
 // K4: out[s, j] = <q_s - x_0s, x_js - x_0s>, one launch; x_0s := 0
 // without the anchor. CTA c of system s first writes part[s, c, j], its
@@ -310,23 +255,45 @@ gram_part(const T* __restrict__ x, long long rs, long long ss,
   }
 }
 
-// K5: out[s, l] = sum_j c[s, j] * x[j, s, l], one pass, the system's
-// coefficient row in shared memory, the rows summed in order j = 0..m-1.
-template <typename T>
+// K5: out[s, l] = sum_j c[s, j] * x[j, s, l]. The grid is sized to the
+// card (combine.py CTAS_PER_SM per SM over all systems): CTA (c, s) strides
+// over system s's units (u = c * kThreads + tid, then + gridDim.x *
+// kThreads; a unit is Lanes::kPer lanes). The system's coefficients sit in
+// registers; every row load of a step is issued before the first FMA
+// (MMAX >= m); the rows are summed in order j = 0..m-1, so the result does
+// not depend on the grid. The output is written with streaming stores.
+template <typename T, int MMAX, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 combine_flat(const T* __restrict__ x, long long rs, long long ss,
              const float* __restrict__ c, float* __restrict__ out, int m,
-             int n, int chunk) {
-  __shared__ float cs[kMaxM];
+             int units) {
+  using Ln = Lanes<T, VEC>;
+  constexpr int P = Ln::kPer;
   const long long s = blockIdx.y;
-  if (threadIdx.x < m) cs[threadIdx.x] = c[s * m + threadIdx.x];
-  __syncthreads();
   const T* xs = x + s * ss;
-  const int l1 = min(n, (int)(blockIdx.x + 1) * chunk);
-  for (int l = blockIdx.x * chunk + threadIdx.x; l < l1; l += kThreads) {
-    float sum = 0.f;
-    for (int j = 0; j < m; ++j) sum = fmaf(cs[j], to_f32(xs[j * rs + l]), sum);
-    out[s * n + l] = sum;
+  float* os = out + s * units * P;
+  float cs[MMAX];
+#pragma unroll
+  for (int j = 0; j < MMAX; ++j) cs[j] = j < m ? __ldg(c + s * m + j) : 0.f;
+  for (int u = blockIdx.x * kThreads + threadIdx.x; u < units;
+       u += gridDim.x * kThreads) {
+    typename Ln::Raw rows[MMAX];
+#pragma unroll
+    for (int j = 0; j < MMAX; ++j)
+      if (j < m) rows[j] = Ln::load(xs + j * rs, u);
+    float sum[P];
+#pragma unroll
+    for (int e = 0; e < P; ++e) sum[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < MMAX; ++j) {
+      if (j < m) {
+        float v[P];
+        Ln::unpack(rows[j], v);
+#pragma unroll
+        for (int e = 0; e < P; ++e) sum[e] = fmaf(cs[j], v[e], sum[e]);
+      }
+    }
+    Ln::store(os, u, sum);
   }
 }
 
@@ -353,6 +320,23 @@ void launch_gram_row(const void* x, long long rs, long long ss, const void* q,
   }
 }
 
+template <typename T, bool VEC>
+void launch_combine(const void* x, long long rs, long long ss, const void* c,
+                    void* out, int m, int n, int S, int ctas, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const float* ct = static_cast<const float*>(c);
+  float* ot = static_cast<float*>(out);
+  const int units = n / Lanes<T, VEC>::kPer;
+  const dim3 grid(ctas, S);
+  if (m <= 8) {
+    combine_flat<T, 8, VEC><<<grid, kThreads, 0, st>>>(xt, rs, ss, ct, ot, m, units);
+  } else if (m <= 16) {
+    combine_flat<T, 16, VEC><<<grid, kThreads, 0, st>>>(xt, rs, ss, ct, ot, m, units);
+  } else {
+    combine_flat<T, kMaxM, VEC><<<grid, kThreads, 0, st>>>(xt, rs, ss, ct, ot, m, units);
+  }
+}
+
 template <typename T>
 void launch_gram(const void* x, long long rs, long long ss, void* part,
                  void* out, int m, int n, int S, int chunk, int anchor_first,
@@ -371,8 +355,9 @@ void launch_gram(const void* x, long long rs, long long ss, void* part,
 // `ctas` CTAs per system, `part` holds S * ctas partials of m floats,
 // `tickets` S zero integers (left zero again); the query is row `qslot`
 // of x (q unused) when qslot >= 0; vec = 1 only where every row of x and
-// q starts 16-byte aligned and n is whole 16-byte units. K6: `part` holds
-// S * ceil(n / chunk) partials of m * m floats.
+// q starts 16-byte aligned and n is whole 16-byte units. K5: `ctas` CTAs
+// per system, vec as for K4 (x alone; out is (S, n) contiguous fp32). K6:
+// `part` holds S * ceil(n / chunk) partials of m * m floats.
 extern "C" int flat_gram_row(int dtype, const void* x, long long rs,
                              long long ss, const void* q, long long qs,
                              int qslot, void* part, void* tickets, void* out,
@@ -405,17 +390,16 @@ extern "C" int flat_gram(int dtype, const void* x, long long rs, long long ss,
 
 extern "C" int flat_combine(int dtype, const void* x, long long rs,
                             long long ss, const void* c, void* out, int m,
-                            int n, int S, int chunk, void* stream) {
+                            int n, int S, int ctas, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_chunks(n, chunk), S);
-  if (dtype == 0) {
-    combine_flat<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), rs, ss, static_cast<const float*>(c),
-        static_cast<float*>(out), m, n, chunk);
+  if (dtype == 0 && vec) {
+    launch_combine<float, true>(x, rs, ss, c, out, m, n, S, ctas, st);
+  } else if (dtype == 0) {
+    launch_combine<float, false>(x, rs, ss, c, out, m, n, S, ctas, st);
+  } else if (vec) {
+    launch_combine<__nv_bfloat16, true>(x, rs, ss, c, out, m, n, S, ctas, st);
   } else {
-    combine_flat<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), rs, ss,
-        static_cast<const float*>(c), static_cast<float*>(out), m, n, chunk);
+    launch_combine<__nv_bfloat16, false>(x, rs, ss, c, out, m, n, S, ctas, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

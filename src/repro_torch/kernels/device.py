@@ -68,6 +68,63 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def vector_lanes(*tensors: torch.Tensor) -> bool:
+    """True when every row of every tensor starts 16-byte aligned (its start
+    and every stride of an axis longer than 1 before the lane axis) and the
+    lane count is whole 16-byte units (4 fp32 or 8 bf16 lanes): a kernel
+    then reads 16 bytes per row per step, else one lane."""
+    for t in tensors:
+        per = 16 // t.element_size()
+        if t.shape[-1] % per or t.data_ptr() % 16:
+            return False
+        for size, st in zip(t.shape[:-1], t.stride()):
+            if size > 1 and st % per:
+                return False
+    return True
+
+
+def query_slot(x: torch.Tensor, q: torch.Tensor, axis: int = 0) -> int:
+    """The slot j for which ``q`` is ``x.select(axis, j)`` in place (the
+    same start and strides), else -1. A kernel then reads that row once,
+    as the query and as row j."""
+    off = q.data_ptr() - x.data_ptr()
+    step = x.stride(axis) * x.element_size()
+    if step <= 0 or off % step or not 0 <= off // step < x.shape[axis]:
+        return -1
+    shape, strides = list(x.shape), list(x.stride())
+    del shape[axis], strides[axis]
+    if list(q.shape) != shape:
+        return -1
+    for size, a, b in zip(shape, strides, q.stride()):
+        if size > 1 and a != b:
+            return -1
+    return off // step
+
+
+def grid_ctas(units: int, n_sys: int, sms: int, per_sm: int,
+              threads: int) -> int:
+    """CTAs per system for a pass that strides over each system's units: the
+    card `per_sm` deep over all systems, and no more than one per `threads`
+    units (a unit is the lanes one load covers)."""
+    fill = -(-per_sm * sms // n_sys)
+    return max(1, min(fill, -(-units // threads)))
+
+
+_TICKETS: dict = {}
+
+
+def tickets(device: torch.device, st: int, n: int) -> torch.Tensor:
+    """At least `n` integer tickets, zero between launches: a kernel that
+    picks its last CTA by a ticket resets the ticket itself. One buffer per
+    (device, stream `st`), shared by every such kernel: launches on one
+    stream run in order, so they never use it at the same time."""
+    buf = _TICKETS.get((device, st))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _TICKETS[(device, st)] = buf
+    return buf
+
+
 def lanes_contiguous(t: torch.Tensor) -> bool:
     """Unit stride along the last (lane) axis, as every kernel reads it."""
     return t.shape[-1] == 1 or t.stride(-1) == 1

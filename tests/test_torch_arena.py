@@ -26,6 +26,7 @@ from repro_torch.core import arena as tarena
 from repro_torch.core.accelerator import DMDAccelerator as TAcc
 from repro_torch.core.schedule import DMDGroupRule as TRule
 from repro_torch.kernels import arena as tka
+from repro_torch.kernels import device as tdevice
 
 PORT_LAYOUT_KEYS = ("key", "group", "m", "scope", "n_solve", "block_n",
                     "n_sys", "n_lanes")
@@ -248,3 +249,50 @@ def test_plans_cache_and_dtype_names():
             for p in jflat]
     assert got == want
     assert dataclasses.is_dataclass(plans["l0"]["w"])
+
+
+# K1's per-call choices on an (nb, m, bn) arena and its (nb, bn) query:
+# (m, bn, dtype, offset in elements) -> 16-byte loads. bn is a multiple of
+# 128 lanes on every arena the port builds; the others show the rule.
+@pytest.mark.parametrize("m,bn,dtype,offset,want", [
+    (14, 512, torch.float32, 0, True),              # the paper arena
+    (14, 512, torch.bfloat16, 0, True),
+    (3, 128, torch.bfloat16, 0, True),
+    (17, 384, torch.float32, 0, True),
+    (14, 512, torch.float32, 1, False),             # 4 bytes off
+    (14, 512, torch.float32, 4, True),              # 16 bytes off
+    (14, 100, torch.float32, 0, True),              # whole 4-lane units
+    (14, 100, torch.bfloat16, 0, False),            # not whole 8-lane units
+    (14, 101, torch.float32, 0, False),
+])
+def test_arena_gram_row_load_width_choice(m, bn, dtype, offset, want):
+    nb = 7
+    buf = torch.zeros(offset + nb * m * bn, dtype=dtype)[offset:].view(
+        nb, m, bn)
+    assert tdevice.vector_lanes(buf, buf[:, m - 1, :]) is want
+    if want:                    # a query 4 bytes off, or rows bn + 1 apart
+        q = torch.zeros(nb * bn + 2, dtype=dtype)[2:].view(nb, bn)
+        assert tdevice.vector_lanes(buf, q) is False
+        q = torch.zeros((nb, bn + 1), dtype=dtype)[:, :bn]
+        assert tdevice.vector_lanes(buf, q) is False
+
+
+def test_arena_gram_row_finds_the_query_slot():
+    buf = torch.zeros((5, 14, 128))
+    for j in (0, 6, 13):
+        assert tdevice.query_slot(buf, buf[:, j, :], axis=1) == j
+    assert tdevice.query_slot(buf, buf[:, 6, :].clone(), axis=1) == -1
+    assert tdevice.query_slot(buf, torch.zeros((5, 128)), axis=1) == -1
+    # slot 6's start, but rows 128 lanes apart instead of a block apart
+    flat = buf.view(-1)[6 * 128:6 * 128 + 5 * 128].view(5, 128)
+    assert tdevice.query_slot(buf, flat, axis=1) == -1
+    one = torch.zeros((1, 4, 128))                  # one block: no row stride
+    assert tdevice.query_slot(one, one[:, 3, :], axis=1) == 3
+
+
+def test_arena_gram_row_grid_is_one_wave_over_blocks():
+    assert tka.grid_ctas(5633, 14, 132) == tka.CTAS_PER_SM * 132
+    assert tka.grid_ctas(5633, 16, 132) == tka.CTAS_PER_SM * 132
+    assert tka.grid_ctas(5633, 17, 132) == 132      # one CTA's registers
+    assert tka.grid_ctas(3, 14, 132) == 3               # a CTA per block
+    assert tka.grid_ctas(1, 32, 132) == 1

@@ -18,6 +18,7 @@ from repro.kernels.combine import combine_pallas
 from repro.kernels.gram import gram_pallas
 from repro.kernels.gram_row import gram_row_pallas
 from repro_torch.kernels import combine as tcombine
+from repro_torch.kernels import device as tdevice
 from repro_torch.kernels import gram as tgram
 from repro_torch.kernels import gram_row as tgram_row
 from repro_torch.kernels import ops as tops
@@ -178,27 +179,65 @@ def _view(m, n_sys, n, dtype=torch.float32, pad=0, offset=0):
 ])
 def test_gram_row_load_width_choice(m, n_sys, n, dtype, pad, offset, want):
     x = _view(m, n_sys, n, dtype, pad, offset)
-    assert tgram_row.vector_lanes(x, x[m - 1]) is want
+    assert tdevice.vector_lanes(x, x[m - 1]) is want
     if want:                                 # a query 4 bytes off is not
         q = torch.zeros(n_sys * n + 2, dtype=dtype)[2:].view(n_sys, n)
-        assert tgram_row.vector_lanes(x, q) is False
+        assert tdevice.vector_lanes(x, q) is False
 
 
 def test_gram_row_finds_the_query_slot():
     x = _view(14, 4, 1000, pad=500)
     for j in (0, 5, 13):
-        assert tgram_row.query_slot(x, x[j]) == j
-    assert tgram_row.query_slot(x, x[5].clone()) == -1
-    assert tgram_row.query_slot(x, torch.zeros(4, 1000)) == -1
-    assert tgram_row.query_slot(x, x[5].flip(0)) == -1
+        assert tdevice.query_slot(x, x[j]) == j
+    assert tdevice.query_slot(x, x[5].clone()) == -1
+    assert tdevice.query_slot(x, torch.zeros(4, 1000)) == -1
+    assert tdevice.query_slot(x, x[5].flip(0)) == -1
     flat = _view(3, 1, 8)
-    assert tgram_row.query_slot(flat, flat[2]) == 2
+    assert tdevice.query_slot(flat, flat[2]) == 2
+
+
+def _grid(wrapper, units, n_sys, sms):
+    """The CTAs per system that ``wrapper`` (K4's or K5's) asks for."""
+    return tdevice.grid_ctas(units, n_sys, sms, wrapper.CTAS_PER_SM,
+                             wrapper.THREADS)
 
 
 def test_gram_row_grid_fills_the_card_once():
     fill = tgram_row.CTAS_PER_SM * 132
-    assert tgram_row.grid_ctas(2670000 // 4, 1, 132) == fill
-    assert tgram_row.grid_ctas(131072 // 4, 4, 132) == -(-fill // 4)
-    assert tgram_row.grid_ctas(1000, 1, 132) == 4       # one per 256 units
-    assert tgram_row.grid_ctas(10, 1, 132) == 1
-    assert tgram_row.grid_ctas(10, 65535, 132) == 1
+    assert _grid(tgram_row, 2670000 // 4, 1, 132) == fill
+    assert _grid(tgram_row, 131072 // 4, 4, 132) == -(-fill // 4)
+    assert _grid(tgram_row, 1000, 1, 132) == 4       # one per 256 units
+    assert _grid(tgram_row, 10, 1, 132) == 1
+    assert _grid(tgram_row, 10, 65535, 132) == 1
+
+
+# (m, S, n, dtype, pad, offset) -> 16-byte loads for K5, which reads the
+# buffer alone: every row and system 16-byte aligned and n whole units.
+# Only the n = 2670 leaf of the paper MLP is ragged; n = 40, 200 and 240
+# are whole 16-byte units in fp32 and in bf16.
+@pytest.mark.parametrize("m,n_sys,n,dtype,pad,offset,want", [
+    (14, 1, 2670000, torch.float32, 0, 0, True),    # /l3/w
+    (14, 1, 2670000, torch.bfloat16, 0, 0, True),
+    (14, 1, 2670, torch.float32, 0, 0, False),      # the ragged leaf
+    (14, 1, 2670, torch.bfloat16, 0, 0, False),
+    (14, 1, 40, torch.float32, 0, 0, True),
+    (14, 1, 200, torch.bfloat16, 0, 0, True),
+    (14, 1, 240, torch.bfloat16, 0, 0, True),
+    (14, 4, 1000, torch.float32, 4, 0, True),       # system stride 1004
+    (14, 4, 1000, torch.bfloat16, 4, 0, False),     # 1004 not 8-lane units
+    (14, 4, 1000, torch.float32, 1, 0, False),      # system stride 1001
+    (14, 1, 4096, torch.float32, 0, 2, False),      # 8 bytes off
+    (14, 1, 4096, torch.bfloat16, 0, 8, True),      # 16 bytes off
+    (1, 3, 8, torch.bfloat16, 0, 0, True),
+])
+def test_combine_load_width_choice(m, n_sys, n, dtype, pad, offset, want):
+    x = _view(m, n_sys, n, dtype, pad, offset)
+    assert tdevice.vector_lanes(x) is want
+
+
+def test_combine_grid_fills_the_card_once():
+    fill = tcombine.CTAS_PER_SM * 132
+    assert _grid(tcombine, 2670000 // 4, 1, 132) == fill
+    assert _grid(tcombine, 131072 // 4, 4, 132) == -(-fill // 4)
+    assert _grid(tcombine, 1000, 1, 132) == 4        # one per 256 units
+    assert _grid(tcombine, 10, 65535, 132) == 1

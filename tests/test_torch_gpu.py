@@ -9,7 +9,8 @@ tests. Run on a card with:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: integer-valued data must match exactly (every fp32 sum is
-exact in any order); random data |diff| <= 1e-5 * max(1, max|twin|) (fp32
+exact in any order while every partial sum stays below 2**24 in magnitude:
+the layouts of thousands of blocks draw values from {-1, 0, 1}); random data |diff| <= 1e-5 * max(1, max|twin|) (fp32
 summation order over up to a few thousand lanes per block); two launches
 on the same inputs must be bit-identical (no atomics). K7 on unit-normal
 inputs, over the rows that see at least one key: fp32 within 2e-5 + 1e-5 *
@@ -25,6 +26,7 @@ from repro_torch.configs.base import DMDConfig
 from repro_torch.data.synthetic import synthetic_regression
 from repro_torch.kernels import arena as ka
 from repro_torch.kernels import combine as kc
+from repro_torch.kernels import device as kd
 from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import gram as kg
 from repro_torch.kernels import gram_row as kgr
@@ -363,7 +365,7 @@ def test_flat_gram_row_load_paths(cuda, shape, integer, dtype):
     m, n_sys, n, vec = shape
     x, _ = _flat(m, n_sys, n, dtype, integer, cuda, seed=3)
     per = 16 // x.element_size()
-    assert kgr.vector_lanes(x, x[m - 1]) is (vec and n % per == 0)
+    assert kd.vector_lanes(x, x[m - 1]) is (vec and n % per == 0)
     for slot in (0, m - 1):
         for anchor_first in (False, True):
             got = kgr.gram_row(x, x[slot], anchor_first=anchor_first)
@@ -374,6 +376,93 @@ def test_flat_gram_row_load_paths(cuda, shape, integer, dtype):
             # the query as a copy, not a slot of the buffer
             _compare(kgr.gram_row(x, x[slot].clone(),
                                   anchor_first=anchor_first), want, integer)
+    _assert_tickets_zero(x.device)
+
+
+def _assert_tickets_zero(device):
+    """K1 and K4 leave their per-system tickets at zero."""
     torch.cuda.synchronize()
-    assert not kgr._TICKETS[(x.device, torch.cuda.current_stream()
-                             .cuda_stream)].any()       # left at zero
+    assert not kd.tickets(device, kd.stream(), 1).any()
+
+
+# K1's design (csrc/arena.cu arena_row): systems of 1 block and of
+# thousands, systems with no block (first, inner, last), the query as the
+# buffer's slot and as a separate copy
+K1_LAYOUTS = [[1, 3, 2, 40, 1], [0, 1, 2000, 0, 5, 1, 0]]
+
+
+@pytest.mark.parametrize("bn", [128, 384, 1024])
+@pytest.mark.parametrize("m", [3, 5, 14, 17, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_arena_gram_row_design(cuda, m, bn, dtype):
+    g = torch.Generator(device=cuda).manual_seed(m * 7919 + bn)
+    for blocks in K1_LAYOUTS:
+        nb = sum(blocks)
+        seg = ka.Segments.from_block_sys(
+            np.repeat(np.arange(len(blocks)), blocks), len(blocks), cuda)
+        for integer in (True, False):
+            x = (torch.randint(-1, 2, (nb, m, bn), generator=g, device=cuda)
+                 .float() if integer else
+                 torch.randn((nb, m, bn), generator=g, device=cuda)).to(dtype)
+            assert kd.vector_lanes(x, x[:, m - 1, :])   # bn: 128-lane units
+            for slot in {0, m - 1}:
+                view = x[:, slot, :]
+                assert kd.query_slot(x, view, axis=1) == slot
+                for q in (view, view.clone()):
+                    for anchor_first in (False, True):
+                        got = ka.gram_row(x, q, seg, anchor_first=anchor_first)
+                        want = ka.gram_row_ref(x, q, seg.block_sys, seg.n_sys,
+                                               anchor_first=anchor_first)
+                        _compare(got, want, integer)
+                        assert torch.equal(got, ka.gram_row(
+                            x, q, seg, anchor_first=anchor_first))
+                        if anchor_first and slot == 0:
+                            assert not got.any()
+                        empty = [s for s, b in enumerate(blocks) if not b]
+                        assert not got[empty].any()
+            _assert_tickets_zero(x.device)
+
+
+def test_arena_gram_row_one_lane_loads(cuda):
+    """An arena whose rows are not whole 16-byte units (bn = 100 bf16) or
+    a query 4 bytes off takes one-lane loads: the same numbers."""
+    for dtype, bn, shift in ((torch.bfloat16, 100, 0),
+                             (torch.float32, 128, 1)):
+        x, _, seg = _layout([1, 3, 2, 40, 1], 14, bn, dtype, True, cuda)
+        q = torch.zeros(x.shape[0] * bn + shift, dtype=dtype,
+                        device=cuda)[shift:].view(x.shape[0], bn)
+        q.copy_(x[:, 6, :])
+        assert not kd.vector_lanes(x, q)
+        for anchor_first in (False, True):
+            _compare(ka.gram_row(x, q, seg, anchor_first=anchor_first),
+                     ka.gram_row_ref(x, q, seg.block_sys, seg.n_sys,
+                                     anchor_first=anchor_first), True)
+    _assert_tickets_zero(x.device)
+
+
+# K5's load paths: K4's shapes and the paper's ragged leaves
+# (m, S, n, 16-byte loads when n is whole units?)
+K5_PATHS = K4_PATHS + [(14, 1, 40, True), (14, 1, 200, True),
+                       (14, 1, 240, True)]
+
+
+@pytest.mark.parametrize("shape", K5_PATHS)
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_combine_load_paths(cuda, shape, integer, dtype):
+    m, n_sys, n, vec = shape
+    x, c = _flat(m, n_sys, n, dtype, integer, cuda, seed=4)
+    per = 16 // x.element_size()
+    assert kd.vector_lanes(x) is (vec and n % per == 0)
+    got = kc.combine(x, c)
+    _compare(got, kc.combine_ref(x, c), integer)
+    assert torch.equal(got, kc.combine(x, c))
+    # a strided stack: systems 16 bytes further apart keep the load width,
+    # one element further apart take one-lane loads; the sums run in the
+    # same order either way, so the bits do not change
+    for pad, wide_loads in ((per, kd.vector_lanes(x)), (1, False)):
+        wide = torch.zeros((m, n_sys, n + pad), dtype=dtype, device=cuda)
+        wide[:, :, :n] = x
+        view = wide[:, :, :n]
+        assert kd.vector_lanes(view) is wide_loads
+        assert torch.equal(kc.combine(view, c), got)

@@ -4,6 +4,7 @@ and import hygiene. Exact equality throughout (no floating point here)."""
 import ast
 import dataclasses
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -232,3 +233,27 @@ ptxas info    : Used 40 registers, used 1 barriers, 512 bytes smem
                      "spill_loads": 0, "registers": 168},
         "_Z3barPf": {"smem": 512, "stack": 8, "spill_stores": 4,
                      "spill_loads": 12, "registers": 40}}
+
+
+def test_library_path_hashes_every_file_under_csrc(tmp_path, monkeypatch):
+    """The built library is named by a hash of every file under csrc/, the
+    headers the sources include too: an edited header never loads a stale
+    library."""
+    from repro_torch.kernels import _build
+
+    for path in _build._inputs():
+        shutil.copy(path, tmp_path / path.name)
+    assert {"arena.cu", "flat.cu", "flash.cu", "lanes.cuh"} <= {
+        p.name for p in tmp_path.iterdir()}
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    base = _build.library_path()
+    for path in sorted(tmp_path.iterdir()):
+        text = path.read_bytes()
+        path.write_bytes(text + b"\n// edited\n")
+        assert _build.library_path() != base, path.name
+        path.write_bytes(text)
+        assert _build.library_path() == base
+    (tmp_path / "more.cuh").write_text("// a new header\n")
+    assert _build.library_path() != base
+    assert [p.name for p in _build.sources()] == [
+        "arena.cu", "flash.cu", "flat.cu"]      # headers are not compiled
