@@ -10,26 +10,31 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
 2. Build the CUDA kernels (``src/repro_torch/kernels/csrc/*.cu``, one
    ``nvcc`` per source, in parallel) and print ptxas's registers, shared
    memory and spills (``-Xptxas -v``) of the Hopper flash-attention design,
-   of K1, K4 and K5; K7's design, K1 and K5 must not spill.
+   of K1 and K3-K6; K7's design, K1, K5 and every m <= 16 instantiation of
+   K3 and K6 must not spill, and every K3 and K6 instantiation must be in
+   the report.
 3. The arena kernels K1-K3 against their plain PyTorch twins at the paper
    MLP's arena shape, (5633, 14, 512), with the paper bucket's real block
    -> system table: fp32 and bf16 buffers, both anchors of the Gram row,
-   first and mean anchor of the Gram, bit-identical repeat launches, K1's
-   tickets left at zero; then timings of the kernel, the twin and (where
-   one PyTorch call computes the same function) that call, beside the
-   least time the card could take. K1 takes 16-byte loads on this arena,
-   and is timed in turns with its twin (no single call computes it); its
-   CUDA-graph replay time (device time without the host's time per call)
-   is printed and recorded beside, as ``graph_ms``.
+   every anchor of the Gram (none, first, mean; exactly symmetric; exact
+   on integer data), bit-identical repeat launches, the tickets left at
+   zero; then timings of the kernel, the twin and (where one PyTorch call
+   computes the same function) that call, beside the least time the card
+   could take. K1 and K3 take 16-byte loads on this arena, and are timed
+   in turns with their twins (no single call computes them). Every
+   kernel's CUDA-graph replay time (device time without the host's time
+   per call) is printed and recorded beside its eager time, as
+   ``graph_ms``.
 3b. The flat per-leaf kernels K4-K6 against their twins at the 8 paper
    leaves' buffers (14, n) and one stacked (14, 4, 131072) buffer: fp32
    and bf16, with and without the anchor, per-system tolerance, repeat
-   launches bit-identical, integer-valued data exact; timings at the
-   largest leaf, /l3/w (14, 2670000), with K4's time over ``torch.mv``'s
-   and K5's over ``c @ x``'s in the same call (fp32; bf16 has no library
-   call: its GB/s; K5's CUDA-graph replay time beside, as for K1), and
-   K4's and K5's load width on the ragged n = 2670 leaf (one lane) and on
-   /l3/w (16 bytes).
+   launches bit-identical, integer-valued data exact, K6 exactly
+   symmetric, the tickets left at zero; timings at the largest leaf, /l3/w
+   (14, 2670000), with K4's time over ``torch.mv``'s, K5's over ``c @
+   x``'s and K6's over ``x @ x.T``'s in the same call (fp32; bf16 has no
+   library call: its GB/s), each with its CUDA-graph replay time, and
+   K4's, K5's and K6's load width on the ragged n = 2670 leaf (one lane)
+   and on /l3/w (16 bytes), with K6's CTA count.
 4. The main path: ``paper_loop.train`` for 300 steps at the paper's full
    width (2,882,150 params), default DMDConfig, 1000 teacher rows. It must
    launch the Gram-row kernel 112 times and the combine kernel 8 times,
@@ -37,14 +42,16 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    complete window) the carried streaming Gram must match the Gram
    kernel's full recompute of the ring buffer.
 5. The non-streaming path (``streaming_gram=False``) for 150 steps: 2 Gram
-   and 2 combine launches, no Gram-row launch.
+   and 2 combine launches, no Gram-row launch; its jump ratios and
+   reverted steps are printed.
 6. The per-leaf path (``arena=False``) for 300 steps: K4 896 launches (112
    records x 8 leaves), K5 64 (8 jumps x 8 leaves), no other kernel; loss
    finite and falling. At step 123 each leaf's carried Gram must match
    K6's recompute of its buffer and the arena route's Gram of the same
    system.
 7. The per-leaf recompute path (``arena=False, streaming_gram=False``) for
-   150 steps: K6 and K5 16 launches each, no K4.
+   150 steps: K6 and K5 16 launches each, no K4; jump ratios and reverted
+   steps printed.
 8. The flash-attention kernel K7 against its plain twin: every prefill
    shape the serve phase launches, (1, 4096, 32, 4, 64) bf16 causal, and
    windowed, non-causal, ragged, Sq != Sk, d 16 and 128, GQA rep 1 and 8
@@ -52,7 +59,8 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    128, 129, 257 at d 64 and 128, every mask, GQA rep 1 and 8, q/k/v as
    slices of one fused tensor); repeat launches bit-identical; timings at
    the 4096 shape and the largest serve prefill shape beside the bound and
-   ``scaled_dot_product_attention``, with K7's time over SDPA's.
+   ``scaled_dot_product_attention``, with K7's time over SDPA's and its
+   CUDA-graph replay time.
 9. The serving path at TinyLlama-1.1B's full width (22 layers, d 2048,
    32/4 heads, vocab 32000, bf16, random weights from a seeded generator on
    the card) through ``repro_torch.launch.serve``: the launcher's stream of
@@ -191,8 +199,8 @@ def graph_ms(fn, iters=20):
     """Mean device time of fn() over `iters` launches captured in one CUDA
     graph and replayed, by CUDA events: the kernels back to back, without
     the host's time per call (a wrapper's Python is tens of µs, close to a
-    bandwidth-bound pass at these sizes). Recorded beside the eager time,
-    as ``graph_ms``, for K1 and K5."""
+    bandwidth-bound pass at these sizes). Recorded beside every kernel's
+    eager time, as ``graph_ms``."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -267,13 +275,27 @@ def check_kernels(dev):
                 seg.n_sys))
             again = ka.gram_row(x, q, seg, anchor_first=anchor_first)
             require(torch.equal(got, again), f"gram_row {tag} not repeatable")
-        for anchor in ({"anchor_first": True}, {"anchor_mean": True}):
+        for anchor in ({}, {"anchor_first": True}, {"anchor_mean": True}):
             got = ka.gram(x, seg, **anchor)
             want = ka.gram_ref(x, seg.block_sys, seg.n_sys, **anchor)
             errs["gram"] = max(errs["gram"], check_close(
                 f"gram {tag} {anchor}", got, want, seg.n_sys))
             require(torch.equal(got, ka.gram(x, seg, **anchor)),
                     f"gram {tag} not repeatable")
+            require(torch.equal(got, got.transpose(1, 2)),
+                    f"gram {tag} {anchor} not exactly symmetric")
+        # integer data, values in {-1, 0, 1}: every partial sum stays below
+        # 2**24, so every order of summation gives the same fp32 result
+        xi = torch.randint(-1, 2, (nb, m, bn), generator=torch.Generator(
+            device=dev).manual_seed(4), device=dev).to(dtype)
+        for anchor_first in (False, True):
+            got = ka.gram(xi, seg, anchor_first=anchor_first)
+            want = ka.gram_ref(xi, seg.block_sys, seg.n_sys,
+                               anchor_first=anchor_first)
+            require(torch.equal(got, want), f"gram {tag} integer "
+                    f"anchor_first={anchor_first}: not exact, max diff "
+                    f"{max_err(got, want)}")
+        del xi
         got = ka.combine(x, c, seg)
         want = ka.combine_ref(x, c, seg.block_sys)
         errs["combine"] = check_close(f"combine {tag}", got, want, nb)
@@ -281,7 +303,7 @@ def check_kernels(dev):
                 f"combine {tag} not repeatable")
         torch.cuda.synchronize()
         require(not kd.tickets(x.device, kd.stream(), seg.n_sys).any(),
-                f"gram_row {tag}: tickets not left at zero")
+                f"gram_row / gram {tag}: tickets not left at zero")
         # K1's per-call choices on the main path's arena and query
         vec, qslot = kd.vector_lanes(x, q), kd.query_slot(x, q, axis=1)
         require(vec and qslot == slot, f"K1 on the paper arena {tag}: "
@@ -289,6 +311,14 @@ def check_kernels(dev):
         print(f"K1 load path on the paper arena {tag}: 16 bytes per row per "
               f"step, query read as slot {qslot}, "
               f"{ka.grid_ctas(nb, m, kd.sm_count(x.device))} CTAs")
+        # K3's: the same load width rule on the buffer alone, K1's grid at
+        # one CTA per SM
+        require(kd.vector_lanes(x), f"K3 on the paper arena {tag}: 16-byte "
+                "loads False")
+        ctas, n_part = ka.gram_grid(nb, m, seg.n_sys, kd.sm_count(x.device))
+        print(f"K3 load path on the paper arena {tag}: 16-byte rows (16- or "
+              f"8-byte units by gram.cuh's GramLoads), {ctas} CTAs, {n_part} "
+              "partial floats, one launch")
 
         xbytes = x.numel() * x.element_size()
         cb = c[seg.block_sys.long()]
@@ -313,22 +343,23 @@ def check_kernels(dev):
                 None, xbytes + seg.n_sys * m * m * 4, 2.0 * nb * m * m * bn),
         }
         for name, (kern, twin, lib, nbytes, flops) in runs.items():
-            extra = {}
-            if name == "gram_row":
+            if name in ("gram_row", "gram"):
                 k_ms, p_ms = in_turns(kern, twin)
-                extra["graph_ms"] = graph_ms(kern)
             else:
                 k_ms, p_ms = cuda_ms(kern), cuda_ms(twin)
             l_ms = cuda_ms(lib) if lib is not None else None
+            extra = {"graph_ms": graph_ms(kern)}
             b_ms, b_by = bound_ms(nbytes, flops)
             print(f"kernel {name} {tag}: kernel_ms {k_ms} ref_ms {p_ms} "
-                  f"bound_ms {b_ms} ({b_by}) library_ms {l_ms} "
-                  f"max_abs_err {errs[name]} GB/s {nbytes / k_ms / 1e6}")
-            if name == "gram_row":
-                print(f"K1 {(nb, m, bn)} {tag}: kernel / twin {k_ms / p_ms} "
-                      f"(same call, in turns); {nbytes / k_ms / 1e6} GB/s, "
-                      f"{b_ms / k_ms} of the bound; CUDA-graph replay "
-                      f"{extra['graph_ms']} ms")
+                  f"bound_ms {b_ms} ({b_by}) library_ms {l_ms} graph_ms "
+                  f"{extra['graph_ms']} max_abs_err {errs[name]} GB/s "
+                  f"{nbytes / k_ms / 1e6}")
+            if name in ("gram_row", "gram"):
+                print(f"{'K1' if name == 'gram_row' else 'K3'} {(nb, m, bn)} "
+                      f"{tag}: kernel / twin {k_ms / p_ms} (same call, in "
+                      f"turns); {nbytes / k_ms / 1e6} GB/s, {b_ms / k_ms} of "
+                      f"the bound; CUDA-graph replay {extra['graph_ms']} ms, "
+                      f"{b_ms / extra['graph_ms']} of the bound")
             if dtype == torch.float32:
                 records[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=l_ms,
@@ -358,6 +389,8 @@ def check_flat_kernels(dev):
                 _check_flat(tag + (" integer" if exact else ""), x, cc,
                             n_sys, exact)
         torch.cuda.synchronize()
+        require(not kd.tickets(x32.device, kd.stream(), n_sys).any(),
+                f"flat kernels {(m_, n_sys, n)}: tickets not left at zero")
     print(f"flat kernels: {len(shapes)} shapes x fp32/bf16 x random/integer "
           f"match their twins")
     # K4's and K5's two load paths: one lane per load on the ragged leaf,
@@ -367,12 +400,21 @@ def check_flat_kernels(dev):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.zeros((m, 1, leaves[path]), dtype=dtype, device=dev)
             for kernel, vec in (("K4", kd.vector_lanes(x, x[m - 1])),
-                                ("K5", kd.vector_lanes(x))):
+                                ("K5", kd.vector_lanes(x)),
+                                ("K6", kd.vector_lanes(x))):
                 require(vec is want,
                         f"{kernel} on {path} {dtype}: 16-byte loads {vec}")
+                grid = ""
+                if kernel == "K6":
+                    _, ctas, n_part = kg.grid(x, kd.sm_count(dev))
+                    grid = (f", {ctas} CTAs, {n_part} partial floats, one "
+                            "launch")
+                width = "16 bytes" if vec else "one lane"
+                if kernel == "K6" and vec:
+                    width = "16-byte rows (16- or 8-byte units by gram.cuh)"
                 print(f"{kernel} load path on {path} (n {leaves[path]}) "
-                      f"{str(dtype).removeprefix('torch.')}: "
-                      f"{'16 bytes' if vec else 'one lane'} per row per step")
+                      f"{str(dtype).removeprefix('torch.')}: {width} per row "
+                      f"per step{grid}")
 
     # timings at the largest leaf, /l3/w, as the main path gives it
     n = leaves["/l3/w"]
@@ -411,32 +453,29 @@ def check_flat_kernels(dev):
                                         kc.combine_ref(x, c32)),
                 "flat_gram": max_err(kg.gram(x), kg.gram_ref(x))}
         for name, (kern, twin, lib, anchored, nbytes, flops) in runs.items():
-            extra = {}
-            if name in ("flat_gram_row", "flat_combine"):
-                k_ms, l_ms = in_turns(kern, lib)
-            else:
-                k_ms = cuda_ms(kern)
-                l_ms = cuda_ms(lib) if lib is not None else None
-            if name == "flat_combine":
-                extra["graph_ms"] = graph_ms(kern)
+            k_ms, l_ms = in_turns(kern, lib)
+            extra = {"graph_ms": graph_ms(kern)}
             p_ms = cuda_ms(twin)
             a_ms = cuda_ms(anchored) if anchored is not None else None
             b_ms, b_by = bound_ms(nbytes, flops)
             print(f"kernel {name} {tag} /l3/w {(m, n)}: kernel_ms {k_ms} "
                   f"anchored_ms {a_ms} ref_ms {p_ms} bound_ms {b_ms} "
-                  f"({b_by}) library_ms {l_ms} max_abs_err {errs[name]} "
-                  f"GB/s {nbytes / k_ms / 1e6}")
+                  f"({b_by}) library_ms {l_ms} graph_ms {extra['graph_ms']} "
+                  f"max_abs_err {errs[name]} GB/s {nbytes / k_ms / 1e6}")
             if name == "flat_gram_row":
                 print(f"K4 /l3/w {tag}: " + (
                     f"kernel / torch.mv {k_ms / l_ms} (same call, in turns)"
                     if l_ms else f"no library call; {nbytes / k_ms / 1e6} "
                     f"GB/s, {b_ms / k_ms} of the bound"))
-            if name == "flat_combine":
-                print(f"K5 /l3/w {tag}: " + (
-                    f"kernel / c @ x {k_ms / l_ms} (same call, in turns)"
+            if name in ("flat_combine", "flat_gram"):
+                kernel, call = (("K5", "c @ x") if name == "flat_combine"
+                                else ("K6", "x @ x.T"))
+                print(f"{kernel} /l3/w {tag}: " + (
+                    f"kernel / {call} {k_ms / l_ms} (same call, in turns)"
                     if l_ms else "no library call")
                     + f"; {nbytes / k_ms / 1e6} GB/s, {b_ms / k_ms} of the "
-                    f"bound; CUDA-graph replay {extra['graph_ms']} ms")
+                    f"bound; CUDA-graph replay {extra['graph_ms']} ms, "
+                    f"{b_ms / extra['graph_ms']} of the bound")
             if fp32:
                 records[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=l_ms,
@@ -473,44 +512,58 @@ def _check_flat(tag, x, c, n_sys, exact):
               kg.gram_ref(x, anchor_first=anchor_first))
         require(torch.equal(got, kg.gram(x, anchor_first=anchor_first)),
                 f"flat_gram {tag} not repeatable")
+        require(torch.equal(got, got.transpose(1, 2)),
+                f"flat_gram {tag} not exactly symmetric")
     got = kc.combine(x, c)
     close("flat_combine", got, kc.combine_ref(x, c))
     require(torch.equal(got, kc.combine(x, c)),
             f"flat_combine {tag} not repeatable")
 
 
-# kernels whose ptxas report must show no spill: K7's Hopper design, K1, K5
+# kernels whose ptxas report must show no spill: K7's Hopper design, K1, K5,
+# and K3 and K6 (arena_gram_k, gram_flat) where m <= 16
 NO_SPILL = ("flash_wgmma", "arena_row", "combine_flat")
+NO_SPILL_M16 = ("arena_gram_k", "gram_flat")
 
 
 def _kernel_name(mangled):
-    """flash_wgmma<64>, row_part<float,16,vec=1> (K4), arena_row<...> (K1)
-    and combine_flat<...> (K5) from ptxas's mangled names."""
+    """flash_wgmma<64>, row_part<float,16,vec=1> (K4), arena_row<...> (K1),
+    combine_flat<...> (K5), arena_gram_k<...> (K3) and gram_flat<...> (K6)
+    from ptxas's mangled names, with their MMAX (None for K7)."""
     if m := re.search(r"flash_wgmmaILi(\d+)E", mangled):
-        return f"flash_wgmma<{m.group(1)}>"
-    if m := re.search(r"(row_part|arena_row|combine_flat)I"
-                      r"(f|13__nv_bfloat16)Li(\d+)ELb([01])E", mangled):
+        return f"flash_wgmma<{m.group(1)}>", None
+    if m := re.search(r"(row_part|arena_row|combine_flat|arena_gram_k|"
+                      r"gram_flat)I(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
+                      mangled):
         dtype = "float" if m.group(2) == "f" else "bf16"
-        return f"{m.group(1)}<{dtype},{m.group(3)},vec={m.group(4)}>"
-    return None
+        return (f"{m.group(1)}<{dtype},{m.group(3)},vec={m.group(4)}>",
+                int(m.group(3)))
+    return None, None
 
 
 def report_ptxas():
     """Phase 2: registers, shared memory and spills of the Hopper K7 design
-    and of K1, K4 and K5, from ptxas -v; those in NO_SPILL must not
-    spill."""
+    and of K1 and K3-K6, from ptxas -v; those in NO_SPILL, and K3's and
+    K6's instantiations for m <= 16, must not spill. Every K3 and K6
+    instantiation must be in the report."""
+    seen = set()
     for mangled, res in sorted(_build.kernel_resources(
             _build.ptxas_log()).items()):
-        name = _kernel_name(mangled)
+        name, mmax = _kernel_name(mangled)
         if name is None:
             continue
+        seen.add(name)
         print(f"ptxas {name}: {res.get('registers')} registers, static smem "
               f"{res['smem']} B, stack {res.get('stack')} B, spill stores "
               f"{res.get('spill_stores')} B, spill loads "
               f"{res.get('spill_loads')} B")
-        if name.startswith(NO_SPILL):
+        if name.startswith(NO_SPILL) or (name.startswith(NO_SPILL_M16)
+                                         and mmax <= 16):
             require(res.get("spill_stores") == 0 and
                     res.get("spill_loads") == 0, f"{name} spills: {res}")
+    want = {f"{k}<{d},{mm},vec={v}>" for k in NO_SPILL_M16
+            for d in ("float", "bf16") for mm in (8, 16, 32) for v in (0, 1)}
+    require(want <= seen, f"ptxas report lacks {sorted(want - seen)}")
 
 
 def run_main_path(dev, X, Y):
@@ -602,7 +655,8 @@ def run_recompute_path(dev, X, Y, what, cfg, want):
     torch.cuda.synchronize()
     launches = require_counts(what, want)
     print(f"{what}: 150 steps, launches {launches}, loss "
-          f"{res.losses[0]} -> {res.losses[-1]}")
+          f"{res.losses[0]} -> {res.losses[-1]}; jump ratios {res.jumps}, "
+          f"reverted {res.reverted}")
     require(np.isfinite(res.losses).all(), f"{what}: non-finite loss")
     return launches
 
@@ -719,9 +773,13 @@ def check_flash(dev):
               f" max_abs_err {err} TFLOP/s {flops / k_ms / 1e9}")
         print(f"K7 {case[:6]}: kernel / sdpa {k_ms / l_ms} (same call, in "
               f"turns); {b_ms / k_ms} of the bound")
+        g_ms = graph_ms(lambda: kf.flash_attention(q, k, v))
+        print(f"K7 {case[:6]}: CUDA-graph replay {g_ms} ms, {b_ms / g_ms} "
+              "of the bound")
         if record is None:
             record = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=l_ms, max_abs_err=err)
+                          bound_by=b_by, library_ms=l_ms, max_abs_err=err,
+                          graph_ms=g_ms)
     return record
 
 

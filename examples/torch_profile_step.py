@@ -66,9 +66,9 @@ def main():
         pwall = time.perf_counter() - t0
     rows = [(device_us(e), e.count, e.key) for e in prof.key_averages()]
     ours = sum(r[0] for r in rows
-               if any(k in r[2] for k in ("row_part", "gram_part", "seg_sum",
-                                          "chunk_sum", "combine<",
-                                          "combine_flat<")))
+               if any(k in r[2] for k in ("row_part", "arena_row",
+                                          "arena_gram_k", "gram_flat",
+                                          "combine<", "combine_flat<")))
     rows = [r for r in rows if r[0] > 0]
     busy_us = sum(r[0] for r in rows)
     print(f"profiled: wall {pwall} s, device kernel time {busy_us / 1e6} s, "

@@ -36,11 +36,12 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "arena_gram_row": (_I, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _I, _P),
-    "arena_gram": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "arena_gram": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _P),
     "arena_combine": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
     "flat_gram_row": (_I, _P, _LL, _LL, _P, _LL, _I, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _P),
-    "flat_gram": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _P),
+    "flat_gram": (_I, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "flat_combine": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _P),
     "flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         *(_LL,) * 12, _I, _I, _P),

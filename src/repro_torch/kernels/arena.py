@@ -21,7 +21,9 @@ call, in plain Python: whether its loads are 16 bytes wide
 (``device.vector_lanes``), whether the query is a slot of the buffer
 (``device.query_slot`` along the slot axis) and how many CTAs the grid has
 (``grid_ctas``: one wave over all blocks, two CTAs per SM where m <= 16);
-its per-system integer tickets are ``device.tickets``.
+its per-system integer tickets are ``device.tickets``. ``gram`` (K3) runs
+on the same grid at GRAM_CTAS_PER_SM (``gram_grid``), with the same load
+width rule (``vector_lanes(buf)``) and tickets.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.kernels.device import (DTYPES, MAX_M, launch, on_cuda,
                                         resolve_device, sm_count, stream)
 
 CTAS_PER_SM = 2                  # K1's CTAs per SM for m <= 16 (one above)
+GRAM_CTAS_PER_SM = 1             # K3's: its m(m+1)/2 sums fill the registers
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"gram_row": 0, "gram": 0, "combine": 0}
@@ -150,12 +153,21 @@ def _check_segments(seg: Segments, nb: int, device: torch.device) -> None:
             raise ValueError(f"segment tables must be int32 on {device}")
 
 
-def grid_ctas(nb: int, m: int, sms: int) -> int:
-    """K1's grid, one wave: CTAS_PER_SM CTAs per SM where m <= 16 (the
-    registers of two fit on an SM), else one; each CTA a contiguous range
-    of at least one block."""
-    per_sm = CTAS_PER_SM if m <= 16 else 1
+def grid_ctas(nb: int, m: int, sms: int, per_sm: int = CTAS_PER_SM) -> int:
+    """K1's grid, one wave: `per_sm` CTAs per SM where m <= 16 (the
+    registers of two K1 CTAs fit on an SM), else one; each CTA a contiguous
+    range of at least one block. K3 takes it with GRAM_CTAS_PER_SM."""
+    per_sm = per_sm if m <= 16 else 1
     return max(1, min(nb, per_sm * sms))
+
+
+def gram_grid(nb: int, m: int, n_sys: int, sms: int) -> tuple[int, int]:
+    """K3's grid and scratch: (CTAs, floats of its partial buffer). The
+    grid is K1's at GRAM_CTAS_PER_SM; CTA c's partial for system s (its
+    upper triangle, m(m+1)/2 floats) is row c + s, so ctas + n_sys rows
+    hold them all."""
+    ctas = grid_ctas(nb, m, sms, GRAM_CTAS_PER_SM)
+    return ctas, (ctas + n_sys) * (m * (m + 1) // 2)
 
 
 def gram_row(buf: torch.Tensor, q: torch.Tensor, seg: Segments, *,
@@ -207,13 +219,18 @@ def gram(buf: torch.Tensor, seg: Segments, *, anchor_first: bool = False,
     if not cuda:
         return gram_ref(buf, seg.block_sys, seg.n_sys,
                         anchor_first=anchor_first, anchor_mean=anchor_mean)
-    part = torch.empty((nb, m, m), dtype=torch.float32, device=buf.device)
+    ctas, n_part = gram_grid(nb, m, seg.n_sys, sm_count(buf.device))
+    part = torch.empty((n_part,), dtype=torch.float32, device=buf.device)
     out = torch.empty((seg.n_sys, m, m), dtype=torch.float32,
                       device=buf.device)
     anchor = 1 if anchor_first else (2 if anchor_mean else 0)
+    st = stream()
     launch("arena_gram", DTYPES[buf.dtype], buf.data_ptr(),
-            part.data_ptr(), seg.sys_off.data_ptr(), out.data_ptr(), nb, m,
-            bn, seg.n_sys, anchor, stream())
+           seg.block_sys.data_ptr(), seg.sys_off.data_ptr(),
+           part.data_ptr(),
+           _device.tickets(buf.device, st, seg.n_sys).data_ptr(),
+           out.data_ptr(), nb, m, bn, seg.n_sys, ctas,
+           int(_device.vector_lanes(buf)), anchor, st)
     LAUNCHES["gram"] += 1
     return out
 

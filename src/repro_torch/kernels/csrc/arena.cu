@@ -35,26 +35,27 @@
 //     multiple of 128 lanes), else one lane. Each row is read once: the
 //     anchor (row 0) once with its own zero term skipped, and the query once
 //     when it is a slot of the buffer, as it always is on the main path.
-//   * K2 and K3 run one CTA per block. K3 writes a per-block partial (m*m
-//     floats, small next to the block) and a second pass (seg_sum) sums
-//     each system's contiguous partials in a fixed order.
-//   * Anchoring (x_j - x_0) happens in registers (K1) or shared memory (K3),
-//     never as a second pass over device memory.
+//   * K3 (the full Gram: the recompute path, mean-anchored buckets) is one
+//     launch on the same block ranges and the same pieces, one CTA per SM
+//     (arena.py gram_grid: the triangle of sums fills the registers), with
+//     the same partials and tickets (an m (m + 1) / 2 triangle per (CTA,
+//     system) in place of an m-vector). Each piece is summed as gram.cuh's
+//     register outer product; every row is read once (the first and the
+//     mean anchor come from the loaded rows), in 16- or 8-byte units by
+//     gram.cuh's GramLoads.
+//   * K2 runs one CTA per block.
+//   * Anchoring (x_j - x_0, or x_j minus the per-lane mean) happens in
+//     registers, never as a second pass over device memory.
 //   * bf16 buffers are upcast per element; all sums are fp32 (IEEE, no TF32).
 // Each launcher returns cudaGetLastError(); the Python wrapper raises if it
 // is not 0. Launches go to the caller's stream and do not synchronise.
 
-#include "lanes.cuh"
+#include "gram.cuh"
 
 namespace {
 
 constexpr int kMaxM = 32;
 constexpr int kRowThreads = 256;                     // K1
-constexpr int kSegThreads = 1024;
-constexpr int kGramThreads = 256;
-constexpr int kGramTile = 256;                       // lanes staged per chunk
-constexpr int kGramMaxPairs =                        // upper-triangle (j, k)
-    (kMaxM * (kMaxM + 1) / 2 + kGramThreads - 1) / kGramThreads;  // per thread
 constexpr int kCombineThreads = 128;
 
 // K1: out[s, j] = sum over the blocks i of system s of <q_i - x_i0,
@@ -216,103 +217,117 @@ arena_row(const T* __restrict__ x, const T* __restrict__ q, long long qs,
   }
 }
 
-// Pass 2 of K3: out[s, c] = sum over blocks b of system s of
-// part[b, c], for c < width (width = m or m*m, at most kSegThreads).
-// Thread t = r * width + c owns column c of the rows b0 + r, b0 + r +
-// stripes, ...: every step of the loop reads one contiguous run of
-// stripes * width floats, and the stripes are summed in a fixed order.
-__global__ void __launch_bounds__(kSegThreads)
-seg_sum(const float* __restrict__ part, const int* __restrict__ sys_off,
-        float* __restrict__ out, int width) {
-  const int s = blockIdx.x;
-  const long long b0 = sys_off[s];
-  const long long b1 = sys_off[s + 1];
-  const int stripes = kSegThreads / width;
-  const int t = threadIdx.x;
-  const int r = t / width;
-  const int c = t - r * width;
-  __shared__ float red[kSegThreads];
-  float acc = 0.f;
-  if (r < stripes) {
-    for (long long b = b0 + r; b < b1; b += stripes) acc += part[b * width + c];
-  }
-  red[t] = acc;
-  __syncthreads();
-  if (t < width) {
-    float sum = 0.f;
-    for (int k = 0; k < stripes; ++k) sum += red[k * width + t];
-    out[(long long)s * width + t] = sum;
-  }
-}
-
-// K3 pass 1: part[i] = D_i D_i^T for block i, D = x_i minus its anchor
-// (anchor 0: none, 1: row 0, 2: the per-lane mean over the m rows). The
-// block is staged through shared memory kGramTile lanes at a time and
-// anchored there; each thread owns up to kGramMaxPairs entries (j <= k) of
-// the upper triangle and mirrors them, so the result is exactly symmetric.
-// Rows are padded to kGramTile + 1 floats: threads reading column l of
-// different rows then hit different banks.
+// K3's units of a piece, blocks [p0, p1) of an arena: thread tg of T takes
+// unit tg, then tg + T, ...; unit k is lane unit k % upb of block p0 + k /
+// upb, stepped without a division.
 template <typename T>
-__global__ void __launch_bounds__(kGramThreads)
-gram_part(const T* __restrict__ x, float* __restrict__ part, int m, int bn,
-          int anchor) {
-  __shared__ float tile[kMaxM][kGramTile + 1];
-  const long long i = blockIdx.x;
-  const T* xi = x + i * m * bn;
-  const int npairs = m * (m + 1) / 2;
-  int pj[kGramMaxPairs], pk[kGramMaxPairs];
-  float acc[kGramMaxPairs];
-#pragma unroll
-  for (int p = 0; p < kGramMaxPairs; ++p) {
-    acc[p] = 0.f;
-    int rem = threadIdx.x + p * kGramThreads;
-    int j = 0;
-    if (rem < npairs) {
-      while (rem >= m - j) {
-        rem -= m - j;
-        ++j;
+struct BlockUnits {
+  const T* x;
+  long long bs;                               // block stride, elements
+  int bn, p0, p1;
+
+  struct Cursor {
+    const T* x;
+    long long bs;
+    int bn, upb, p1, step_b, step_w, blk, w;
+    __device__ bool ok() const { return blk < p1; }
+    __device__ const T* base() const { return x + blk * bs; }
+    __device__ long long rs() const { return bn; }
+    __device__ long long unit() const { return w; }
+    __device__ void next() {
+      blk += step_b;
+      w += step_w;
+      if (w >= upb) {
+        w -= upb;
+        ++blk;
       }
+    }
+  };
+  template <int P>
+  __device__ Cursor start(int tg, int nthr) const {
+    const int upb = bn / P;                   // units per block row
+    const int sb = nthr / upb;                // blocks and units a step
+    return {x, bs, bn, upb, p1, sb, nthr - sb * upb, p0 + tg / upb,
+            tg - (tg / upb) * upb};
+  }
+};
+
+// K3: out[s] = D D^T summed over the blocks of system s, D = the block's
+// rows minus their anchor (0: none, 1: row 0, 2: the per-lane mean), one
+// launch on K1's grid (arena.py grid_ctas, one CTA per SM: the triangle
+// fills the registers). CTA c walks the systems of its block range as K1
+// does; for each piece its threads stride over the piece's units (thread t
+// takes unit t, then t + T, ...; unit k is lane unit k % upb of block p0 +
+// k / upb) and gram.cuh's gram_cta sums the register outer product. A
+// system inside the range is written at once, mirrored; the first and the
+// last system of a range go to part[c + s] (m (m + 1) / 2 floats each) and
+// the last of the CTAs that touch the system (an integer ticket, which it
+// resets) sums them in CTA order and writes the system.
+template <typename T, int MMAX, bool VEC>
+__global__ void __launch_bounds__(kGramThreads, 1)
+arena_gram_k(const T* __restrict__ x, const int* __restrict__ block_sys,
+             const int* __restrict__ sys_off, float* __restrict__ part,
+             unsigned* __restrict__ tickets, float* __restrict__ out, int nb,
+             int m, int bn, int n_sys, int anchor) {
+  const int G = gridDim.x;
+  const int c = blockIdx.x;
+  const int b_lo = (int)((long long)nb * c / G);
+  const int b_hi = (int)((long long)nb * (c + 1) / G);
+  auto cta_of = [&](long long b) {
+    return (int)(((b + 1) * G + nb - 1) / nb - 1);
+  };
+  const long long bs = (long long)m * bn;     // block stride, elements
+  const int nt = tri_size(m);
+  const int mm = m * m;
+  __shared__ GramSmem<MMAX> sh;
+
+  const int s_a = block_sys[b_lo];
+  const int s_b = block_sys[b_hi - 1];
+  const int s_first = c == 0 ? 0 : min(s_a, block_sys[b_lo - 1] + 1);
+  const int s_last = c == G - 1 ? n_sys - 1 : s_b;
+  for (int s = s_first; s <= s_last; ++s) {
+    const int o0 = sys_off[s];
+    const int o1 = sys_off[s + 1];
+    if (o0 == o1) {                           // a system with no block
+      for (int e = threadIdx.x; e < mm; e += kGramThreads)
+        out[(long long)s * mm + e] = 0.f;
+      continue;
+    }
+    const int p0 = max(b_lo, o0);
+    const int p1 = min(b_hi, o1);
+    const BlockUnits<T> units{x, bs, bn, p0, p1};
+    gram_cta<T, VEC, MMAX>(units, m, anchor, sh);
+    if (o0 >= b_lo && o1 <= b_hi) {
+      write_gram(out + (long long)s * mm, sh.tri, m);
     } else {
-      rem = 0;
+      for (int i = threadIdx.x; i < nt; i += kGramThreads)
+        part[(long long)(c + s) * nt + i] = sh.tri[i];
     }
-    pj[p] = j;
-    pk[p] = j + rem;
+    __syncthreads();                          // sh is reused
   }
-  for (int l0 = 0; l0 < bn; l0 += kGramTile) {
-    const int w = min(kGramTile, bn - l0);
-    for (int l = threadIdx.x; l < w; l += kGramThreads) {
-      float a = 0.f;
-      if (anchor == 1) {
-        a = to_f32(xi[l0 + l]);
-      } else if (anchor == 2) {
-        float sum = 0.f;
-        for (int j = 0; j < m; ++j) sum += to_f32(xi[(long long)j * bn + l0 + l]);
-        a = sum / (float)m;
-      }
-      for (int j = 0; j < m; ++j) {
-        tile[j][l] = to_f32(xi[(long long)j * bn + l0 + l]) - a;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < kGramMaxPairs; ++p) {
-      if (threadIdx.x + p * kGramThreads < npairs) {
-        const float* rj = tile[pj[p]];
-        const float* rk = tile[pk[p]];
-        float s = acc[p];
-        for (int l = 0; l < w; ++l) s = fmaf(rj[l], rk[l], s);
-        acc[p] = s;
-      }
-    }
-    __syncthreads();
+
+  // The systems that span CTAs, as in K1: one ticket each, then the sums of
+  // those this CTA finished last.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    const int s = threadIdx.x ? s_b : s_a;
+    const int cnt = cta_of(sys_off[s + 1] - 1) - cta_of(sys_off[s]) + 1;
+    const bool mine = threadIdx.x == 0 || s_b != s_a;
+    sh.last[threadIdx.x] = mine && cnt > 1 &&
+        atomicAdd(tickets + s, 1u) == (unsigned)(cnt - 1);
   }
-  float* pi = part + i * m * m;
-#pragma unroll
-  for (int p = 0; p < kGramMaxPairs; ++p) {
-    if (threadIdx.x + p * kGramThreads < npairs) {
-      pi[pj[p] * m + pk[p]] = acc[p];
-      pi[pk[p] * m + pj[p]] = acc[p];
-    }
+  __syncthreads();
+  for (int k = 0; k < 2; ++k) {
+    if (!sh.last[k]) continue;
+    __threadfence();
+    const int s = k ? s_b : s_a;
+    const int c0 = cta_of(sys_off[s]);
+    const int cnt = cta_of(sys_off[s + 1] - 1) - c0 + 1;
+    sum_partials(part + (long long)(c0 + s) * nt, nt, cnt, nt, sh);
+    write_gram(out + (long long)s * mm, sh.tri, m);
+    if (threadIdx.x == 0) tickets[s] = 0;
+    __syncthreads();                          // sh is reused
   }
 }
 
@@ -356,14 +371,23 @@ void launch_gram_row(const void* x, const void* q, long long qs, int qslot,
   }
 }
 
-template <typename T>
-void launch_gram(const void* x, void* part, const void* sys_off, void* out,
-                 int nb, int m, int bn, int n_sys, int anchor,
-                 cudaStream_t st) {
+template <typename T, bool VEC>
+void launch_gram(const void* x, const void* block_sys, const void* sys_off,
+                 void* part, void* tickets, void* out, int nb, int m, int bn,
+                 int n_sys, int ctas, int anchor, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const int* bt = static_cast<const int*>(block_sys);
+  const int* ot = static_cast<const int*>(sys_off);
   float* pt = static_cast<float*>(part);
-  gram_part<T><<<nb, kGramThreads, 0, st>>>(static_cast<const T*>(x), pt, m, bn, anchor);
-  seg_sum<<<n_sys, kSegThreads, 0, st>>>(
-      pt, static_cast<const int*>(sys_off), static_cast<float*>(out), m * m);
+  unsigned* tk = static_cast<unsigned*>(tickets);
+  float* rt = static_cast<float*>(out);
+  if (m <= 8) {
+    arena_gram_k<T, 8, VEC><<<ctas, kGramThreads, 0, st>>>(xt, bt, ot, pt, tk, rt, nb, m, bn, n_sys, anchor);
+  } else if (m <= 16) {
+    arena_gram_k<T, 16, VEC><<<ctas, kGramThreads, 0, st>>>(xt, bt, ot, pt, tk, rt, nb, m, bn, n_sys, anchor);
+  } else {
+    arena_gram_k<T, kMaxM, VEC><<<ctas, kGramThreads, 0, st>>>(xt, bt, ot, pt, tk, rt, nb, m, bn, n_sys, anchor);
+  }
 }
 
 }  // namespace
@@ -373,7 +397,9 @@ void launch_gram(const void* x, void* part, const void* sys_off, void* out,
 // `part` holds (ctas + n_sys) * m floats, `tickets` n_sys zero integers
 // (left zero again); the query is row `qslot` of each block (q unused) when
 // qslot >= 0; vec = 1 only where every row of x and q starts 16-byte
-// aligned and bn is whole 16-byte units.
+// aligned and bn is whole 16-byte units. K3: the same with x alone, `part`
+// holding (ctas + n_sys) * m (m + 1) / 2 floats; anchor 0 none, 1 row 0, 2
+// the per-lane mean.
 extern "C" int arena_gram_row(int dtype, const void* x, const void* q,
                               long long q_stride, int qslot,
                               const void* block_sys, const void* sys_off,
@@ -393,14 +419,19 @@ extern "C" int arena_gram_row(int dtype, const void* x, const void* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int arena_gram(int dtype, const void* x, void* part,
-                          const void* sys_off, void* out, int nb, int m,
-                          int bn, int n_sys, int anchor, void* stream) {
+extern "C" int arena_gram(int dtype, const void* x, const void* block_sys,
+                          const void* sys_off, void* part, void* tickets,
+                          void* out, int nb, int m, int bn, int n_sys,
+                          int ctas, int vec, int anchor, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch_gram<float>(x, part, sys_off, out, nb, m, bn, n_sys, anchor, st);
+  if (dtype == 0 && vec) {
+    launch_gram<float, true>(x, block_sys, sys_off, part, tickets, out, nb, m, bn, n_sys, ctas, anchor, st);
+  } else if (dtype == 0) {
+    launch_gram<float, false>(x, block_sys, sys_off, part, tickets, out, nb, m, bn, n_sys, ctas, anchor, st);
+  } else if (vec) {
+    launch_gram<__nv_bfloat16, true>(x, block_sys, sys_off, part, tickets, out, nb, m, bn, n_sys, ctas, anchor, st);
   } else {
-    launch_gram<__nv_bfloat16>(x, part, sys_off, out, nb, m, bn, n_sys, anchor, st);
+    launch_gram<__nv_bfloat16, false>(x, block_sys, sys_off, part, tickets, out, nb, m, bn, n_sys, ctas, anchor, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

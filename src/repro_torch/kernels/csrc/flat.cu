@@ -19,10 +19,11 @@
 // What bounds these passes on an H100: bytes. Each reads the buffer once
 // (149.5 MB for the paper MLP's largest leaf) and does 2 to 2m flops per
 // element read. The design:
-//   * K4 (the pass of every recorded step) and K5 (the jump blend) size
-//     their grid to the card: CTAS_PER_SM CTAs per SM over all systems
-//     (gram_row.py, combine.py), each striding over its system's lanes, so
-//     the grid is one wave and K4's CTAs pay their reduction tail once.
+//   * K4 (the pass of every recorded step), K5 (the jump blend) and K6 (the
+//     full Gram) size their grid to the card: CTAS_PER_SM CTAs per SM over
+//     all systems (gram_row.py, combine.py, gram.py), each striding over
+//     its system's lanes, so the grid is one wave and K4's and K6's CTAs
+//     pay their reduction tail once.
 //   * Loads (lanes.cuh): where every row starts 16-byte aligned and n is
 //     whole 16-byte units (the wrapper decides per call: /l3/w does, the
 //     ragged n = 2670 leaf does not) a thread reads 16 bytes per row per
@@ -36,37 +37,32 @@
 //   * K5 keeps its system's m coefficients in registers, sums the rows in
 //     order j = 0..m-1 and writes its output with streaming stores: the
 //     host's write-back is the next reader.
-//   * K6 splits n into chunks of `chunk` lanes, one CTA per (chunk,
-//     system): the largest leaf has 2.67M lanes, and one CTA per system
-//     would leave most of the 132 SMs idle.
+//   * K6 sums gram.cuh's register outer product over its units, each row
+//     read once (row 0 is also the anchor). Where 16-byte loads are
+//     allowed, its unit is 16 or 8 bytes by gram.cuh's GramLoads.
 //   * Consecutive threads read consecutive lanes of each row, so every row
 //     read is coalesced.
-//   * K4 and K6 write one partial per CTA (m or m*m floats), summed per
-//     system in a fixed order: K4 in the same launch, by the system's last
-//     CTA (picked by an integer ticket), K6 by a second pass. No fp32
-//     atomics: repeat launches are bit-identical and integer data is exact.
-//   * The anchor (row 0) is subtracted in registers (K4) or shared memory
-//     (K6), never as a second pass over device memory.
+//   * K4 and K6 write one partial per CTA (m floats, or the m (m + 1) / 2
+//     triangle), summed per system in CTA order in the same launch by the
+//     system's last CTA (picked by an integer ticket, which it resets). No
+//     fp32 atomics: repeat launches are bit-identical and integer data is
+//     exact.
+//   * The anchor (row 0) is subtracted in registers, never as a second pass
+//     over device memory.
 //   * Ragged leaves (n = 40, 200, 240, 2670 at the paper MLP) are handled
 //     by guarding l < n; nothing is padded.
 //   * bf16 buffers are upcast per element; all sums are fp32 (IEEE, no
 //     TF32).
-// Left for later: K6 on K4's grid and loads (it is at a third of its bound).
 // Each launcher returns cudaGetLastError(); the Python wrapper raises if it
 // is not 0. Launches go to the caller's stream and do not synchronise.
 
-#include "lanes.cuh"
+#include "gram.cuh"
 
 namespace {
 
 constexpr int kMaxM = 32;
 constexpr int kThreads = 256;                        // K5
-constexpr int kRowThreads = 256;                     // K4 pass 1
-constexpr int kSumThreads = 1024;                    // pass 2
-constexpr int kGramThreads = 256;                    // K6 pass 1
-constexpr int kGramTile = 256;                       // lanes staged per step
-constexpr int kGramMaxPairs =                        // upper-triangle (j, k)
-    (kMaxM * (kMaxM + 1) / 2 + kGramThreads - 1) / kGramThreads;  // per thread
+constexpr int kRowThreads = 256;                     // K4
 
 // K4: out[s, j] = <q_s - x_0s, x_js - x_0s>, one launch; x_0s := 0
 // without the anchor. CTA c of system s first writes part[s, c, j], its
@@ -165,94 +161,73 @@ row_part(const T* __restrict__ x, long long rs, long long ss,
   if (threadIdx.x == 0) tickets[s] = 0;
 }
 
-// Pass 2 of K6: out[s, w] = sum over the nc chunks of system s of
-// part[s, c, w], for w < width (width = m or m*m, at most kSumThreads).
-// Thread t = r * width + w owns column w of chunks r, r + stripes, ...; the
-// stripes are then summed in a fixed order.
-__global__ void __launch_bounds__(kSumThreads)
-chunk_sum(const float* __restrict__ part, float* __restrict__ out, int nc,
-          int width) {
-  const long long s = blockIdx.x;
-  const int stripes = kSumThreads / width;
-  const int t = threadIdx.x;
-  const int r = t / width;
-  const int w = t - r * width;
-  __shared__ float red[kSumThreads];
-  float acc = 0.f;
-  if (r < stripes) {
-    for (int c = r; c < nc; c += stripes) acc += part[(s * nc + c) * width + w];
-  }
-  red[t] = acc;
-  __syncthreads();
-  if (t < width) {
-    float sum = 0.f;
-    for (int k = 0; k < stripes; ++k) sum += red[k * width + t];
-    out[s * width + t] = sum;
-  }
-}
-
-// K6 pass 1: part[s, c] = D D^T over chunk c of system s, D = x minus row
-// 0 when anchored. The chunk is staged through shared memory kGramTile lanes
-// at a time and anchored there; each thread owns up to kGramMaxPairs
-// entries (j <= k) of the upper triangle and mirrors them, so the result is
-// exactly symmetric. Rows are padded to kGramTile + 1 floats: threads
-// reading lane l of different rows then hit different banks.
+// K6's units of one system: CTA c of G takes the chunks of kGramThreads
+// units c, c + G, ...; thread tg of T takes units tg, tg + T, ... of each.
 template <typename T>
-__global__ void __launch_bounds__(kGramThreads)
-gram_part(const T* __restrict__ x, long long rs, long long ss,
-          float* __restrict__ part, int m, int n, int chunk,
-          int anchor_first) {
-  __shared__ float tile[kMaxM][kGramTile + 1];
-  const int c = blockIdx.x;
+struct ChunkUnits {
+  const T* xs;                                // row 0 of the system
+  long long rs;
+  int n;                                      // lanes
+
+  struct Cursor {
+    const T* xs;
+    long long row_stride, u0, stride;
+    int units, tg, nthr, i;
+    __device__ bool ok() const { return u0 + i < units; }
+    __device__ const T* base() const { return xs; }
+    __device__ long long rs() const { return row_stride; }
+    __device__ long long unit() const { return u0 + i; }
+    __device__ void next() {
+      i += nthr;
+      if (i >= kGramThreads) {
+        i = tg;
+        u0 += stride;
+      }
+    }
+  };
+  template <int P>
+  __device__ Cursor start(int tg, int nthr) const {
+    return {xs, rs, (long long)blockIdx.x * kGramThreads,
+            (long long)gridDim.x * kGramThreads, n / P, tg, nthr, tg};
+  }
+};
+
+// K6: out[s] = D D^T over system s's lanes, D = x minus row 0 when
+// anchored, one launch on K4's grid (gram.py grid, CTAS_PER_SM per SM over
+// all systems): CTA (c, s) takes the units of ChunkUnits, and gram.cuh's
+// gram_cta sums their register outer product. A system of one CTA is
+// written at once, mirrored; otherwise each CTA writes its triangle (m (m +
+// 1) / 2 floats) to part[s, c] and the system's last CTA (an integer
+// ticket, which it resets) sums them in CTA order and writes the system.
+template <typename T, int MMAX, bool VEC>
+__global__ void __launch_bounds__(kGramThreads, 1)
+gram_flat(const T* __restrict__ x, long long rs, long long ss,
+          float* __restrict__ part, unsigned* __restrict__ tickets,
+          float* __restrict__ out, int m, int n, int anchor_first) {
   const long long s = blockIdx.y;
-  const T* xs = x + s * ss;
-  const int npairs = m * (m + 1) / 2;
-  int pj[kGramMaxPairs], pk[kGramMaxPairs];
-  float acc[kGramMaxPairs];
-#pragma unroll
-  for (int p = 0; p < kGramMaxPairs; ++p) {
-    acc[p] = 0.f;
-    int rem = threadIdx.x + p * kGramThreads;
-    int j = 0;
-    if (rem < npairs) {
-      while (rem >= m - j) {
-        rem -= m - j;
-        ++j;
-      }
-    } else {
-      rem = 0;
-    }
-    pj[p] = j;
-    pk[p] = j + rem;
+  const int G = gridDim.x;
+  const int nt = tri_size(m);
+  __shared__ GramSmem<MMAX> sh;
+  const ChunkUnits<T> units{x + s * ss, rs, n};
+  gram_cta<T, VEC, MMAX>(units, m, anchor_first, sh);
+  float* os = out + s * m * m;
+  if (G == 1) {
+    write_gram(os, sh.tri, m);
+    return;
   }
-  const int l1 = min(n, (c + 1) * chunk);
-  for (int l0 = c * chunk; l0 < l1; l0 += kGramTile) {
-    const int w = min(kGramTile, l1 - l0);
-    for (int l = threadIdx.x; l < w; l += kGramThreads) {
-      const float a = anchor_first ? to_f32(xs[l0 + l]) : 0.f;
-      for (int j = 0; j < m; ++j) tile[j][l] = to_f32(xs[j * rs + l0 + l]) - a;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < kGramMaxPairs; ++p) {
-      if (threadIdx.x + p * kGramThreads < npairs) {
-        const float* rj = tile[pj[p]];
-        const float* rk = tile[pk[p]];
-        float sum = acc[p];
-        for (int l = 0; l < w; ++l) sum = fmaf(rj[l], rk[l], sum);
-        acc[p] = sum;
-      }
-    }
-    __syncthreads();
-  }
-  float* pc = part + (s * gridDim.x + c) * m * m;
-#pragma unroll
-  for (int p = 0; p < kGramMaxPairs; ++p) {
-    if (threadIdx.x + p * kGramThreads < npairs) {
-      pc[pj[p] * m + pk[p]] = acc[p];
-      pc[pk[p] * m + pj[p]] = acc[p];
-    }
-  }
+  float* ps = part + s * G * nt;              // this system's partials
+  for (int i = threadIdx.x; i < nt; i += kGramThreads)
+    ps[(long long)blockIdx.x * nt + i] = sh.tri[i];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    sh.last[0] = atomicAdd(tickets + s, 1u) == (unsigned)(G - 1);
+  __syncthreads();
+  if (!sh.last[0]) return;
+  __threadfence();
+  sum_partials(ps, nt, G, nt, sh);
+  write_gram(os, sh.tri, m);
+  if (threadIdx.x == 0) tickets[s] = 0;
 }
 
 // K5: out[s, l] = sum_j c[s, j] * x[j, s, l]. The grid is sized to the
@@ -297,8 +272,6 @@ combine_flat(const T* __restrict__ x, long long rs, long long ss,
   }
 }
 
-inline int n_chunks(int n, int chunk) { return (n + chunk - 1) / chunk; }
-
 template <typename T, bool VEC>
 void launch_gram_row(const void* x, long long rs, long long ss, const void* q,
                      long long qs, int qslot, void* part, void* tickets,
@@ -337,15 +310,22 @@ void launch_combine(const void* x, long long rs, long long ss, const void* c,
   }
 }
 
-template <typename T>
+template <typename T, bool VEC>
 void launch_gram(const void* x, long long rs, long long ss, void* part,
-                 void* out, int m, int n, int S, int chunk, int anchor_first,
-                 cudaStream_t st) {
+                 void* tickets, void* out, int m, int n, int S, int ctas,
+                 int anchor_first, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
   float* pt = static_cast<float*>(part);
-  const int nc = n_chunks(n, chunk);
-  gram_part<T><<<dim3(nc, S), kGramThreads, 0, st>>>(
-      static_cast<const T*>(x), rs, ss, pt, m, n, chunk, anchor_first);
-  chunk_sum<<<S, kSumThreads, 0, st>>>(pt, static_cast<float*>(out), nc, m * m);
+  unsigned* tk = static_cast<unsigned*>(tickets);
+  float* ot = static_cast<float*>(out);
+  const dim3 grid(ctas, S);
+  if (m <= 8) {
+    gram_flat<T, 8, VEC><<<grid, kGramThreads, 0, st>>>(xt, rs, ss, pt, tk, ot, m, n, anchor_first);
+  } else if (m <= 16) {
+    gram_flat<T, 16, VEC><<<grid, kGramThreads, 0, st>>>(xt, rs, ss, pt, tk, ot, m, n, anchor_first);
+  } else {
+    gram_flat<T, kMaxM, VEC><<<grid, kGramThreads, 0, st>>>(xt, rs, ss, pt, tk, ot, m, n, anchor_first);
+  }
 }
 
 }  // namespace
@@ -357,7 +337,9 @@ void launch_gram(const void* x, long long rs, long long ss, void* part,
 // of x (q unused) when qslot >= 0; vec = 1 only where every row of x and
 // q starts 16-byte aligned and n is whole 16-byte units. K5: `ctas` CTAs
 // per system, vec as for K4 (x alone; out is (S, n) contiguous fp32). K6:
-// `part` holds S * ceil(n / chunk) partials of m * m floats.
+// `ctas` CTAs per system, `part` holds S * ctas partial triangles of m (m +
+// 1) / 2 floats, `tickets` S zero integers (left zero again), vec as for
+// K5.
 extern "C" int flat_gram_row(int dtype, const void* x, long long rs,
                              long long ss, const void* q, long long qs,
                              int qslot, void* part, void* tickets, void* out,
@@ -377,13 +359,18 @@ extern "C" int flat_gram_row(int dtype, const void* x, long long rs,
 }
 
 extern "C" int flat_gram(int dtype, const void* x, long long rs, long long ss,
-                         void* part, void* out, int m, int n, int S,
-                         int chunk, int anchor_first, void* stream) {
+                         void* part, void* tickets, void* out, int m, int n,
+                         int S, int ctas, int vec, int anchor_first,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch_gram<float>(x, rs, ss, part, out, m, n, S, chunk, anchor_first, st);
+  if (dtype == 0 && vec) {
+    launch_gram<float, true>(x, rs, ss, part, tickets, out, m, n, S, ctas, anchor_first, st);
+  } else if (dtype == 0) {
+    launch_gram<float, false>(x, rs, ss, part, tickets, out, m, n, S, ctas, anchor_first, st);
+  } else if (vec) {
+    launch_gram<__nv_bfloat16, true>(x, rs, ss, part, tickets, out, m, n, S, ctas, anchor_first, st);
   } else {
-    launch_gram<__nv_bfloat16>(x, rs, ss, part, out, m, n, S, chunk, anchor_first, st);
+    launch_gram<__nv_bfloat16, false>(x, rs, ss, part, tickets, out, m, n, S, ctas, anchor_first, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

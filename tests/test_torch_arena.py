@@ -296,3 +296,36 @@ def test_arena_gram_row_grid_is_one_wave_over_blocks():
     assert tka.grid_ctas(5633, 17, 132) == 132      # one CTA's registers
     assert tka.grid_ctas(3, 14, 132) == 3               # a CTA per block
     assert tka.grid_ctas(1, 32, 132) == 1
+
+
+# K3's grid and scratch (arena.gram_grid) on a card of 132 SMs: K1's
+# contiguous block ranges at GRAM_CTAS_PER_SM CTAs per SM, one partial
+# triangle (m(m+1)/2 floats) per (CTA, system) pair, row c + s
+@pytest.mark.parametrize("nb,m,n_sys,ctas", [
+    (5633, 14, 8, 132),         # the paper arena
+    (5633, 8, 8, 132),
+    (5633, 17, 8, 132),
+    (1000, 14, 1, 132),         # an all-zeros table: one system, every CTA
+    (3, 14, 2, 3),              # a CTA per block
+    (1, 32, 1, 1),
+])
+def test_arena_gram_grid_is_one_wave_over_blocks(nb, m, n_sys, ctas):
+    assert tka.GRAM_CTAS_PER_SM == 1
+    assert tka.gram_grid(nb, m, n_sys, 132) == \
+        (ctas, (ctas + n_sys) * m * (m + 1) // 2)
+
+
+# K3's load width: 16 bytes where the buffer alone allows (K1's rule
+# without the query): (m, bn, dtype, offset in elements) -> 16-byte loads
+@pytest.mark.parametrize("m,bn,dtype,offset,want", [
+    (14, 512, torch.float32, 0, True),              # the paper arena
+    (14, 512, torch.bfloat16, 0, True),
+    (32, 640, torch.bfloat16, 0, True),
+    (14, 512, torch.float32, 1, False),             # 4 bytes off
+    (14, 100, torch.bfloat16, 0, False),            # not whole 8-lane units
+    (1, 128, torch.float32, 0, True),
+])
+def test_arena_gram_load_width_choice(m, bn, dtype, offset, want):
+    buf = torch.empty(offset + 5633 * m * bn, dtype=dtype,
+                      device="meta")[offset:].view(5633, m, bn)
+    assert tdevice.vector_lanes(buf) is want

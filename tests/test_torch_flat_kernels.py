@@ -241,3 +241,27 @@ def test_combine_grid_fills_the_card_once():
     assert _grid(tcombine, 131072 // 4, 4, 132) == -(-fill // 4)
     assert _grid(tcombine, 1000, 1, 132) == 4        # one per 256 units
     assert _grid(tcombine, 10, 65535, 132) == 1
+
+
+# K6's per-call choices (gram.grid) on a card of 132 SMs: (m, S, n, dtype,
+# pad) -> 16-byte loads (K5's rule, the buffer alone), CTAs per system (K4's
+# grid at gram.CTAS_PER_SM, at most one per THREADS units) and the partial
+# buffer, one m(m+1)/2 triangle per (system, CTA). Meta tensors: only the
+# shapes, strides and offsets matter.
+@pytest.mark.parametrize("m,n_sys,n,dtype,pad,vec,ctas", [
+    (14, 1, 2670000, torch.float32, 0, True, 132),   # /l3/w, 667,500 units
+    (14, 1, 2670000, torch.bfloat16, 0, True, 132),  # 333,750 units
+    (14, 1, 2670, torch.float32, 0, False, 11),      # the ragged leaf
+    (14, 1, 2670, torch.bfloat16, 0, False, 11),
+    (14, 1, 40, torch.float32, 0, True, 1),          # /l0/b
+    (14, 1, 200, torch.bfloat16, 0, True, 1),        # /l1/b
+    (14, 1, 240, torch.float32, 0, True, 1),         # /l0/w
+    (14, 4, 131072, torch.float32, 0, True, 33),     # the stacked buffer
+    (14, 4, 131072, torch.float32, 1, False, 33),    # system stride + 1
+    (32, 1, 1 << 20, torch.bfloat16, 0, True, 132),
+    (1, 1, 8, torch.float32, 0, True, 1),
+])
+def test_gram_grid_fills_the_card_once(m, n_sys, n, dtype, pad, vec, ctas):
+    x = torch.empty((m, n_sys, n + pad), dtype=dtype, device="meta")[..., :n]
+    assert tgram.grid(x, 132) == (vec, ctas, n_sys * ctas * m * (m + 1) // 2)
+    assert tgram.CTAS_PER_SM == 1 and tgram.THREADS == 256

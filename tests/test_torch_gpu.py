@@ -18,11 +18,15 @@ inputs, over the rows that see at least one key: fp32 within 2e-5 + 1e-5 *
 bf16 within 1e-2 + 1.6e-2 * |twin| (one bf16 rounding step of the output,
 2^-7 relative, plus the kernel's bf16 rounding of the softmax weights).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.base import DMDConfig
+from repro_torch.configs.pollutant_mlp import PAPER_SIZES
+from repro_torch.core.accelerator import DMDAccelerator
 from repro_torch.data.synthetic import synthetic_regression
 from repro_torch.kernels import arena as ka
 from repro_torch.kernels import combine as kc
@@ -466,3 +470,141 @@ def test_flat_combine_load_paths(cuda, shape, integer, dtype):
         view = wide[:, :, :n]
         assert kd.vector_lanes(view) is wide_loads
         assert torch.equal(kc.combine(view, c), got)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K6 (csrc/gram.cuh: the register outer product on K1's and K4's
+# grids). Every case against the twin: within 1e-5 of each system's largest
+# entry on random data, exact on integer data in {-1, 0, 1} (every partial
+# sum stays below 2**24), repeat launches bit-identical, the result exactly
+# symmetric, the tickets left at zero.
+# ---------------------------------------------------------------------------
+
+GRAM_M = [1, 2, 8, 13, 14, 16, 17, 32]
+
+
+@functools.lru_cache(maxsize=None)
+def _paper_blocks():
+    """Blocks per system of the paper bucket's real table (5633 blocks)."""
+    params = init_mlp(torch.Generator().manual_seed(0), PAPER_SIZES,
+                      device="cpu")
+    (bucket,) = DMDAccelerator(DMDConfig(), device="cpu").arena_for(
+        params).values()
+    return tuple(np.bincount(bucket.block_sys(),
+                             minlength=bucket.n_sys).tolist())
+
+
+# systems of 1 block and of thousands; systems with no block (first, inner,
+# last); the paper bucket; one system (an all-zeros table) over every CTA
+def _gram_layouts():
+    return [[1, 3, 2, 40, 1], [0, 1, 2000, 0, 5, 1, 0],
+            list(_paper_blocks()), [1000]]
+
+
+def _close_per_system(got, want):
+    n = want.shape[0]
+    diff = (got - want).abs().reshape(n, -1).amax(dim=1)
+    limit = 1e-5 * want.abs().reshape(n, -1).amax(dim=1).clamp_min(1.0)
+    assert bool((diff <= limit).all()), float((diff - limit).max())
+
+
+def _check_gram(got, again, want, exact):
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.transpose(-1, -2))
+    if exact:
+        assert torch.equal(got, want), float((got - want).abs().max())
+    else:
+        _close_per_system(got, want)
+
+
+def _draw(shape, integer, dtype, g):
+    x = (torch.randint(-1, 2, shape, generator=g, device=g.device).float()
+         if integer else torch.randn(shape, generator=g, device=g.device))
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("bn", [128, 512, 640])
+@pytest.mark.parametrize("m", GRAM_M)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_arena_gram_design(cuda, m, bn, dtype):
+    g = torch.Generator(device=cuda).manual_seed(m * 7919 + bn)
+    before = ka.LAUNCHES["gram"]
+    calls = 0
+    for blocks in _gram_layouts():
+        nb = sum(blocks)
+        seg = ka.Segments.from_block_sys(
+            np.repeat(np.arange(len(blocks)), blocks), len(blocks), cuda)
+        empty = [s for s, b in enumerate(blocks) if not b]
+        for integer in (True, False):
+            x = _draw((nb, m, bn), integer, dtype, g)
+            assert kd.vector_lanes(x)               # bn: 128-lane units
+            for anchor in ({}, {"anchor_first": True}, {"anchor_mean": True}):
+                got = ka.gram(x, seg, **anchor)
+                want = ka.gram_ref(x, seg.block_sys, seg.n_sys, **anchor)
+                _check_gram(got, ka.gram(x, seg, **anchor), want,
+                            integer and not anchor.get("anchor_mean"))
+                assert not got[empty].any()
+                if anchor.get("anchor_first"):
+                    assert not got[:, 0].any() and not got[:, :, 0].any()
+                calls += 2
+            _assert_tickets_zero(x.device)
+            del x
+    assert ka.LAUNCHES["gram"] - before == calls      # one launch a call
+
+
+def test_arena_gram_one_lane_loads(cuda):
+    """Rows that are not whole 16-byte units (bn = 100 bf16) or a buffer 4
+    bytes off take one-lane loads: the same checks."""
+    blocks = [1, 3, 2, 40, 1]
+    seg = ka.Segments.from_block_sys(
+        np.repeat(np.arange(len(blocks)), blocks), len(blocks), cuda)
+    nb = sum(blocks)
+    for dtype, bn, shift in ((torch.bfloat16, 100, 0),
+                             (torch.float32, 128, 1)):
+        for m in (5, 14, 17):
+            x = torch.zeros(nb * m * bn + shift, dtype=dtype,
+                            device=cuda)[shift:].view(nb, m, bn)
+            x.copy_(torch.randint(-1, 2, (nb, m, bn), device=cuda))
+            assert not kd.vector_lanes(x)
+            for anchor in ({}, {"anchor_first": True}, {"anchor_mean": True}):
+                got = ka.gram(x, seg, **anchor)
+                _check_gram(got, ka.gram(x, seg, **anchor),
+                            ka.gram_ref(x, seg.block_sys, seg.n_sys, **anchor),
+                            not anchor.get("anchor_mean"))
+            _assert_tickets_zero(x.device)
+
+
+@pytest.mark.parametrize("m", GRAM_M)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_gram_design(cuda, m, dtype):
+    """Ragged leaves (n 40, 2670: one lane where n is not whole 16-byte
+    units), whole units, one system over every CTA (n = 2**20), several
+    systems, and the strided (m, 4, 131072) stack read where it lies (its
+    system stride 16 bytes longer keeps 16-byte loads, 4 bytes longer takes
+    one lane)."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    before = kg.LAUNCHES["flat_gram"]
+    calls = 0
+    for n_sys, n, pad in ((1, 40, 0), (1, 2670, 0), (1, 4096, 0),
+                          (1, 1 << 20, 0), (3, 5000, 0), (4, 131072, per),
+                          (4, 131072, 1)):
+        for integer in (True, False):
+            x = _draw((m, n_sys, n), integer, dtype, g)
+            if pad:
+                wide = torch.zeros((m, n_sys, n + pad), dtype=dtype,
+                                   device=cuda)
+                wide[:, :, :n] = x
+                x = wide[:, :, :n]
+            assert kd.vector_lanes(x) is (n % per == 0 and pad != 1)
+            for anchor_first in (False, True):
+                got = kg.gram(x, anchor_first=anchor_first)
+                _check_gram(got, kg.gram(x, anchor_first=anchor_first),
+                            kg.gram_ref(x, anchor_first=anchor_first),
+                            integer)
+                if anchor_first:
+                    assert not got[:, 0].any() and not got[:, :, 0].any()
+                calls += 2
+            _assert_tickets_zero(x.device)
+            del x
+    assert kg.LAUNCHES["flat_gram"] - before == calls

@@ -235,6 +235,25 @@ ptxas info    : Used 40 registers, used 1 barriers, 512 bytes smem
                      "spill_loads": 12, "registers": 40}}
 
 
+# ptxas's mangled names -> chip_smoke.py's kernel name and MMAX (K3's and
+# K6's m <= 16 instantiations must not spill; those for m 17..32 may)
+@pytest.mark.parametrize("mangled,name,mmax", [
+    ("_ZN40_GLOBAL__N__0956573d_8_arena_cu_d090ae0612arena_gram_kIfLi16ELb1"
+     "EEEvPKT_PKiS5_PfPjS6_iiiii", "arena_gram_k<float,16,vec=1>", 16),
+    ("_ZN39_GLOBAL__N__13eb64e5_7_flat_cu_a4e5b7ab9gram_flatI13__nv_bfloat16"
+     "Li32ELb0EEEvPKT_xxPfPjS5_iii", "gram_flat<bf16,32,vec=0>", 32),
+    ("_ZN39_GLOBAL__N__13eb64e5_7_flat_cu_a4e5b7ab8row_partIfLi8ELb1EEEv",
+     "row_part<float,8,vec=1>", 8),
+    ("_Z11flash_wgmmaILi128EEvv", "flash_wgmma<128>", None),
+    ("_Z3fooPf", None, None),
+])
+def test_chip_smoke_names_ptxas_kernels(mangled, name, mmax):
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    assert chip_smoke._kernel_name(mangled) == (name, mmax)
+
+
 def test_library_path_hashes_every_file_under_csrc(tmp_path, monkeypatch):
     """The built library is named by a hash of every file under csrc/, the
     headers the sources include too: an edited header never loads a stale
