@@ -70,6 +70,33 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    each request's first-token logits match the exact-length
    prefill + decode loop; a run with a hot-swap every 8 steps; a 4096-token
    ``forward`` with 22 K7 launches and a finite loss.
+10. The Trainer (``repro_torch.train.Trainer`` with ``MLPModel``) at the
+   paper MLP's full width, on the teacher's rows, its non-jump steps
+   replayed from CUDA graphs:
+   (a) the default DMDConfig (arena, resident params, streaming Gram),
+   Adam 1e-3, 300 steps on the phase-4 rows, graphed and eagerly (the
+   same Trainer with ``cuda_graphs=False``): each launches K1 112 times
+   (one per record step: the paper loop's schedule) and K2 8 times (one
+   per jump), loss finite and falling, and the two runs' per-step losses
+   and final params are bit-identical; a captured-then-replayed step
+   (the plain one and the slot-0 record one) writes the same bits into
+   every state tensor as the eager step on a copy, with the tickets left
+   at zero; the carried Gram at step 123 matches K3's recompute; ms/step
+   graphed, eager and of the plain graph's replay alone beside phase 4's
+   ``paper_loop``; the device's busy share under ``torch.profiler`` over
+   a graphed run, with its top kernels by device time.
+   (b) ``arena=False``, graphed: K4 896 and K5 64 launches; its busy
+   share too.
+   (c) fig4's gated run (``benchmarks/paper_benches.py::_train_gated``):
+   the validation-gated controller (shrink ladder 0.5, 0.25; meta-tuning
+   at meta_lr 0.05), m 14, s 55, tol 1e-4, warmup 100, cooldown 10, 600
+   steps on 1000 rows, gated on a disjoint 150-row validation fold of the
+   same teacher and tested on another 150: K1 once per record step plus
+   once per jump as K2's backward (290 + 20), K2 20, the gate's outcome
+   counts printed, s_eff, relax_eff and ridge_eff finite and inside their
+   clamps, loss finite and falling; the final train and test MSE beside
+   an ungated run and a DMD-off run of the same rows and steps (printed,
+   not required to win).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -87,10 +114,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs.base import DMDConfig  # noqa: E402
+from repro_torch.configs.base import (ArchConfig, DMDConfig,  # noqa: E402
+                                      DMDControllerConfig, ModelConfig,
+                                      OptimizerConfig, TrainConfig)
 from repro_torch.configs.pollutant_mlp import PAPER_SIZES  # noqa: E402
 from repro_torch.core.accelerator import DMDAccelerator  # noqa: E402
-from repro_torch.core.paths import leaves_with_paths, tree_map  # noqa: E402
+from repro_torch.core.paths import (leaves_with_paths,  # noqa: E402
+                                    map_with_paths, tree_map)
 from repro_torch.data.synthetic import synthetic_regression  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import arena as ka  # noqa: E402
@@ -100,8 +130,11 @@ from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import gram as kg  # noqa: E402
 from repro_torch.kernels import gram_row as kgr  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models.mlp_net import init_mlp  # noqa: E402
+from repro_torch.models.mlp_net import MLPModel, init_mlp  # noqa: E402
+from repro_torch.models.mlp_net import mse_loss  # noqa: E402
+from repro_torch.train import Trainer, loop as train_loop  # noqa: E402
 from repro_torch.train import paper_loop  # noqa: E402
+from repro_torch.train.step import state_resident  # noqa: E402
 
 # H100 SXM data sheet (the least-time bound): HBM3 bytes/s, fp32 flop/s
 # outside the tensor cores (K1-K6 are IEEE fp32, no TF32), dense bf16
@@ -113,9 +146,10 @@ SRC = "src/repro_torch/kernels/csrc/arena.cu"
 FLAT_SRC = "src/repro_torch/kernels/csrc/flat.cu"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash.cu"
 STEPS, ROWS = 300, 1000
-# every wrapper's launch counter
+# every wrapper's launch counter, and the design counters of the backward
+# launches (K1 as K2's backward, K4 as K5's)
 COUNTERS = (ka.LAUNCHES, kgr.LAUNCHES, kc.LAUNCHES, kg.LAUNCHES,
-            kf.LAUNCHES)
+            kf.LAUNCHES, ka.BWD_LAUNCHES, kgr.BWD_LAUNCHES)
 # each served request's first-token logits (padded prefill + one decode
 # step) against the exact-length loop's (prefill alone), bf16 model:
 # |diff| <= tol * max(1, max |logits|). The two differ by bf16 rounding on
@@ -141,7 +175,12 @@ def reset_counts():
 
 
 # design counters: a subset of their kernel's launches, not another kernel
-DESIGNS = {"flash_attention_wgmma": "flash_attention"}
+DESIGNS = {"flash_attention_wgmma": "flash_attention",
+           "gram_row_bwd": "gram_row", "flat_gram_row_bwd": "flat_gram_row"}
+
+
+def all_counts():
+    return {k: v for counter in COUNTERS for k, v in counter.items()}
 
 
 def counts():
@@ -155,9 +194,10 @@ def require_counts(what, want):
     got = counts()
     full = {k: want.get(k, 0) for k in got}
     require(got == full, f"{what}: launches {got}, expected {full}")
+    every = all_counts()
     for design, kernel in DESIGNS.items():
-        require(kf.LAUNCHES[design] <= got[kernel], f"{what}: {design} "
-                f"{kf.LAUNCHES[design]} > {kernel} {got[kernel]}")
+        require(every[design] <= got[kernel], f"{what}: {design} "
+                f"{every[design]} > {kernel} {got[kernel]}")
     return got
 
 
@@ -566,6 +606,10 @@ def report_ptxas():
     require(want <= seen, f"ptxas report lacks {sorted(want - seen)}")
 
 
+# ms/step of each counted paper-loop run, by name
+MS_PER_STEP = {}
+
+
 def run_main_path(dev, X, Y):
     """Phase 4: the streaming main path, counted."""
     return run_streaming(dev, X, Y, "main path", DMDConfig(),
@@ -582,6 +626,7 @@ def run_streaming(dev, X, Y, what, cfg, want):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = require_counts(what, want)
+    MS_PER_STEP[what] = wall / STEPS * 1e3
     print(f"{what}: {STEPS} steps in {wall} s, ms/step "
           f"{wall / STEPS * 1e3}, launches {launches}, jumps "
           f"{len(res.jumps)}, reverted {res.reverted}")
@@ -902,6 +947,262 @@ def run_serve(dev):
     return launches
 
 
+# -- phase 10: the Trainer ---------------------------------------------------
+
+# fig4's gated run (benchmarks/paper_benches.py::_train_gated): the
+# validation-gated controller with the shrink ladder and meta-tuning
+GATED_CTRL = dict(enabled=True, eval_rows=0, val_gate=True,
+                  shrink_levels=(0.5, 0.25), meta_lr=0.05)
+GATED_DMD = dict(m=14, s=55, tol=1e-4, warmup_steps=100, cooldown_steps=10)
+GATED_STEPS, VAL_ROWS = 600, 150
+
+
+def _trainer_acfg(dmd):
+    return ArchConfig(model=ModelConfig(name="pollutant-mlp", family="mlp"),
+                      dmd=dmd, optimizer=OptimizerConfig(name="adam",
+                                                         lr=paper_loop.LR),
+                      train=TrainConfig(global_batch=ROWS, seq_len=1),
+                      shapes=())
+
+
+def _fit_counted(what, trainer, batch, steps, want, ungated=False):
+    """One Trainer.fit from a fresh state, counted (the counts set to 0
+    just before, read just after), timed on the host clock around a
+    synchronised run; loss finite and falling. An ungated run takes every
+    jump, and at this config the jumps raise the loss (the paper loop's
+    guard reverts all 8 of phase 4's; ROADMAP Queue 3: the trust region's
+    fp32 quadratic form), so there the loss must fall over the Adam steps
+    before the first jump, and each jump's effect is printed. Returns
+    (state, losses, wall, launches, outcomes)."""
+    losses, outcomes = [], []
+
+    def on_m(t, m):
+        losses.append(m["loss"])
+        if "ctrl_outcome" in m:
+            outcomes.append(m["ctrl_outcome"])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    st = trainer.fit(iter(lambda: batch, None), steps, on_metrics=on_m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = require_counts(what, want)
+    loss = torch.stack(losses).cpu().numpy()
+    require(np.isfinite(loss).all(), f"{what}: non-finite loss")
+    jumps = [t for t in range(steps) if trainer.acc.should_apply(t)]
+    last = jumps[0] if ungated and jumps else steps - 1
+    require(loss[last] < loss[0],
+            f"{what}: loss did not fall: {loss[0]} -> {loss[last]} (step "
+            f"{last})")
+    print(f"{what}: {steps} steps in {wall} s, ms/step "
+          f"{wall / steps * 1e3}, launches {launches}, graphs "
+          f"{trainer.graph_stats}, loss {loss[0]} -> {loss[last]} at step "
+          f"{last}, {loss[-1]} at the end")
+    if ungated and jumps:
+        print(f"{what}: loss at each jump step and the step after: "
+              + ", ".join(f"{t}: {loss[t]} -> {loss[t + 1]}" for t in jumps
+                          if t + 1 < steps))
+    return st, loss, wall, launches, outcomes
+
+
+def _clone_state(st):
+    return map_with_paths(lambda _, x: x.clone(), st)
+
+
+def check_graph_steps(dev, acfg, batch):
+    """A captured-then-replayed train step writes the same bits into every
+    state tensor as the same step run eagerly on a copy of the state: the
+    plain step (its capture at step 1) and the slot-0 record step (its
+    capture at step 134, the second window), at full width. Then the
+    replay time of the plain graph alone. Returns its ms per step."""
+    tr = Trainer(MLPModel(PAPER_SIZES), acfg, device=dev)
+    st = state_resident(tr.acc, tr.acfg, tr.init_state())
+    graphed = train_loop._GraphedSteps(tr.train_step, dev)
+    checked = []
+    for t in range(135):
+        slots = tr.acc.slots(t)
+        key = train_loop.graph_key(slots)
+        twin = None
+        if key in graphed.warm and key not in graphed.graphs:
+            twin = _clone_state(st)
+            tr.train_step(twin, batch, slots)
+        graphed(st, batch, slots, key)
+        if twin is not None:
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for (_, a), (_, b) in
+                       zip(leaves_with_paths(st), leaves_with_paths(twin)))
+            require(same, f"graph key {key} at step {t}: the replayed step "
+                    "differs from the eager step")
+            checked.append((t, key))
+            del twin
+        if tr.acc.apply_groups(t):
+            st, _ = tr.dmd_step(st, tr.acc.relax_vector(t),
+                                groups=tr.acc.apply_groups(t))
+    require([t for t, _ in checked] == [1, 134] and checked[1][1] == (0,),
+            f"graph checks ran at {checked}")
+    torch.cuda.synchronize()
+    for handle in (graphed.side.cuda_stream, kd.stream()):
+        require(not kd.tickets(dev, handle, 1).any(),
+                "tickets not left at zero after the replays")
+    print(f"trainer: captured steps bit-identical to eager steps at {checked}"
+          " (every state tensor); tickets at zero after the replays")
+    graph, _, _ = graphed.graphs[train_loop.PLAIN]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        graph.replay()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 100 * 1e3
+    dev_ms = cuda_ms(graph.replay, iters=100)
+    print(f"trainer: plain-step graph replay {host_ms} ms/step (host clock, "
+          f"synchronised), {dev_ms} ms/step (CUDA events)")
+    return host_ms
+
+
+def _profiled_busy(what, trainer, batch, steps):
+    """Busy share of the device under torch.profiler over one fit: summed
+    kernel time over the profiled wall (one stream at a time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(evt):
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            return 0.0
+        for name in ("self_device_time_total", "self_cuda_time_total",
+                     "device_time_total", "cuda_time_total"):
+            if hasattr(evt, name):
+                return float(getattr(evt, name))
+        return 0.0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(iter(lambda: batch, None), steps)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    rows = sorted(((device_us(e), e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    if busy_us <= 0:
+        print(f"{what}: profiled wall {pwall} s, no device time in the trace "
+              "(busy share not measured)")
+        return None
+    print(f"{what}: profiled wall {pwall} s ({pwall / steps * 1e3} ms/step), "
+          f"device kernel time {busy_us / 1e6} s, busy share "
+          f"{busy_us / 1e6 / pwall}, idle share {1 - busy_us / 1e6 / pwall}")
+    print(f"{what}: top kernels by device time (us total, launches, share, "
+          "name):")
+    for us, count, key in rows[:8]:
+        print(f"  {us:12.1f} {count:6d} {us / busy_us:7.3f}  {key[:90]}")
+    return busy_us / 1e6 / pwall
+
+
+def run_trainer(dev, X, Y, paper_ms):
+    """Phase 10: the Trainer at full width. (a) the default DMDConfig
+    (arena, resident, streaming) graphed and eager; (b) arena=False; (c)
+    fig4's gated run with meta-tuning, beside an ungated and a DMD-off run
+    of the same rows. Returns {phase: launches}."""
+    batch = {"x": torch.as_tensor(X, device=dev),
+             "y": torch.as_tensor(Y, device=dev)}
+    acfg = _trainer_acfg(DMDConfig())
+    want = {"gram_row": 112, "combine": 8}
+    out = {}
+
+    # (a) graphed against eager, same init and batches
+    tr_g = Trainer(MLPModel(PAPER_SIZES), acfg, device=dev)
+    st_g, loss_g, wall_g, out["a"], _ = _fit_counted(
+        "trainer (a) graphed", tr_g, batch, STEPS, want, ungated=True)
+    tr_e = Trainer(MLPModel(PAPER_SIZES), acfg, device=dev,
+                   cuda_graphs=False)
+    st_e, loss_e, wall_e, _, _ = _fit_counted(
+        "trainer (a) eager", tr_e, batch, STEPS, want, ungated=True)
+    same_loss = np.array_equal(loss_g, loss_e)
+    same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves_with_paths(st_g.params), leaves_with_paths(st_e.params)))
+    print(f"trainer (a): graphed run vs eager run: losses bit-identical "
+          f"{same_loss}, final params bit-identical {same_params}")
+    require(same_loss and same_params,
+            "trainer (a): the graphed run differs from the eager run")
+    replay_ms = check_graph_steps(dev, acfg, batch)
+    print(f"trainer (a) ms/step: graphed {wall_g / STEPS * 1e3}, eager "
+          f"{wall_e / STEPS * 1e3}, plain-step replay {replay_ms}; phase 4 "
+          f"paper_loop {paper_ms}")
+    # step 123 closes the first window: carried Gram against K3
+    tr = Trainer(MLPModel(PAPER_SIZES), acfg, device=dev)
+    st = tr.fit(iter(lambda: batch, None), 124)
+    require(tr.acc.slot(123) == 13, "step 123 is not slot m-1")
+    arenas, agrams = st.dmd_buffers["__arena__"], st.dmd_gram["__arena__"]
+    for key, b in tr.acc.arena_for(st.params).items():
+        _require_gram(f"trainer {key} carried vs K3", agrams[key], ka.gram(
+            arenas[key], b.tables_on(dev), anchor_first=True))
+    _profiled_busy("trainer (a) graphed, profiled",
+                   Trainer(MLPModel(PAPER_SIZES), acfg, device=dev), batch,
+                   STEPS)
+
+    # (b) the per-leaf route
+    acfg_b = _trainer_acfg(dataclasses.replace(DMDConfig(), arena=False))
+    _, _, _, out["b"], _ = _fit_counted(
+        "trainer (b) per-leaf graphed",
+        Trainer(MLPModel(PAPER_SIZES), acfg_b, device=dev), batch, STEPS,
+        {"flat_gram_row": 112 * 8, "flat_combine": 8 * 8}, ungated=True)
+    _profiled_busy("trainer (b) per-leaf graphed, profiled",
+                   Trainer(MLPModel(PAPER_SIZES), acfg_b, device=dev), batch,
+                   STEPS)
+
+    # (c) fig4's gated run: 1000 training rows, a disjoint 150-row
+    # validation fold (the gate) and a 150-row test fold, one teacher
+    Xa, Ya = synthetic_regression(seed=0, n=ROWS + 2 * VAL_ROWS,
+                                  n_out=PAPER_SIZES[-1])
+    rows = {name: {"x": torch.as_tensor(Xa[lo:hi], device=dev),
+                   "y": torch.as_tensor(Ya[lo:hi], device=dev)}
+            for name, lo, hi in (("train", 0, ROWS),
+                                 ("val", ROWS, ROWS + VAL_ROWS),
+                                 ("test", ROWS + VAL_ROWS, None))}
+    gated = DMDConfig(**GATED_DMD,
+                      controller=DMDControllerConfig(**GATED_CTRL))
+    tr_c = Trainer(MLPModel(PAPER_SIZES), _trainer_acfg(gated), device=dev,
+                   val_batch=rows["val"])
+    n_rec = sum(tr_c.acc.should_record(t) for t in range(GATED_STEPS))
+    n_jump = sum(tr_c.acc.should_apply(t) for t in range(GATED_STEPS))
+    st_c, _, _, out["c"], outcomes = _fit_counted(
+        "trainer (c) gated", tr_c, rows["train"], GATED_STEPS,
+        {"gram_row": n_rec + n_jump, "combine": n_jump})
+    bwd = ka.BWD_LAUNCHES["gram_row_bwd"]
+    require(bwd == n_jump, f"trainer (c): {bwd} K1 backward launches, "
+            f"expected {n_jump}")
+    print(f"trainer (c): {n_rec} records, {n_jump} jumps: K1 {n_rec} + "
+          f"{bwd} as K2's backward, K2 {n_jump}; outcomes accept "
+          f"{outcomes.count(2)}, scaled {outcomes.count(1)}, reject "
+          f"{outcomes.count(0)} ({outcomes})")
+    ccfg, c = gated.controller, st_c.controller
+    s_eff, relax, ridge = (c.s_eff.cpu().numpy(), c.relax_eff.cpu().numpy(),
+                           c.ridge_eff.cpu().numpy())
+    require(np.isfinite(s_eff).all() and np.isfinite(relax).all()
+            and np.isfinite(ridge).all(), "trainer (c): non-finite knobs")
+    require(((s_eff >= max(ccfg.s_min, 1.0)) & (s_eff <= GATED_DMD["s"])
+             ).all() and ((relax >= ccfg.relax_floor) & (relax <= 1.0)).all()
+            and ((ridge >= 0.0) & (ridge <= ccfg.ridge_max)).all(),
+            f"trainer (c): knobs outside their clamps: s_eff {s_eff}, "
+            f"relax_eff {relax}, ridge_eff {ridge}")
+    print(f"trainer (c): s_eff {s_eff}, relax_eff {relax}, ridge_eff "
+          f"{ridge}")
+    finals = {"gated": st_c}
+    for name, dmd in (("ungated", DMDConfig(**GATED_DMD)),
+                      ("dmd-off", DMDConfig(enabled=False))):
+        tr = Trainer(MLPModel(PAPER_SIZES), _trainer_acfg(dmd), device=dev)
+        n_rec = sum(tr.acc.should_record(t) for t in range(GATED_STEPS))
+        n_jump = sum(tr.acc.should_apply(t) for t in range(GATED_STEPS))
+        finals[name], _, _, _, _ = _fit_counted(
+            f"trainer (c) {name}", tr, rows["train"], GATED_STEPS,
+            {"gram_row": n_rec, "combine": n_jump}, ungated=n_jump > 0)
+    for name, st in finals.items():
+        mse = {split: float(mse_loss(st.params, rows[split]["x"],
+                                     rows[split]["y"]))
+               for split in ("train", "test")}
+        print(f"trainer (c) final MSE {name}: train {mse['train']} test "
+              f"{mse['test']}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -941,6 +1242,7 @@ def main():
         dataclasses.replace(DMDConfig(), arena=False, streaming_gram=False),
         {"flat_gram": 2 * 8, "flat_combine": 2 * 8})
     serve_launches = run_serve(dev)
+    run_trainer(dev, X, Y, MS_PER_STEP["main path"])
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",

@@ -26,7 +26,7 @@ _LATER: Dict[str, str] = {
     "mamba2-2.7b": "the SSM/hybrid slice",
     "llama4-maverick-400b-a17b": "the MoE slice",
     "qwen3-moe-30b-a3b": "the MoE slice",
-    "pollutant-mlp": "the Trainer/controller slice "
+    "pollutant-mlp": "the eig-mode slice: its DMDConfig runs mode='eig' "
                      "(configs/pollutant_mlp.py holds its sizes today)",
 }
 

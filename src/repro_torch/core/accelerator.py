@@ -20,8 +20,13 @@ contractions of ``core/dmd.py`` on the ``dot_general`` route. The state is
 the per-leaf tree when no leaf is packed, else the two-route wrapper
 ``{"__arena__": {bucket: ...}, "leaf": per-leaf tree}``. The schedule is
 the group table of ``core/schedule.py``; per-group queries take ``group=``
-(default 0). Not ported yet: a mesh, residency and the controller
-(ROADMAP Queue 1).
+(default 0). With arena-resident params (``core/arena.py``, the
+Trainer's layout) ``record`` copies each bucket's flat buffer into its
+ring slot and ``jump_tree`` returns the resident wrapper with new flat
+rows. The loss-gated controller's per-group state comes from
+``init_controller`` (``core/controller.py``); ``jump_tree`` takes its
+adapted horizons and ridges as ``s_vec`` / ``ridge_vec``. Not ported yet:
+a mesh and the checkpoint views of the arena state (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -49,13 +54,14 @@ class LeafJump:
 
 
 def dmd_leaf_jump(cfg, plan: leafplan.LeafPlan, p: torch.Tensor,
-                  buf: torch.Tensor, gram: Optional[torch.Tensor], relax
-                  ) -> LeafJump:
+                  buf: torch.Tensor, gram: Optional[torch.Tensor], relax,
+                  s_dyn=None, ridge_dyn=None) -> LeafJump:
     """One leaf of the DMD jump: coefficients from `gram` (the carried
     streaming Gram; recomputed from the buffer when None) and one combine
     pass, both routed by the leaf's plan. The horizon, energy target and
-    ridge are the leaf's group's. The result is cast to the param's
-    dtype."""
+    ridge are the leaf's group's; in controller mode `s_dyn` (the adapted
+    horizon, capped by the group's s) and `ridge_dyn` (the meta-tuned
+    ridge) replace them. The result is cast to the param's dtype."""
     nstack = plan.stack_dims
     kernel = plan.route in snap.KERNEL_ROUTES
     if gram is None:
@@ -69,7 +75,8 @@ def dmd_leaf_jump(cfg, plan: leafplan.LeafPlan, p: torch.Tensor,
     c, info = dmd.dmd_coefficients(
         gram, s=sched.s, tol=cfg.tol, mode=cfg.mode, anchor=cfg.anchor,
         affine=cfg.affine, trust_region=cfg.trust_region, relax=relax,
-        energy=sched.energy, atol=cfg.atol, ridge=sched.ridge)
+        energy=sched.energy, atol=cfg.atol, ridge=sched.ridge, s_dyn=s_dyn,
+        ridge_dyn=ridge_dyn)
     if kernel:
         w = ops.combine(buf, c, stack_dims=nstack)
     else:
@@ -85,17 +92,25 @@ def dmd_leaf_jump(cfg, plan: leafplan.LeafPlan, p: torch.Tensor,
 def jump_tree(cfg, plans: PyTree, params: PyTree, buffers: PyTree,
               grams: Optional[PyTree], relax,
               groups: Optional[frozenset] = None,
-              arena: Optional[Dict[str, arena_mod.ArenaBucket]] = None
+              arena: Optional[Dict[str, arena_mod.ArenaBucket]] = None,
+              s_vec=None, ridge_vec=None
               ) -> Tuple[PyTree, torch.Tensor]:
     """Whole-tree DMD jump: returns (new params, the mean over the jumped
     leaves of each leaf's mean rank). The arena route serves the packed
-    leaves (`arena` is
-    the accelerator's bucket table); every other selected leaf of a
-    jumping group takes ``dmd_leaf_jump``. `groups` (None: all) masks the
-    jump to those schedule groups; `relax` is a scalar or a per-group
-    vector. `grams` None means no carried Grams (recompute)."""
-    per_group = np.ndim(relax) == 1
+    leaves (`arena` is the accelerator's bucket table); every other
+    selected leaf of a jumping group takes ``dmd_leaf_jump``. `groups`
+    (None: all) masks the jump to those schedule groups; `relax` is a
+    scalar or a per-group vector. `grams` None means no carried Grams
+    (recompute). `s_vec` / `ridge_vec` (controller mode) are per-group
+    tensors of adapted horizons and meta-tuned ridges. Resident params
+    (the arena wrapper) come back as a wrapper whose jumped buckets are new
+    flat rows; `params` itself is not modified."""
+    resident = arena_mod.is_arena_state(params)
+    pres: Dict[str, torch.Tensor] = {}
+    if resident:
+        pres, params = arena_mod.split_state(params)
     updates: Dict[str, torch.Tensor] = {}
+    arena_updates: Dict[str, torch.Tensor] = {}
     ranks = []
     if arena_mod.is_arena_state(buffers):
         if not arena:
@@ -106,8 +121,11 @@ def jump_tree(cfg, plans: PyTree, params: PyTree, buffers: PyTree,
         agrams = None
         if grams is not None:
             agrams, grams = arena_mod.split_state(grams)
-        updates, ranks = arena_mod.jump(cfg, arena, params, arenas, agrams,
-                                        relax, groups=groups)
+        arena_updates, ranks = arena_mod.jump(
+            cfg, arena, params, arenas, agrams, relax, groups=groups,
+            s_vec=s_vec, ridge_vec=ridge_vec, resident=resident)
+        if not resident:
+            updates, arena_updates = arena_updates, {}
     p_of = by_path(params)
     g_of = by_path(grams) if grams is not None else {}
     plan_of = by_path(plans)
@@ -115,11 +133,17 @@ def jump_tree(cfg, plans: PyTree, params: PyTree, buffers: PyTree,
         plan = plan_of[path]
         if groups is not None and plan.group not in groups:
             continue
-        r = float(relax[plan.group]) if per_group else float(relax)
-        jump = dmd_leaf_jump(cfg, plan, p_of[path], buf, g_of.get(path), r)
+        jump = dmd_leaf_jump(
+            cfg, plan, p_of[path], buf, g_of.get(path),
+            arena_mod.relax_at(relax, plan.group),
+            s_dyn=None if s_vec is None else s_vec[plan.group],
+            ridge_dyn=None if ridge_vec is None else ridge_vec[plan.group])
         updates[path] = jump.params
         ranks.append(jump.rank)
     new_params = map_with_paths(lambda path, x: updates.get(path, x), params)
+    if resident:
+        new_params = arena_mod.make_state({**pres, **arena_updates},
+                                          new_params)
     mean_rank = (torch.stack(ranks).mean() if ranks
                  else torch.zeros((), dtype=torch.float32))
     return new_params, mean_rank
@@ -148,6 +172,26 @@ class DMDAccelerator:
         self._arena = None
 
     @property
+    def controller_on(self) -> bool:
+        """Loss-gated jump controller active (``core/controller.py``)?"""
+        ccfg = self.cfg.controller
+        return bool(self.cfg.enabled and ccfg is not None and ccfg.enabled)
+
+    def init_controller(self):
+        """Fresh per-group ControllerState on the accelerator's device, or
+        None when the controller is off."""
+        if not self.controller_on:
+            return None
+        from repro_torch.core import controller as ctrl_mod
+        return ctrl_mod.init_state(self.groups, device=self.device)
+
+    @property
+    def arena_on(self) -> bool:
+        """Packed-arena route active? Off (``dmd.arena=False``) is the
+        per-leaf route everywhere."""
+        return bool(self.cfg.enabled and self.cfg.arena)
+
+    @property
     def streaming(self) -> bool:
         """Streaming-Gram engine active? (anchor="mean" has no one-pass row
         update, so it keeps the recompute path.)"""
@@ -156,7 +200,12 @@ class DMDAccelerator:
 
     # ---- the dispatch tables ----------------------------------------------
     def plans_for(self, params: PyTree) -> PyTree:
-        """LeafPlan tree for `params`, cached by path, shape and dtype."""
+        """LeafPlan tree for `params`, cached by path, shape and dtype. The
+        resident wrapper maps to the plan table it was packed with."""
+        if arena_mod.is_arena_state(params):
+            if self._plans is None:
+                raise ValueError("resident params but no plan table yet")
+            return self._plans
         key = tuple((p, tuple(x.shape), str(x.dtype))
                     for p, x in leaves_with_paths(params))
         if self._plans is None or self._plans_key != key:
@@ -167,7 +216,12 @@ class DMDAccelerator:
         return self._plans
 
     def arena_for(self, params: PyTree) -> Dict[str, arena_mod.ArenaBucket]:
-        """The bucket table for `params` (built once per plan table)."""
+        """The bucket table for `params` (built once per plan table). The
+        resident wrapper maps to the table it was packed with."""
+        if arena_mod.is_arena_state(params):
+            if self._arena is None:
+                raise ValueError("resident params but no bucket table yet")
+            return self._arena
         self.plans_for(params)
         if self._arena is None:
             self._arena = (arena_mod.build_arenas(self._plans, self.cfg)
@@ -237,6 +291,15 @@ class DMDAccelerator:
         src = range(self.n_groups) if groups is None else groups
         return tuple(g for g in src if self.groups[g].reset_opt)
 
+    # ---- layouts ----------------------------------------------------------
+    def params_leafwise(self, params: PyTree) -> PyTree:
+        """Params with arena-resident leaves expanded back to per-leaf
+        tensors (views of the flat buffers); identity for per-leaf params.
+        The layout the Trainer's publish hook hands out."""
+        if arena_mod.is_arena_state(params):
+            return arena_mod.tree_leafwise(self.arena_for(params), params)
+        return params
+
     # ---- state ------------------------------------------------------------
     def init(self, params: PyTree) -> Optional[PyTree]:
         """Zeroed snapshot state: the per-leaf buffer tree
@@ -283,6 +346,7 @@ class DMDAccelerator:
                 "vector: pass acc.slots(step), not a scalar slot")
         plans = self.plans_for(params)
         leaf, lgrams = buffers, grams
+        p_leaf = params
         if arena_mod.is_arena_state(buffers):
             table = self.arena_for(params)
             arenas, leaf = arena_mod.split_state(buffers)
@@ -290,7 +354,10 @@ class DMDAccelerator:
             if grams is not None:
                 agrams, lgrams = arena_mod.split_state(grams)
                 arena_mod.update_grams(agrams, arenas, slot, self.cfg, table)
-        snap.record(leaf, params, slot, plans)
+            if arena_mod.is_arena_state(params):
+                # resident: the per-leaf route only sees the leaf subtree
+                p_leaf = arena_mod.split_state(params)[1]
+        snap.record(leaf, p_leaf, slot, plans)
         if lgrams is not None:
             snap.update_grams(lgrams, leaf, slot, self.cfg, plans)
         return buffers, grams

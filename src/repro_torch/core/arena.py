@@ -23,8 +23,19 @@ and jump boundaries. Both are updated IN PLACE (``record`` writes the slot,
 ``update_grams`` its Gram row and column): at the paper's MLP the buffer
 is 161.5 MB, and a functional update would copy it on every step.
 
-Not ported yet: a mesh (sharded buckets), bucket scope, residency and the
-leaf-wise checkpoint views (ROADMAP Queue 1).
+Parameter residency (``dmd.arena_native``, DESIGN.md §7): while
+``Trainer.fit`` runs, the packed params (and elementwise optimizer
+moments) live in their bucket's contiguous ``(N,)`` flat buffer, in the
+same wrapper layout, ``{"__arena__": {key: (N,) flat}, "leaf": tree with
+None}``. ``tree_resident`` / ``tree_leafwise`` convert; ``tree_leafwise``
+also gives the model's forward its per-leaf VIEWS of the flat buffer
+(slice + reshape, no copy), so gradients come back as one flat buffer
+with zero pad lanes. With resident params ``record`` is one copy of the
+flat buffer into the ring slot per bucket, and ``jump`` returns whole
+flat rows per bucket (the caller writes them into the resident buffer).
+
+Not ported yet: a mesh (sharded buckets), bucket scope and the leaf-wise
+checkpoint views (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -37,7 +48,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import dmd as dmd_math
 from repro_torch.core.leafplan import LeafPlan, plan_entries
-from repro_torch.core.paths import by_path
+from repro_torch.core.paths import by_path, fill_paths, map_with_paths
 from repro_torch.core.schedule import GroupSchedule
 from repro_torch.kernels import arena as ka
 from repro_torch.kernels.ops import lane_block
@@ -244,6 +255,38 @@ def _unpack_row(bucket: ArenaBucket, row: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
+# Parameter residency: params / moments live in the bucket's flat buffer
+# ---------------------------------------------------------------------------
+
+def tree_resident(table: Dict[str, ArenaBucket], tree) -> dict:
+    """Move every packed leaf of a params-shaped `tree` into its bucket's
+    contiguous ``(N,)`` flat buffer, in that leaf's own dtype (param dtype
+    for params, fp32 for moments), pad lanes zero; packed paths of the
+    ``leaf`` subtree become None. Inverse: ``tree_leafwise``."""
+    leaves = by_path(tree)
+    arenas = {key: pack_row(table[key], leaves,
+                            leaves[table[key].segments[0].path].dtype)
+              for key in sorted(table)}
+    packed = arena_paths(table)
+    return make_state(arenas, map_with_paths(
+        lambda path, x: None if path in packed else x, tree))
+
+
+def tree_leafwise(table: Dict[str, ArenaBucket], wrapper) -> object:
+    """Resident wrapper -> per-leaf tree whose packed leaves are VIEWS of
+    the flat buffers (slice + reshape; no copy where the segment has no
+    padding inside a stacked leaf). Also the model's view of resident
+    params: gradients of a loss of these views flow back into the flat
+    buffer, zero at the pad lanes."""
+    arenas, leaf = split_state(wrapper)
+    views: Dict[str, torch.Tensor] = {}
+    for key, row in arenas.items():
+        for seg, x in zip(table[key].segments, _unpack_row(table[key], row)):
+            views[seg.path] = x
+    return fill_paths(leaf, views)
+
+
+# ---------------------------------------------------------------------------
 # record / streaming-Gram update (one launch per bucket)
 # ---------------------------------------------------------------------------
 
@@ -256,31 +299,38 @@ def _bucket_slot(bucket: ArenaBucket, slot) -> int:
 
 
 def record(arenas: Dict[str, torch.Tensor], params,
-           slot, table: Dict[str, ArenaBucket], cfg
-           ) -> Dict[str, torch.Tensor]:
+           slot, table: Dict[str, ArenaBucket], cfg,
+           group: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Write the current params into each bucket's snapshot row `slot`, in
-    place. Buckets with a negative slot (not recording) are skipped."""
-    leaves = by_path(params)
+    place: with resident params (the wrapper) one copy of the flat buffer
+    per bucket, else the pack gather of every leaf. Buckets with a negative
+    slot (not recording) or outside `group` (when given) are skipped."""
+    resident = is_arena_state(params)
+    flat = split_state(params)[0] if resident else None
+    leaves = None if resident else by_path(params)
     dtype = snapshot_dtype(cfg)
     for key, buf in arenas.items():
         b = table[key]
         s = _bucket_slot(b, slot)
-        if s < 0:
+        if s < 0 or (group is not None and b.group != group):
             continue
-        buf[:, s, :] = pack_row(b, leaves, dtype).view(b.n_blocks, b.block_n)
+        row = flat[key] if resident else pack_row(b, leaves, dtype)
+        buf[:, s, :].copy_(row.view(b.n_blocks, b.block_n))
     return arenas
 
 
 def update_grams(agrams: Dict[str, torch.Tensor],
                  arenas: Dict[str, torch.Tensor], slot, cfg,
-                 table: Dict[str, ArenaBucket]) -> Dict[str, torch.Tensor]:
+                 table: Dict[str, ArenaBucket],
+                 group: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Streaming-Gram maintenance: ONE segmented gram_row launch per bucket
     gives every system's row, then one row+column write per bucket. The
-    just-written slot of the ring buffer is the query, read in place."""
+    just-written slot of the ring buffer is the query, read in place.
+    `slot` and `group` follow ``record``."""
     for key, g in agrams.items():
         b = table[key]
         s = _bucket_slot(b, slot)
-        if s < 0:
+        if s < 0 or (group is not None and b.group != group):
             continue
         buf = arenas[key]
         row = ka.gram_row(buf, buf[:, s, :], b.tables_on(buf.device),
@@ -293,23 +343,37 @@ def update_grams(agrams: Dict[str, torch.Tensor],
 # The jump: one batched solve per group, one combine launch per bucket
 # ---------------------------------------------------------------------------
 
+def relax_at(relax, gi: int):
+    """Group `gi`'s relax from a scalar or a per-group vector: a tensor
+    stays a tensor (it may carry a gradient), a host value becomes a
+    float."""
+    if np.ndim(relax) == 1:
+        relax = relax[gi]
+    return relax if isinstance(relax, torch.Tensor) else float(relax)
+
+
 def jump(cfg, table: Dict[str, ArenaBucket], params,
          arenas: Dict[str, torch.Tensor],
          agrams: Optional[Dict[str, torch.Tensor]], relax,
-         groups: Optional[frozenset] = None
+         groups: Optional[frozenset] = None, s_vec=None, ridge_vec=None,
+         resident: bool = False
          ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
     """DMD jump over every bucket of the jumping groups.
 
-    Returns ({path: new leaf (param dtype)}, [per-leaf mean rank]). Per
-    group: concatenate the buckets' (n_sys, m, m) Grams, make ONE
+    Returns ({path: new leaf (param dtype)}, [per-leaf mean rank]); with
+    ``resident=True`` the updates stay flat and are keyed by bucket
+    ({bucket_key: (N,) new resident row}), with no unpack. Per group:
+    concatenate the buckets' (n_sys, m, m) Grams, make ONE
     ``dmd_coefficients`` call, split the coefficient rows back per bucket,
-    ONE segmented combine launch per bucket, then unpack per leaf. A bucket
-    without a carried Gram (``agrams`` None or missing the key) gets the
-    one-launch full recompute: the ``streaming_gram=False`` path, and the
-    only Gram path for ``anchor="mean"``. `relax` is a scalar or a
-    per-group vector."""
-    leaves = by_path(params)
-    per_group = np.ndim(relax) == 1
+    ONE segmented combine launch per bucket. A bucket without a carried
+    Gram (``agrams`` None or missing the key) gets the one-launch full
+    recompute: the ``streaming_gram=False`` path, and the only Gram path
+    for ``anchor="mean"``. `relax` is a scalar or a per-group vector;
+    `s_vec` / `ridge_vec` (controller mode) are per-group tensors of the
+    adapted horizon and the meta-tuned ridge. A tensor `relax` or
+    `ridge_vec` that requires grad makes the result differentiable in it
+    (the combine's backward is K1)."""
+    leaves = None if resident else by_path(params)
     updates: Dict[str, torch.Tensor] = {}
     ranks: List[torch.Tensor] = []
     by_gi: Dict[int, List[ArenaBucket]] = {}
@@ -334,8 +398,10 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
         c, info = dmd_math.dmd_coefficients(
             gcat, s=sched.s, tol=cfg.tol, mode=cfg.mode, anchor=cfg.anchor,
             affine=cfg.affine, trust_region=cfg.trust_region,
-            relax=float(relax[gi]) if per_group else float(relax),
-            energy=sched.energy, atol=cfg.atol, ridge=sched.ridge)
+            relax=relax_at(relax, gi),
+            energy=sched.energy, atol=cfg.atol, ridge=sched.ridge,
+            s_dyn=None if s_vec is None else s_vec[gi],
+            ridge_dyn=None if ridge_vec is None else ridge_vec[gi])
         ofs = 0
         for b in buckets:
             cb = c[ofs:ofs + b.n_sys].contiguous()
@@ -348,8 +414,13 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
             # than the last snapshot
             flat = torch.where(torch.isfinite(flat), flat,
                                buf[:, -1, :].reshape(-1).float())
+            seg_ranks = [rb[seg.sys_start:seg.sys_start + seg.n_sys]
+                         .float().mean() for seg in b.segments]
+            ranks.extend(seg_ranks)
+            if resident:
+                updates[b.key] = flat.to(
+                    getattr(torch, b.segments[0].param_dtype))
+                continue
             for seg, leaf in zip(b.segments, _unpack_row(b, flat)):
                 updates[seg.path] = leaf.to(leaves[seg.path].dtype)
-                ranks.append(rb[seg.sys_start:seg.sys_start + seg.n_sys]
-                             .float().mean())
     return updates, ranks

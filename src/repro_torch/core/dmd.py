@@ -13,9 +13,11 @@ n-sized data; ``dmd_coefficients`` is O(m^3) algebra on (n_sys, m, m)
 batches, run on the Gram's own device.
 
 Ported: matpow mode with the affine augmentation, trust region, relax,
-energy rank, absolute sigma floor and Tikhonov ridge. Not yet ported (they
-raise ``NotImplementedError``): eig mode and the controller's dynamic
-horizon / ridge (ROADMAP Queue 1).
+energy rank, absolute sigma floor, Tikhonov ridge, and the controller's
+dynamic horizon and ridge (``s_dyn``, ``ridge_dyn``: tensors, so the
+coefficients are differentiable in them and in ``relax``, which the
+controller's meta-tuning backpropagates through). Not yet ported (it
+raises ``NotImplementedError``): eig mode (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -131,13 +133,17 @@ def _masked_inv_sigma(eigvals: torch.Tensor, tol: float, energy: float = 0.0,
     return sigma, inv, mask
 
 
-def _ridge_inv_sigma(sigma: torch.Tensor, mask: torch.Tensor, ridge: float
+def _ridge_inv_sigma(sigma: torch.Tensor, mask: torch.Tensor, ridge
                      ) -> torch.Tensor:
     """Tikhonov-shrunk pseudo-inverse factor sigma / (sigma^2 + lambda),
     lambda = ridge * sigma_max^2 (relative, so the solve is
-    scale-equivariant)."""
+    scale-equivariant). `ridge` is a float or a tensor (the controller's
+    meta-tuned value, differentiable)."""
     smax = sigma.amax(dim=-1, keepdim=True)
-    lam = max(float(ridge), 0.0) * smax * smax
+    if isinstance(ridge, torch.Tensor):
+        lam = torch.clamp_min(ridge.float(), 0.0) * smax * smax
+    else:
+        lam = max(float(ridge), 0.0) * smax * smax
     return torch.where(mask, sigma / (sigma * sigma + lam),
                        torch.zeros_like(sigma))
 
@@ -160,6 +166,27 @@ def _matrix_power(a: torch.Tensor, s: int) -> torch.Tensor:
     return result
 
 
+def _matrix_power_traced(a: torch.Tensor, s: torch.Tensor, s_max: int
+                         ) -> torch.Tensor:
+    """a^s for an integer tensor s in [1, s_max] (a scalar, or one entry per
+    system of `a`'s batch): binary exponentiation over the static bits of
+    s_max, each bit's factor taken or skipped by a select, as the
+    reference's unrolled chain does. Nothing is read back to the host."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand(
+        a.shape)
+    s = s.to(torch.int32)
+    result, base = eye, a
+    nbits = max(int(s_max).bit_length(), 1)
+    for bit in range(nbits):
+        take = ((s >> bit) & 1).bool()
+        if take.dim():
+            take = take[..., None, None]
+        result = torch.where(take, result @ base, result)
+        if bit + 1 < nbits:
+            base = base @ base
+    return result
+
+
 def _matvec(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...j->...i", mat, vec)
 
@@ -178,16 +205,15 @@ def dmd_coefficients(gram: torch.Tensor, *, s: int, tol: float = 1e-10,
     folded back in). ``s`` is the horizon, ``trust_region > 0`` caps the
     jump at tr * s * rms_step, ``relax`` blends w <- (1-relax) w_last +
     relax w_dmd, ``energy``/``atol``/``ridge`` shape the rank mask and the
-    regression factor. Returns (c, info) with info's rank, sigma_ratio,
-    jump_scale, jump_norm and step_rms."""
+    regression factor. ``s_dyn`` (controller mode: an integer tensor, the
+    adapted horizon) replaces ``s``, clamped into [1, s]: ``s`` stays the
+    static cap that sizes the power chain. ``ridge_dyn`` (a tensor, the
+    meta-tuned ridge) takes precedence over ``ridge``. Returns (c, info)
+    with info's rank, sigma_ratio, jump_scale, jump_norm and step_rms."""
     if mode != "matpow":
         raise NotImplementedError(
             f"DMD mode {mode!r} is not ported yet (ROADMAP Queue 1: eig "
             "mode and bucket scope); use mode='matpow'")
-    if s_dyn is not None or ridge_dyn is not None:
-        raise NotImplementedError(
-            "dynamic horizon / ridge (controller mode) is not ported yet "
-            "(ROADMAP Queue 1: controller and Trainer)")
     m = gram.shape[-1]
     if m < 3:
         raise ValueError("DMD needs at least 3 snapshots (m >= 3)")
@@ -214,11 +240,22 @@ def dmd_coefficients(gram: torch.Tensor, *, s: int, tol: float = 1e-10,
     eigvals, v = torch.linalg.eigh(g_lag)        # ascending; batched
     sigma, inv_sigma, mask = _masked_inv_sigma(eigvals, tol, energy, atol)
     vt = v.transpose(-1, -2)
-    inv_fit = (_ridge_inv_sigma(sigma, mask, ridge) if ridge and ridge > 0
-               else inv_sigma)
+    if ridge_dyn is not None:
+        inv_fit = _ridge_inv_sigma(sigma, mask, ridge_dyn)
+    elif ridge and ridge > 0:
+        inv_fit = _ridge_inv_sigma(sigma, mask, ridge)
+    else:
+        inv_fit = inv_sigma
     vt_c_v = vt @ g_cross @ v
     atilde = (inv_sigma[..., :, None] * vt_c_v) * inv_fit[..., None, :]
-    atilde_s = _matrix_power(atilde, int(s))
+    if s_dyn is None:
+        atilde_s = _matrix_power(atilde, int(s))
+    else:
+        s_val = torch.clamp(torch.as_tensor(s_dyn, device=gram.device)
+                            .to(torch.int32), 1, int(s))
+        if s_val.dim():                   # one horizon per system
+            s_val = s_val.reshape(-1)
+        atilde_s = _matrix_power_traced(atilde, s_val, int(s))
 
     b = inv_sigma * _matvec(vt, g_last)          # U^T d_last
     y = _matvec(atilde_s, b)

@@ -56,6 +56,14 @@ def by_path(tree: PyTree) -> Dict[str, Any]:
     return dict(leaves_with_paths(tree))
 
 
+def _rebuild(node, children: list):
+    """A list or tuple like `node` (a NamedTuple keeps its type) holding
+    `children`."""
+    if hasattr(node, "_fields"):
+        return type(node)(*children)
+    return type(node)(children)
+
+
 def map_with_paths(fn: Callable[[str, Any], Any], tree: PyTree) -> PyTree:
     """Rebuild `tree` with every leaf replaced by ``fn(path, leaf)``."""
 
@@ -65,8 +73,8 @@ def map_with_paths(fn: Callable[[str, Any], Any], tree: PyTree) -> PyTree:
         if isinstance(t, dict):
             return {k: walk(prefix + f"['{k}']", t[k]) for k in t}
         if isinstance(t, (list, tuple)):
-            return type(t)(walk(prefix + f"[{i}]", v)
-                           for i, v in enumerate(t))
+            return _rebuild(t, [walk(prefix + f"[{i}]", v)
+                                for i, v in enumerate(t)])
         return fn(normalize_path(prefix), t)
 
     return walk("", tree)
@@ -77,3 +85,19 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     trees."""
     others = [by_path(r) for r in rest]
     return map_with_paths(lambda p, x: fn(x, *(o[p] for o in others)), tree)
+
+
+def fill_paths(tree: PyTree, values: Dict[str, Any]) -> PyTree:
+    """Rebuild `tree` with every leaf, and every ``None`` node, whose path
+    is in `values` replaced by that value (the arena-resident wrapper keeps
+    None at the paths its buckets hold)."""
+
+    def walk(prefix, t):
+        if isinstance(t, dict):
+            return {k: walk(prefix + f"['{k}']", t[k]) for k in t}
+        if isinstance(t, (list, tuple)):
+            return _rebuild(t, [walk(prefix + f"[{i}]", v)
+                                for i, v in enumerate(t)])
+        return values.get(normalize_path(prefix), t)
+
+    return walk("", tree)

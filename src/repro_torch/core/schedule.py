@@ -10,6 +10,13 @@ a snapshot is recorded when slot >= 0, and the group jumps when
 slot == m - 1. Group 0 is always the default group built from the
 DMDConfig globals; further groups come from ``cfg.groups`` rules, first
 match wins.
+
+``slots_for_step`` is the tensor counterpart of ``GroupSchedule.slot`` (the
+step as a device counter). The controller's dynamic horizon lives under
+each group's configured ``s``, its static cap: ``s_bounds`` is the one
+definition of that ``[floor, s]`` band, shared by the controller's
+grow/shrink update and by ``effective_s_vector`` (tensors) /
+``effective_s_array`` (host ints).
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -192,6 +200,82 @@ def group_for_leaf(cfg, path: str, ndim: int, size: int) -> Optional[int]:
     return 0
 
 
+def schedule_records(groups: Sequence[GroupSchedule]) -> list:
+    """JSON-able rows of the resolved group table, one dict per group with
+    every resolved field (the reference's audit export)."""
+    return [{
+        "index": g.index, "name": g.name, "m": g.m, "s": g.s,
+        "warmup_steps": g.warmup_steps, "cooldown_steps": g.cooldown_steps,
+        "phase": g.phase, "cycle": g.cycle, "relax": g.relax,
+        "anneal": g.anneal, "reset_opt": g.reset_opt, "energy": g.energy,
+        "ridge": g.ridge,
+        "jump_residue": (g.warmup_steps + g.phase + g.cycle - 1) % g.cycle,
+    } for g in groups]
+
+
+def jump_collisions(groups: Sequence[GroupSchedule]) -> list:
+    """Pairs of groups that jump on the same step infinitely often: group g
+    jumps at ``step = warmup + phase + cycle - 1 (mod cycle)``, and two such
+    congruences are solvable together iff their residues agree modulo
+    ``gcd(cycle_a, cycle_b)``."""
+    out = []
+    for i, a in enumerate(groups):
+        ra = (a.warmup_steps + a.phase + a.cycle - 1) % a.cycle
+        for b in groups[i + 1:]:
+            rb = (b.warmup_steps + b.phase + b.cycle - 1) % b.cycle
+            if (ra - rb) % math.gcd(a.cycle, b.cycle) == 0:
+                out.append((a.index, b.index))
+    return out
+
+
+def slots_for_step(groups: Sequence[GroupSchedule], step) -> torch.Tensor:
+    """(n_groups,) int32 slot vector for a step tensor, on its device: -1
+    before group g's first window, else ``eff % cycle - cooldown``."""
+    step = torch.as_tensor(step).to(torch.int32)
+    slots = []
+    for g in groups:
+        eff = step - (g.warmup_steps + g.phase)
+        slots.append(torch.where(eff < 0, torch.full_like(eff, -1),
+                                 eff % g.cycle - g.cooldown_steps))
+    return torch.stack(slots).to(torch.int32)
+
+
 def slots_array(groups: Sequence[GroupSchedule], step: int) -> np.ndarray:
     """Per-group slot vector (concrete ints)."""
     return np.asarray([g.slot(step) for g in groups], np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Dynamic-horizon round math (controller mode, core/controller.py)
+# ---------------------------------------------------------------------------
+
+def s_caps(groups: Sequence[GroupSchedule]) -> np.ndarray:
+    """(n_groups,) static horizon caps: each group's configured ``s``."""
+    return np.asarray([g.s for g in groups], np.float32)
+
+
+def s_bounds(groups: Sequence[GroupSchedule], s_floor: float = 1.0,
+             device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, caps) fp32 bounds of the adapted horizon per group on
+    `device`: the one definition of the [floor, configured s] band."""
+    caps = torch.as_tensor(s_caps(groups), device=device)
+    lo = torch.clamp_max(torch.full_like(caps, max(s_floor, 1.0)), caps)
+    return lo, caps
+
+
+def effective_s_vector(groups: Sequence[GroupSchedule], s_eff: torch.Tensor,
+                       s_floor: float = 1.0) -> torch.Tensor:
+    """(n_groups,) int32 horizons from the controller's fp32 ``s_eff``:
+    rounded, then clamped into [s_floor, s_g]; entry g is the dynamic
+    ``s_dyn`` of group g's ``dmd_coefficients`` call."""
+    lo, caps = s_bounds(groups, s_floor, device=s_eff.device)
+    return torch.clamp(torch.round(s_eff.float()), lo, caps).to(torch.int32)
+
+
+def effective_s_array(groups: Sequence[GroupSchedule], s_eff,
+                      s_floor: float = 1.0) -> np.ndarray:
+    """Host counterpart of ``effective_s_vector`` (concrete ints)."""
+    caps = s_caps(groups)
+    lo = np.minimum(np.float32(max(s_floor, 1.0)), caps)
+    return np.clip(np.round(np.asarray(s_eff, np.float32)), lo,
+                   caps).astype(np.int32)

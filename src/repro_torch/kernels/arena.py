@@ -24,6 +24,13 @@ call, in plain Python: whether its loads are 16 bytes wide
 its per-system integer tickets are ``device.tickets``. ``gram`` (K3) runs
 on the same grid at GRAM_CTAS_PER_SM (``gram_grid``), with the same load
 width rule (``vector_lanes(buf)``) and tickets.
+
+``combine`` is differentiable in ``c`` (the controller's meta-tuning
+backpropagates the gate loss through the jump): when ``c`` requires grad it
+runs as ``CombineFn``, whose backward ``dc[s, k] = sum over the blocks of
+s of <S[i, k, :], dw[i, :]>`` is a Gram-row pass with ``dw`` as the query
+and no anchor, i.e. K1 itself. Each such launch also counts under
+``BWD_LAUNCHES["gram_row_bwd"]``. The buffer takes no gradient.
 """
 from __future__ import annotations
 
@@ -33,19 +40,24 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import device as _device
-from repro_torch.kernels.device import (DTYPES, MAX_M, launch, on_cuda,
-                                        resolve_device, sm_count, stream)
+from repro_torch.kernels.device import (DTYPES, MAX_M, acc_dtype, launch,
+                                        on_cuda, resolve_device, sm_count,
+                                        stream, twin_only)
 
 CTAS_PER_SM = 2                  # K1's CTAs per SM for m <= 16 (one above)
 GRAM_CTAS_PER_SM = 1             # K3's: its m(m+1)/2 sums fill the registers
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES = {"gram_row": 0, "gram": 0, "combine": 0}
+# the gram_row launches made as combine's backward (a design counter: a
+# subset of LAUNCHES["gram_row"])
+BWD_LAUNCHES = {"gram_row_bwd": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counter in (LAUNCHES, BWD_LAUNCHES):
+        for k in counter:
+            counter[k] = 0
 
 
 @dataclass(frozen=True)
@@ -92,8 +104,8 @@ def gram_row_ref(x: torch.Tensor, q: torch.Tensor, block_sys, n_sys: int, *,
     so only q is anchored and column 0 of the raw partials is subtracted
     afterwards. Exact on integer-valued data; under rounding it differs from
     explicit anchoring by summation-order effects only."""
-    xf = x.float()
-    qf = q.float()
+    xf = x.to(acc_dtype(x))
+    qf = q.to(xf.dtype)
     if anchor_first:
         qf = qf - xf[:, 0, :]
     part = torch.bmm(xf, qf.unsqueeze(-1)).squeeze(-1)          # (nb, m)
@@ -110,7 +122,7 @@ def gram_ref(x: torch.Tensor, block_sys, n_sys: int, *,
     explicitly."""
     if anchor_first and anchor_mean:
         raise ValueError("anchor_first and anchor_mean are exclusive")
-    xf = x.float()
+    xf = x.to(acc_dtype(x))
     if anchor_first:
         xf = xf - xf[:, 0:1, :]
     if anchor_mean:
@@ -121,11 +133,17 @@ def gram_ref(x: torch.Tensor, block_sys, n_sys: int, *,
 
 def combine_ref(x: torch.Tensor, c: torch.Tensor, block_sys) -> torch.Tensor:
     """(nb, m, bn), (n_sys, m) -> (nb * bn,) = S^T c, each block with its
-    own system's coefficients, in fp32."""
-    xf = x.float()
+    own system's coefficients, in fp32. The m products of a lane are
+    summed in snapshot order, one multiply and one add each, as the
+    per-leaf twin (``kernels/combine.py``) sums them: the two routes give
+    the same bits on the same coefficients."""
+    xf = x.double()
     idx = torch.as_tensor(block_sys).to(x.device, torch.long)
-    cb = c.float()[idx]                                         # (nb, m)
-    return torch.bmm(cb.unsqueeze(1), xf).reshape(-1)
+    cb = c.double()[idx]                                        # (nb, m)
+    out = cb[:, 0:1] * xf[:, 0, :]
+    for j in range(1, x.shape[1]):
+        out = out + cb[:, j:j + 1] * xf[:, j, :]
+    return out.reshape(-1).to(acc_dtype(x))
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +256,15 @@ def gram(buf: torch.Tensor, seg: Segments, *, anchor_first: bool = False,
 def combine(buf: torch.Tensor, c: torch.Tensor, seg: Segments
             ) -> torch.Tensor:
     """(nb * bn,) fp32 jump blend, one launch: block i gets
-    ``c[block_sys[i]] . buf[i]``."""
+    ``c[block_sys[i]] . buf[i]``. Differentiable in ``c`` (``CombineFn``)
+    when ``c`` requires grad."""
+    if torch.is_grad_enabled() and c.requires_grad:
+        return CombineFn.apply(buf, c, seg)
+    return _combine(buf, c, seg)
+
+
+def _combine(buf: torch.Tensor, c: torch.Tensor, seg: Segments
+             ) -> torch.Tensor:
     _check_buffer(buf)
     nb, m, bn = buf.shape
     if c.shape != (seg.n_sys, m) or c.dtype != torch.float32 \
@@ -256,3 +282,36 @@ def combine(buf: torch.Tensor, c: torch.Tensor, seg: Segments
             bn, stream())
     LAUNCHES["combine"] += 1
     return out
+
+
+class CombineFn(torch.autograd.Function):
+    """K2 with a gradient in ``c``: forward is ``_combine`` (K2 on the card,
+    the twin on the CPU); backward is K1 (``gram_row``) with the cotangent
+    ``dw`` as the query and no anchor, which sums ``S[i, k, :] . dw[i, :]``
+    over each system's blocks. K1 takes a query of the buffer's dtype, so
+    with a bf16 ``snapshot_dtype`` the fp32 cotangent is rounded to bf16
+    (2^-8 relative per lane) before the pass; the sums stay fp32. The
+    controller's meta-tuning reads only the sign of the knob gradients."""
+
+    @staticmethod
+    def forward(ctx, buf, c, seg):
+        ctx.save_for_backward(buf)
+        ctx.seg = seg
+        ctx.c_dtype = c.dtype
+        if twin_only(buf):
+            return combine_ref(buf, c.detach(), seg.block_sys)
+        return _combine(buf, c.detach(), seg)
+
+    @staticmethod
+    def backward(ctx, dw):
+        (buf,) = ctx.saved_tensors
+        nb, _, bn = buf.shape
+        seg = ctx.seg
+        q = dw.reshape(nb, bn).to(buf.dtype).contiguous()
+        if twin_only(buf):
+            dc = gram_row_ref(buf, q, seg.block_sys, seg.n_sys)
+        else:
+            dc = gram_row(buf, q, seg)
+        if buf.is_cuda:
+            BWD_LAUNCHES["gram_row_bwd"] += 1
+        return None, dc.to(ctx.c_dtype), None

@@ -19,6 +19,20 @@ MAX_M = 32                                   # the kernels' register/smem cap
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # buffer dtype -> kernel code
 
 
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The twins' accumulation dtype: float64 for float64 input (the
+    gradient checks of the differentiable combines call the twins in
+    float64 on the CPU; the wrappers refuse it), else float32 (the
+    kernels' IEEE fp32)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def twin_only(x: torch.Tensor) -> bool:
+    """float64 on the CPU: the differentiable combines then call the twins
+    directly (no kernel takes float64, and the wrappers refuse it)."""
+    return x.dtype == torch.float64 and x.device.type == "cpu"
+
+
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on a CUDA device, False when every one is
     on the CPU; anything else raises."""
@@ -117,9 +131,20 @@ def tickets(device: torch.device, st: int, n: int) -> torch.Tensor:
     """At least `n` integer tickets, zero between launches: a kernel that
     picks its last CTA by a ticket resets the ticket itself. One buffer per
     (device, stream `st`), shared by every such kernel: launches on one
-    stream run in order, so they never use it at the same time."""
+    stream run in order, so they never use it at the same time.
+
+    Under CUDA-graph capture the buffer must already exist (an eager launch
+    on the capturing stream made it): a captured graph keeps its address,
+    and a buffer allocated inside the capture would come from the graph's
+    private pool. Asking for a new or larger one during capture raises."""
     buf = _TICKETS.get((device, st))
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "ticket buffer for this stream allocated under CUDA-graph "
+                "capture: run the step once eagerly on the capture stream "
+                "first")
         buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
         _TICKETS[(device, st)] = buf
     return buf

@@ -24,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import device as _device
-from repro_torch.kernels.device import (DTYPES, check_flat_buffer, launch,
+from repro_torch.kernels.device import (DTYPES, acc_dtype,
+                                        check_flat_buffer, launch,
                                         lanes_contiguous, on_cuda, sm_count,
                                         stream)
 
@@ -33,14 +34,17 @@ CTAS_PER_SM = 1                  # CTAs per SM the grid aims for, all systems
 
 # kernel launches since the counter was last set to 0
 LAUNCHES = {"flat_gram_row": 0}
+# the launches made as K5's backward (a design counter: a subset of
+# LAUNCHES["flat_gram_row"])
+BWD_LAUNCHES = {"flat_gram_row_bwd": 0}
 
 
 def gram_row_ref(x: torch.Tensor, q: torch.Tensor, *,
                  anchor_first: bool = False) -> torch.Tensor:
     """(m, S, n), (S, n) -> (S, m) = <d_q, d_j> per system in fp32, with
     d = s - s_0 when anchored (subtracted explicitly)."""
-    xf = x.float()
-    qf = q.float()
+    xf = x.to(acc_dtype(x))
+    qf = q.to(xf.dtype)
     if anchor_first:
         qf = qf - xf[0]
         xf = xf - xf[:1]

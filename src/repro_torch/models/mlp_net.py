@@ -69,3 +69,25 @@ class MLPNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp_forward(self.as_dict(), x)
+
+
+class MLPModel:
+    """Trainer adapter for the paper's regression MLP (the counterpart of
+    the reference benchmarks' ``_MLPModel``): ``init``, ``loss`` and
+    ``param_stack_dims`` are the whole contract ``Trainer`` needs; batches
+    are ``{"x": (B, in), "y": (B, out)}`` dicts."""
+
+    def __init__(self, sizes: Sequence[int]):
+        self.sizes = tuple(sizes)
+
+    def init(self, generator: torch.Generator) -> Params:
+        """Xavier init from the CPU `generator`, on the CPU (the Trainer
+        moves it to its device)."""
+        return init_mlp(generator, self.sizes, device="cpu")
+
+    def loss(self, params: Params, batch) -> tuple:
+        return mse_loss(params, batch["x"], batch["y"]), None
+
+    def param_stack_dims(self):
+        """No stacked leaves."""
+        return None

@@ -7,14 +7,23 @@
 The same interface and arithmetic as the reference's mini-optax, written
 out by hand (not ``torch.optim``): the DMD jump resets moments by group
 and the parity tests need the reference's exact bias correction and
-``eps`` placement. Scalars (lr, bias corrections) are computed in fp32 on
-the host, with the step counter as fp32, as the reference computes them.
+``eps`` placement. ``step`` is the optimizer-step counter as a tensor (the
+Trainer's device int32 counter) or a Python int; the lr and the bias
+corrections are fp32 tensor arithmetic on it, as the reference computes
+them, and nothing is read back to the host: a captured CUDA graph
+recomputes them from the counter on every replay.
+
+Trees are the port's nested dicts, including the arena-resident wrapper
+``{"__arena__": {bucket: flat}, "leaf": tree with None}``: every update
+is elementwise per path, so a flat resident buffer updates as one leaf
+(``RESIDENT_OPTIMIZERS`` in ``train/step.py``). ``adafactor`` factors the
+trailing two dims and ``adam8bit`` quantizes fixed 256-blocks, so they
+run only on per-leaf params.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch.core.paths import by_path, map_with_paths, tree_map
@@ -32,8 +41,36 @@ def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32."""
+    leaves = [torch.sum(torch.square(x.float())) for _, x in
+              by_path(tree).items()]
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def clip_by_global_norm(tree: PyTree, max_norm: float) -> PyTree:
+    norm = global_norm(tree)
+    scale = torch.clamp_max(max_norm / (norm + 1e-12), 1.0)
+    return tree_map(lambda x: x * scale.to(x.dtype), tree)
+
+
 def _zeros(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _t(step) -> torch.Tensor:
+    """The step counter + 1 in fp32 (bias corrections, adafactor's decay)."""
+    return torch.as_tensor(step).float() + 1.0
+
+
+def _split(fn, tree: PyTree, n: int):
+    """``fn(path, leaf)`` -> an n-tuple for every leaf of `tree`; returns n
+    trees shaped like `tree`."""
+    out = {path: fn(path, x) for path, x in by_path(tree).items()}
+    return tuple(map_with_paths(lambda p, _, i=i: out[p][i], tree)
+                 for i in range(n))
 
 
 def sgd(lr_fn) -> Optimizer:
@@ -41,7 +78,7 @@ def sgd(lr_fn) -> Optimizer:
         return ()
 
     def update(grads, state, params, step):
-        lr = float(lr_fn(step))
+        lr = lr_fn(step)
         return tree_map(lambda g: -lr * g.float(), grads), state
     return Optimizer(init, update)
 
@@ -51,7 +88,7 @@ def momentum(lr_fn, beta: float = 0.9) -> Optimizer:
         return tree_map(_zeros, params)
 
     def update(grads, state, params, step):
-        lr = float(lr_fn(step))
+        lr = lr_fn(step)
         new_m = tree_map(lambda m, g: beta * m + g.float(), state, grads)
         return tree_map(lambda m: -lr * m, new_m), new_m
     return Optimizer(init, update)
@@ -67,10 +104,10 @@ def adam(lr_fn, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
         return AdamState(tree_map(_zeros, params), tree_map(_zeros, params))
 
     def update(grads, state, params, step):
-        lr = float(lr_fn(step))
-        t = np.float32(step) + np.float32(1.0)
-        bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
-        bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
+        lr = lr_fn(step)
+        t = _t(step)
+        bc1 = 1.0 - torch.pow(b1, t)
+        bc2 = 1.0 - torch.pow(b2, t)
         ms, vs, ps = by_path(state.m), by_path(state.v), by_path(params)
         new_m, new_v = {}, {}
 
@@ -91,15 +128,160 @@ def adam(lr_fn, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
     return Optimizer(init, update)
 
 
+def adamw(lr_fn, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01) -> Optimizer:
+    return adam(lr_fn, b1, b2, eps, weight_decay)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment): optimizer memory O(rows + cols)
+# ---------------------------------------------------------------------------
+
+class AdafactorState(NamedTuple):
+    vr: PyTree      # row second moment (or the full v for < 2-D leaves)
+    vc: PyTree      # column second moment (or a scalar for < 2-D leaves)
+
+
+def adafactor(lr_fn, decay=0.999, eps=1e-30, clip_threshold=1.0
+              ) -> Optimizer:
+    """Beta1-free Adafactor. Factors the trailing two dims of >= 2-D
+    params."""
+
+    def init(params):
+        def vr_of(p):
+            return _zeros(p[..., 0]) if p.dim() >= 2 else _zeros(p)
+
+        def vc_of(p):
+            if p.dim() >= 2:
+                return _zeros(p[..., 0, :])
+            return torch.zeros((), dtype=torch.float32, device=p.device)
+        return AdafactorState(tree_map(vr_of, params),
+                              tree_map(vc_of, params))
+
+    def update(grads, state, params, step):
+        lr = lr_fn(step)
+        t = _t(step)
+        # time-dependent decay (Shazeer & Stern)
+        beta = torch.clamp_max(1.0 - torch.pow(t, -0.8), decay)
+        vrs, vcs, ps = by_path(state.vr), by_path(state.vc), by_path(params)
+
+        def upd(path, g):
+            g = g.float()
+            g2 = g * g + eps
+            vr, vc = vrs[path], vcs[path]
+            if ps[path].dim() >= 2:
+                new_vr = beta * vr + (1 - beta) * torch.mean(g2, dim=-1)
+                new_vc = beta * vc + (1 - beta) * torch.mean(g2, dim=-2)
+                # rank-1 reconstruction of v
+                denom = torch.mean(new_vr, dim=-1, keepdim=True)
+                vhat = (new_vr[..., :, None] * new_vc[..., None, :]
+                        / torch.clamp_min(denom[..., None], eps))
+                u = g / torch.sqrt(vhat + eps)
+            else:
+                new_vr = beta * vr + (1 - beta) * g2
+                new_vc = vc
+                u = g / torch.sqrt(new_vr + eps)
+            # update clipping by RMS
+            rms = torch.sqrt(torch.mean(u * u) + 1e-12)
+            u = u / torch.clamp_min(rms / clip_threshold, 1.0)
+            return new_vr, new_vc, -lr * u
+
+        vr, vc, u = _split(upd, grads, 3)
+        return u, AdafactorState(vr, vc)
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# 8-bit Adam: block-quantized moments
+# ---------------------------------------------------------------------------
+
+_QBLOCK = 256
+
+
+def _quantize(x: torch.Tensor):
+    """Flatten to blocks of _QBLOCK: int8 values and one fp32 absmax scale
+    per block."""
+    flat = x.reshape(-1)
+    pad = (-flat.shape[0]) % _QBLOCK
+    blocks = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, _QBLOCK)
+    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0
+    q = torch.round(blocks / torch.clamp_min(scale, 1e-12)).to(torch.int8)
+    return q, scale[:, 0]
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
+    flat = (q.float() * scale[:, None]).reshape(-1)
+    n = 1
+    for d in shape:
+        n *= d
+    return flat[:n].reshape(shape)
+
+
+class Adam8bitState(NamedTuple):
+    mq: PyTree
+    ms: PyTree
+    vq: PyTree
+    vs: PyTree
+
+
+def adam8bit(lr_fn, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0
+             ) -> Optimizer:
+    def init(params):
+        mq, ms = _split(lambda _, p: _quantize(_zeros(p)), params, 2)
+        vq, vs = _split(lambda _, p: _quantize(_zeros(p)), params, 2)
+        return Adam8bitState(mq, ms, vq, vs)
+
+    def update(grads, state, params, step):
+        lr = lr_fn(step)
+        t = _t(step)
+        bc1 = 1.0 - torch.pow(b1, t)
+        bc2 = 1.0 - torch.pow(b2, t)
+        of = [by_path(x) for x in (state.mq, state.ms, state.vq, state.vs,
+                                   params)]
+
+        def upd(path, g):
+            mq, ms, vq, vs, p = (o[path] for o in of)
+            g = g.float()
+            m = b1 * _dequantize(mq, ms, p.shape) + (1 - b1) * g
+            v = b2 * _dequantize(vq, vs, p.shape) + (1 - b2) * g * g
+            v = torch.clamp_min(v, 0.0)
+            u = -lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if weight_decay:
+                u = u - lr * weight_decay * p.float()
+            return _quantize(m) + _quantize(v) + (u,)
+
+        nmq, nms, nvq, nvs, u = _split(upd, grads, 5)
+        return u, Adam8bitState(nmq, nms, nvq, nvs)
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Factory
+# ---------------------------------------------------------------------------
+
 def make_optimizer(cfg) -> Optimizer:
-    """cfg: OptimizerConfig -> Optimizer with the schedule baked in."""
-    if cfg.grad_clip and cfg.grad_clip > 0:
-        raise NotImplementedError("grad_clip is not ported yet")
+    """cfg: OptimizerConfig -> Optimizer with the schedule and gradient
+    clipping baked in."""
     lr_fn = make_schedule(cfg)
     if cfg.name == "sgd":
-        return sgd(lr_fn)
-    if cfg.name == "momentum":
-        return momentum(lr_fn, beta=cfg.b1)
-    if cfg.name == "adam":
-        return adam(lr_fn, cfg.b1, cfg.b2, cfg.eps, 0.0)
-    raise NotImplementedError(f"optimizer {cfg.name!r} is not ported yet")
+        base = sgd(lr_fn)
+    elif cfg.name == "momentum":
+        base = momentum(lr_fn, beta=cfg.b1)
+    elif cfg.name == "adam":
+        base = adam(lr_fn, cfg.b1, cfg.b2, cfg.eps, 0.0)
+    elif cfg.name == "adamw":
+        base = adamw(lr_fn, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+    elif cfg.name == "adafactor":
+        base = adafactor(lr_fn, decay=cfg.b2)
+    elif cfg.name == "adam8bit":
+        base = adam8bit(lr_fn, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+    else:
+        raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+    if cfg.grad_clip and cfg.grad_clip > 0:
+        inner = base
+
+        def update(grads, state, params, step):
+            grads = clip_by_global_norm(grads, cfg.grad_clip)
+            return inner.update(grads, state, params, step)
+        base = Optimizer(inner.init, update)
+    return base

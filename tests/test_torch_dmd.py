@@ -157,7 +157,74 @@ def test_unported_modes_raise():
     g = torch.tensor(_gram("random", np.random.default_rng(7)))
     with pytest.raises(NotImplementedError, match="eig"):
         tdmd.dmd_coefficients(g, s=5, mode="eig")
-    with pytest.raises(NotImplementedError, match="controller"):
-        tdmd.dmd_coefficients(g, s=5, s_dyn=3)
     with pytest.raises(ValueError, match="m >= 3"):
         tdmd.dmd_coefficients(g[:2, :2], s=5)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("s_dyn,ridge_dyn", [(1, None), (7, None), (10, None),
+                                             (25, None), (4, 0.05),
+                                             (None, 0.0), (None, 0.08)])
+def test_dynamic_horizon_and_ridge_match_reference(kind, s_dyn, ridge_dyn):
+    """The controller's dynamic horizon (clamped into [1, s]) and
+    meta-tuned ridge, as tensors, against the reference's traced ones;
+    same tolerance as the static cases."""
+    g = _gram(kind, np.random.default_rng(11))
+    # exactly low-rank data masks its fp32 noise floor at tol 1e-3, as in
+    # test_coefficients_match_reference
+    kw = dict(s=10, tol=1e-4 if kind == "random" else 1e-3, anchor="first",
+              affine=True, trust_region=2.0)
+    jkw, tkw = dict(kw), dict(kw)
+    if s_dyn is not None:
+        jkw["s_dyn"] = jnp.asarray(s_dyn, jnp.int32)
+        tkw["s_dyn"] = torch.tensor(s_dyn, dtype=torch.int32)
+    if ridge_dyn is not None:
+        jkw["ridge_dyn"] = jnp.asarray(ridge_dyn, jnp.float32)
+        tkw["ridge_dyn"] = torch.tensor(ridge_dyn)
+    cj, _ = jdmd.dmd_coefficients(jnp.asarray(g), **jkw)
+    ct, _ = tdmd.dmd_coefficients(torch.tensor(g), **tkw)
+    cj = np.asarray(cj)
+    np.testing.assert_allclose(ct.numpy(), cj,
+                               atol=2e-4 * max(1.0, np.abs(cj).max()))
+
+
+def test_traced_matrix_power_matches_static():
+    """Masked binary exponentiation over the cap's bits equals the static
+    chain exactly for every s in [1, cap], per system too."""
+    rng = np.random.default_rng(3)
+    a = torch.tensor(rng.normal(size=(3, 5, 5)).astype(np.float32) * 0.5)
+    for s in range(1, 12):
+        got = tdmd._matrix_power_traced(a, torch.tensor(s), 11)
+        np.testing.assert_allclose(got.numpy(),
+                                   tdmd._matrix_power(a, s).numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    per = tdmd._matrix_power_traced(a, torch.tensor([1, 4, 9]), 11)
+    for i, s in enumerate((1, 4, 9)):
+        np.testing.assert_allclose(per[i].numpy(),
+                                   tdmd._matrix_power(a[i], s).numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_coefficients_differentiable_in_relax_and_ridge():
+    """Meta-tuning backpropagates through the solve: the gradient of a
+    scalar of c in relax and ridge_dyn matches JAX's (same Gram)."""
+    import jax
+    g = _gram("random", np.random.default_rng(5))
+    w = np.random.default_rng(6).normal(size=M).astype(np.float32)
+
+    def jf(r, k):
+        c, _ = jdmd.dmd_coefficients(jnp.asarray(g), s=10, tol=1e-4,
+                                     anchor="first", affine=True,
+                                     trust_region=2.0, relax=r,
+                                     ridge_dyn=k)
+        return jnp.sum(c * jnp.asarray(w))
+    gj = jax.grad(jf, argnums=(0, 1))(jnp.float32(0.8), jnp.float32(0.03))
+    r = torch.tensor(0.8, requires_grad=True)
+    k = torch.tensor(0.03, requires_grad=True)
+    c, _ = tdmd.dmd_coefficients(torch.tensor(g), s=10, tol=1e-4,
+                                 anchor="first", affine=True,
+                                 trust_region=2.0, relax=r, ridge_dyn=k)
+    gr, gk = torch.autograd.grad((c * torch.tensor(w)).sum(), (r, k))
+    for got, want in ((gr, gj[0]), (gk, gj[1])):
+        want = float(want)
+        assert abs(float(got) - want) <= 2e-3 * max(1.0, abs(want))

@@ -608,3 +608,191 @@ def test_flat_gram_design(cuda, m, dtype):
             _assert_tickets_zero(x.device)
             del x
     assert kg.LAUNCHES["flat_gram"] - before == calls
+
+
+# -- the Trainer path: differentiable combines, captured train steps --------
+
+def _paper_arena(cuda, dtype, seed=0):
+    """The paper bucket's (5633, 14, 512) buffer, block table and c."""
+    params = init_mlp(torch.Generator().manual_seed(0), PAPER_SIZES,
+                      device=cuda)
+    (bucket,) = DMDAccelerator(DMDConfig(), device=cuda).arena_for(
+        params).values()
+    seg = bucket.tables_on(cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((bucket.n_blocks, bucket.m, bucket.block_n),
+                    generator=g, device=cuda).to(dtype)
+    c = torch.randn((seg.n_sys, bucket.m), generator=g, device=cuda)
+    return x, c, seg
+
+
+def _close_rows(got, want, rtol=1e-5):
+    """|got - want| <= rtol * max(1, max |want|) within each row."""
+    diff = (got - want).abs().amax(dim=1)
+    assert bool((diff <= rtol * want.abs().amax(dim=1).clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_arena_combine_backward_through_k1(cuda, dtype):
+    """K2's gradient in c is one K1 launch (counted under gram_row_bwd) at
+    the paper arena: against the twin's autograd on the cotangent as K1
+    sees it (rounded to the buffer's dtype), rtol 1e-5 per system; for bf16
+    also against the unrounded cotangent, within 1e-2 per system (the
+    documented bf16 rounding of the query)."""
+    x, c, seg = _paper_arena(cuda, dtype)
+    r = torch.randn((x.shape[0] * x.shape[2],), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    b0, k0 = ka.BWD_LAUNCHES["gram_row_bwd"], ka.LAUNCHES["gram_row"]
+    cr = c.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad((ka.combine(x, cr, seg) * r).sum(), cr)
+    assert ka.BWD_LAUNCHES["gram_row_bwd"] - b0 == 1
+    assert ka.LAUNCHES["gram_row"] - k0 == 1
+    rq = r.to(dtype).float()
+    ct = c.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        (ka.combine_ref(x, ct, seg.block_sys) * rq).sum(), ct)
+    _close_rows(got, want)
+    if dtype == torch.bfloat16:
+        ct = c.clone().requires_grad_(True)
+        (full,) = torch.autograd.grad(
+            (ka.combine_ref(x, ct, seg.block_sys) * r).sum(), ct)
+        _close_rows(got, full, rtol=1e-2)
+    _assert_tickets_zero(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_combine_backward_through_k4(cuda, dtype):
+    """K5's gradient in c is one K4 launch (flat_gram_row_bwd) at /l3/w,
+    (14, 1, 2670000), and on a stacked (14, 4, 131072) buffer; tolerances
+    as for K2."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for shape in ((14, 1, 2670000), (14, 4, 131072)):
+        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        c = torch.randn((shape[1], shape[0]), generator=g, device=cuda)
+        r = torch.randn((shape[1], shape[2]), generator=g, device=cuda)
+        b0 = kgr.BWD_LAUNCHES["flat_gram_row_bwd"]
+        cr = c.clone().requires_grad_(True)
+        (got,) = torch.autograd.grad((kc.combine(x, cr) * r).sum(), cr)
+        assert kgr.BWD_LAUNCHES["flat_gram_row_bwd"] - b0 == 1
+        ct = c.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(
+            (kc.combine_ref(x, ct) * r.to(dtype).float()).sum(), ct)
+        _close_rows(got, want)
+        if dtype == torch.bfloat16:
+            ct = c.clone().requires_grad_(True)
+            (full,) = torch.autograd.grad((kc.combine_ref(x, ct) * r).sum(),
+                                          ct)
+            _close_rows(got, full, rtol=1e-2)
+        del x
+    _assert_tickets_zero(cuda)
+
+
+def _mlp_trainer(cuda, *, arena=True, graphs=True, controller=None):
+    from repro_torch.configs.base import (ArchConfig, DMDControllerConfig,
+                                          ModelConfig, OptimizerConfig,
+                                          TrainConfig)
+    from repro_torch.models.mlp_net import MLPModel
+    from repro_torch.train import Trainer
+    acfg = ArchConfig(
+        model=ModelConfig(name="mlp", family="mlp"),
+        dmd=DMDConfig(m=4, s=5, warmup_steps=5, cooldown_steps=2,
+                      arena_block_n=128, arena=arena,
+                      controller=controller or DMDControllerConfig()),
+        optimizer=OptimizerConfig(name="adam", lr=1e-3),
+        train=TrainConfig(global_batch=64, seq_len=1), shapes=())
+    X, Y = synthetic_regression(seed=0, n=96, n_out=130)
+    batch = {"x": torch.tensor(X[:64], device=cuda),
+             "y": torch.tensor(Y[:64], device=cuda)}
+    val = {"x": torch.tensor(X[64:], device=cuda),
+           "y": torch.tensor(Y[64:], device=cuda)}
+    tr = Trainer(MLPModel((6, 16, 40, 130)), acfg, device=cuda,
+                 cuda_graphs=graphs,
+                 val_batch=val if controller is not None else None)
+    return tr, batch
+
+
+def _state_tensors(st):
+    from repro_torch.core.paths import leaves_with_paths
+    return [x for _, x in leaves_with_paths(st)]
+
+
+@pytest.mark.parametrize("arena", [True, False])
+def test_captured_train_step_bit_identical_to_eager(cuda, arena):
+    """A train step captured as a CUDA graph and replayed writes the same
+    bits into every state tensor (params, moments, step, ring buffers,
+    Grams) as the same step run eagerly on a copy of the same state: the
+    plain step and a record step (slot 0, K1 or K4 inside the graph); the
+    tickets are left at zero after the replays."""
+    from repro_torch.core.paths import map_with_paths
+    from repro_torch.train import loop
+    from repro_torch.train.step import state_resident
+    tr, batch = _mlp_trainer(cuda, arena=arena)
+    st = state_resident(tr.acc, tr.acfg, tr.init_state())
+    graphed = loop._GraphedSteps(tr.train_step, cuda)
+    # step 1: the plain graph's capture; step 13: slot 0's (its warm-up
+    # ran at step 7)
+    checked = []
+    for t in range(14):
+        slots = tr.acc.slots(t)
+        key = loop.graph_key(slots)
+        twin = None
+        if key in graphed.warm and key not in graphed.graphs:
+            twin = map_with_paths(lambda _, x: x.clone(), st)
+            tr.train_step(twin, batch, slots)
+        graphed(st, batch, slots, key)
+        if twin is not None:
+            torch.cuda.synchronize()
+            for a, b in zip(_state_tensors(st), _state_tensors(twin)):
+                assert torch.equal(a, b)
+            checked.append((t, key))
+        if tr.acc.apply_groups(t):
+            st, _ = tr.dmd_step(st, tr.acc.relax_vector(t),
+                                groups=tr.acc.apply_groups(t))
+    assert checked == [(1, loop.PLAIN), (13, (0,))]
+    assert graphed.stats["captured"] == 2
+    torch.cuda.synchronize()
+    for st_handle in (graphed.side.cuda_stream, kd.stream()):
+        assert not kd.tickets(cuda, st_handle, 1).any()
+
+
+def test_graphed_fit_matches_eager_fit_and_counts(cuda):
+    """The whole Trainer run with graphs equals the eager run bit for bit
+    (per-step losses and final params), and the launch counts are the
+    kernels that ran: K1 once per record step, K2 once per jump."""
+    runs = {}
+    for graphs in (True, False):
+        tr, batch = _mlp_trainer(cuda, graphs=graphs)
+        ka.reset_launches()
+        losses = []
+        st = tr.fit(iter(lambda: batch, None), 30,
+                    on_metrics=lambda t, m: losses.append(m["loss"]))
+        torch.cuda.synchronize()
+        runs[graphs] = (torch.stack(losses), st, dict(ka.LAUNCHES))
+        n_rec = sum(tr.acc.should_record(t) for t in range(30))
+        n_jump = sum(tr.acc.should_apply(t) for t in range(30))
+        assert runs[graphs][2] == {"gram_row": n_rec, "gram": 0,
+                                   "combine": n_jump}
+    assert torch.equal(runs[True][0], runs[False][0])
+    for a, b in zip(_state_tensors(runs[True][1].params),
+                    _state_tensors(runs[False][1].params)):
+        assert torch.equal(a, b)
+
+
+def test_gated_trainer_meta_backward_on_card(cuda):
+    """The gated, meta-tuned Trainer on the card: one K2 and one K1 (as
+    K2's backward) per jump, knobs finite and inside their bands."""
+    from repro_torch.configs.base import DMDControllerConfig
+    ctrl = DMDControllerConfig(enabled=True, eval_rows=0, val_gate=True,
+                               shrink_levels=(0.5, 0.25), meta_lr=0.25)
+    tr, batch = _mlp_trainer(cuda, controller=ctrl)
+    ka.reset_launches()
+    st = tr.fit(iter(lambda: batch, None), 30)
+    n_rec = sum(tr.acc.should_record(t) for t in range(30))
+    n_jump = sum(tr.acc.should_apply(t) for t in range(30))
+    assert ka.LAUNCHES == {"gram_row": n_rec + n_jump, "gram": 0,
+                           "combine": n_jump}
+    assert ka.BWD_LAUNCHES["gram_row_bwd"] == n_jump
+    c = st.controller
+    assert int((c.accepts + c.scaled + c.rejects).sum()) == n_jump
+    assert 0.0 <= float(c.ridge_eff[0]) <= ctrl.ridge_max
+    assert ctrl.relax_floor <= float(c.relax_eff[0]) <= 1.0
