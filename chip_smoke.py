@@ -97,6 +97,28 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    clamps, loss finite and falling; the final train and test MSE beside
    an ungated run and a DMD-off run of the same rows and steps (printed,
    not required to win).
+11. The paper's problem on its own dataset (``data/pollutant.py``):
+   (a) ``solve_dataset`` at the paper's scale, 1000 LHS samples on the
+   96 x 48 grid with 2670 probes and the 4000-iteration cap, seed 0: the
+   Blasius shooting and velocity fields on the host, the march on the
+   card, every sample at once; the seconds of each, the per-sample
+   iteration counts (min, median, max, how many at the cap); Y finite,
+   |X| <= 1, the shapes; 8 samples (the fastest, the slowest, 6 spread)
+   marched again on the CPU: iteration counts equal or off by one and c3
+   within 5 * tol absolute (the CPU tests' bound against the reference).
+   (b) The 80/20 split (seed 2) and ``paper_loop.train`` for 3000 epochs
+   on the 800 training rows, the arena route, with DMD off (no kernel
+   launch) and with the launcher's DMD (m 14, s 55, tol 1e-4, warmup 100,
+   cooldown 10: jumps at 123 + 24k, 120 of them; K1 once per record, K2
+   once per jump): loss finite and falling before the first jump, train
+   and test MSE every 200 epochs, the per-jump loss ratios, the reverted
+   steps, ms/step, and whether DMD beats the baseline on test (printed,
+   not required).
+   (c) fig4's gated Trainer (phase 10(c)'s controller, graphed) for 3000
+   steps on 650 of the training rows, gated on the other 150, tested on
+   the 200 test rows: K1 once per record and once per jump as K2's
+   backward, K2 once per jump; outcome counts, knobs and final MSE beside
+   (b)'s.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -121,6 +143,7 @@ from repro_torch.configs.pollutant_mlp import PAPER_SIZES  # noqa: E402
 from repro_torch.core.accelerator import DMDAccelerator  # noqa: E402
 from repro_torch.core.paths import (leaves_with_paths,  # noqa: E402
                                     map_with_paths, tree_map)
+from repro_torch.data import pollutant  # noqa: E402
 from repro_torch.data.synthetic import synthetic_regression  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import arena as ka  # noqa: E402
@@ -131,7 +154,7 @@ from repro_torch.kernels import gram as kg  # noqa: E402
 from repro_torch.kernels import gram_row as kgr  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.mlp_net import MLPModel, init_mlp  # noqa: E402
-from repro_torch.models.mlp_net import mse_loss  # noqa: E402
+from repro_torch.models.mlp_net import mlp_forward, mse_loss  # noqa: E402
 from repro_torch.train import Trainer, loop as train_loop  # noqa: E402
 from repro_torch.train import paper_loop  # noqa: E402
 from repro_torch.train.step import state_resident  # noqa: E402
@@ -957,11 +980,11 @@ GATED_DMD = dict(m=14, s=55, tol=1e-4, warmup_steps=100, cooldown_steps=10)
 GATED_STEPS, VAL_ROWS = 600, 150
 
 
-def _trainer_acfg(dmd):
+def _trainer_acfg(dmd, rows=ROWS):
     return ArchConfig(model=ModelConfig(name="pollutant-mlp", family="mlp"),
                       dmd=dmd, optimizer=OptimizerConfig(name="adam",
                                                          lr=paper_loop.LR),
-                      train=TrainConfig(global_batch=ROWS, seq_len=1),
+                      train=TrainConfig(global_batch=rows, seq_len=1),
                       shapes=())
 
 
@@ -1203,6 +1226,175 @@ def run_trainer(dev, X, Y, paper_ms):
     return out
 
 
+# -- phase 11: the paper's problem -------------------------------------------
+
+# the paper's dataset at its scale (§4: 1000 LHS samples, 2670 probes) on
+# the reference's default 96 x 48 grid and iteration cap
+POLLUTANT = dict(n_samples=1000, nx=96, ny=48, n_points=PAPER_SIZES[-1],
+                 n_iter=4000, seed=0)
+EPOCHS = 3000                 # the paper's
+# the launcher's DMD run (examples/pollutant_regression.py's default)
+PAPER_DMD = dict(m=14, s=55, tol=1e-4, warmup_steps=100, cooldown_steps=10)
+# the card's march against the port's CPU march of the same samples
+# (tests/test_torch_data.py's bound against the reference): each sample's
+# iteration count equal or off by one, c3 within 5 * tol absolute
+CPU_SAMPLES, MARCH_TOL = 8, 1e-5
+
+
+def check_pollutant_data(dev):
+    """Phase 11(a): the dataset on the card, 8 samples' c3 held against
+    the CPU march. Returns (data, solve)."""
+    data, solve = pollutant.solve_dataset(device=dev, **POLLUTANT)
+    n, it, cap = POLLUTANT["n_samples"], solve.iters, POLLUTANT["n_iter"]
+    print(f"pollutant (a): {n} samples at {POLLUTANT['nx']}x"
+          f"{POLLUTANT['ny']}, {POLLUTANT['n_points']} probes: shooting + "
+          f"velocity fields {solve.shoot_s} s (host), march {solve.march_s} "
+          f"s (card, synchronised); iterations min {it.min()} median "
+          f"{np.median(it)} max {it.max()}, {int((it >= cap).sum())} at the "
+          f"cap {cap}; c3 max {solve.c3.max()}")
+    require(data["X"].shape == (n, 6) and data["Y"].shape == (
+        n, POLLUTANT["n_points"]), f"pollutant (a): shapes {data['X'].shape}"
+            f" {data['Y'].shape}")
+    require(np.isfinite(data["Y"]).all(), "pollutant (a): non-finite Y")
+    require(np.abs(data["X"]).max() <= 1.0, "pollutant (a): |X| > 1")
+    peak = np.abs(data["Y"]).max(axis=1)
+    print(f"pollutant (a): Y's largest |value| per sample: quantiles 50/90/"
+          f"99/100% {np.quantile(peak, [0.5, 0.9, 0.99, 1.0]).tolist()}, "
+          f"{int((peak > 10).sum())} samples above 10 (y_scale "
+          f"{data['y_scale']}, y_mean {data['y_mean']})")
+    # 8 samples: the fastest, the slowest and 6 spread over the batch
+    pick = sorted({int(it.argmin()), int(it.argmax()),
+                   *np.linspace(0, n - 1, CPU_SAMPLES - 2).astype(int).tolist()})
+    p = data["params_raw"][pick]
+    X, Y = pollutant.make_grid(POLLUTANT["nx"], POLLUTANT["ny"])
+    eta, f, fp = pollutant.solve_blasius_batch(p[:, 3], p[:, 4], p[:, 5])
+    ux, uy = zip(*(pollutant.velocity_field(r[3], r[4], r[5], X, Y,
+                                            (eta, f[i], fp[i]))
+                   for i, r in enumerate(p)))
+    dx, dy = 2.0 / (POLLUTANT["nx"] - 1), 1.0 / (POLLUTANT["ny"] - 1)
+    t0 = time.perf_counter()
+    *_, c3, it_cpu = pollutant.march(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            np.stack(ux), np.stack(uy), p[:, 2], p[:, 0], p[:, 1],
+            *pollutant.source_fields(X, Y))), dx, dy, n_iter=cap,
+        tol=MARCH_TOL)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(c3.numpy() - solve.c3[pick]).max())
+    steps = np.abs(it_cpu.numpy() - it[pick])
+    print(f"pollutant (a): samples {pick} card vs CPU march ({cpu_s} s): "
+          f"iterations {it[pick].tolist()} vs {it_cpu.tolist()}, max |c3 "
+          f"diff| {err} (bit-identical "
+          f"{np.array_equal(c3.numpy(), solve.c3[pick])})")
+    require(steps.max() <= 1 and err <= 5 * MARCH_TOL,
+            f"pollutant (a): card vs CPU: iterations off by {steps.max()}, "
+            f"c3 off by {err}")
+    return data
+
+
+def _jump_summary(jumps):
+    j = np.asarray(jumps)
+    return (f"{len(j)} jumps, loss ratio min {j.min()} median "
+            f"{np.median(j)} max {j.max()}, {int((j <= 1).sum())} <= 1")
+
+
+def run_pollutant_loop(dev, split):
+    """Phase 11(b): the paper loop for EPOCHS epochs on the 800 training
+    rows, DMD off and on (arena route), counted; train and test MSE every
+    200 epochs. Returns {run: (train MSE, test MSE)}."""
+    (Xtr, Ytr), test = split
+    on = DMDConfig(**PAPER_DMD)
+    sched = DMDAccelerator(on, device=dev)
+    jumps = [t for t in range(EPOCHS) if sched.should_apply(t)]
+    n_rec = sum(sched.should_record(t) for t in range(EPOCHS))
+    require(jumps == list(range(123, EPOCHS, 24)),
+            f"pollutant (b): jumps at {jumps[:4]} ...")
+    finals = {}
+    for name, cfg, want in (
+            ("dmd-off", DMDConfig(enabled=False), {}),
+            ("dmd", on, {"gram_row": n_rec, "combine": len(jumps)})):
+        what = f"pollutant (b) {name}"
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = paper_loop.train(Xtr, Ytr, PAPER_SIZES, cfg, EPOCHS,
+                               test=test, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = require_counts(what, want)
+        loss = res.losses
+        last = jumps[0] if name == "dmd" else EPOCHS - 1
+        require(np.isfinite(loss).all(), f"{what}: non-finite loss")
+        require(loss[last] < loss[0], f"{what}: loss did not fall: "
+                f"{loss[0]} -> {loss[last]} (step {last})")
+        print(f"{what}: {EPOCHS} epochs in {wall} s, ms/step "
+              f"{wall / EPOCHS * 1e3} (train + test MSE every 200), launches"
+              f" {launches}, loss {loss[0]} -> {loss[last]} at step {last}")
+        print(f"{what}: (epoch, train MSE, test MSE) {res.curve}")
+        if res.jumps:
+            print(f"{what}: {_jump_summary(res.jumps)}; reverted "
+                  f"{len(res.reverted)}: {res.reverted}")
+        finals[name] = res.curve[-1][1:]
+    (tr_b, te_b), (tr_d, te_d) = finals["dmd-off"], finals["dmd"]
+    print(f"pollutant (b) final MSE: train dmd-off {tr_b} dmd {tr_d} (off / "
+          f"dmd {tr_b / tr_d}); test dmd-off {te_b} dmd {te_d} (off / dmd "
+          f"{te_b / te_d}); DMD beats the baseline on test: {te_d < te_b}")
+    return finals
+
+
+def run_pollutant_gated(dev, split, finals):
+    """Phase 11(c): fig4's gated Trainer, graphed, for EPOCHS steps on 650
+    of the training rows, gated on the other 150, tested on the test
+    rows."""
+    (Xtr, Ytr), (Xte, Yte) = split
+    fit = len(Xtr) - VAL_ROWS
+
+    def rows(x, y):
+        return {"x": torch.as_tensor(x, device=dev),
+                "y": torch.as_tensor(y, device=dev)}
+    train, val = rows(Xtr[:fit], Ytr[:fit]), rows(Xtr[fit:], Ytr[fit:])
+    test = rows(Xte, Yte)
+    gated = DMDConfig(**GATED_DMD,
+                      controller=DMDControllerConfig(**GATED_CTRL))
+    tr = Trainer(MLPModel(PAPER_SIZES), _trainer_acfg(gated, fit),
+                 device=dev, val_batch=val)
+    n_rec = sum(tr.acc.should_record(t) for t in range(EPOCHS))
+    n_jump = sum(tr.acc.should_apply(t) for t in range(EPOCHS))
+    st, _, _, _, outcomes = _fit_counted(
+        "pollutant (c) gated", tr, train, EPOCHS,
+        {"gram_row": n_rec + n_jump, "combine": n_jump})
+    bwd = ka.BWD_LAUNCHES["gram_row_bwd"]
+    require(bwd == n_jump, f"pollutant (c): {bwd} K1 backward launches, "
+            f"expected {n_jump}")
+    c = st.controller
+    print(f"pollutant (c): {n_rec} records, {n_jump} jumps (K1 {n_rec} + "
+          f"{bwd}, K2 {n_jump}); outcomes accept {outcomes.count(2)}, "
+          f"scaled {outcomes.count(1)}, reject {outcomes.count(0)}; s_eff "
+          f"{c.s_eff.cpu().numpy()}, relax_eff {c.relax_eff.cpu().numpy()}, "
+          f"ridge_eff {c.ridge_eff.cpu().numpy()}")
+    mse = {name: float(mse_loss(st.params, b["x"], b["y"]))
+           for name, b in (("train", train), ("val", val), ("test", test))}
+    for name, b in (("train", train), ("val", val), ("test", test)):
+        with torch.no_grad():
+            row = ((mlp_forward(st.params, b["x"])
+                    - b["y"]) ** 2).mean(dim=1)
+        top = torch.topk(row, 3)
+        print(f"pollutant (c) {name} fold: max |Y| "
+              f"{float(b['y'].abs().max())}, largest per-row MSE "
+              f"{top.values.tolist()} (rows {top.indices.tolist()})")
+    (tr_b, te_b), (tr_d, te_d) = finals["dmd-off"], finals["dmd"]
+    print(f"pollutant (c) final MSE: gated train {mse['train']} (its {fit} "
+          f"rows) val {mse['val']} test {mse['test']}; (b) dmd-off train "
+          f"{tr_b} test {te_b}, dmd train {tr_d} test {te_d}")
+
+
+def run_pollutant(dev):
+    """Phase 11: the paper's problem on its own dataset."""
+    data = check_pollutant_data(dev)
+    split = pollutant.train_test_split(data, 0.8)
+    finals = run_pollutant_loop(dev, split)
+    run_pollutant_gated(dev, split, finals)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1243,6 +1435,7 @@ def main():
         {"flat_gram": 2 * 8, "flat_combine": 2 * 8})
     serve_launches = run_serve(dev)
     run_trainer(dev, X, Y, MS_PER_STEP["main path"])
+    run_pollutant(dev)
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",

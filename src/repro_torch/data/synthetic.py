@@ -1,7 +1,8 @@
 """A numpy-seeded regression teacher (the reference benchmarks' own, copied
 so both packages see the same rows): ``Y = tanh(X A1) * exp(-(X A2)^2 / 2)``
-over 6 uniform inputs. Stands in for the PDE dataset until that is ported
-(ROADMAP Queue 1: data)."""
+over 6 uniform inputs. The paper loop's and the Trainer's default rows on
+the card (``chip_smoke.py`` phases 4-10); the paper's own PDE dataset is
+``data/pollutant.py``."""
 from __future__ import annotations
 
 from typing import Tuple

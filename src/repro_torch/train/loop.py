@@ -43,6 +43,7 @@ import torch
 from repro_torch.core.accelerator import DMDAccelerator
 from repro_torch.core import controller as ctrl_mod
 from repro_torch.core.paths import leaves_with_paths, map_with_paths
+from repro_torch.data.tokens import validation_batch
 from repro_torch.kernels import arena as _ka
 from repro_torch.kernels import combine as _kc
 from repro_torch.kernels import gram as _kg
@@ -195,16 +196,16 @@ class Trainer:
         self.on_publish(self.acc.params_leafwise(state.params), version)
 
     def _carve_val_batch(self) -> Optional[PyTree]:
-        """The default validation split: vocab models draw one from the
-        token stream's reserved fold; models without a vocab (the MLP)
-        have none and pass ``val_batch`` or ``fit(eval_batch=...)``."""
-        mc = getattr(self.model, "cfg", None)
-        if getattr(mc, "vocab_size", None):
-            raise NotImplementedError(
-                "the token stream's validation fold comes with "
-                "data/tokens.py (ROADMAP Queue 1 item 2): pass "
-                "Trainer(val_batch=...)")
-        return None
+        """The default validation split for vocab models: one batch at the
+        token stream's reserved ``VAL_FOLD`` offset, shaped like a training
+        batch. Models without a vocab (the MLP) have none and pass
+        ``val_batch`` or ``fit(eval_batch=...)``."""
+        vocab = getattr(getattr(self.model, "cfg", None), "vocab_size", None)
+        if not vocab:
+            return None
+        tc = self.acfg.train
+        return validation_batch(tc.seed, tc.global_batch, tc.seq_len, vocab,
+                                device=self.device)
 
     # -- state ---------------------------------------------------------------
     def init_state(self, key: Optional[torch.Generator] = None,

@@ -1,7 +1,8 @@
 """The paper's experiment loop: Adam on the softsign MLP with DMD jumps.
 
     python -m repro_torch.train.paper_loop [--steps 300] [--rows 1000]
-        [--no-streaming] [--no-arena] [--device cuda]
+        [--data teacher|pollutant] [--no-streaming] [--no-arena]
+        [--device cuda]
 
 Each step takes an Adam step; on recorded steps the params go into the
 arena ring buffer and one streaming Gram row is refreshed (kernel K1);
@@ -14,14 +15,18 @@ the same steps run once per leaf through the flat kernels: K4 for the
 Gram row, K5 for the combine and K6 for the recompute.
 
 Data: the numpy-seeded teacher of ``data/synthetic.py`` at the paper's
-output width, until the PDE dataset is ported.
+output width (``--data teacher``, the default), or the paper's own
+dataset (``--data pollutant``: ``data/pollutant.py`` at 96 x 48 with 2670
+probes, ``--rows`` samples, its march on the same device).
+``launch/pollutant_regression.py`` runs the paper's experiment on the
+latter with a held-out test split.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Any, List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +35,7 @@ from repro_torch.configs.base import DMDConfig, OptimizerConfig
 from repro_torch.configs.pollutant_mlp import PAPER_SIZES
 from repro_torch.core.accelerator import DMDAccelerator
 from repro_torch.core.paths import leaves_with_paths, map_with_paths
+from repro_torch.data import pollutant
 from repro_torch.data.synthetic import synthetic_regression
 from repro_torch.kernels.device import resolve_device
 from repro_torch.models.mlp_net import init_mlp, mse_loss
@@ -45,6 +51,9 @@ class TrainResult(NamedTuple):
     losses: np.ndarray           # (steps,) loss before each step's update
     jumps: List[float]           # loss after / before, per jump
     reverted: List[int]          # steps whose jump the guard reverted
+    # (step, train MSE, test MSE) after every LOG_EVERY-th step and the
+    # last, when a test split was given
+    curve: List[Tuple[int, float, float]]
 
 
 def value_and_grad(params, X, Y):
@@ -58,16 +67,23 @@ def value_and_grad(params, X, Y):
 
 
 LR = 1e-3                        # the paper's Adam learning rate
+LOG_EVERY = 200                  # steps between two test evaluations
 
 
 def train(X, Y, sizes, dmd_cfg: DMDConfig, steps: int, *, seed: int = 0,
-          params=None, device="cuda") -> TrainResult:
+          params=None, test=None, device="cuda") -> TrainResult:
     """Train the MLP `sizes` on (X, Y) for `steps` Adam steps with DMD
     jumps. `params` (the reference's layout, e.g. from
-    ``convert.params_from_jax``) overrides the seeded Xavier init."""
+    ``convert.params_from_jax``) overrides the seeded Xavier init. With a
+    `test` split (Xte, Yte), the train and test MSE of the params after
+    every ``LOG_EVERY``-th step and the last go into ``curve``."""
     dev = resolve_device(device)
-    X = torch.as_tensor(X, dtype=torch.float32, device=dev)
-    Y = torch.as_tensor(Y, dtype=torch.float32, device=dev)
+
+    def put(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+    X, Y = put(X), put(Y)
+    if test is not None:
+        Xte, Yte = map(put, test)
     if params is None:
         gen = torch.Generator().manual_seed(seed)
         params = init_mlp(gen, sizes, device=dev)
@@ -79,7 +95,7 @@ def train(X, Y, sizes, dmd_cfg: DMDConfig, steps: int, *, seed: int = 0,
     bufs = acc.init(params)
     grams = acc.init_grams(bufs)
 
-    losses, jumps, reverted = [], [], []
+    losses, jumps, reverted, curve = [], [], [], []
     for t in range(steps):
         loss, g = value_and_grad(params, X, Y)
         with torch.no_grad():
@@ -103,9 +119,14 @@ def train(X, Y, sizes, dmd_cfg: DMDConfig, steps: int, *, seed: int = 0,
                     state = reset_opt_state_after_jump(
                         opt, state, params, acc.plans_for(params), reset,
                         acc.n_groups)
+        if test is not None and (t % LOG_EVERY == 0 or t == steps - 1):
+            with torch.no_grad():
+                curve.append((t, float(mse_loss(params, X, Y)),
+                              float(mse_loss(params, Xte, Yte))))
     loss_hist = (torch.stack(losses).cpu().numpy() if losses
                  else np.zeros(0, np.float32))
-    return TrainResult(params, acc, bufs, grams, loss_hist, jumps, reverted)
+    return TrainResult(params, acc, bufs, grams, loss_hist, jumps, reverted,
+                       curve)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -113,14 +134,24 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--rows", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data", choices=("teacher", "pollutant"),
+                    default="teacher",
+                    help="the numpy teacher, or the paper's PDE dataset "
+                         "(--rows samples)")
     ap.add_argument("--no-streaming", action="store_true",
                     help="recompute the Gram at every jump")
     ap.add_argument("--no-arena", action="store_true",
                     help="per-leaf ring buffers instead of packed arenas")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    X, Y = synthetic_regression(seed=args.seed, n=args.rows,
-                                n_out=PAPER_SIZES[-1])
+    if args.data == "pollutant":
+        data = pollutant.generate_dataset(
+            n_samples=args.rows, n_points=PAPER_SIZES[-1], seed=args.seed,
+            verbose=True, device=args.device)
+        X, Y = data["X"], data["Y"]
+    else:
+        X, Y = synthetic_regression(seed=args.seed, n=args.rows,
+                                    n_out=PAPER_SIZES[-1])
     cfg = dataclasses.replace(DMDConfig(),
                               streaming_gram=not args.no_streaming,
                               arena=not args.no_arena)

@@ -796,3 +796,34 @@ def test_gated_trainer_meta_backward_on_card(cuda):
     assert int((c.accepts + c.scaled + c.rejects).sum()) == n_jump
     assert 0.0 <= float(c.ridge_eff[0]) <= ctrl.ridge_max
     assert ctrl.relax_floor <= float(c.relax_eff[0]) <= 1.0
+
+
+@pytest.mark.parametrize("grid", [(48, 24), (96, 48)])
+def test_pollutant_march_on_card_matches_cpu(cuda, grid):
+    """The batched march on the card against the port's CPU march of the
+    same samples: each sample's iteration count equal or off by one, c3
+    within 5 * tol absolute (the CPU tests' bound against the reference;
+    torch runs the same one-op kernels on both, so equal is expected)."""
+    from repro_torch.data import pollutant as pol
+    nx, ny = grid
+    p = pol.sample_params(6, seed=1)
+    X, Y = pol.make_grid(nx, ny)
+    eta, f, fp = pol.solve_blasius_batch(p[:, 3], p[:, 4], p[:, 5])
+    ux, uy = zip(*(pol.velocity_field(r[3], r[4], r[5], X, Y,
+                                      (eta, f[i], fp[i]))
+                   for i, r in enumerate(p)))
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        np.stack(ux), np.stack(uy), p[:, 2], p[:, 0], p[:, 1],
+        *pol.source_fields(X, Y))]
+    dx, dy, tol = 2.0 / (nx - 1), 1.0 / (ny - 1), 1e-5
+    *_, c3, it = pol.march(*args, dx, dy, n_iter=4000, tol=tol)
+    *_, c3_card, it_card = pol.march(*(a.to(cuda) for a in args), dx, dy,
+                                     n_iter=4000, tol=tol)
+    assert (it_card.cpu() - it).abs().max() <= 1, (it, it_card)
+    assert float((c3_card.cpu() - c3).abs().max()) <= 5 * tol
+    data = pol.generate_dataset(n_samples=4, nx=nx, ny=ny, n_points=100,
+                                device=cuda)
+    want = pol.generate_dataset(n_samples=4, nx=nx, ny=ny, n_points=100,
+                                device="cpu")
+    np.testing.assert_array_equal(data["X"], want["X"])
+    np.testing.assert_allclose(data["Y"], want["Y"], rtol=1e-5, atol=1e-5)
