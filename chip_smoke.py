@@ -119,19 +119,51 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    the 200 test rows: K1 once per record and once per jump as K2's
    backward, K2 once per jump; outcome counts, knobs and final MSE beside
    (b)'s.
+12. Checkpoints (``checkpoint/``, ``Trainer.save`` / ``restore``) and the
+   weights channel at full width, each preemption a real SIGTERM sent to
+   this process from ``on_metrics``:
+   (a) phase 10(a)'s Trainer preempted mid-window (a record step of the
+   second window, a record of it already taken) and on the second jump
+   step, both read from the schedule; a fresh Trainer resumes on the
+   same directory to step 300 with new CUDA graphs. Its losses and its
+   final state must equal phase 10(a)'s graphed run bit for bit, K1 and
+   K2 must launch 112 and 8 times over the two halves, and the tickets
+   end at zero. Save ms and restore ms (host clock, synchronised) and the
+   checkpoint's bytes on disk are printed.
+   (b) phase 10(c)'s gated run preempted on a jump step and resumed: every
+   controller field (counters, s_eff, relax_eff, ridge_eff) and the final
+   params bit-identical to 10(c)'s; K1 and K2 as there, summed.
+   (c) a checkpoint of the per-leaf route (``arena=False``) restored into
+   the arena route and one of the arena route into the per-leaf route:
+   every restored leaf equals the writer's leaf-wise state bit for bit;
+   each reader runs 30 more steps (K1/K2 or K4/K5 once per record and
+   jump).
+   (d) TinyLlama-1.1B (phase 9's model) through ``WeightsChannel``: the
+   params scaled by 1.001 published once, a running engine polls them
+   after its second step (requests in flight and queued), an engine
+   cold-started on ``load``; the loaded params equal the published ones
+   bit for bit, the requests admitted after the swap give the cold
+   engine's tokens, the version stamps are right and nothing is dropped.
+   Publish, poll and load seconds and the bytes on disk are printed.
+   Temporary directories live in the checkout (``.chip_smoke_*``) and are
+   removed. The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -141,8 +173,9 @@ from repro_torch.configs.base import (ArchConfig, DMDConfig,  # noqa: E402
                                       OptimizerConfig, TrainConfig)
 from repro_torch.configs.pollutant_mlp import PAPER_SIZES  # noqa: E402
 from repro_torch.core.accelerator import DMDAccelerator  # noqa: E402
-from repro_torch.core.paths import (leaves_with_paths,  # noqa: E402
-                                    map_with_paths, tree_map)
+from repro_torch.core.paths import (keystr_leaves,  # noqa: E402
+                                    leaves_with_paths, map_with_paths,
+                                    tree_map)
 from repro_torch.data import pollutant  # noqa: E402
 from repro_torch.data.synthetic import synthetic_regression  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -155,6 +188,7 @@ from repro_torch.kernels import gram_row as kgr  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.mlp_net import MLPModel, init_mlp  # noqa: E402
 from repro_torch.models.mlp_net import mlp_forward, mse_loss  # noqa: E402
+from repro_torch.serve import WeightsChannel  # noqa: E402
 from repro_torch.train import Trainer, loop as train_loop  # noqa: E402
 from repro_torch.train import paper_loop  # noqa: E402
 from repro_torch.train.step import state_resident  # noqa: E402
@@ -1123,7 +1157,9 @@ def run_trainer(dev, X, Y, paper_ms):
     """Phase 10: the Trainer at full width. (a) the default DMDConfig
     (arena, resident, streaming) graphed and eager; (b) arena=False; (c)
     fig4's gated run with meta-tuning, beside an ungated and a DMD-off run
-    of the same rows. Returns {phase: launches}."""
+    of the same rows. Returns {phase: launches} and the witnesses phase 12
+    resumes against: (a)'s graphed run (losses, final state) and (c)'s
+    gated run (final state, its rows, its config)."""
     batch = {"x": torch.as_tensor(X, device=dev),
              "y": torch.as_tensor(Y, device=dev)}
     acfg = _trainer_acfg(DMDConfig())
@@ -1223,7 +1259,7 @@ def run_trainer(dev, X, Y, paper_ms):
                for split in ("train", "test")}
         print(f"trainer (c) final MSE {name}: train {mse['train']} test "
               f"{mse['test']}")
-    return out
+    return out, {"a": (loss_g, st_g), "c": (st_c, rows, gated)}
 
 
 # -- phase 11: the paper's problem -------------------------------------------
@@ -1395,7 +1431,259 @@ def run_pollutant(dev):
     run_pollutant_gated(dev, split, finals)
 
 
+# -- phase 12: checkpoints and the weights channel ---------------------------
+
+def _timed(fn, sink):
+    """`fn` wrapped to append its host-clock ms (synchronised) to `sink`."""
+    def call(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _preempted_fit(trainer, batch, steps, at, sink):
+    """fit with SIGTERM sent to this process from on_metrics at step `at`
+    (the Trainer's handler then saves step at + 1 and returns); the
+    per-step losses go to `sink`. Returns the state and the launches."""
+    def on_m(t, m):
+        sink.append(m["loss"])
+        if t == at:
+            os.kill(os.getpid(), signal.SIGTERM)
+    torch.cuda.synchronize()
+    reset_counts()
+    st = trainer.fit(iter(lambda: batch, None), steps, on_metrics=on_m)
+    torch.cuda.synchronize()
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    require(int(st.step) == at + 1, f"preempted at {at}: state at step "
+            f"{int(st.step)}")
+    return st, counts()
+
+
+def _resumed_fit(trainer, batch, steps, sink):
+    torch.cuda.synchronize()
+    reset_counts()
+    st = trainer.fit(iter(lambda: batch, None), steps,
+                     on_metrics=lambda t, m: sink.append(m["loss"]))
+    torch.cuda.synchronize()
+    return st, counts()
+
+
+def _same_tree(a, b):
+    la, lb = keystr_leaves(a), keystr_leaves(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def _preempt_and_resume(what, dev, make, batch, steps, at, want_losses,
+                        want_state, want_launches):
+    """Preempt a fresh Trainer (``make(dir)``) by SIGTERM at step `at`,
+    resume a fresh one on the same checkpoint dir to `steps`: the losses
+    after the restore, the final state and the launches summed over the
+    two halves must equal the uninterrupted run's. Prints save ms,
+    restore ms and the checkpoint's bytes."""
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as d:
+        tr1, save_ms, restore_ms = make(d), [], []
+        tr1.save = _timed(tr1.save, save_ms)
+        first = []
+        _, n1 = _preempted_fit(tr1, batch, steps, at, first)
+        nbytes = _dir_bytes(Path(d) / f"step_{at + 1}")
+        tr2 = make(d)
+        tr2.restore = _timed(tr2.restore, restore_ms)
+        second = []
+        st, n2 = _resumed_fit(tr2, batch, steps, second)
+    launches = {k: n1[k] + n2[k] for k in n1}
+    full = {k: want_launches.get(k, 0) for k in launches}
+    require(launches == full, f"{what}: launches {n1} + {n2}, expected "
+            f"{full}")
+    got = torch.stack(first + second).cpu().numpy()
+    same_loss = np.array_equal(got, want_losses)
+    same_state = _same_tree(st, want_state)
+    torch.cuda.synchronize()
+    tickets = kd.tickets(dev, kd.stream(), 1).any()
+    print(f"{what}: preempted at step {at}, resumed to {steps}: losses "
+          f"after the restore bit-identical {same_loss}, final state "
+          f"bit-identical {same_state}; launches {n1} + {n2}; save ms "
+          f"{save_ms}, restore ms {restore_ms}, checkpoint bytes {nbytes}")
+    require(same_loss and same_state, f"{what}: the resumed run differs "
+            "from the uninterrupted run")
+    require(not tickets, f"{what}: tickets not left at zero")
+    return save_ms, restore_ms, nbytes
+
+
+def run_checkpoint(dev, X, Y, witness):
+    """Phase 12: checkpoints and the weights channel at full width."""
+    t_phase = time.perf_counter()
+    batch = {"x": torch.as_tensor(X, device=dev),
+             "y": torch.as_tensor(Y, device=dev)}
+    acfg = _trainer_acfg(DMDConfig())
+    acc = DMDAccelerator(acfg.dmd, device=dev)
+    jumps = [t for t in range(STEPS) if acc.apply_groups(t)]
+    mid = next(t for t in range(jumps[0] + 1, jumps[1])
+               if acc.should_record(t) and acc.slot(t) >= 1)
+    loss_w, st_w = witness["a"]
+    print(f"checkpoint (a): the schedule's jumps {jumps}; mid-window "
+          f"step {mid} (slot {acc.slot(mid)}), jump step {jumps[1]}")
+
+    # (a) the main path preempted mid-window and on a jump step
+    for at in (mid, jumps[1]):
+        _preempt_and_resume(
+            f"checkpoint (a) at {at}", dev,
+            lambda d: Trainer(MLPModel(PAPER_SIZES), acfg, device=dev,
+                              checkpoint_dir=d),
+            batch, STEPS, at, loss_w, st_w, {"gram_row": 112, "combine": 8})
+
+    # (b) fig4's gated run preempted on a jump step
+    st_c, rows, gated = witness["c"]
+    acfg_c = _trainer_acfg(gated)
+    acc_c = DMDAccelerator(gated, device=dev)
+    n_rec = sum(acc_c.should_record(t) for t in range(GATED_STEPS))
+    gjumps = [t for t in range(GATED_STEPS) if acc_c.apply_groups(t)]
+    at = gjumps[len(gjumps) // 2]
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as d:
+        first, second = [], []
+        _, n1 = _preempted_fit(Trainer(
+            MLPModel(PAPER_SIZES), acfg_c, device=dev, checkpoint_dir=d,
+            val_batch=rows["val"]), rows["train"], GATED_STEPS, at, first)
+        st, n2 = _resumed_fit(Trainer(
+            MLPModel(PAPER_SIZES), acfg_c, device=dev, checkpoint_dir=d,
+            val_batch=rows["val"]), rows["train"], GATED_STEPS, second)
+    launches = {k: n1[k] + n2[k] for k in n1}
+    want = {k: 0 for k in launches}
+    want.update(gram_row=n_rec + len(gjumps), combine=len(gjumps))
+    require(launches == want, f"checkpoint (b): launches {n1} + {n2}, "
+            f"expected {want}")
+    ctrl = {f: (getattr(st.controller, f).cpu().numpy(),
+                getattr(st_c.controller, f).cpu().numpy())
+            for f in st_c.controller._fields}
+    same_ctrl = all(np.array_equal(a, b) for a, b in ctrl.values())
+    same_params = _same_tree(st.params, st_c.params)
+    print(f"checkpoint (b) gated: preempted on jump step {at} of {gjumps}, "
+          f"resumed to {GATED_STEPS}: controller bit-identical {same_ctrl} "
+          f"(accepts {ctrl['accepts'][0]}, scaled {ctrl['scaled'][0]}, "
+          f"rejects {ctrl['rejects'][0]}, s_eff {ctrl['s_eff'][0]}, "
+          f"relax_eff {ctrl['relax_eff'][0]}, ridge_eff "
+          f"{ctrl['ridge_eff'][0]}), final params bit-identical "
+          f"{same_params}; launches {n1} + {n2}")
+    require(same_ctrl and same_params, "checkpoint (b): the resumed gated "
+            "run differs from the uninterrupted one")
+
+    # (c) the per-leaf route's checkpoint into the arena route, and back
+    n = mid
+    for w_arena in (False, True):
+        cfgs = {a: _trainer_acfg(dataclasses.replace(DMDConfig(), arena=a))
+                for a in (w_arena, not w_arena)}
+        with tempfile.TemporaryDirectory(dir=ROOT,
+                                         prefix=".chip_smoke_") as d:
+            tr_w = Trainer(MLPModel(PAPER_SIZES), cfgs[w_arena], device=dev,
+                           checkpoint_dir=d)
+            st_w8 = tr_w.fit(iter(lambda: batch, None), n)
+            tr_w.save(st_w8, n)
+            written = tr_w.acc.state_leafwise(st_w8)
+            tr_r = Trainer(MLPModel(PAPER_SIZES), cfgs[not w_arena],
+                           device=dev, checkpoint_dir=d)
+            back = tr_r.restore()
+            same = _same_tree(tr_r.acc.state_leafwise(back), written)
+            del back, written, st_w8
+            st_r, launches = _resumed_fit(tr_r, batch, n + 30, [])
+        rec = sum(acc.should_record(t) for t in range(n, n + 30))
+        jmp = sum(acc.should_apply(t) for t in range(n, n + 30))
+        if w_arena:                 # the per-leaf route: one launch a leaf
+            n_leaf = len(leaves_with_paths(st_r.params))
+            want = {"flat_gram_row": n_leaf * rec,
+                    "flat_combine": n_leaf * jmp}
+        else:
+            want = {"gram_row": rec, "combine": jmp}
+        want = {k: want.get(k, 0) for k in launches}
+        loss = float(mse_loss(st_r.params, batch["x"], batch["y"]))
+        names = {True: "arena", False: "per-leaf"}
+        print(f"checkpoint (c): {names[w_arena]} -> "
+              f"{names[not w_arena]} at step {n}: every restored leaf "
+              f"bit-identical {same}; 30 more steps: launches {launches}, "
+              f"train MSE {loss}")
+        require(same, "checkpoint (c): a restored leaf differs")
+        require(launches == want and np.isfinite(loss),
+                f"checkpoint (c): launches {launches}, expected {want}; "
+                f"MSE {loss}")
+    run_channel(dev)
+    print(f"checkpoint: phase 12 wall {time.perf_counter() - t_phase} s")
+
+
+def run_channel(dev):
+    """Phase 12(d): the weights channel at TinyLlama-1.1B's full width."""
+    model, params, hot = launch_serve.build("tinyllama-1.1b", device=dev)
+    prompts = launch_serve.request_stream(12, model.cfg.vocab_size)
+    bumped = tree_map(lambda t: t * 1.001, params)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as d:
+        ch = WeightsChannel(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ch.publish(bumped, 1)
+        pub_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(d)
+        for p in prompts:
+            hot.submit(p)
+        done = hot.step() + hot.step()
+        queued = hot.queue_len
+        require(queued > 0 and hot.active_slots > 0, "channel: nothing in "
+                "flight or queued at the poll")
+        t0 = time.perf_counter()
+        version = ch.poll(hot, params)
+        torch.cuda.synchronize()
+        poll_s = time.perf_counter() - t0
+        require(version == 1 and ch.poll(hot, params) is None
+                and hot.version == 1, f"channel: poll gave {version}, "
+                f"engine at {hot.version}")
+        done += hot.run_until_drained()
+        hot.sync()
+        t0 = time.perf_counter()
+        loaded = ch.load(params)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    require(_same_tree(loaded, bumped), "channel: the loaded params differ "
+            "from the published ones")
+    del bumped
+    cold = launch_serve.make_engine(model, loaded)
+    rc = {r.uid: r for r in launch_serve.serve(cold, prompts)[0]}
+    rh = {r.uid: r for r in done}
+    after = sorted(u for u, r in rh.items() if r.version_start == 1)
+    during = sorted(u for u, r in rh.items() if r.version_start == 0)
+    same = [rh[u].tokens == rc[u].tokens for u in after]
+    logits = max(float(np.abs(rh[u].last_logits - rc[u].last_logits).max())
+                 for u in after) if after else None
+    stamps = sorted({(rh[u].version_start, rh[u].version_end)
+                     for u in during})
+    print(f"channel: tinyllama-1.1b {model.param_count(params)} bf16 params"
+          f", {nbytes} bytes on disk: publish {pub_s} s "
+          f"({nbytes / pub_s / 1e9} GB/s), poll (load + stage + swap) "
+          f"{poll_s} s, load {load_s} s ({nbytes / load_s / 1e9} GB/s)")
+    print(f"channel: {len(during)} requests in flight at the poll (version "
+          f"{stamps}), {len(after)} admitted after it; their tokens equal "
+          f"the cold engine's: {sum(same)} of {len(after)}, max |last "
+          f"logits diff| "
+          f"{logits}; dropped {hot.stats['dropped']} / "
+          f"{cold.stats['dropped']}")
+    require(len(rh) == len(rc) == len(prompts), "channel: requests lost")
+    require(after and all(same), "channel: the requests admitted after the "
+            "swap differ from the cold engine's")
+    require(all((rh[u].version_start, rh[u].version_end) == (0, 1)
+                for u in during) and all(
+        (r.version_start, r.version_end) == (0, 0) for r in rc.values()),
+        "channel: wrong version stamps")
+    require(hot.stats["dropped"] == cold.stats["dropped"] == 0,
+            "channel: dropped requests")
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     dev = torch.device("cuda")
@@ -1434,8 +1722,9 @@ def main():
         dataclasses.replace(DMDConfig(), arena=False, streaming_gram=False),
         {"flat_gram": 2 * 8, "flat_combine": 2 * 8})
     serve_launches = run_serve(dev)
-    run_trainer(dev, X, Y, MS_PER_STEP["main path"])
+    _, witness = run_trainer(dev, X, Y, MS_PER_STEP["main path"])
     run_pollutant(dev)
+    run_checkpoint(dev, X, Y, witness)
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",
@@ -1458,6 +1747,7 @@ def main():
                     replaces=replaces[name], launches=launches[name],
                     **records[name])
                for name in replaces]
+    print(f"chip_smoke: wall {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,10 @@ Trainer's layout) ``record`` copies each bucket's flat buffer into its
 ring slot and ``jump_tree`` returns the resident wrapper with new flat
 rows. The loss-gated controller's per-group state comes from
 ``init_controller`` (``core/controller.py``); ``jump_tree`` takes its
-adapted horizons and ridges as ``s_vec`` / ``ridge_vec``. Not ported yet:
-a mesh and the checkpoint views of the arena state (ROADMAP Queue 1).
+adapted horizons and ridges as ``s_vec`` / ``ridge_vec``. Checkpoints
+are written in the per-leaf layout: ``state_leafwise`` unpacks the
+arenas and the resident params and moments, ``state_arenaize`` packs a
+restored state back. Not ported yet: a mesh (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ import torch
 from repro_torch.core import arena as arena_mod
 from repro_torch.core import dmd, leafplan, schedule as sched_mod
 from repro_torch.core import snapshots as snap
-from repro_torch.core.paths import by_path, leaves_with_paths, map_with_paths
+from repro_torch.core.paths import (by_path, fill_paths, leaves_with_paths,
+                                    map_with_paths)
 from repro_torch.kernels import ops
 from repro_torch.kernels.device import resolve_device
 
@@ -299,6 +302,59 @@ class DMDAccelerator:
         if arena_mod.is_arena_state(params):
             return arena_mod.tree_leafwise(self.arena_for(params), params)
         return params
+
+    def state_leafwise(self, state):
+        """TrainState -> the same state in the per-leaf layout of
+        ``dmd.arena=False``: resident params and moments expanded, arena
+        buffers and Grams unpacked per leaf. Checkpoints are always
+        written in this form, so the format does not depend on the arena
+        or residency. No-op when nothing is packed."""
+        if state is None:
+            return state
+        if arena_mod.is_arena_state(state.params):
+            table = self.arena_for(state.params)
+            state = state._replace(
+                params=self.params_leafwise(state.params),
+                opt_state=arena_mod.unwrap_resident(table, state.opt_state))
+        if not arena_mod.is_arena_state(state.dmd_buffers):
+            return state
+        table = self.arena_for(state.params)
+        arenas, leaf = arena_mod.split_state(state.dmd_buffers)
+        bufs = fill_paths(leaf, arena_mod.buffers_leafwise(table, arenas))
+        grams = state.dmd_gram
+        if arena_mod.is_arena_state(grams):
+            agrams, lgrams = arena_mod.split_state(grams)
+            grams = fill_paths(lgrams, arena_mod.grams_leafwise(
+                table, agrams, self.cfg))
+        return state._replace(dmd_buffers=bufs, dmd_gram=grams)
+
+    def state_arenaize(self, state):
+        """Inverse of ``state_leafwise`` for the DMD state: a restored
+        per-leaf state packed into the arenas this accelerator runs with
+        (the Grams only when streaming). No-op when arenas are off or the
+        state is already packed; params stay per leaf (``Trainer.fit``
+        makes them resident)."""
+        if state is None or state.dmd_buffers is None \
+                or arena_mod.is_arena_state(state.dmd_buffers) \
+                or not self.arena_on:
+            return state
+        table = self.arena_for(state.params)
+        if not table:
+            return state
+        paths = arena_mod.arena_paths(table)
+
+        def strip(tree):
+            return map_with_paths(lambda p, x: None if p in paths else x,
+                                  tree)
+
+        bufs = arena_mod.make_state(arena_mod.buffers_from_leafwise(
+            table, by_path(state.dmd_buffers), self.cfg),
+            strip(state.dmd_buffers))
+        grams = state.dmd_gram
+        if grams is not None and self.streaming:
+            grams = arena_mod.make_state(arena_mod.grams_from_leafwise(
+                table, by_path(grams)), strip(grams))
+        return state._replace(dmd_buffers=bufs, dmd_gram=grams)
 
     # ---- state ------------------------------------------------------------
     def init(self, params: PyTree) -> Optional[PyTree]:

@@ -34,8 +34,13 @@ with zero pad lanes. With resident params ``record`` is one copy of the
 flat buffer into the ring slot per bucket, and ``jump`` returns whole
 flat rows per bucket (the caller writes them into the resident buffer).
 
-Not ported yet: a mesh (sharded buckets), bucket scope and the leaf-wise
-checkpoint views (ROADMAP Queue 1).
+Checkpoints are written leaf-wise: ``buffers_leafwise`` / ``grams_leafwise``
+unpack the buckets into the per-leaf layout of ``arena=False`` and
+``buffers_from_leafwise`` / ``grams_from_leafwise`` pack it back, so the
+on-disk format does not depend on ``dmd.arena``.
+
+Not ported yet: a mesh (sharded buckets) and bucket scope (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -226,19 +231,24 @@ def init_arena_grams(table: Dict[str, ArenaBucket], device
 # Pack / unpack
 # ---------------------------------------------------------------------------
 
-def _pack_leaf(x: torch.Tensor, seg: ArenaSegment, dtype) -> torch.Tensor:
-    """(stack..., rest...) -> (n_sys * seg_lanes,) zero-padded."""
-    x = x.to(dtype).reshape(seg.n_sys, seg.flat_local)
+def _pack_leaf(x: torch.Tensor, seg: ArenaSegment, dtype,
+              lead: int = 0) -> torch.Tensor:
+    """(lead..., stack..., rest...) -> (lead..., n_sys * seg_lanes)
+    zero-padded."""
+    lead_shape = tuple(x.shape[:lead])
+    x = x.to(dtype).reshape(lead_shape + (seg.n_sys, seg.flat_local))
     if seg.seg_lanes != seg.flat_local:
         x = F.pad(x, (0, seg.seg_lanes - seg.flat_local))
-    return x.reshape(-1)
+    return x.reshape(lead_shape + (-1,))
 
 
 def _unpack_leaf(row: torch.Tensor, seg: ArenaSegment) -> torch.Tensor:
-    """(N,) -> the leaf's shape (a view where the layout allows)."""
-    x = row[seg.lane_start:seg.lane_start + seg.lanes]
-    x = x.reshape(seg.n_sys, seg.seg_lanes)[:, :seg.flat_local]
-    return x.reshape(seg.shape)
+    """(lead..., N) -> (lead..., *leaf shape) (a view where the layout
+    allows)."""
+    lead = tuple(row.shape[:-1])
+    x = row[..., seg.lane_start:seg.lane_start + seg.lanes]
+    x = x.reshape(lead + (seg.n_sys, seg.seg_lanes))[..., :seg.flat_local]
+    return x.reshape(lead + seg.shape)
 
 
 def pack_row(bucket: ArenaBucket, params_by_path: Dict[str, torch.Tensor],
@@ -250,7 +260,7 @@ def pack_row(bucket: ArenaBucket, params_by_path: Dict[str, torch.Tensor],
 
 def _unpack_row(bucket: ArenaBucket, row: torch.Tensor
                 ) -> List[torch.Tensor]:
-    """One (N,) arena row -> per-leaf tensors (uncast)."""
+    """(lead..., N) arena rows -> per-leaf tensors (uncast)."""
     return [_unpack_leaf(row, s) for s in bucket.segments]
 
 
@@ -284,6 +294,82 @@ def tree_leafwise(table: Dict[str, ArenaBucket], wrapper) -> object:
         for seg, x in zip(table[key].segments, _unpack_row(table[key], row)):
             views[seg.path] = x
     return fill_paths(leaf, views)
+
+
+def unwrap_resident(table: Dict[str, ArenaBucket], tree):
+    """An optimizer state (a resident wrapper, a NamedTuple of fields that
+    may be wrappers, or anything else) with every wrapper expanded by
+    ``tree_leafwise``."""
+    if is_arena_state(tree):
+        return tree_leafwise(table, tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(unwrap_resident(table, f) for f in tree))
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Leaf-wise views (the checkpoint format)
+# ---------------------------------------------------------------------------
+
+def buffers_leafwise(table: Dict[str, ArenaBucket],
+                     arenas: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """{path: (m, *shape) buffer}: the per-leaf layout an ``arena=False``
+    run carries, copied out of the block-major buffers (re-slabbed to
+    snapshot-major (m, N) first)."""
+    out = {}
+    for key, buf in arenas.items():
+        b = table[key]
+        slab = buf.transpose(0, 1).reshape(b.m, b.n_lanes)
+        for seg, x in zip(b.segments, _unpack_row(b, slab)):
+            out[seg.path] = x
+    return out
+
+
+def grams_leafwise(table: Dict[str, ArenaBucket],
+                   agrams: Dict[str, torch.Tensor], cfg=None
+                   ) -> Dict[str, torch.Tensor]:
+    """{path: (stack..., m, m) Gram}: each leaf's systems of its bucket's
+    (n_sys, m, m) Grams (views). Leaf scope only: a bucket-scoped (1, m, m)
+    Gram would be rebuilt per system from the buffers by K3, which comes
+    with bucket scope."""
+    if cfg is not None and cfg.scope != "leaf":
+        raise NotImplementedError(
+            "leaf-wise Grams of bucket scope are not ported yet (ROADMAP "
+            "Queue 1 item 5: eig mode and bucket scope)")
+    out = {}
+    for key, g in agrams.items():
+        b = table[key]
+        for seg in b.segments:
+            out[seg.path] = g[seg.sys_start:seg.sys_start + seg.n_sys] \
+                .reshape(seg.shape[:seg.stack_dims] + (b.m, b.m))
+    return out
+
+
+def buffers_from_leafwise(table: Dict[str, ArenaBucket],
+                          by_path_: Dict[str, torch.Tensor], cfg
+                          ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``buffers_leafwise``: per-leaf (m, *shape) buffers
+    packed into new block-major buffers in ``cfg.snapshot_dtype``, pad
+    lanes zero."""
+    dtype = snapshot_dtype(cfg)
+    out = {}
+    for key, b in table.items():
+        slab = torch.cat([_pack_leaf(by_path_[s.path], s, dtype, lead=1)
+                          for s in b.segments], dim=1)
+        out[key] = slab.reshape(b.m, b.n_blocks, b.block_n) \
+            .transpose(0, 1).contiguous()
+    return out
+
+
+def grams_from_leafwise(table: Dict[str, ArenaBucket],
+                        by_path_: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``grams_leafwise``: new (n_sys, m, m) fp32 Grams."""
+    return {key: torch.cat([by_path_[s.path].float()
+                            .reshape(s.n_sys, b.m, b.m)
+                            for s in b.segments])
+            for key, b in table.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,10 @@
 Steady state holds one copy of the params; between ``stage`` and
 ``commit`` two. A version at or below the active one is refused as stale.
 
-The reference's ``WeightsChannel`` (the trainer -> server bus over the
-checkpoint files) waits for the port's checkpoint slice.
+``WeightsChannel`` is the trainer -> server bus over the checkpoint files
+(``checkpoint/``): the trainer ``publish``es a param tree as a version,
+a server ``poll``s the newest one into its engine's store. Its files are
+the reference's, so either package may publish and the other load.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.core.paths import tree_map
 
 PyTree = Any
@@ -87,3 +91,40 @@ class ParamStore:
         """stage + commit in one call."""
         self.stage(params, version)
         return self.commit()
+
+
+class WeightsChannel:
+    """File-based trainer -> server weights bus over the checkpoint layer.
+
+    A publish is torn-write-safe: ``save_checkpoint`` writes a temporary
+    directory and renames it into place, so a publisher killed mid-write
+    never exposes a partial version (``latest_version`` keeps returning
+    the previous one). The newest two versions are kept.
+    """
+
+    def __init__(self, root):
+        self.root = str(root)
+
+    def publish(self, params: PyTree, version: int) -> str:
+        return save_checkpoint(self.root, {"params": params}, int(version),
+                               keep=2)
+
+    def latest_version(self) -> Optional[int]:
+        return latest_step(self.root)
+
+    def load(self, template: PyTree, version: Optional[int] = None
+             ) -> Optional[PyTree]:
+        """Version `version` (default: the newest) on the devices of
+        `template`'s leaves, or None when nothing was published."""
+        out = restore_checkpoint(self.root, {"params": template},
+                                 step=version)
+        return None if out is None else out["params"]
+
+    def poll(self, engine, template: PyTree) -> Optional[int]:
+        """Swap `engine` onto the newest published version if it is newer
+        than the engine's; returns that version, else None."""
+        v = self.latest_version()
+        if v is None or v <= engine.version:
+            return None
+        engine.swap_weights(self.load(template, v), version=v)
+        return v

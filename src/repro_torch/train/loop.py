@@ -31,6 +31,15 @@ count stays the number of times its kernel ran. The jump
 step runs eagerly. ``cuda_graphs=False`` runs every step eagerly on a
 CUDA device (the comparison run); on the CPU every step runs eagerly,
 which is how the tests drive the Trainer.
+
+With a ``checkpoint_dir`` (argument or ``train.checkpoint_dir``) ``fit``
+resumes from the newest checkpoint there, saves every
+``train.checkpoint_every`` steps and, on SIGTERM, saves after the
+current step and returns. Checkpoints are in the reference's format and
+per-leaf layout (``checkpoint/``, ``DMDAccelerator.state_leafwise``), so
+either package restores the other's; a resumed run is bit-identical to
+an uninterrupted one (the data stream is a function of the step index,
+and every schedule position is derived from the restored step).
 """
 from __future__ import annotations
 
@@ -40,8 +49,11 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.core.accelerator import DMDAccelerator
 from repro_torch.core import controller as ctrl_mod
+from repro_torch.core import snapshots as snap
 from repro_torch.core.paths import leaves_with_paths, map_with_paths
 from repro_torch.data.tokens import validation_batch
 from repro_torch.kernels import arena as _ka
@@ -227,19 +239,36 @@ class Trainer:
                                       device=self.device),
                           bufs, grams, self.acc.init_controller())
 
-    # -- checkpointing (ROADMAP Queue 1 item 3) ------------------------------
+    # -- checkpointing --------------------------------------------------------
     def save(self, state: TrainState, step: int):
+        """Write `state` (per-leaf or resident) as checkpoint `step` in the
+        per-leaf layout, keeping ``train.keep_checkpoints``. Every tensor
+        is copied to the host, synchronously on the current stream,
+        before this returns: the next replayed step writes the state in
+        place."""
         if not self.checkpoint_dir:
             return
-        raise NotImplementedError("checkpointing is not ported yet (ROADMAP "
-                                  "Queue 1 item 3)")
+        save_checkpoint(self.checkpoint_dir, self.acc.state_leafwise(state),
+                        step, keep=self.acfg.train.keep_checkpoints)
 
     def restore(self, state_like: Optional[TrainState] = None
                 ) -> Optional[TrainState]:
-        if not self.checkpoint_dir:
+        """The newest checkpoint as a state in this Trainer's layout (arenas
+        packed, params per leaf), on the template's device; None without
+        one. The template is `state_like` or ``init_state()``; its leaves
+        the checkpoint lacks keep their value. Grams a checkpoint carries
+        all zero beside a non-zero buffer (written before streaming) are
+        rebuilt from the buffers."""
+        if not self.checkpoint_dir or latest_step(self.checkpoint_dir) is None:
             return None
-        raise NotImplementedError("checkpointing is not ported yet (ROADMAP "
-                                  "Queue 1 item 3)")
+        template = state_like if state_like is not None else self.init_state()
+        state = restore_checkpoint(self.checkpoint_dir,
+                                   self.acc.state_leafwise(template))
+        if self.acc.streaming and state.dmd_gram is not None:
+            state = state._replace(dmd_gram=snap.recompute_grams(
+                state.dmd_gram, state.dmd_buffers, self.acfg.dmd,
+                self.acc.plans_for(state.params)))
+        return self.acc.state_arenaize(state)
 
     def _install_preempt_handler(self):
         def handler(signum, frame):

@@ -123,18 +123,9 @@ def state_unresident(acc: DMDAccelerator, state):
     if state is None or not arena_mod.is_arena_state(state.params):
         return state
     table = acc.arena_for(state.params)
-
-    def unwrap(x):
-        return (arena_mod.tree_leafwise(table, x)
-                if arena_mod.is_arena_state(x) else x)
-
-    opt_state = state.opt_state
-    if isinstance(opt_state, tuple) and not arena_mod.is_arena_state(
-            opt_state):
-        opt_state = type(opt_state)(*(unwrap(f) for f in opt_state))
-    else:
-        opt_state = unwrap(opt_state)
-    return state._replace(params=unwrap(state.params), opt_state=opt_state)
+    return state._replace(
+        params=arena_mod.tree_leafwise(table, state.params),
+        opt_state=arena_mod.unwrap_resident(table, state.opt_state))
 
 
 def assign_(dst: PyTree, src: PyTree) -> None:

@@ -778,6 +778,63 @@ def test_graphed_fit_matches_eager_fit_and_counts(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("when", ["mid", "jump"])
+@pytest.mark.parametrize("arena", [True, False])
+def test_graphed_fit_resumes_bit_exactly(cuda, tmp_path, arena, when):
+    """A graphed Trainer preempted by SIGTERM (mid-window, or on a jump
+    step) saves, and a fresh Trainer resumes from the checkpoint with new
+    graphs: its per-step losses and its final state (params, moments,
+    step, buffers, Grams) equal the uninterrupted graphed run's bit for
+    bit; the two halves launch K1 / K4 once per record and K2 / K5 once
+    per jump; the tickets are left at zero."""
+    import signal
+    steps = 30
+    tr, batch = _mlp_trainer(cuda, arena=arena)
+    acc = tr.acc
+    j1 = next(t for t in range(steps) if acc.apply_groups(t))
+    at = next(t for t in range(j1 + 1, steps)
+              if (acc.apply_groups(t) if when == "jump" else
+                  acc.should_record(t) and acc.slot(t) >= 1
+                  and not acc.apply_groups(t)))
+    want = []
+    full = tr.fit(iter(lambda: batch, None), steps,
+                  on_metrics=lambda t, m: want.append(m["loss"]))
+    for counter in (ka.LAUNCHES, kgr.LAUNCHES, kc.LAUNCHES):
+        for k in counter:
+            counter[k] = 0
+
+    def bomb(t, m):
+        if t == at:
+            signal.raise_signal(signal.SIGTERM)
+    tr_b, _ = _mlp_trainer(cuda, arena=arena)
+    tr_b.checkpoint_dir = str(tmp_path)
+    try:
+        st_b = tr_b.fit(iter(lambda: batch, None), steps, on_metrics=bomb)
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    assert int(st_b.step) == at + 1
+    tr_c, _ = _mlp_trainer(cuda, arena=arena)
+    tr_c.checkpoint_dir = str(tmp_path)
+    got = []
+    st_c = tr_c.fit(iter(lambda: batch, None), steps,
+                    on_metrics=lambda t, m: got.append(m["loss"]))
+    torch.cuda.synchronize()
+    assert tr_c.graph_stats["captured"] >= 1
+    assert torch.equal(torch.stack(got), torch.stack(want[at + 1:]))
+    a, b = _state_tensors(full), _state_tensors(st_c)
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    n_rec = sum(acc.should_record(t) for t in range(steps))
+    n_jump = sum(acc.should_apply(t) for t in range(steps))
+    if arena:
+        assert ka.LAUNCHES == {"gram_row": n_rec, "gram": 0,
+                               "combine": n_jump}
+    else:
+        n_leaf = 6
+        assert kgr.LAUNCHES["flat_gram_row"] == n_rec * n_leaf
+        assert kc.LAUNCHES["flat_combine"] == n_jump * n_leaf
+    _assert_tickets_zero(cuda)
+
+
 def test_gated_trainer_meta_backward_on_card(cuda):
     """The gated, meta-tuned Trainer on the card: one K2 and one K1 (as
     K2's backward) per jump, knobs finite and inside their bands."""

@@ -22,6 +22,7 @@ from repro.core import dmd as jdmd
 from repro.core import snapshots as jsnap
 from repro.core.schedule import DMDGroupRule as JRule
 from repro_torch.configs.base import DMDConfig as TCfg
+from repro_torch.core import arena as tarena
 from repro_torch.core import dmd as tdmd
 from repro_torch.core import snapshots as tsnap
 from repro_torch.core.accelerator import DMDAccelerator as TAcc
@@ -231,21 +232,12 @@ def _run_cycles(cfg, params, deltas, steps, stack_dims=None):
 
 
 def _arena_leafwise(acc, params, bufs, grams):
-    """The arena state unpacked per leaf: {path: (m, *shape) buffer} and
-    {path: (stack..., m, m) Gram}."""
-    out_b, out_g = {}, {}
-    for key, b in acc.arena_for(params).items():
-        buf = bufs["__arena__"][key]
-        rows = buf.transpose(0, 1).reshape(b.m, -1)          # (m, N)
-        for seg in b.segments:
-            x = rows[:, seg.lane_start:seg.lane_start + seg.lanes]
-            x = x.reshape(b.m, seg.n_sys, seg.seg_lanes)[:, :, :seg.flat_local]
-            out_b[seg.path] = x.reshape((b.m,) + seg.shape)
-            if grams is not None:
-                g = grams["__arena__"][key][seg.sys_start:
-                                            seg.sys_start + seg.n_sys]
-                out_g[seg.path] = g.reshape(
-                    seg.shape[:seg.stack_dims] + (b.m, b.m))
+    """The arena state unpacked per leaf by the checkpoint views: {path:
+    (m, *shape) buffer} and {path: (stack..., m, m) Gram}."""
+    table = acc.arena_for(params)
+    out_b = tarena.buffers_leafwise(table, bufs["__arena__"])
+    out_g = ({} if grams is None
+             else tarena.grams_leafwise(table, grams["__arena__"]))
     return out_b, out_g
 
 

@@ -20,6 +20,7 @@ pack-copy and per-leaf routes, and against the reference before the
 first jump. Controller counters and horizons are exact; relax_eff and
 ridge_eff agree to rtol 1e-6."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -330,10 +331,23 @@ def test_entry_points_and_unported_raise(tmp_path):
     tr.fail_at_step = 3
     with pytest.raises(RuntimeError, match="injected failure at step 3"):
         tr.fit(iter(lambda: {"x": X, "y": Y}, None), 10)
-    tr, X, Y = _port_trainer(DMD, {})
-    tr.checkpoint_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tr.fit(iter(lambda: {"x": X, "y": Y}, None), 2)
+    # with a checkpoint_dir the first fit starts fresh on the empty dir and
+    # writes step_2; a second fit resumes from it
+    _, tac = _cfgs(DMD, {}, 1e-3)
+    tac = dataclasses.replace(tac, train=dataclasses.replace(
+        tac.train, checkpoint_every=2))
+    (X, Y), _, _ = _data()
+    tr = Trainer(MLPModel(SIZES), tac, device="cpu",
+                 checkpoint_dir=str(tmp_path))
+    st = tr.fit(iter(lambda: {"x": X, "y": Y}, None), 2)
+    assert int(st.step) == 2 and os.listdir(tmp_path) == ["step_2"]
+    steps = []
+    st2 = Trainer(MLPModel(SIZES), tac, device="cpu",
+                  checkpoint_dir=str(tmp_path)).fit(
+        iter(lambda: {"x": X, "y": Y}, None), 4,
+        on_metrics=lambda t, m: steps.append(t))
+    assert steps == [2, 3] and int(st2.step) == 4
+    assert sorted(os.listdir(tmp_path)) == ["step_2", "step_4"]
     tr, X, Y = _port_trainer(DMD, {})
     assert tr.save(tr.init_state(), 1) is None and tr.restore() is None
     st = tr.init_state()
@@ -399,23 +413,16 @@ def _dot_fit(acfg, batches, steps, eval_batch=None):
 
 def _leafwise_bufs(tr, st):
     """Snapshot buffers and Grams per leaf path, from either layout: the
-    arena's per-system rows unpacked with its own segment table."""
+    arena's per-system rows unpacked by the checkpoint views
+    (``arena.buffers_leafwise`` / ``grams_leafwise``)."""
     bufs, grams = {}, {}
     b, g = st.dmd_buffers, st.dmd_gram
     if tarena.is_arena_state(b):
         (arenas, leaf), (agrams, lgrams) = (tarena.split_state(b),
                                             tarena.split_state(g))
-        for key, bucket in tr.acc.arena_for(st.params).items():
-            buf = arenas[key]
-            m = bucket.m
-            rows = buf.permute(1, 0, 2).reshape(m, -1)
-            for seg in bucket.segments:
-                x = rows[:, seg.lane_start:seg.lane_start + seg.lanes]
-                x = x.reshape(m, seg.n_sys, seg.seg_lanes)[..., :seg.flat_local]
-                bufs[seg.path] = x.reshape((m,) + seg.shape)
-                gs = agrams[key][seg.sys_start:seg.sys_start + seg.n_sys]
-                grams[seg.path] = gs.reshape(seg.shape[:seg.stack_dims]
-                                             + (m, m))
+        table = tr.acc.arena_for(st.params)
+        bufs = tarena.buffers_leafwise(table, arenas)
+        grams = tarena.grams_leafwise(table, agrams)
         b, g = leaf, lgrams
     bufs.update(dict(leaves_with_paths(b)))
     grams.update(dict(leaves_with_paths(g)))
