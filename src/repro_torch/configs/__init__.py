@@ -13,6 +13,7 @@ from repro_torch.configs.base import (ArchConfig, DMDConfig,
 
 _ARCH_MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "pollutant-mlp": "repro_torch.configs.pollutant_mlp",
 }
 # the reference's other architectures, and the part of the port that
 # brings each (ROADMAP Queue 1)
@@ -26,8 +27,6 @@ _LATER: Dict[str, str] = {
     "mamba2-2.7b": "the SSM/hybrid slice",
     "llama4-maverick-400b-a17b": "the MoE slice",
     "qwen3-moe-30b-a3b": "the MoE slice",
-    "pollutant-mlp": "the eig-mode slice: its DMDConfig runs mode='eig' "
-                     "(configs/pollutant_mlp.py holds its sizes today)",
 }
 
 

@@ -115,7 +115,7 @@ class DMDConfig:
     atol: float = 0.0               # absolute sigma floor; 0 = off
     warmup_steps: int = 100
     cooldown_steps: int = 10
-    mode: str = "matpow"            # matpow | eig (eig: not ported yet)
+    mode: str = "matpow"            # matpow | eig
     clamp_eigs: bool = False
     anchor: str = "first"           # none | first | mean
     affine: bool = True
@@ -129,7 +129,7 @@ class DMDConfig:
                                     # per-leaf buffers (the A/B oracle)
     arena_block_n: int = 512
     arena_native: bool = True
-    scope: str = "leaf"             # leaf | bucket (bucket: not ported yet)
+    scope: str = "leaf"             # leaf | bucket
     kernel_route: str = "auto"
     param_filter: str = "all"
     min_param_size: int = 0

@@ -28,7 +28,16 @@ rows. The loss-gated controller's per-group state comes from
 adapted horizons and ridges as ``s_vec`` / ``ridge_vec``. Checkpoints
 are written in the per-leaf layout: ``state_leafwise`` unpacks the
 arenas and the resident params and moments, ``state_arenaize`` packs a
-restored state back. Not ported yet: a mesh (ROADMAP Queue 1).
+restored state back.
+
+``cfg.mode`` is "matpow" or "eig" (the paper's classic DMD: one host
+eigendecomposition per jump, ``core/dmd.py``). ``cfg.scope="bucket"``
+(DESIGN.md §9) makes each arena bucket ONE Koopman system: the streaming
+update writes its (1, m, m) Gram, a jump solves one system per bucket and
+K2 broadcasts one coefficient row; per-leaf-route leaves keep their own
+solves in either scope. ``spectrum_table`` prints each bucket's Koopman
+eigenvalues (leaf scope sums its per-system Grams first, so the two
+scopes read alike). Not ported yet: a mesh (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -76,8 +85,8 @@ def dmd_leaf_jump(cfg, plan: leafplan.LeafPlan, p: torch.Tensor,
                                    upcast=cfg.gram_upcast)
     sched = plan.sched
     c, info = dmd.dmd_coefficients(
-        gram, s=sched.s, tol=cfg.tol, mode=cfg.mode, anchor=cfg.anchor,
-        affine=cfg.affine, trust_region=cfg.trust_region, relax=relax,
+        gram, s=sched.s, tol=cfg.tol, mode=cfg.mode,
+        clamp_eigs=cfg.clamp_eigs, anchor=cfg.anchor, affine=cfg.affine, trust_region=cfg.trust_region, relax=relax,
         energy=sched.energy, atol=cfg.atol, ridge=sched.ridge, s_dyn=s_dyn,
         ridge_dyn=ridge_dyn)
     if kernel:
@@ -157,14 +166,6 @@ class DMDAccelerator:
                  device="cuda"):
         """`stack_dims` maps param paths to their stacked leading axes
         (None: no stacked leaves). State lives on `device`."""
-        if cfg.scope != "leaf":
-            raise NotImplementedError(
-                f"dmd.scope={cfg.scope!r} is not ported yet (ROADMAP "
-                "Queue 1: eig mode and bucket scope); use scope='leaf'")
-        if cfg.enabled and cfg.mode != "matpow":
-            raise NotImplementedError(
-                f"dmd.mode={cfg.mode!r} is not ported yet (ROADMAP Queue 1: "
-                "eig mode and bucket scope); use mode='matpow'")
         self.cfg = cfg
         self.stack_dims = stack_dims
         self.device = resolve_device(device)
@@ -187,6 +188,13 @@ class DMDAccelerator:
             return None
         from repro_torch.core import controller as ctrl_mod
         return ctrl_mod.init_state(self.groups, device=self.device)
+
+    @property
+    def scope(self) -> str:
+        """The DMD system granularity (DESIGN.md §9): "leaf" (one operator
+        per leaf or stacked layer) or "bucket" (one shared Koopman operator
+        per arena bucket; the jump's solve batch is n_buckets)."""
+        return self.cfg.scope
 
     @property
     def arena_on(self) -> bool:
@@ -233,25 +241,82 @@ class DMDAccelerator:
 
     def plan_table(self, params: Optional[PyTree] = None) -> str:
         """Human-readable dispatch table: route, schedule group, m, s,
-        phase, shape and each leaf's bucket and lane offset."""
+        phase, shape, each leaf's bucket and lane offset, its DMD `scope`
+        ("bucket" when its bucket fits one shared operator) and `n_solve`,
+        the systems its bucket (or the leaf alone) adds to the jump's
+        solve."""
         if params is None:
             if self._plans is None:
                 raise ValueError("no plans built yet: pass params")
         else:
             self.plans_for(params)
-        seg_of = {s.path: (b.key, s.lane_start)
-                  for b in (self._arena or {}).values() for s in b.segments}
+        seg_of = {}
+        for b in (self._arena or {}).values():
+            sc = "bucket" if b.bucket_scoped(self.scope) else "leaf"
+            for s in b.segments:
+                seg_of[s.path] = (b.key, str(s.lane_start), sc,
+                                  str(b.gram_lead(self.scope)))
         rows = [("path", "route", "group", "m", "s", "phase", "stack",
-                 "shape", "flat_n", "arena", "off")]
+                 "shape", "flat_n", "arena", "off", "scope", "n_solve")]
         for p in leafplan.plan_entries(self._plans):
-            akey, aoff = seg_of.get(p.path, ("-", "-"))
+            n_leaf = str(int(np.prod(p.shape[:p.stack_dims],
+                                     dtype=np.int64)))
+            akey, aoff, asc, nsol = seg_of.get(p.path,
+                                               ("-", "-", "leaf", n_leaf))
             rows.append((p.path, p.route, p.sched.name, str(p.m),
                          str(p.sched.s), str(p.sched.phase),
                          str(p.stack_dims), "x".join(map(str, p.shape)),
-                         str(p.flat_size), akey, str(aoff)))
+                         str(p.flat_size), akey, aoff, asc, nsol))
         widths = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
         return "\n".join("  ".join(c.ljust(w) for c, w in zip(r, widths))
                          .rstrip() for r in rows)
+
+    def spectrum_table(self, buffers, grams=None) -> str:
+        """Per-bucket Koopman spectrum, the convergence diagnostic
+        (DESIGN.md §9): for every arena bucket the DMD eigenvalue
+        magnitudes of the operator the next jump would fit, on the host in
+        float64 (``dmd.dmd_eigenvalues_from_gram``) from the carried Gram,
+        or from K3's recompute under the scope's table when none is
+        carried. In leaf scope the bucket's per-system Grams are summed
+        first, the operator bucket scope would fit, so both scopes read
+        alike. Off the hot path: one device-to-host copy per bucket."""
+        from repro_torch.kernels import arena as ka
+
+        if self._plans is None:
+            raise ValueError("spectrum_table before init: no plan table yet")
+        table = self._arena or {}
+        rows = [("bucket", "scope", "m", "rank", "|lam|max", "|lam|min",
+                 "decay/step", "eigs")]
+        agrams = (arena_mod.split_state(grams)[0]
+                  if arena_mod.is_arena_state(grams) else None)
+        arenas = (arena_mod.split_state(buffers)[0]
+                  if arena_mod.is_arena_state(buffers) else {})
+        for key in sorted(table):
+            b = table[key]
+            g = agrams.get(key) if agrams is not None else None
+            if g is None:
+                buf = arenas[key]
+                g = ka.gram(buf, b.tables_on(buf.device, self.scope),
+                            anchor_first=self.cfg.anchor == "first",
+                            anchor_mean=self.cfg.anchor == "mean")
+            g = g.detach().cpu().numpy().astype(np.float64)
+            if not b.bucket_scoped(self.scope):
+                g = g.sum(axis=0, keepdims=True)
+            lam = dmd.dmd_eigenvalues_from_gram(g[0], tol=self.cfg.tol)
+            mag = np.abs(lam)
+            scope = "bucket" if b.bucket_scoped(self.scope) else "leaf"
+            if mag.size == 0:
+                rows.append((key, scope, str(b.m), "0", "-", "-", "-", "-"))
+                continue
+            # decay/step: the slowest mode's per-step magnitude ratio
+            top = np.sort(mag)[::-1][:4]
+            rows.append((key, scope, str(b.m), str(mag.size),
+                         f"{mag.max():.4f}", f"{mag.min():.4f}",
+                         f"{mag.max():.4f}",
+                         " ".join(f"{v:.3f}" for v in top)))
+        widths = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
+        return "\n".join("  ".join(v.ljust(w) for v, w in zip(r, widths))
+                         for r in rows)
 
     # ---- schedule ---------------------------------------------------------
     def slot(self, step: int, group: int = 0) -> int:
@@ -324,14 +389,18 @@ class DMDAccelerator:
         grams = state.dmd_gram
         if arena_mod.is_arena_state(grams):
             agrams, lgrams = arena_mod.split_state(grams)
+            # bucket scope: K3 rebuilds the per-system Grams from the
+            # buffers (the summed one cannot be split)
             grams = fill_paths(lgrams, arena_mod.grams_leafwise(
-                table, agrams, self.cfg))
+                table, agrams, self.cfg, arenas))
         return state._replace(dmd_buffers=bufs, dmd_gram=grams)
 
     def state_arenaize(self, state):
         """Inverse of ``state_leafwise`` for the DMD state: a restored
         per-leaf state packed into the arenas this accelerator runs with
-        (the Grams only when streaming). No-op when arenas are off or the
+        (the Grams only when streaming, summed per bucket in bucket scope,
+        where ``arena.restream_grams`` then rewrites the current window's
+        rows as the stream wrote them). No-op when arenas are off or the
         state is already packed; params stay per leaf (``Trainer.fit``
         makes them resident)."""
         if state is None or state.dmd_buffers is None \
@@ -352,8 +421,11 @@ class DMDAccelerator:
             strip(state.dmd_buffers))
         grams = state.dmd_gram
         if grams is not None and self.streaming:
-            grams = arena_mod.make_state(arena_mod.grams_from_leafwise(
-                table, by_path(grams)), strip(grams))
+            agrams = arena_mod.grams_from_leafwise(table, by_path(grams),
+                                                   self.scope)
+            arena_mod.restream_grams(agrams, arena_mod.split_state(bufs)[0],
+                                     table, self.cfg, int(state.step))
+            grams = arena_mod.make_state(agrams, strip(grams))
         return state._replace(dmd_buffers=bufs, dmd_gram=grams)
 
     # ---- state ------------------------------------------------------------
@@ -375,8 +447,8 @@ class DMDAccelerator:
 
     def init_grams(self, buffers) -> Optional[PyTree]:
         """Zeroed streaming Grams mirroring `buffers`, or None when not
-        streaming: (n_sys, m, m) fp32 per bucket, (stack..., m, m) fp32 per
-        per-leaf buffer."""
+        streaming: (n_sys, m, m) fp32 per bucket ((1, m, m) in bucket
+        scope), (stack..., m, m) fp32 per per-leaf buffer."""
         if buffers is None or not self.streaming:
             return None
         if self._plans is None:
@@ -385,7 +457,7 @@ class DMDAccelerator:
             return snap.init_grams(buffers, self._plans)
         leaf = arena_mod.split_state(buffers)[1]
         return arena_mod.make_state(
-            arena_mod.init_arena_grams(self._arena, self.device),
+            arena_mod.init_arena_grams(self._arena, self.device, self.scope),
             snap.init_grams(leaf, self._plans))
 
     @torch.no_grad()

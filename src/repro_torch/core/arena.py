@@ -34,13 +34,22 @@ with zero pad lanes. With resident params ``record`` is one copy of the
 flat buffer into the ring slot per bucket, and ``jump`` returns whole
 flat rows per bucket (the caller writes them into the resident buffer).
 
-Checkpoints are written leaf-wise: ``buffers_leafwise`` / ``grams_leafwise``
-unpack the buckets into the per-leaf layout of ``arena=False`` and
-``buffers_from_leafwise`` / ``grams_from_leafwise`` pack it back, so the
-on-disk format does not depend on ``dmd.arena``.
+Bucket scope (``dmd.scope="bucket"``, DESIGN.md §9): each bucket is ONE
+Koopman system over its concatenated state. The same kernels run with
+the bucket's all-zeros block table (``scope_block_sys``, n_sys 1): K1 and
+K3 then sum every block into one (1, m) row / (1, m, m) Gram, the
+segment-sum of the per-system ones (pad lanes are zero and every segment
+shares the bucket's slot schedule), the jump solves one system per bucket
+(``gram_lead``) and K2 broadcasts its one coefficient row to every block.
 
-Not ported yet: a mesh (sharded buckets) and bucket scope (ROADMAP
-Queue 1).
+Checkpoints are written leaf-wise in both scopes: ``buffers_leafwise`` /
+``grams_leafwise`` unpack the buckets into the per-leaf layout of
+``arena=False`` (a bucket-scoped Gram cannot be split, so K3 rebuilds the
+per-system Grams from the buffers) and ``buffers_from_leafwise`` /
+``grams_from_leafwise`` pack it back (segment-summed in bucket scope), so
+the on-disk format depends neither on ``dmd.arena`` nor on the scope.
+
+Not ported yet: a mesh (sharded buckets; ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -90,7 +99,8 @@ class ArenaBucket:
     block_n: int
     segments: Tuple[ArenaSegment, ...]
     # device copies of the block -> system tables, built once per device
-    _device_tables: Dict[str, ka.Segments] = field(
+    # and scope
+    _device_tables: Dict[Tuple[str, bool], ka.Segments] = field(
         default_factory=dict, repr=False, compare=False)
 
     @property
@@ -117,13 +127,39 @@ class ArenaBucket:
             s.seg_lanes // self.block_n) for s in self.segments]
         return np.concatenate(parts) if parts else np.zeros(0, np.int32)
 
-    def tables_on(self, device: torch.device) -> ka.Segments:
-        """The kernels' segment tables on `device`, copied there once."""
-        name = str(device)
-        if name not in self._device_tables:
-            self._device_tables[name] = ka.Segments.from_block_sys(
-                self.block_sys(), self.n_sys, device)
-        return self._device_tables[name]
+    # ---- dmd.scope (DESIGN.md §9) -----------------------------------------
+    def bucket_scoped(self, scope: str) -> bool:
+        """True when this bucket carries ONE shared Koopman system under
+        `scope` ("leaf" or "bucket"; anything else raises)."""
+        if scope not in ("leaf", "bucket"):
+            raise ValueError(f"unknown dmd.scope {scope!r}")
+        return scope == "bucket"
+
+    def gram_lead(self, scope: str) -> int:
+        """Leading dim of the carried Gram stack, and the bucket's share of
+        the group's batched coefficient solve, under `scope`."""
+        return 1 if self.bucket_scoped(scope) else self.n_sys
+
+    def scope_block_sys(self, scope: str) -> np.ndarray:
+        """The block -> system table the kernels walk under `scope`: bucket
+        scope maps every block to system 0."""
+        if self.bucket_scoped(scope):
+            return np.zeros(self.n_blocks, np.int32)
+        return self.block_sys()
+
+    def scope_n_sys(self, scope: str) -> int:
+        """The system count the kernels see under `scope`."""
+        return 1 if self.bucket_scoped(scope) else self.n_sys
+
+    def tables_on(self, device: torch.device, scope: str = "leaf"
+                  ) -> ka.Segments:
+        """The kernels' segment tables under `scope` on `device`, copied
+        there once per device and scope."""
+        key = (str(device), self.bucket_scoped(scope))
+        if key not in self._device_tables:
+            self._device_tables[key] = ka.Segments.from_block_sys(
+                self.scope_block_sys(scope), self.scope_n_sys(scope), device)
+        return self._device_tables[key]
 
 
 # ---------------------------------------------------------------------------
@@ -172,15 +208,19 @@ def arena_paths(table: Dict[str, ArenaBucket]) -> frozenset:
     return frozenset(s.path for b in table.values() for s in b.segments)
 
 
-def layout_table(table: Dict[str, ArenaBucket]) -> list:
+def layout_table(table: Dict[str, ArenaBucket], scope: str = "leaf"
+                 ) -> list:
     """JSON-able rows of the packed layout, one per bucket, with the
-    reference's field names (leaf scope, no mesh)."""
+    reference's field names (no mesh). `scope` stamps each bucket's DMD
+    granularity and its solve share (``n_solve``)."""
     out = []
     for key in sorted(table):
         b = table[key]
         out.append({
-            "key": b.key, "group": b.group, "m": b.m, "scope": "leaf",
-            "n_solve": b.n_sys, "block_n": b.block_n, "n_sys": b.n_sys,
+            "key": b.key, "group": b.group, "m": b.m,
+            "scope": "bucket" if b.bucket_scoped(scope) else "leaf",
+            "n_solve": b.gram_lead(scope), "block_n": b.block_n,
+            "n_sys": b.n_sys,
             "n_lanes": b.n_lanes,
             "segments": [{
                 "path": s.path, "sys_start": s.sys_start,
@@ -220,10 +260,12 @@ def init_arena_buffers(table: Dict[str, ArenaBucket], cfg,
             for key, b in table.items()}
 
 
-def init_arena_grams(table: Dict[str, ArenaBucket], device
-                     ) -> Dict[str, torch.Tensor]:
-    return {key: torch.zeros((b.n_sys, b.m, b.m), dtype=torch.float32,
-                             device=device)
+def init_arena_grams(table: Dict[str, ArenaBucket], device,
+                     scope: str = "leaf") -> Dict[str, torch.Tensor]:
+    """Zeroed Gram stacks: (n_sys, m, m) per bucket in leaf scope, the one
+    (1, m, m) shared-operator Gram in bucket scope."""
+    return {key: torch.zeros((b.gram_lead(scope), b.m, b.m),
+                             dtype=torch.float32, device=device)
             for key, b in table.items()}
 
 
@@ -327,19 +369,30 @@ def buffers_leafwise(table: Dict[str, ArenaBucket],
 
 
 def grams_leafwise(table: Dict[str, ArenaBucket],
-                   agrams: Dict[str, torch.Tensor], cfg=None
+                   agrams: Dict[str, torch.Tensor], cfg=None,
+                   arenas: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Dict[str, torch.Tensor]:
     """{path: (stack..., m, m) Gram}: each leaf's systems of its bucket's
-    (n_sys, m, m) Grams (views). Leaf scope only: a bucket-scoped (1, m, m)
-    Gram would be rebuilt per system from the buffers by K3, which comes
-    with bucket scope."""
-    if cfg is not None and cfg.scope != "leaf":
-        raise NotImplementedError(
-            "leaf-wise Grams of bucket scope are not ported yet (ROADMAP "
-            "Queue 1 item 5: eig mode and bucket scope)")
+    (n_sys, m, m) Grams (views). A bucket-scoped (1, m, m) Gram cannot be
+    split per leaf, so under ``cfg.scope="bucket"`` one K3 launch per
+    bucket rebuilds the per-system Grams from the snapshot buffers
+    (`arenas`, required then) with the bucket's real table;
+    ``grams_from_leafwise`` sums them back. Mid-window, anchor="first"
+    rows recomputed against the current anchor differ from the streamed
+    ones of the previous window (which the next window overwrites)."""
+    scope = cfg.scope if cfg is not None else "leaf"
     out = {}
     for key, g in agrams.items():
         b = table[key]
+        if b.bucket_scoped(scope):
+            if arenas is None:
+                raise ValueError(
+                    "bucket-scoped Grams need the snapshot buffers to "
+                    "rebuild the leaf-wise form: pass cfg and arenas")
+            buf = arenas[key]
+            g = ka.gram(buf, b.tables_on(buf.device),
+                        anchor_first=cfg.anchor == "first",
+                        anchor_mean=cfg.anchor == "mean")
         for seg in b.segments:
             out[seg.path] = g[seg.sys_start:seg.sys_start + seg.n_sys] \
                 .reshape(seg.shape[:seg.stack_dims] + (b.m, b.m))
@@ -363,13 +416,52 @@ def buffers_from_leafwise(table: Dict[str, ArenaBucket],
 
 
 def grams_from_leafwise(table: Dict[str, ArenaBucket],
-                        by_path_: Dict[str, torch.Tensor]
-                        ) -> Dict[str, torch.Tensor]:
-    """Inverse of ``grams_leafwise``: new (n_sys, m, m) fp32 Grams."""
-    return {key: torch.cat([by_path_[s.path].float()
-                            .reshape(s.n_sys, b.m, b.m)
-                            for s in b.segments])
-            for key, b in table.items()}
+                        by_path_: Dict[str, torch.Tensor],
+                        scope: str = "leaf") -> Dict[str, torch.Tensor]:
+    """Inverse of ``grams_leafwise``: new (n_sys, m, m) fp32 Grams; a
+    bucket-scoped bucket sums them into its (1, m, m) Gram (exact on
+    integer data: zero pads, one slot schedule), so checkpoints of either
+    scope restore into the other."""
+    out = {}
+    for key, b in table.items():
+        g = torch.cat([by_path_[s.path].float().reshape(s.n_sys, b.m, b.m)
+                       for s in b.segments])
+        out[key] = (g.sum(dim=0, keepdim=True) if b.bucket_scoped(scope)
+                    else g)
+    return out
+
+
+def restream_grams(agrams: Dict[str, torch.Tensor],
+                   arenas: Dict[str, torch.Tensor],
+                   table: Dict[str, ArenaBucket], cfg, step: int
+                   ) -> Dict[str, torch.Tensor]:
+    """Rewrite the rows of a bucket-scoped Gram that the stream wrote in
+    the current window before `step` (the next step to run), with K1 on
+    the same buffer rows, in the order the stream wrote them, in place.
+
+    A restored bucket Gram is the sum of K3's per-system recompute (the
+    checkpoint is leaf-wise), which rounds differently from the K1 rows
+    the uninterrupted run carries. Only the current window's entries reach
+    the next jump (every later record rewrites its row and column), and
+    K1's entry (i, j) depends only on slots i, j and the anchor: replaying
+    slots 0..k of the window (k the slot of step - 1) gives the carried
+    bits back, so a resumed run equals an uninterrupted one. A window
+    that just jumped, or has not started, needs nothing. Leaf scope
+    restores its Grams as they were written."""
+    for key, g in agrams.items():
+        b = table[key]
+        if not b.bucket_scoped(cfg.scope):
+            continue
+        k = b.sched.slot(step - 1)
+        if k < 0 or b.sched.should_apply(step - 1):
+            continue
+        buf = arenas[key]
+        segs = b.tables_on(buf.device, cfg.scope)
+        for s in range(k + 1):
+            row = ka.gram_row(buf, buf[:, s, :], segs,
+                              anchor_first=cfg.anchor == "first")
+            dmd_math.set_gram_row(g, row, s)
+    return agrams
 
 
 # ---------------------------------------------------------------------------
@@ -410,16 +502,18 @@ def update_grams(agrams: Dict[str, torch.Tensor],
                  table: Dict[str, ArenaBucket],
                  group: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Streaming-Gram maintenance: ONE segmented gram_row launch per bucket
-    gives every system's row, then one row+column write per bucket. The
-    just-written slot of the ring buffer is the query, read in place.
-    `slot` and `group` follow ``record``."""
+    gives every system's row (the one bucket row in bucket scope), then
+    one row+column write per bucket. The just-written slot of the ring
+    buffer is the query, read in place. `slot` and `group` follow
+    ``record``."""
     for key, g in agrams.items():
         b = table[key]
         s = _bucket_slot(b, slot)
         if s < 0 or (group is not None and b.group != group):
             continue
         buf = arenas[key]
-        row = ka.gram_row(buf, buf[:, s, :], b.tables_on(buf.device),
+        row = ka.gram_row(buf, buf[:, s, :],
+                          b.tables_on(buf.device, cfg.scope),
                           anchor_first=cfg.anchor == "first")
         dmd_math.set_gram_row(g, row, s)
     return agrams
@@ -458,7 +552,10 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
     `s_vec` / `ridge_vec` (controller mode) are per-group tensors of the
     adapted horizon and the meta-tuned ridge. A tensor `relax` or
     `ridge_vec` that requires grad makes the result differentiable in it
-    (the combine's backward is K1)."""
+    (the combine's backward is K1). In bucket scope each bucket is ONE
+    system of the group's solve (its table's zeros broadcast the one
+    coefficient row in K2) and every segment reports the bucket's rank."""
+    scope = cfg.scope
     leaves = None if resident else by_path(params)
     updates: Dict[str, torch.Tensor] = {}
     ranks: List[torch.Tensor] = []
@@ -475,14 +572,15 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
             g = agrams.get(b.key) if agrams is not None else None
             if g is None:
                 buf = arenas[b.key]
-                g = ka.gram(buf, b.tables_on(buf.device),
+                g = ka.gram(buf, b.tables_on(buf.device, scope),
                             anchor_first=cfg.anchor == "first",
                             anchor_mean=cfg.anchor == "mean")
             grams.append(g)
         gcat = grams[0] if len(grams) == 1 else torch.cat(grams)
         sched = buckets[0].sched
         c, info = dmd_math.dmd_coefficients(
-            gcat, s=sched.s, tol=cfg.tol, mode=cfg.mode, anchor=cfg.anchor,
+            gcat, s=sched.s, tol=cfg.tol, mode=cfg.mode,
+            clamp_eigs=cfg.clamp_eigs, anchor=cfg.anchor,
             affine=cfg.affine, trust_region=cfg.trust_region,
             relax=relax_at(relax, gi),
             energy=sched.energy, atol=cfg.atol, ridge=sched.ridge,
@@ -490,18 +588,22 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
             ridge_dyn=None if ridge_vec is None else ridge_vec[gi])
         ofs = 0
         for b in buckets:
-            cb = c[ofs:ofs + b.n_sys].contiguous()
-            rb = info["rank"][ofs:ofs + b.n_sys]
-            ofs += b.n_sys
+            lead = b.gram_lead(scope)
+            cb = c[ofs:ofs + lead].contiguous()
+            rb = info["rank"][ofs:ofs + lead]
+            ofs += lead
             buf = arenas[b.key]
-            flat = ka.combine(buf, cb, b.tables_on(buf.device))
+            flat = ka.combine(buf, cb, b.tables_on(buf.device, scope))
             # a non-finite BUFFER poisons the combine even under
             # c = e_last (0 * inf = NaN): never leave params less finite
             # than the last snapshot
             flat = torch.where(torch.isfinite(flat), flat,
                                buf[:, -1, :].reshape(-1).float())
-            seg_ranks = [rb[seg.sys_start:seg.sys_start + seg.n_sys]
-                         .float().mean() for seg in b.segments]
+            if b.bucket_scoped(scope):
+                seg_ranks = [rb.float().mean()] * len(b.segments)
+            else:
+                seg_ranks = [rb[seg.sys_start:seg.sys_start + seg.n_sys]
+                             .float().mean() for seg in b.segments]
             ranks.extend(seg_ranks)
             if resident:
                 updates[b.key] = flat.to(

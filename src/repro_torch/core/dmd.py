@@ -12,18 +12,47 @@ so only the Gram (or its streaming rows) and the combine ``S^T c`` touch the
 n-sized data; ``dmd_coefficients`` is O(m^3) algebra on (n_sys, m, m)
 batches, run on the Gram's own device.
 
-Ported: matpow mode with the affine augmentation, trust region, relax,
-energy rank, absolute sigma floor, Tikhonov ridge, and the controller's
-dynamic horizon and ridge (``s_dyn``, ``ridge_dyn``: tensors, so the
-coefficients are differentiable in them and in ``relax``, which the
-controller's meta-tuning backpropagates through). Not yet ported (it
-raises ``NotImplementedError``): eig mode (ROADMAP Queue 1).
+Both modes of the operator power are here. ``mode="matpow"`` raises
+Atilde to the s-th power by binary exponentiation on the device.
+``mode="eig"`` (the paper's classic DMD) diagonalises Atilde: one explicit
+host step per call (the reference's ``pure_callback``) copies the
+(batch, m-1, m-1) operator to the host, runs ``numpy.linalg.eig`` in its
+dtype (float32 in, complex64 out) and copies the eigenpairs back; the
+reconstruction ``Y Lambda^s Y^-1`` (a complex64 solve), the matpow
+fallback of the defective-operator guard and the selection between them
+stay on the operator's device. Both modes take the affine augmentation,
+trust region, relax, energy rank, absolute sigma floor, Tikhonov ridge,
+and the controller's dynamic horizon and ridge (``s_dyn``, ``ridge_dyn``:
+tensors; in matpow mode the coefficients are differentiable in them and
+in ``relax``, which the controller's meta-tuning backpropagates through;
+the host eig has no derivative). ``dmd_eigenvalues(_from_gram)`` are the
+host float64 spectral diagnostics.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
+import numpy as np
 import torch
+
+# eig mode's host round trips since the last reset_eig_stats(): calls
+# (one device-to-host copy of the operator stack and one copy back each),
+# the systems they solved, and per call a device tensor of how many of
+# those the defective-operator guard sent to the matpow fallback (read on
+# the host only by eig_stats(), so a jump never waits on it)
+HOST_EIG = {"calls": 0, "systems": 0}
+_FALLBACKS: List[torch.Tensor] = []
+
+
+def reset_eig_stats() -> None:
+    HOST_EIG.update(calls=0, systems=0)
+    _FALLBACKS.clear()
+
+
+def eig_stats() -> dict:
+    """The eig-mode counters, with the guard's fallbacks summed (one host
+    read per recorded call)."""
+    return {**HOST_EIG, "fallbacks": sum(int(t) for t in _FALLBACKS)}
 
 
 def _systems(x: torch.Tensor, stack_dims: int):
@@ -187,12 +216,131 @@ def _matrix_power_traced(a: torch.Tensor, s: torch.Tensor, s_max: int
     return result
 
 
+def _complex_int_pow(x: torch.Tensor, s: int) -> torch.Tensor:
+    """x^s elementwise for a static integer s >= 1 by repeated squaring, in
+    the order XLA expands the reference's ``lam ** int(s)``."""
+    acc = None
+    while s > 0:
+        if s & 1:
+            acc = x if acc is None else acc * x
+        s >>= 1
+        if s > 0:
+            x = x * x
+    return acc
+
+
+def _host_eig(a: np.ndarray) -> np.ndarray:
+    """The host half of eig mode, the reference's ``_host_eig``: numpy's
+    eig of each (k, k) operator in its dtype and the rcond of its
+    eigenvector matrix (~0 for a defective, Jordan-block operator, whose
+    reconstruction is meaningless). Packed into ONE complex64 array
+    (batch, k + 1, k + 1) for the single copy back: eigenvectors in
+    [:k, :k], eigenvalues in row k, rcond in column k. numpy refuses a
+    non-finite matrix (the reference's callback then raises); such a
+    system gets NaN eigenpairs and rcond 0 here, so the guard hands it to
+    the matpow fallback and the coefficient guard to ``c = e_last``."""
+    finite = np.isfinite(a).all(axis=(-2, -1))
+    w, v = np.linalg.eig(np.where(finite[..., None, None], a, 0))
+    sv = np.linalg.svd(v, compute_uv=False)
+    rcond = (sv[..., -1] / np.maximum(sv[..., 0], 1e-300)).astype(np.float32)
+    k = a.shape[-1]
+    out = np.zeros(a.shape[:-2] + (k + 1, k + 1), np.complex64)
+    out[..., :k, :k] = v.astype(np.complex64)
+    out[..., k, :k] = w.astype(np.complex64)
+    out[..., k, k] = rcond
+    out[~finite, :k + 1, :k] = np.nan
+    out[~finite, k, k] = 0
+    return out
+
+
+def _eig_power(atilde: torch.Tensor, s, clamp_eigs: bool, s_max: int
+               ) -> torch.Tensor:
+    """Atilde^s via its eigendecomposition, batched over (batch, k, k),
+    with the reference's defective-operator guard.
+
+    The host step: one copy of the operator stack to the host, numpy's
+    eig there (``_host_eig``), one copy back. Everything else runs on
+    Atilde's device. ``clamp_eigs`` clamps only |lambda| > 1 + 1e-3 onto
+    the unit circle (a defective lambda = 1 pair splits into 1 +- delta
+    under fp32 noise with huge opposing amplitudes; clamping one of them
+    would break their cancellation). The guard reconstructs the UNCLAMPED
+    power through the eigenbasis and compares it with the matpow power of
+    the same operator: the eig result is used where it is finite and
+    either validates (relative error < 1e-2 and rcond > 1e-7) or the
+    matpow power is itself non-finite (an explosive operator whose
+    unclamped power overflows, the regime the clamp is for); else the
+    matpow power. A zero eigenvalue's power is exactly 0. `s` is a static
+    int, or an integer tensor (the controller's horizon; a scalar or one
+    per system) in [1, s_max]: then lambda^s goes through the complex
+    power and the fallback through the masked chain over s_max's bits.
+
+    The host step cannot run inside a CUDA graph capture (it reads the
+    device): the jump step that calls it runs eagerly."""
+    if atilde.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("eig mode's host eig cannot run inside a CUDA "
+                           "graph capture: run the jump step eagerly")
+    k = atilde.shape[-1]
+    packed = torch.from_numpy(_host_eig(atilde.detach().cpu().numpy()))
+    packed = packed.to(atilde.device)
+    eigvecs = packed[..., :k, :k]
+    eigvals = packed[..., k, :k]
+    rcond = packed[..., k, k].real
+    HOST_EIG["calls"] += 1
+    HOST_EIG["systems"] += int(np.prod(atilde.shape[:-2], dtype=np.int64))
+
+    if clamp_eigs:
+        mag = eigvals.abs()
+        lam_clamped = torch.where(mag > 1.0 + 1e-3,
+                                  eigvals / torch.clamp_min(mag, 1e-30),
+                                  eigvals)
+    else:
+        lam_clamped = eigvals
+
+    static = isinstance(s, (int, np.integer))
+    if static:
+        fallback = _matrix_power(atilde, int(s))
+    else:
+        fallback = _matrix_power_traced(atilde, s, int(s_max))
+        s_c = s.to(torch.float32).to(torch.complex64)
+        if s_c.dim():                       # one horizon per system
+            s_c = s_c.reshape(-1, 1)
+
+    def reconstruct(lam):
+        nz = lam.abs() > 0
+        lam_safe = torch.where(nz, lam, torch.ones_like(lam))
+        lam_s = (_complex_int_pow(lam_safe, int(s)) if static
+                 else torch.pow(lam_safe, s_c))
+        lam_s = torch.where(nz, lam_s, torch.zeros_like(lam_s))
+        # Y Lambda^s Y^-1 as a solve against Y^T; solve_ex: a singular Y
+        # (a defective operator) gives non-finite values for the guard to
+        # catch, not an error, and no host read
+        m_complex = eigvecs * lam_s[..., None, :]
+        sol = torch.linalg.solve_ex(eigvecs.transpose(-1, -2),
+                                    m_complex.transpose(-1, -2))[0]
+        return sol.transpose(-1, -2).real
+
+    m_full = reconstruct(lam_clamped)
+    m_check = reconstruct(eigvals) if clamp_eigs else m_full
+
+    def norm(x):
+        return torch.sqrt(torch.sum(torch.square(x), dim=(-2, -1)))
+    rel_err = norm(m_check - fallback) / torch.clamp_min(norm(fallback),
+                                                         1e-30)
+    eig_finite = torch.isfinite(m_full).all(dim=-1).all(dim=-1)
+    fb_finite = torch.isfinite(fallback).all(dim=-1).all(dim=-1)
+    validated = (rel_err < 1e-2) & (rcond > 1e-7)
+    use_eig = eig_finite & (validated | ~fb_finite)
+    _FALLBACKS.append((~use_eig).sum())
+    return torch.where(use_eig[..., None, None], m_full, fallback)
+
+
 def _matvec(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...j->...i", mat, vec)
 
 
 def dmd_coefficients(gram: torch.Tensor, *, s: int, tol: float = 1e-10,
-                     mode: str = "matpow", anchor: str = "none",
+                     mode: str = "matpow", clamp_eigs: bool = False,
+                     anchor: str = "none",
                      affine: bool = False, trust_region: float = 0.0,
                      relax: float = 1.0, energy: float = 0.0,
                      atol: float = 0.0, ridge: float = 0.0,
@@ -202,7 +350,9 @@ def dmd_coefficients(gram: torch.Tensor, *, s: int, tol: float = 1e-10,
 
     ``gram`` is (..., m, m) fp32 ``D D^T`` with D anchored as ``anchor``
     says; the returned c is over the ORIGINAL snapshot rows (the anchor is
-    folded back in). ``s`` is the horizon, ``trust_region > 0`` caps the
+    folded back in). ``mode`` is "matpow" or "eig" (``_eig_power``, with
+    ``clamp_eigs``; its power is masked to the kept modes). ``s`` is the
+    horizon, ``trust_region > 0`` caps the
     jump at tr * s * rms_step, ``relax`` blends w <- (1-relax) w_last +
     relax w_dmd, ``energy``/``atol``/``ridge`` shape the rank mask and the
     regression factor. ``s_dyn`` (controller mode: an integer tensor, the
@@ -210,10 +360,8 @@ def dmd_coefficients(gram: torch.Tensor, *, s: int, tol: float = 1e-10,
     static cap that sizes the power chain. ``ridge_dyn`` (a tensor, the
     meta-tuned ridge) takes precedence over ``ridge``. Returns (c, info)
     with info's rank, sigma_ratio, jump_scale, jump_norm and step_rms."""
-    if mode != "matpow":
-        raise NotImplementedError(
-            f"DMD mode {mode!r} is not ported yet (ROADMAP Queue 1: eig "
-            "mode and bucket scope); use mode='matpow'")
+    if mode not in ("matpow", "eig"):
+        raise ValueError(f"unknown DMD mode {mode!r}")
     m = gram.shape[-1]
     if m < 3:
         raise ValueError("DMD needs at least 3 snapshots (m >= 3)")
@@ -249,12 +397,19 @@ def dmd_coefficients(gram: torch.Tensor, *, s: int, tol: float = 1e-10,
     vt_c_v = vt @ g_cross @ v
     atilde = (inv_sigma[..., :, None] * vt_c_v) * inv_fit[..., None, :]
     if s_dyn is None:
-        atilde_s = _matrix_power(atilde, int(s))
+        s_val = int(s)
     else:
         s_val = torch.clamp(torch.as_tensor(s_dyn, device=gram.device)
                             .to(torch.int32), 1, int(s))
         if s_val.dim():                   # one horizon per system
             s_val = s_val.reshape(-1)
+    if mode == "eig":
+        atilde_s = _eig_power(atilde, s_val, clamp_eigs, int(s))
+        atilde_s = torch.where(mask[..., :, None] & mask[..., None, :],
+                               atilde_s, torch.zeros_like(atilde_s))
+    elif s_dyn is None:
+        atilde_s = _matrix_power(atilde, s_val)
+    else:
         atilde_s = _matrix_power_traced(atilde, s_val, int(s))
 
     b = inv_sigma * _matvec(vt, g_last)          # U^T d_last
@@ -317,7 +472,8 @@ def dmd_coefficients(gram: torch.Tensor, *, s: int, tol: float = 1e-10,
 
 
 def dmd_extrapolate(snapshots: torch.Tensor, *, s: int, tol: float = 1e-10,
-                    mode: str = "matpow", anchor: str = "none",
+                    mode: str = "matpow", clamp_eigs: bool = False,
+                    anchor: str = "none",
                     affine: bool = False, trust_region: float = 0.0,
                     relax: float = 1.0, atol: float = 0.0,
                     ridge: float = 0.0) -> Tuple[torch.Tensor, dict]:
@@ -326,9 +482,48 @@ def dmd_extrapolate(snapshots: torch.Tensor, *, s: int, tol: float = 1e-10,
     the combine even under the c = e_last guard (0 * inf = NaN), so it
     never returns less finite than the last snapshot."""
     gram = gram_matrix(snapshots, anchor=anchor)
-    c, info = dmd_coefficients(gram, s=s, tol=tol, mode=mode, anchor=anchor,
+    c, info = dmd_coefficients(gram, s=s, tol=tol, mode=mode,
+                               clamp_eigs=clamp_eigs, anchor=anchor,
                                affine=affine, trust_region=trust_region,
                                relax=relax, atol=atol, ridge=ridge)
     w = combine_snapshots(snapshots, c)
     return torch.where(torch.isfinite(w), w,
                        snapshots[-1].to(w.dtype)), info
+
+
+def _host64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, np.float64)
+
+
+def dmd_eigenvalues_from_gram(gram, *, tol: float = 1e-10) -> np.ndarray:
+    """Spectral diagnostics on the host, in float64, from one (m, m) Gram
+    alone: the Koopman eigenvalues of the reduced operator the next jump
+    would fit (complex128, one per kept mode). The Gram must already be in
+    the anchored form its caller maintains (the carried streaming Gram, or
+    a bucket's segment-summed one)."""
+    g_np = _host64(gram)
+    g_lag, g_cross = g_np[:-1, :-1], g_np[:-1, 1:]
+    lam, v = np.linalg.eigh(g_lag)
+    sig = np.sqrt(np.maximum(lam, 0.0))
+    mask = sig > tol * max(sig.max(), 1e-300)
+    if not mask.any():
+        return np.zeros(0, np.complex128)
+    inv = np.where(mask, 1.0 / np.where(mask, sig, 1.0), 0.0)
+    atilde = (inv[:, None] * (v.T @ g_cross @ v)) * inv[None, :]
+    atilde = atilde[np.ix_(mask, mask)]
+    return np.linalg.eigvals(atilde)
+
+
+def dmd_eigenvalues(snapshots, *, tol: float = 1e-10,
+                    anchor: str = "none") -> np.ndarray:
+    """Spectral diagnostics on the host: the DMD eigenvalues of an (m, ...)
+    snapshot trajectory, in float64."""
+    s_np = _host64(snapshots)
+    s_np = s_np.reshape(s_np.shape[0], -1)
+    if anchor == "first":
+        s_np = s_np - s_np[:1]
+    elif anchor == "mean":
+        s_np = s_np - s_np.mean(axis=0, keepdims=True)
+    return dmd_eigenvalues_from_gram(s_np @ s_np.T, tol=tol)

@@ -28,7 +28,8 @@ wrappers count their launches when Python calls them, which a replay
 does not: the capture's counts (the launches it recorded, none of which
 ran) are taken back, and every replay adds them again, so each wrapper's
 count stays the number of times its kernel ran. The jump
-step runs eagerly. ``cuda_graphs=False`` runs every step eagerly on a
+step runs eagerly (in eig mode it reads the operator back to the host for
+its eigendecomposition, which no capture may do). ``cuda_graphs=False`` runs every step eagerly on a
 CUDA device (the comparison run); on the CPU every step runs eagerly,
 which is how the tests drive the Trainer.
 

@@ -350,10 +350,13 @@ def make_dmd_step(acfg, *, acc: Optional[DMDAccelerator] = None, model=None,
         if not 0.0 < f < 1.0:
             raise ValueError(f"controller shrink_levels must lie in (0, 1): "
                              f"got {levels}")
+    # meta-tuning differentiates through the jump: the host eig of eig
+    # mode has no derivative
     meta_on = float(ccfg.meta_lr) > 0
     if meta_on and cfg.mode != "matpow":
         raise ValueError("controller meta-tuning (meta_lr > 0) needs "
-                         "dmd.mode='matpow'")
+                         "dmd.mode='matpow': the eig host step is not "
+                         "differentiable")
 
     def gated_dmd_step(state: TrainState, relax, eval_batch,
                        groups: Optional[Sequence[int]] = None) -> tuple:

@@ -160,6 +160,12 @@ def _cycles(jcfg, tcfg, sizes, steps, seed):
     dict(arena_block_n=128, rules=(dict(name="vecs", max_ndim=1, m=3,
                                         phase=1),)),
     dict(snapshot_dtype="bfloat16"),
+    dict(scope="bucket"),
+    dict(scope="bucket", streaming_gram=False),
+    dict(scope="bucket", arena_block_n=128, rules=(dict(
+        name="vecs", max_ndim=1, m=3, phase=1),)),
+    dict(mode="eig"),
+    dict(mode="eig", clamp_eigs=True, scope="bucket"),
 ])
 def test_accelerator_cycles_match_reference(cfg):
     base = dict(m=4, s=5, warmup_steps=1, cooldown_steps=1, tol=1e-3)
@@ -191,18 +197,23 @@ def test_accelerator_legacy_apply_and_schedule_views():
 
 
 def test_unported_routes_raise():
-    """Bucket scope and eig mode are not ported; the per-leaf route is, so
-    `arena=False` and a forced `dot_general` route give the plain per-leaf
-    buffer tree instead of raising."""
+    """Every route of the reference is ported: `arena=False` and a forced
+    `dot_general` route give the plain per-leaf buffer tree; bucket scope
+    carries one (1, m, m) Gram per bucket; eig mode builds; an unknown
+    scope raises ValueError, as in the reference."""
     _, tp = _both_params(_mlp_shapes((6, 8, 3)))
     for kw in (dict(arena=False), dict(kernel_route="dot_general")):
         bufs = TAcc(TCfg(**kw), device="cpu").init(tp)
         assert "__arena__" not in bufs
         assert bufs["l0"]["w"].shape == (14, 6, 8)
-    with pytest.raises(NotImplementedError, match="bucket"):
-        TAcc(TCfg(scope="bucket"), device="cpu")
-    with pytest.raises(NotImplementedError, match="eig"):
-        TAcc(TCfg(mode="eig"), device="cpu")
+    acc = TAcc(TCfg(scope="bucket"), device="cpu")
+    grams = acc.init_grams(acc.init(tp))
+    assert [tuple(g.shape) for g in grams["__arena__"].values()] == \
+        [(1, 14, 14)]
+    assert TAcc(TCfg(mode="eig"), device="cpu").init(tp) is not None
+    bad = TAcc(TCfg(scope="global"), device="cpu")
+    with pytest.raises(ValueError, match="scope"):
+        bad.init_grams(bad.init(tp))
     assert TAcc(TCfg(enabled=False), device="cpu").init(tp) is None
 
 
@@ -329,3 +340,170 @@ def test_arena_gram_load_width_choice(m, bn, dtype, offset, want):
     buf = torch.empty(offset + 5633 * m * bn, dtype=dtype,
                       device="meta")[offset:].view(5633, m, bn)
     assert tdevice.vector_lanes(buf) is want
+
+
+# -- bucket scope (DESIGN.md §9), mirroring tests/test_arena.py:446-580 -------
+
+def _bcfg(**kw):
+    kw = {**dict(m=4, s=5, warmup_steps=0, cooldown_steps=0, tol=1e-6), **kw}
+    return JCfg(**kw), TCfg(**kw)
+
+
+def _int_flat(rng, sizes):
+    return {k: rng.integers(-8, 9, size=s).astype(np.float32)
+            for k, s in sizes.items()}
+
+
+def _run_both(jcfg, tcfg, params, deltas, steps, quantize=False):
+    """The reference's ``_run_cycles`` in both packages from the same numpy
+    params and per-step deltas (``quantize`` rounds after each jump)."""
+    jacc, tacc = JAcc(jcfg), TAcc(tcfg, device="cpu")
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tp = {k: torch.tensor(v) for k, v in params.items()}
+    jb, tb = jacc.init(jp), tacc.init(tp)
+    jg, tg = jacc.init_grams(jb), tacc.init_grams(tb)
+    for t in range(steps):
+        jp = {k: v + jnp.asarray(deltas[k]) for k, v in jp.items()}
+        tp = {k: v + torch.tensor(deltas[k]) for k, v in tp.items()}
+        jb, jg = jacc.record(jb, jp, jacc.slots(t), jg)
+        tb, tg = tacc.record(tb, tp, tacc.slots(t), tg)
+        if tacc.should_apply(t):
+            jp, _ = jacc.apply({k: v.copy() for k, v in jp.items()}, jb,
+                               grams=jg, step=t)
+            tp, _ = tacc.apply(tp, tb, grams=tg, step=t)
+            if quantize:
+                jp = {k: jnp.round(v) for k, v in jp.items()}
+                tp = {k: torch.round(v) for k, v in tp.items()}
+    return (jacc, jp, jb, jg), (tacc, tp, tb, tg)
+
+
+def test_bucket_scope_single_system_bucket_bitexact_leaf():
+    """One single-system bucket: the two scopes are the same program, so
+    bucket scope is bit-exact with leaf scope (params, buffers, Grams),
+    and with the reference's bucket scope."""
+    rng = np.random.default_rng(23)
+    sizes = {"w": (8, 25)}
+    params = _int_flat(rng, sizes)
+    deltas = {k: rng.integers(-2, 3, size=v).astype(np.float32)
+              for k, v in sizes.items()}
+    jl, tl = _bcfg()
+    jb, tb = _bcfg(scope="bucket")
+    _, (_, p_l, b_l, g_l) = _run_both(jl, tl, params, deltas, 9, True)
+    (_, jp, jbuf, jg), (acc, p_b, b_b, g_b) = _run_both(
+        jb, tb, params, deltas, 9, True)
+    (b,) = acc.arena_for(p_b).values()
+    assert b.bucket_scoped("bucket") and b.n_sys == 1
+    assert torch.equal(p_b["w"], p_l["w"])
+    np.testing.assert_array_equal(p_b["w"].numpy(), np.asarray(jp["w"]))
+    for key in b_l["__arena__"]:
+        assert torch.equal(b_b["__arena__"][key], b_l["__arena__"][key])
+        assert torch.equal(g_b["__arena__"][key], g_l["__arena__"][key])
+        np.testing.assert_array_equal(g_b["__arena__"][key].numpy(),
+                                      np.asarray(jg["__arena__"][key]))
+
+
+def test_bucket_scope_gram_is_segment_sum_across_wraps():
+    """After the ring wraps, the (1, m, m) bucket Gram equals the leaf-scope
+    run's Gram stack summed over systems (integer data: bit-exact), the
+    dot_general oracle on the anchored leaf-wise snapshots, and the
+    reference's bucket Gram; params after two jumps equal the reference's
+    (rounded after each jump, so both stay integer)."""
+    from repro_torch.train.state import TrainState
+    rng = np.random.default_rng(29)
+    sizes = {"a": (7,), "b": (10, 13), "c": (333,), "d": (2, 5, 6)}
+    params = _int_flat(rng, sizes)
+    deltas = {k: rng.integers(-2, 3, size=v).astype(np.float32)
+              for k, v in sizes.items()}
+    jl, tl = _bcfg()
+    jb, tb = _bcfg(scope="bucket")
+    _, (_, _, _, g_l) = _run_both(jl, tl, params, deltas, 8, True)
+    (_, jp, _, jg), (acc, p_b, b_b, g_b) = _run_both(jb, tb, params, deltas,
+                                                     8, True)
+    (key,) = g_b["__arena__"]
+    gb = g_b["__arena__"][key].numpy()
+    assert gb.shape == (1, 4, 4)
+    np.testing.assert_array_equal(
+        gb, g_l["__arena__"][key].numpy().sum(axis=0, keepdims=True))
+    np.testing.assert_array_equal(gb, np.asarray(jg["__arena__"][key]))
+    lw = acc.state_leafwise(TrainState(p_b, None, torch.tensor(8), b_b, g_b))
+    rows = []
+    for k in sorted(sizes):
+        x = lw.dmd_buffers[k].numpy().reshape(4, -1)
+        rows.append(x - x[0])
+    d = np.concatenate(rows, axis=1)
+    np.testing.assert_array_equal(gb[0], d @ d.T)
+    for k in sizes:
+        np.testing.assert_array_equal(p_b[k].numpy(), np.asarray(jp[k]))
+
+
+def test_bucket_scope_bf16_gram_upcast_false_segment_sum():
+    """bf16 snapshots with gram_upcast=False in bucket scope: the (1, m, m)
+    Gram stays fp32 and equals the leaf-scope stack's sum (rtol 1e-5, atol
+    1e-4: fp32 order) and the reference's bucket Gram (same bound); the
+    params stay finite."""
+    rng = np.random.default_rng(31)
+    sizes = {"w": (24, 9), "v": (130,)}
+    params = {k: rng.normal(size=s).astype(np.float32)
+              for k, s in sizes.items()}
+    deltas = {k: (0.05 * rng.normal(size=s)).astype(np.float32)
+              for k, s in sizes.items()}
+    kw = dict(snapshot_dtype="bfloat16", gram_upcast=False, anchor="first",
+              tol=1e-3)
+    jl, tl = _bcfg(**kw)
+    jb, tb = _bcfg(scope="bucket", **kw)
+    _, (_, _, _, g_l) = _run_both(jl, tl, params, deltas, 3)
+    (_, _, _, jg), (_, p_b, _, g_b) = _run_both(jb, tb, params, deltas, 3)
+    for key, g in g_b["__arena__"].items():
+        assert g.dtype == torch.float32 and g.shape[0] == 1, key
+        np.testing.assert_allclose(g[0].numpy(),
+                                   g_l["__arena__"][key].numpy().sum(0),
+                                   rtol=1e-5, atol=1e-4, err_msg=key)
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg["__arena__"][key]),
+                                   rtol=1e-5, atol=1e-4, err_msg=key)
+    for k in sizes:
+        assert torch.isfinite(p_b[k]).all(), k
+
+
+def test_bucket_scope_tables_and_spectrum():
+    """layout_table and plan_table carry the scope and n_solve collapses to
+    1 (as the reference's); spectrum_table renders one row per bucket
+    from the carried Gram, from K3's recompute under the scope's table
+    (the same row on integer data), and the reference's own table, in
+    both scopes."""
+    rng = np.random.default_rng(37)
+    sizes = {"w": (16, 16), "b": (48,)}
+    params = _int_flat(rng, sizes)
+    jb, tb = _bcfg(scope="bucket")
+    jacc, acc = JAcc(jb), TAcc(tb, device="cpu")
+    jtable = jacc.arena_for({k: jnp.asarray(v) for k, v in params.items()})
+    table = acc.arena_for({k: torch.tensor(v) for k, v in params.items()})
+    (b,) = table.values()
+    assert b.gram_lead("bucket") == 1 and b.gram_lead("leaf") == b.n_sys
+    assert (b.scope_block_sys("bucket") == 0).all()
+    for scope in ("bucket", "leaf"):
+        assert _project(tarena.layout_table(table, scope=scope)) == \
+            _project(jarena.layout_table(jtable, scope=scope))
+    assert tarena.layout_table(table, scope="bucket")[0]["n_solve"] == 1
+    lines = acc.plan_table().splitlines()
+    assert lines[0].split()[-2:] == ["scope", "n_solve"]
+    assert all(ln.split()[-2:] == ["bucket", "1"] for ln in lines[1:])
+    deltas = {k: rng.integers(-2, 3, size=v).astype(np.float32)
+              for k, v in sizes.items()}
+    for scope in ("bucket", "leaf"):
+        jc, tc = _bcfg(scope=scope)
+        (jacc, _, jbuf, jg), (acc, _, tbuf, tg) = _run_both(
+            jc, tc, params, deltas, 4)
+        carried = acc.spectrum_table(tbuf, tg)
+        assert "|lam|max" in carried and "decay/step" in carried
+        assert carried == jacc.spectrum_table(jbuf, jg)
+        assert acc.spectrum_table(tbuf) == carried       # K3's recompute
+        assert carried.splitlines()[1].split()[1] == scope
+    with pytest.raises(ValueError):
+        TAcc(TCfg(), device="cpu").spectrum_table(tbuf)
+
+
+def test_bucket_scope_unknown_scope_raises():
+    _, tp = _both_params({"l0": {"w": (16, 16)}})
+    (b,) = TAcc(TCfg(), device="cpu").arena_for(tp).values()
+    with pytest.raises(ValueError, match="scope"):
+        b.bucket_scoped("global")

@@ -593,11 +593,142 @@ def test_leafwise_views_roundtrip(dtype):
 
 
 def test_bucket_scope_grams_leafwise_raise():
-    cfg = dataclasses.replace(_dot_acfg(OptimizerConfig(name="sgd",
-                                                        lr=1.0)).dmd,
-                              scope="bucket")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tarena.grams_leafwise({}, {}, cfg)
+    """In bucket scope ``grams_leafwise`` rebuilds each leaf's per-system
+    Grams from the buffers (K3's twin with the bucket's real table): on a
+    dyadic run they equal a leaf-scope run's carried Grams bit for bit,
+    and ``grams_from_leafwise`` sums them back to the bucket Gram. Without
+    the buffers it raises ValueError, as the reference does."""
+    opt = OptimizerConfig(name="momentum", lr=0.5, b1=0.5)
+    batches = _int_batches(16)
+    runs = {}
+    for scope in ("leaf", "bucket"):
+        acfg = _dot_acfg(opt)
+        acfg = dataclasses.replace(acfg, dmd=dataclasses.replace(
+            acfg.dmd, scope=scope))
+        tr = Trainer(_DotModel(), acfg, device="cpu")
+        # the first window completes at step 5, before any jump moves the
+        # params off the dyadic grid
+        runs[scope] = (tr, tr.fit(iter(batches), 6))
+    (tr_l, st_l), (tr_b, st_b) = runs["leaf"], runs["bucket"]
+    table = tr_b.acc.arena_for(st_b.params)
+    agrams = tarena.split_state(st_b.dmd_gram)[0]
+    arenas = tarena.split_state(st_b.dmd_buffers)[0]
+    got = tarena.grams_leafwise(table, agrams, tr_b.acfg.dmd, arenas)
+    want = tarena.grams_leafwise(table, tarena.split_state(st_l.dmd_gram)[0])
+    assert sorted(got) == sorted(want)
+    for path in want:
+        assert torch.equal(got[path], want[path]), path
+    back = tarena.grams_from_leafwise(table, got, scope="bucket")
+    for key, g in agrams.items():
+        assert torch.equal(back[key], g), key
+    with pytest.raises(ValueError, match="buffers"):
+        tarena.grams_leafwise(table, agrams, tr_b.acfg.dmd)
+
+
+def _scope_runs(scope, steps=8):
+    """The reference's ``_run_cycles`` (tests/test_arena.py) through both
+    accelerators at `scope` on integer leaves, rounded after each jump;
+    returns {"ref"/"port": (accelerator, TrainState)}."""
+    from repro.configs.base import DMDConfig as JCfg
+    from repro.core import DMDAccelerator as JAcc
+    from repro.train.state import TrainState as JState
+    from repro_torch.configs.base import DMDConfig
+    rng = np.random.default_rng(41)
+    sizes = {"a": (40,), "b": (10, 13), "c": (333,)}
+    params = {k: rng.integers(-8, 9, size=v).astype(np.float32)
+              for k, v in sizes.items()}
+    deltas = {k: rng.integers(-2, 3, size=v).astype(np.float32)
+              for k, v in sizes.items()}
+    kw = dict(m=4, s=5, warmup_steps=0, cooldown_steps=0, tol=1e-6,
+              scope=scope)
+    out = {}
+    for name, acc, put, rnd, State in (
+            ("ref", JAcc(JCfg(**kw)), jnp.asarray, jnp.round, JState),
+            ("port", DMDAccelerator(DMDConfig(**kw), device="cpu"),
+             torch.tensor, torch.round, TrainState)):
+        p = {k: put(v) for k, v in params.items()}
+        bufs = acc.init(p)
+        grams = acc.init_grams(bufs)
+        for t in range(steps):
+            p = {k: v + put(deltas[k]) for k, v in p.items()}
+            bufs, grams = acc.record(bufs, p, acc.slots(t), grams)
+            if acc.should_apply(t):
+                p, _ = acc.apply(dict(p), bufs, grams=grams, step=t)
+                p = {k: rnd(v) for k, v in p.items()}
+        out[name] = (acc, State(p, None, put(np.int32(steps)), bufs, grams))
+    return out
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+@pytest.mark.parametrize("scopes", [("bucket", "leaf"), ("leaf", "bucket")])
+def test_checkpoint_interop_bucket_and_leaf_scope(tmp_path, scopes, writer):
+    """tests/test_arena.py:588 across the packages: a checkpoint written at
+    one scope by either package restores into the port at the other
+    scope. On disk it is leaf-wise in both scopes (bucket scope: K3
+    rebuilds the per-system Grams at save), so the restored, re-packed
+    buffers and Grams equal the reader's own run at its scope bit for bit
+    (integer data, a window-complete point); the reference also reads the
+    port's."""
+    w_scope, r_scope = scopes
+    w_acc, w_st = _scope_runs(w_scope)[writer]
+    readers = _scope_runs(r_scope)
+    if writer == "ref":
+        j_save(tmp_path, w_acc.state_leafwise(w_st), 8)
+    else:
+        save_checkpoint(tmp_path, w_acc.state_leafwise(w_st), 8)
+    acc, own = readers["port"]
+    tmpl = TrainState(own.params, None, torch.tensor(0, dtype=torch.int32),
+                      acc.init(own.params), None)
+    tmpl = tmpl._replace(dmd_gram=acc.init_grams(tmpl.dmd_buffers))
+    back = acc.state_arenaize(restore_checkpoint(tmp_path,
+                                                 acc.state_leafwise(tmpl)))
+    for key, g in own.dmd_gram["__arena__"].items():
+        got = back.dmd_gram["__arena__"][key]
+        assert got.shape == g.shape and torch.equal(got, g), key
+        assert torch.equal(back.dmd_buffers["__arena__"][key],
+                           own.dmd_buffers["__arena__"][key]), key
+    for k, v in own.params.items():
+        assert torch.equal(back.params[k], v), k
+    if writer == "port":
+        jacc, jown = readers["ref"]
+        jt = jown._replace(step=jnp.asarray(0, jnp.int32))
+        jback = jacc.state_arenaize(j_restore(tmp_path,
+                                              jacc.state_leafwise(jt)))
+        for key, g in jown.dmd_gram["__arena__"].items():
+            np.testing.assert_array_equal(
+                np.asarray(jback.dmd_gram["__arena__"][key]),
+                np.asarray(g), key)
+
+
+@pytest.mark.parametrize("when", ["mid", "jump"])
+def test_bucket_scope_eig_sigterm_resume_bitexact(tmp_path, when):
+    """The paper's eig mode at bucket scope on float data, preempted by
+    SIGTERM mid-window (a record past the anchor already taken) or on a
+    jump step: the resumed run's losses and final state equal the
+    uninterrupted run's bit for bit. The checkpoint carries the bucket's
+    Grams leaf-wise (K3's rebuild, summed back on restore), which round
+    differently from the carried K1 rows; the restore rewrites the
+    current window's rows with K1 in the order the stream wrote them
+    (``arena.restream_grams``), and the later ones are rewritten by the
+    records before the next jump."""
+    dmd = dict(DMD, scope="bucket", mode="eig")
+    steps = 30
+    tr_a, batch = _port(dmd)
+    at = _preempt_steps(tr_a.acc, steps, after=10)[when]
+    want = _fit_losses(tr_a, steps, batch)
+    final_a = tr_a.fit(iter(lambda: batch, None), steps)
+    tr_b, _ = _port(dmd, ckpt=str(tmp_path))
+    try:
+        st_b = tr_b.fit(iter(lambda: batch, None), steps,
+                        on_metrics=_bomb(at))
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    assert int(st_b.step) == at + 1
+    tr_c, _ = _port(dmd, ckpt=str(tmp_path))
+    np.testing.assert_array_equal(_fit_losses(tr_c, steps, batch),
+                                  want[at + 1:])
+    final_c = tr_c.fit(iter(lambda: batch, None), steps)
+    _assert_states_equal(final_a, final_c)
 
 
 def test_train_mlp_ckpt_resumes(tmp_path, capsys):
@@ -613,3 +744,37 @@ def test_train_mlp_ckpt_resumes(tmp_path, capsys):
     train_mlp.main(["--device", "cpu", "--rows", "8", "--steps", "53",
                     "--ckpt", d])
     assert "steps 50 to 53" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("anchor", ["first", "none"])
+def test_restream_grams_rebuilds_the_current_window_rows(anchor):
+    """``arena.restream_grams`` on a bucket-scope state mid-window: from a
+    Gram whose every entry is NaN it rebuilds, bit for bit, the carried
+    entries among the slots the window has written (the ones the next
+    jump reads and no later record rewrites); after a jump step, in
+    cooldown or in leaf scope it touches nothing."""
+    dmd = dict(DMD, scope="bucket", mode="eig", anchor=anchor)
+    tr, batch = _port(dmd)
+    acc = tr.acc
+    mid = _preempt_steps(acc, 30, after=10)["mid"] + 1   # next step to run
+    k = acc.slot(mid - 1)
+    assert k >= 1
+    st = tr.fit(iter(lambda: batch, None), mid)
+    table = acc.arena_for(st.params)
+    arenas = tarena.split_state(st.dmd_buffers)[0]
+    carried = tarena.split_state(st.dmd_gram)[0]
+    junk = {key: torch.full_like(g, float("nan"))
+            for key, g in carried.items()}
+    tarena.restream_grams(junk, arenas, table, tr.acfg.dmd, mid)
+    for key, g in carried.items():
+        assert torch.equal(junk[key][:, :k + 1, :k + 1],
+                           g[:, :k + 1, :k + 1]), key
+    jump = _preempt_steps(acc, 30, after=10)["jump"] + 1
+    cool = next(t for t in range(jump, 30) if acc.slot(t - 1) < 0)
+    leaf_cfg = dataclasses.replace(tr.acfg.dmd, scope="leaf")
+    for step, cfg in ((jump, tr.acfg.dmd), (cool, tr.acfg.dmd),
+                      (mid, leaf_cfg)):
+        junk = {key: torch.full_like(g, float("nan"))
+                for key, g in carried.items()}
+        tarena.restream_grams(junk, arenas, table, cfg, step)
+        assert all(torch.isnan(g).all() for g in junk.values()), step

@@ -278,8 +278,12 @@ def test_launcher_runs_on_cpu(capsys):
     assert "train (4, 6) -> (4, 20), test (1, 6)" in out
     assert out.count("epoch     0:") == 2 and out.count("epoch   129:") == 2
     assert "final test  MSE: baseline" in out and "over 1 jumps" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pollutant_regression.main(["--full", "--device", "cpu"])
+    # --full is the paper's run at its scale (its config and sizes are
+    # held against the reference's in test_full_config_matches_reference)
+    got = _port_full_run(monkeypatch_ctx())
+    assert (got["samples"], got["grid"], got["epochs"]) == \
+        (1000, (96, 48), [3000, 3000])
+    assert got["cfgs"][1].mode == "eig" and got["cfgs"][1].tol == 1e-10
 
 
 def test_paper_loop_cli_trains_on_pollutant_data(capsys):
@@ -356,3 +360,187 @@ def test_trainer_gates_a_vocab_model_on_the_validation_fold():
     assert tr.val_batch.keys() == want.keys()
     for k in want:
         assert torch.equal(tr.val_batch[k], want[k])
+
+
+
+# -- the paper's own configuration (--full) ------------------------------------
+
+class monkeypatch_ctx:
+    """A MonkeyPatch undone when the call that uses it returns."""
+
+    def __init__(self):
+        self.mp = pytest.MonkeyPatch()
+
+    def __enter__(self):
+        return self.mp
+
+    def __exit__(self, *exc):
+        self.mp.undo()
+
+
+def _tiny_data(n_samples, n_points, **_):
+    rng = np.random.default_rng(0)
+    return {"X": rng.uniform(-1, 1, (n_samples, 6)).astype(np.float32),
+            "Y": rng.normal(size=(n_samples, n_points)).astype(np.float32)}
+
+
+def _port_full_run(ctx):
+    """The port's ``pollutant_regression --full`` with the dataset and the
+    training runs replaced by recorders: the sizes and configs it asks
+    for."""
+    got = {"cfgs": [], "epochs": []}
+
+    def gen(**kw):
+        got["samples"], got["grid"] = kw["n_samples"], (kw["nx"], kw["ny"])
+        return _tiny_data(**kw)
+
+    def run(Xtr, Ytr, Xte, Yte, sizes, cfg, epochs, device):
+        got["sizes"] = sizes
+        got["cfgs"].append(cfg)
+        got["epochs"].append(epochs)
+        return paper_loop.TrainResult(None, None, None, None, np.zeros(1),
+                                      [], [], [(0, 1.0, 1.0)])
+    with ctx as mp:
+        mp.setattr(P, "generate_dataset", gen)
+        mp.setattr(pollutant_regression, "run", run)
+        pollutant_regression.main(["--full", "--device", "cpu"])
+    return got
+
+
+@pytest.fixture
+def x64():
+    """``jax_enable_x64`` on for one test, then back as it was, so the
+    other tests on the same worker run as before."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+
+
+def _ref_full_run(monkeypatch):
+    """The reference's ``examples/pollutant_regression.py --full`` with its
+    dataset and training replaced by recorders (it turns x64 on: run it
+    under the ``x64`` fixture)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / \
+        "pollutant_regression.py"
+    spec = importlib.util.spec_from_file_location("_ref_pollutant_example",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = {"cfgs": [], "epochs": []}
+
+    def gen(**kw):
+        got["samples"], got["grid"] = kw["n_samples"], (kw["nx"], kw["ny"])
+        return _tiny_data(**kw)
+
+    def train(Xtr, Ytr, Xte, Yte, sizes, cfg, epochs, **kw):
+        got["sizes"] = sizes
+        got["cfgs"].append(cfg)
+        got["epochs"].append(epochs)
+        return None, [(0, 1.0)], [(0, 1.0)], []
+    monkeypatch.setattr(mod.pol, "generate_dataset", gen)
+    monkeypatch.setattr(mod, "train", train)
+    monkeypatch.setattr("sys.argv", ["pollutant_regression.py", "--full"])
+    mod.main()
+    assert jax.config.jax_enable_x64            # --full turned it on
+    return got
+
+
+def test_full_config_matches_reference(x64, monkeypatch):
+    """``--full`` asks for what the reference's ``--full`` asks for: 1000
+    samples, the 96 x 48 grid, 3000 epochs, the paper MLP, and the same
+    two DMDConfigs (DMD off, then the paper's eig-mode DMD) field by
+    field; ``get_config("pollutant-mlp")`` is the reference's too."""
+    import dataclasses
+    from repro.configs import get_config as j_get_config
+    ref = _ref_full_run(monkeypatch)
+    port = _port_full_run(monkeypatch_ctx())
+    for k in ("samples", "grid", "epochs", "sizes"):
+        assert port[k] == ref[k], k
+    assert len(port["cfgs"]) == len(ref["cfgs"]) == 2
+    for t, j in zip(port["cfgs"], ref["cfgs"]):
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(get_config("pollutant-mlp")) == \
+        dataclasses.asdict(j_get_config("pollutant-mlp"))
+
+
+def test_full_runs_in_fp32_under_the_references_x64(x64):
+    """The reference's ``--full`` turns ``jax_enable_x64`` on, yet its run
+    stays fp32: ``init_mlp`` draws float32 params, Adam's moments are
+    float32, the arena buffer and the jump's leaves are float32, the
+    dataset's X and Y are float32, and the host eig returns complex64.
+    So the port's ``--full`` (fp32, no float64 path) is the same run."""
+    from repro.core import DMDAccelerator as JAcc
+    from repro.core import dmd as jdmd
+    from repro.optim import make_optimizer as j_make
+    from repro.configs.base import OptimizerConfig as JOpt
+    from repro_torch.launch.pollutant_regression import full_dmd_config
+    import dataclasses
+    assert jnp.zeros(1, jnp.float64).dtype == jnp.float64     # x64 is on
+    sizes = (6, 8, 16, 20)
+    params = j_init(jax.random.PRNGKey(0), sizes)
+    leaves = jax.tree_util.tree_leaves(params)
+    assert {x.dtype for x in leaves} == {jnp.dtype("float32")}
+    opt_state = j_make(JOpt(name="adam", lr=1e-3)).init(params)
+    floats = [x for x in jax.tree_util.tree_leaves(opt_state)
+              if jnp.issubdtype(x.dtype, jnp.floating)]
+    assert floats and {x.dtype for x in floats} == {jnp.dtype("float32")}
+    kw = {k: v for k, v in dataclasses.asdict(full_dmd_config()).items()
+          if k not in ("groups", "controller")}
+    acc = JAcc(JCfg(**kw))
+    bufs = acc.init(params)
+    assert {b.dtype for b in bufs["__arena__"].values()} == \
+        {jnp.dtype("float32")}
+    rng = np.random.default_rng(0)
+    p = params
+    for t in range(acc.cfg.warmup_steps + acc.cfg.m):
+        p = jax.tree_util.tree_map(
+            lambda x: x + jnp.asarray(1e-2 * rng.normal(size=x.shape),
+                                      jnp.float32), p)
+        if acc.should_record(t):
+            bufs, _ = acc.record(bufs, p, acc.slots(t))
+    assert acc.should_apply(t)
+    new, _ = acc.apply(jax.tree_util.tree_map(lambda x: x.copy(), p), bufs,
+                       step=t)
+    assert {x.dtype for x in jax.tree_util.tree_leaves(new)} == \
+        {jnp.dtype("float32")}
+    data = R.generate_dataset(n_samples=1, nx=16, ny=8, n_points=10,
+                              seed=0, batch=1)
+    assert data["X"].dtype == data["Y"].dtype == np.float32
+    w, v, rcond = jdmd._host_eig(
+        rng.normal(size=(2, 5, 5)).astype(np.float32))
+    assert (w.dtype, v.dtype, rcond.dtype) == (np.complex64, np.complex64,
+                                               np.float32)
+
+
+def test_full_train_on_reference_rows_matches_reference_loop(ref_dataset):
+    """``--full``'s DMD through the paper loop on the reference's 3-sample
+    rows (MLP (6, 16, 40, 50), 80 steps: jumps at 41, 55 and 69) against
+    the reference's loop with the same config. Unanchored eig-mode DMD at
+    tol 1e-10 keeps fp32 noise modes: in both packages every jump blows
+    the loss up and the guard reverts it, so the losses agree to rtol
+    1e-5 throughout (measured 2.1e-7) and the decisions are equal."""
+    import dataclasses
+    from repro_torch.launch.pollutant_regression import full_dmd_config
+    sizes, steps = (6, 16, 40, 50), 80
+    X, Y = ref_dataset["X"], ref_dataset["Y"]
+    kw = {k: v for k, v in dataclasses.asdict(full_dmd_config()).items()
+          if k not in ("groups", "controller")}
+    kw["arena_block_n"] = 128
+    jparams = j_init(jax.random.PRNGKey(0), sizes)
+    jl, jj, jr = _jax_loop(jnp.asarray(X), jnp.asarray(Y), JCfg(**kw), steps,
+                           jparams)
+    res = paper_loop.train(
+        X, Y, sizes, DMDConfig(**kw), steps, device="cpu",
+        params=params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                               "cpu"))
+    assert [t for t in range(steps) if res.acc.should_apply(t)] == \
+        [41, 55, 69]
+    assert res.reverted == jr == [41, 55, 69]
+    assert len(res.jumps) == len(jj) == 3
+    assert all(not (r <= 1.0) for r in res.jumps + jj)
+    np.testing.assert_allclose(res.losses, jl, rtol=1e-5)

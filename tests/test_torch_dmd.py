@@ -154,9 +154,17 @@ def test_matrix_power_and_masks_match_reference():
 
 
 def test_unported_modes_raise():
+    """Both modes of the reference run (eig mode gives the reference's c);
+    an unknown mode and m < 3 raise ValueError, as in the reference."""
     g = torch.tensor(_gram("random", np.random.default_rng(7)))
-    with pytest.raises(NotImplementedError, match="eig"):
-        tdmd.dmd_coefficients(g, s=5, mode="eig")
+    ct, _ = tdmd.dmd_coefficients(g, s=5, mode="eig", tol=1e-4)
+    cj, _ = jdmd.dmd_coefficients(jnp.asarray(g.numpy()), s=5, mode="eig",
+                                  tol=1e-4)
+    assert torch.isfinite(ct).all()
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=0,
+                               atol=2e-4 * max(1.0, np.abs(cj).max()))
+    with pytest.raises(ValueError, match="unknown DMD mode"):
+        tdmd.dmd_coefficients(g, s=5, mode="schur")
     with pytest.raises(ValueError, match="m >= 3"):
         tdmd.dmd_coefficients(g[:2, :2], s=5)
 
@@ -228,3 +236,184 @@ def test_coefficients_differentiable_in_relax_and_ridge():
     for got, want in ((gr, gj[0]), (gk, gj[1])):
         want = float(want)
         assert abs(float(got) - want) <= 2e-3 * max(1.0, abs(want))
+
+
+# -- eig mode -----------------------------------------------------------------
+# The reference's classic-DMD power (``_eig_power``: host eig, |lambda|
+# clamp, the defective-operator guard) against the port's. Tolerances, as
+# |c_port - c_ref| <= tol * max(1, |c_ref|): 2e-4 on the random and
+# rank-deficient Grams (measured <= 1.5e-5), 5e-4 on the defective
+# (Jordan-block) ones (measured 2.3e-4): there eig splits the double
+# eigenvalue 1 into 1 +- delta with huge opposing amplitudes, and the
+# reference against itself, with its Gram moved by a relative 1e-7, moves
+# c by 1.5e-4. On the SAME operator the two eig powers agree to 1e-5 of
+# their scale (measured 2.3e-6 at s = 55).
+EIG_TOL = {"random": 2e-4, "rank_deficient": 2e-4, "defective": 5e-4}
+
+
+@pytest.mark.parametrize("dynamic", [False, True])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("case", range(len(CASES)))
+@pytest.mark.parametrize("kind", KINDS)
+def test_eig_coefficients_match_reference(kind, case, clamp, dynamic):
+    rng = np.random.default_rng(100 * KINDS.index(kind) + case)
+    g = np.stack([_gram(kind, rng) for _ in range(3)])
+    kw = dict(CASES[case], mode="eig", clamp_eigs=clamp)
+    if kind != "random":
+        kw["tol"] = 1e-3             # above the fp32 noise floor, as above
+    jkw, tkw = dict(kw), dict(kw)
+    if dynamic:                      # the controller's horizon, capped by s
+        jkw["s_dyn"] = jnp.asarray(kw["s"] - 3, jnp.int32)
+        tkw["s_dyn"] = torch.tensor(kw["s"] - 3, dtype=torch.int32)
+    cj, ij = jdmd.dmd_coefficients(jnp.asarray(g), **jkw)
+    ct, it = tdmd.dmd_coefficients(torch.tensor(g), **tkw)
+    cj = np.asarray(cj)
+    assert ct.shape == cj.shape == (3, M) and torch.isfinite(ct).all()
+    np.testing.assert_allclose(ct.numpy(), cj, rtol=0, atol=EIG_TOL[kind]
+                               * max(1.0, np.abs(cj).max()))
+    np.testing.assert_array_equal(it["rank"].numpy(), np.asarray(ij["rank"]))
+
+
+def _operators():
+    rng = np.random.default_rng(12)
+    a = (0.4 * rng.normal(size=(5, 6, 6))).astype(np.float32)
+    a[0] = np.eye(6) + np.diag(np.full(5, 0.1), 1)           # Jordan block
+    a[1] = np.diag([1.1, 0.9, 0.8, 0.0, 0.0, 0.5])           # growth, zeros
+    a[2] = np.diag([7.0, 0.5, 0.3, 0.2, 0.1, 0.05])          # 7^55 overflows
+    return a
+
+
+@pytest.mark.parametrize("s", [1, 5, 55])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_eig_power_matches_reference_on_the_same_operator(s, clamp):
+    """``Atilde^s`` of the two packages on identical operators: the
+    reconstruction, the clamp, the zero-eigenvalue guard and the matpow
+    fallback, static and dynamic s."""
+    a = _operators()
+    for sj, st in ((s, s), (jnp.asarray(s, jnp.int32),
+                            torch.tensor(s, dtype=torch.int32))):
+        want = np.asarray(jdmd._eig_power(jnp.asarray(a), sj, clamp,
+                                          s_max=55))
+        got = tdmd._eig_power(torch.tensor(a), st, clamp, 55).numpy()
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+        fin = np.isfinite(want)
+        scale = np.maximum(np.abs(np.where(fin, want, 0)).max(
+            axis=(1, 2), keepdims=True), 1.0)
+        np.testing.assert_allclose(np.where(fin, got, 0) / scale,
+                                   np.where(fin, want, 0) / scale, atol=1e-5)
+
+
+def test_eig_host_step_counts_and_guards():
+    """One host round trip per call, whatever the batch; the guard's
+    fallbacks are counted (the Jordan block falls back to matpow at s =
+    55); a non-finite operator falls back instead of raising."""
+    a = torch.tensor(_operators())
+    tdmd.reset_eig_stats()
+    tdmd._eig_power(a, 55, False, 55)
+    st = tdmd.eig_stats()
+    assert (st["calls"], st["systems"]) == (1, 5) and st["fallbacks"] >= 1
+    bad = a.clone()
+    bad[3, 0, 0] = float("nan")
+    out = tdmd._eig_power(bad, 5, False, 5)
+    assert not torch.isfinite(out[3]).all()
+    np.testing.assert_array_equal(
+        out[4].numpy(), tdmd._eig_power(a[4:], 5, False, 5)[0].numpy())
+    assert tdmd.eig_stats()["calls"] == 3
+
+
+def _linear_traj(n=64, m=10, rank=4, seed=0, spectrum=None):
+    """tests/test_dmd.py::make_linear_traj."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    eigs = np.zeros(n)
+    eigs[:rank] = spectrum if spectrum is not None else \
+        np.linspace(0.95, 0.7, rank)
+    a = (q * eigs) @ q.T
+    w = rng.normal(size=n)
+    snaps = []
+    for _ in range(m):
+        w = a @ w
+        snaps.append(w.copy())
+    return np.stack(snaps)
+
+
+def test_eigenvalue_recovery_and_spectra_match_reference():
+    """tests/test_dmd.py:72 restated: the 4 magnitudes of a rank-4 linear
+    trajectory recovered to 1e-3; and ``dmd_eigenvalues(_from_gram)``
+    (float64 on the host; real or complex as numpy's ``eigvals`` returns
+    them) equal to the reference's to 1e-10."""
+    spectrum = np.array([0.95, 0.9, 0.85, 0.8])
+    S = _linear_traj(rank=4, spectrum=spectrum, m=12)
+    ev = tdmd.dmd_eigenvalues(torch.tensor(S), tol=1e-8)
+    np.testing.assert_allclose(sorted(np.abs(ev), reverse=True)[:4],
+                               sorted(spectrum, reverse=True), atol=1e-3)
+    for anchor in ("none", "first", "mean"):
+        want = jdmd.dmd_eigenvalues(jnp.asarray(S, jnp.float32), tol=1e-8,
+                                    anchor=anchor)
+        got = tdmd.dmd_eigenvalues(torch.tensor(S, dtype=torch.float32),
+                                   tol=1e-8, anchor=anchor)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_allclose(np.sort_complex(got),
+                                   np.sort_complex(want), atol=1e-10)
+    g = _gram("random", np.random.default_rng(9))
+    np.testing.assert_allclose(
+        np.sort_complex(tdmd.dmd_eigenvalues_from_gram(torch.tensor(g),
+                                                       tol=1e-4)),
+        np.sort_complex(jdmd.dmd_eigenvalues_from_gram(g, tol=1e-4)),
+        atol=1e-10)
+    assert tdmd.dmd_eigenvalues_from_gram(np.zeros((M, M))).size == 0
+
+
+def test_eig_clamp_on_defective_jordan_matches_matpow():
+    """tests/test_dmd.py:407 restated: a drift trajectory's Jordan-block
+    operator; eig with the clamp agrees with matpow and both with the
+    exact drift, and the port's eig jump with the reference's (5e-3 of
+    the scale, the pin's own bound)."""
+    rng = np.random.default_rng(0)
+    w0, v = rng.normal(size=32), rng.normal(size=32) * 0.1
+    S = np.stack([w0 + t * v for t in range(8)]).astype(np.float32)
+    for s in (5, 20, 60):
+        truth = S[-1] + s * v
+        scale = max(np.abs(truth).max(), 1.0)
+        w_mp, _ = tdmd.dmd_extrapolate(torch.tensor(S), s=s, tol=1e-4,
+                                       mode="matpow")
+        w_eig, _ = tdmd.dmd_extrapolate(torch.tensor(S), s=s, tol=1e-4,
+                                        mode="eig", clamp_eigs=True)
+        w_ref, _ = jdmd.dmd_extrapolate(jnp.asarray(S), s=s, tol=1e-4,
+                                        mode="eig", clamp_eigs=True)
+        assert np.abs(w_mp.numpy() - truth).max() / scale < 1e-3, s
+        assert np.abs(w_eig.numpy() - truth).max() / scale < 5e-3, s
+        assert np.abs(w_eig.numpy() - w_mp.numpy()).max() / scale < 5e-3
+        assert np.abs(w_eig.numpy() - np.asarray(w_ref)).max() / scale \
+            < 5e-3, s
+
+
+def test_eig_clamp_still_stabilizes_genuine_growth():
+    """tests/test_dmd.py:435 restated: a genuine |lambda| = 1.1 mode
+    explodes unclamped and stays bounded clamped, in both packages."""
+    S = _linear_traj(rank=3, spectrum=np.array([1.1, 0.9, 0.8]), m=10)
+    for lib, arr in ((tdmd, torch.tensor(S, dtype=torch.float32)),
+                     (jdmd, jnp.asarray(S, jnp.float32))):
+        w_c, _ = lib.dmd_extrapolate(arr, s=20, tol=1e-5, mode="eig",
+                                     clamp_eigs=True)
+        w_u, _ = lib.dmd_extrapolate(arr, s=20, tol=1e-5, mode="eig",
+                                     clamp_eigs=False)
+        assert np.linalg.norm(np.asarray(w_u)) > 3 * np.linalg.norm(
+            np.asarray(w_c))
+
+
+def test_eig_clamp_survives_fp32_overflow_of_unclamped_power():
+    """tests/test_dmd.py:449 restated: 7^60 overflows fp32; the clamped
+    eig jump stays finite, bounded and moving, as the reference's, and
+    equal to it to 1e-4 of the trajectory's scale."""
+    S = _linear_traj(rank=2, spectrum=np.array([7.0, 0.5]), m=10, seed=4)
+    S = (S / np.abs(S).max()).astype(np.float32)
+    w_c, _ = tdmd.dmd_extrapolate(torch.tensor(S), s=60, tol=1e-5,
+                                  mode="eig", clamp_eigs=True)
+    w_j, _ = jdmd.dmd_extrapolate(jnp.asarray(S), s=60, tol=1e-5,
+                                  mode="eig", clamp_eigs=True)
+    assert torch.isfinite(w_c).all()
+    assert np.linalg.norm(w_c.numpy()) < 10 * np.linalg.norm(S[-1])
+    assert np.linalg.norm(w_c.numpy() - S[-1]) > 0
+    np.testing.assert_allclose(w_c.numpy(), np.asarray(w_j), rtol=0,
+                               atol=1e-4 * max(1.0, np.abs(S).max()))

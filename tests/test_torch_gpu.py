@@ -687,7 +687,8 @@ def test_flat_combine_backward_through_k4(cuda, dtype):
     _assert_tickets_zero(cuda)
 
 
-def _mlp_trainer(cuda, *, arena=True, graphs=True, controller=None):
+def _mlp_trainer(cuda, *, arena=True, graphs=True, controller=None,
+                 **dmd):
     from repro_torch.configs.base import (ArchConfig, DMDControllerConfig,
                                           ModelConfig, OptimizerConfig,
                                           TrainConfig)
@@ -697,7 +698,7 @@ def _mlp_trainer(cuda, *, arena=True, graphs=True, controller=None):
         model=ModelConfig(name="mlp", family="mlp"),
         dmd=DMDConfig(m=4, s=5, warmup_steps=5, cooldown_steps=2,
                       arena_block_n=128, arena=arena,
-                      controller=controller or DMDControllerConfig()),
+                      controller=controller or DMDControllerConfig(), **dmd),
         optimizer=OptimizerConfig(name="adam", lr=1e-3),
         train=TrainConfig(global_batch=64, seq_len=1), shapes=())
     X, Y = synthetic_regression(seed=0, n=96, n_out=130)
@@ -884,3 +885,126 @@ def test_pollutant_march_on_card_matches_cpu(cuda, grid):
                                 device="cpu")
     np.testing.assert_array_equal(data["X"], want["X"])
     np.testing.assert_allclose(data["Y"], want["Y"], rtol=1e-5, atol=1e-5)
+
+
+# -- bucket scope and eig mode (DESIGN.md §9; the paper's classic DMD) -------
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bucket_scope_kernels_at_the_paper_arena(cuda, integer, dtype):
+    """K1, K2 and K3 with the paper bucket's bucket-scope table (all 5633
+    blocks on one system, so every CTA of K1's and K3's grids feeds the
+    one ticket) against their twins: integer data in {-1, 0, 1} exact,
+    random data within 1e-5 of max(1, |twin|); repeat launches
+    bit-identical; K1's row is the sum of the leaf-scope rows (exact on
+    integer data); the tickets are left at zero."""
+    params = init_mlp(torch.Generator().manual_seed(0), PAPER_SIZES,
+                      device=cuda)
+    (bucket,) = DMDAccelerator(DMDConfig(scope="bucket"),
+                               device=cuda).arena_for(params).values()
+    seg = bucket.tables_on(cuda, "bucket")
+    leaf = bucket.tables_on(cuda)
+    assert seg.n_sys == 1 and seg.sys_off.tolist() == [0, 5633]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (bucket.n_blocks, bucket.m, bucket.block_n)
+    x = (torch.randint(-1, 2, shape, generator=g, device=cuda).float()
+         if integer else torch.randn(shape, generator=g, device=cuda))
+    x = x.to(dtype)
+    c = torch.randn((1, bucket.m), generator=g, device=cuda)
+    q = x[:, 13, :]
+    for anchor_first in (False, True):
+        got = ka.gram_row(x, q, seg, anchor_first=anchor_first)
+        assert got.shape == (1, 14)
+        _compare(got, ka.gram_row_ref(x, q, seg.block_sys, 1,
+                                      anchor_first=anchor_first), integer)
+        assert torch.equal(got, ka.gram_row(x, q, seg,
+                                            anchor_first=anchor_first))
+        rows = ka.gram_row(x, q, leaf, anchor_first=anchor_first)
+        if integer:
+            assert torch.equal(got, rows.sum(dim=0, keepdim=True))
+    for anchor in ({}, {"anchor_first": True}, {"anchor_mean": True}):
+        got = ka.gram(x, seg, **anchor)
+        assert got.shape == (1, 14, 14)
+        _compare(got, ka.gram_ref(x, seg.block_sys, 1, **anchor),
+                 integer and "anchor_mean" not in anchor)
+        assert torch.equal(got, ka.gram(x, seg, **anchor))
+    w = ka.combine(x, c, seg)
+    _compare(w, ka.combine_ref(x, c, seg.block_sys), False)
+    assert torch.equal(w, ka.combine(x, c.expand(leaf.n_sys, -1)
+                                     .contiguous(), leaf))
+    _assert_tickets_zero(cuda)
+
+
+@pytest.mark.parametrize("when", ["mid", "jump"])
+def test_bucket_eig_graphed_fit_resumes_bit_exactly(cuda, tmp_path, when):
+    """The paper's eig mode at bucket scope, graphed, preempted by SIGTERM
+    mid-window or on a jump step and resumed by a fresh Trainer: losses
+    and final state bit-identical to the uninterrupted graphed run. The
+    leaf-wise checkpoint's Grams are K3's rebuild, which rounds
+    differently from the carried K1 rows; the restore replays the current
+    window's K1 rows. Launches over the two halves: K1 once per record
+    plus one per replayed row, K2 once per jump, K3 once per save and
+    once for the restore's template."""
+    import signal
+    steps = 30
+    tr, batch = _mlp_trainer(cuda, scope="bucket", mode="eig")
+    acc = tr.acc
+    j1 = next(t for t in range(steps) if acc.apply_groups(t))
+    at = next(t for t in range(j1 + 1, steps)
+              if (acc.apply_groups(t) if when == "jump" else
+                  acc.should_record(t) and acc.slot(t) >= 1
+                  and not acc.apply_groups(t)))
+    want = []
+    full = tr.fit(iter(lambda: batch, None), steps,
+                  on_metrics=lambda t, m: want.append(m["loss"]))
+    ka.reset_launches()
+
+    def bomb(t, m):
+        if t == at:
+            signal.raise_signal(signal.SIGTERM)
+    tr_b, _ = _mlp_trainer(cuda, scope="bucket", mode="eig")
+    tr_b.checkpoint_dir = str(tmp_path)
+    try:
+        st_b = tr_b.fit(iter(lambda: batch, None), steps, on_metrics=bomb)
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    assert int(st_b.step) == at + 1
+    tr_c, _ = _mlp_trainer(cuda, scope="bucket", mode="eig")
+    tr_c.checkpoint_dir = str(tmp_path)
+    got = []
+    st_c = tr_c.fit(iter(lambda: batch, None), steps,
+                    on_metrics=lambda t, m: got.append(m["loss"]))
+    torch.cuda.synchronize()
+    assert tr_c.graph_stats["captured"] >= 1
+    assert torch.equal(torch.stack(got), torch.stack(want[at + 1:]))
+    a, b = _state_tensors(full), _state_tensors(st_c)
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    n_rec = sum(acc.should_record(t) for t in range(steps))
+    n_jump = sum(acc.should_apply(t) for t in range(steps))
+    replayed = 0 if when == "jump" else acc.slot(at) + 1
+    assert ka.LAUNCHES == {"gram_row": n_rec + replayed, "gram": 2,
+                           "combine": n_jump}
+    _assert_tickets_zero(cuda)
+
+
+def test_host_eig_never_runs_inside_a_capture(cuda):
+    """Eig mode's host step reads the device, which a CUDA graph capture
+    forbids: called under a capture it raises (no silent fallback). A
+    graphed eig-mode fit captures its non-jump steps and runs every jump
+    eagerly: one host eig per jump, none per capture or replay."""
+    from repro_torch.core import dmd
+    a = torch.eye(4, device=cuda).expand(2, 4, 4).contiguous()
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph, stream=side):
+            dmd._eig_power(a, 5, False, 5)
+    torch.cuda.synchronize()
+    tr, batch = _mlp_trainer(cuda, mode="eig", scope="bucket")
+    dmd.reset_eig_stats()
+    tr.fit(iter(lambda: batch, None), 30)
+    n_jump = sum(tr.acc.should_apply(t) for t in range(30))
+    assert tr.graph_stats["captured"] >= 2
+    assert tr.graph_stats["replayed"] > 0
+    st = dmd.eig_stats()
+    assert (st["calls"], st["systems"]) == (n_jump, n_jump)

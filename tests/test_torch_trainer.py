@@ -234,6 +234,70 @@ def test_meta_tuned_knobs_match_reference(route):
     _check_losses(out, 40)
 
 
+# -- bucket scope and eig mode (DESIGN.md §9; the paper's classic DMD) -------
+
+@pytest.mark.parametrize("dmd", [
+    dict(scope="bucket"),
+    dict(mode="eig"),
+    dict(scope="bucket", mode="eig"),
+    dict(scope="bucket", mode="eig", arena_native=False),
+    dict(mode="eig", arena=False),
+    dict(scope="bucket", streaming_gram=False),
+], ids=["bucket", "eig", "bucket-eig", "bucket-eig-packed", "perleaf-eig",
+        "bucket-recompute"])
+def test_trainer_scope_and_mode_match_reference(dmd):
+    """The Trainer at bucket scope and in eig mode against the
+    reference's: losses to rtol 1e-5 up to the first jump and 2e-3 after
+    it, the held-out loss of the final params to 2e-3, the first jump's
+    mean rank equal. Bucket scope solves one system per bucket (the MLP
+    packs into one bucket: mean rank over its segments is the one rank).
+    ``clamp_eigs`` is held function by function in test_torch_dmd.py, not
+    here: whether a mode's |lambda| lands above the clamp's 1 + 1e-3 edge
+    follows the fp32 noise, and a Trainer run with it moves by 1.5e-2
+    between the packages after three jumps (measured)."""
+    out = _run_both(dict(DMD, **dmd), {}, 1e-3, 30)
+    tr, st = out["port"][0], out["port"][1]
+    assert int(st.step) == 30 and not tarena.is_arena_state(st.params)
+    if dmd.get("scope") == "bucket":
+        grams = st.dmd_gram if dmd.get("streaming_gram", True) else None
+        if grams is not None:
+            assert [tuple(g.shape) for g in grams["__arena__"].values()] \
+                == [(1, 4, 4)]
+        assert "bucket" in tr.acc.plan_table().splitlines()[1]
+    _check_losses(out, 30)
+    _check_params(out)
+    assert len(out["port"][4]) == len(out["ref"][4]) >= 3
+    assert out["port"][4][0] == out["ref"][4][0]
+
+
+@pytest.mark.parametrize("scope", ["leaf", "bucket"])
+def test_gated_trainer_in_eig_mode_matches_reference(scope):
+    """The loss-gated controller (meta-tuning off) in eig mode: the same
+    outcome sequence and controller counters as the reference's, losses
+    as above."""
+    dmd = dict(GATED_DMD, mode="eig", scope=scope)
+    out = _run_both(dmd, GATED, 3e-3, 40)
+    assert out["port"][3] == out["ref"][3] and len(out["port"][3]) >= 4
+    jc, tc = out["ref"][1].controller, out["port"][1].controller
+    for name in ("accepts", "scaled", "rejects", "streak", "s_eff"):
+        np.testing.assert_array_equal(getattr(tc, name).numpy(),
+                                      np.asarray(getattr(jc, name)), name)
+    _check_losses(out, 40)
+
+
+def test_meta_tuning_in_eig_mode_raises_as_the_reference():
+    """meta_lr > 0 differentiates through the jump; the host eig has no
+    derivative, so both packages refuse it when the jump step is built."""
+    jac, tac = _cfgs(dict(GATED_DMD, mode="eig"),
+                     dict(GATED, meta_lr=0.25), 3e-3)
+    (_, _), (Xv, Yv), _ = _data()
+    val = {"x": Xv, "y": Yv}
+    with pytest.raises(ValueError, match="meta_lr > 0.*matpow"):
+        JTrainer(_MLPModel(SIZES), jac, val_batch=val)
+    with pytest.raises(ValueError, match="meta_lr > 0.*matpow"):
+        Trainer(MLPModel(SIZES), tac, val_batch=val, device="cpu")
+
+
 def _port_trainer(dmd, ctrl, lr=1e-2, opt="adam", rules=()):
     _, tac = _cfgs(dmd, ctrl, lr, opt, 1, rules)
     (X, Y), (Xv, Yv), _ = _data()
@@ -623,3 +687,54 @@ def test_combine_grads_match_jax_grad_of_reference_twins():
         gjs = jax.grad(jl)(jnp.asarray(cf[s].numpy()))
         np.testing.assert_allclose(gft[s].numpy(), np.asarray(gjs),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["matpow", "eig"])
+def test_dyadic_trajectory_bitexact_at_bucket_scope(mode):
+    """Bucket scope on the dyadic trajectory: before the first jump the
+    port's resident Trainer equals the reference's bit for bit (params,
+    moments, buffers, the carried (1, m, m) bucket Gram, and the leaf-wise
+    state K3 rebuilds for a checkpoint); the bucket Gram is the sum of the
+    leaf-scope run's per-system Grams, exactly."""
+    from repro.configs import get_config
+    batches = _int_batches(8)
+    topt = OptimizerConfig(name="momentum", lr=0.5, b1=0.5)
+    acfg = _dot_acfg(topt)
+    acfg = dataclasses.replace(acfg, dmd=dataclasses.replace(
+        acfg.dmd, scope="bucket", mode=mode))
+    tr, st = _dot_fit(acfg, batches, 5)
+    tr_l, st_l = _dot_fit(_dot_acfg(topt), batches, 5)
+    jacfg = dataclasses.replace(
+        get_config("pollutant-mlp"),
+        dmd=JCfg(m=4, s=8, tol=1e-6, warmup_steps=2, cooldown_steps=0,
+                 scope="bucket", mode=mode),
+        optimizer=JOpt(name="momentum", lr=0.5, b1=0.5),
+        parallel=JPar(grad_accum=1), train=JTrain(global_batch=8, seq_len=1))
+
+    class JDot:
+        def init(self, key):
+            rng = np.random.default_rng(0)
+            return {k: jnp.asarray(rng.integers(-4, 5, size=s), jnp.float32)
+                    for k, s in LEAVES.items()}
+
+        def loss(self, params, batch):
+            return sum(jnp.vdot(params[k], batch[k]) for k in LEAVES), None
+
+        def param_stack_dims(self):
+            return STACK
+    jtr = JTrainer(JDot(), jacfg)
+    jst = jtr.fit(iter([{k: jnp.asarray(v) for k, v in b.items()}
+                        for b in batches]), 5)
+    for key, g in st.dmd_gram["__arena__"].items():
+        assert g.shape == (1, 4, 4), key
+        np.testing.assert_array_equal(
+            g.numpy(), np.asarray(jst.dmd_gram["__arena__"][key]), key)
+        np.testing.assert_array_equal(
+            g.numpy(), st_l.dmd_gram["__arena__"][key].numpy().sum(
+                0, keepdims=True), key)
+    lw, jlw = tr.acc.state_leafwise(st), jtr.acc.state_leafwise(jst)
+    for k in LEAVES:
+        for name in ("params", "opt_state", "dmd_buffers", "dmd_gram"):
+            np.testing.assert_array_equal(
+                getattr(lw, name)[k].numpy(),
+                np.asarray(getattr(jlw, name)[k]), f"{name} {k}")
