@@ -106,19 +106,21 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    |X| <= 1, the shapes; 8 samples (the fastest, the slowest, 6 spread)
    marched again on the CPU: iteration counts equal or off by one and c3
    within 5 * tol absolute (the CPU tests' bound against the reference).
-   (b) The 80/20 split (seed 2) and ``paper_loop.train`` for 3000 epochs
-   on the 800 training rows, the arena route, with DMD off (no kernel
-   launch) and with the launcher's DMD (m 14, s 55, tol 1e-4, warmup 100,
-   cooldown 10: jumps at 123 + 24k, 120 of them; K1 once per record, K2
-   once per jump): loss finite and falling before the first jump, train
-   and test MSE every 200 epochs, the per-jump loss ratios, the reverted
-   steps, ms/step, and whether DMD beats the baseline on test (printed,
-   not required).
+   (b) The 80/20 split (seed 2) and the launcher's ``run`` for 3000
+   epochs on the 800 training rows, the arena route, with DMD off (no
+   kernel launch) and with the launcher's DMD (m 14, s 55, tol 1e-4,
+   warmup 100, cooldown 10: jumps at 123 + 24k, 120 of them) on the
+   reference example's route: no Gram carried, so K3 recomputes it and K2
+   combines once per jump, and K1 never runs. Loss finite and falling
+   before the first jump, train and test MSE every 200 epochs, the
+   per-jump loss ratios, the accepted and reverted steps, ms/step, and the
+   test MSE beside DMD off's and beside the streaming route's of PR 18
+   (printed, not required).
    (c) fig4's gated Trainer (phase 10(c)'s controller, graphed) for 3000
    steps on 650 of the training rows, gated on the other 150, tested on
-   the 200 test rows: K1 once per record and once per jump as K2's
-   backward, K2 once per jump; outcome counts, knobs and final MSE beside
-   (b)'s.
+   the 200 test rows: it streams the Gram, as the reference's Trainer
+   does, so K1 once per record and once per jump as K2's backward, K2
+   once per jump; outcome counts, knobs and final MSE beside (b)'s.
 12. Checkpoints (``checkpoint/``, ``Trainer.save`` / ``restore``) and the
    weights channel at full width, each preemption a real SIGTERM sent to
    this process from ``on_metrics``:
@@ -153,12 +155,14 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    all-zeros block table, n_sys 1, every CTA feeding one ticket):
    (a) ``pollutant_regression --full``'s DMD (eig mode, tol 1e-10,
    unanchored, no affine term, no trust region, warmup 28, no cooldown,
-   moments kept) through ``paper_loop`` for 3000 epochs on phase 11's
-   800 training rows (DMD off is 11(b)'s run: same rows, same init): K1
-   once per record, K2 once per jump, one host eig per jump, the tickets
-   at zero, the loss finite and falling before the first jump; the jump
-   ratios, the reverted steps, the guard's fallbacks, ms/step and the
-   final MSE beside 11(b)'s.
+   moments kept) through the launcher's ``run`` for 3000 epochs on phase
+   11's 800 training rows (DMD off is 11(b)'s run: same rows, same init),
+   on 11(b)'s route: K3 and K2 once per jump, no K1, one host eig per
+   jump, the tickets at zero, the loss finite and falling before the
+   first jump; the jump ratios, the reverted steps, the guard's
+   fallbacks, ms/step and the final MSE beside 11(b)'s. A run whose every
+   jump is reverted must equal 11(b)'s DMD off step for step (the moments
+   are kept); otherwise its first accepted step is printed.
    (b) ``paper_loop`` at bucket scope, 300 steps: K1 112 at n_sys 1, K2
    8, the tickets at zero, ``plan_table`` with scope "bucket" and n_solve
    1 on every leaf; at step 123 the carried (1, m, m) Gram against K3's
@@ -191,6 +195,33 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    paper configuration's): ``torch.einsum("bmn,bn->m")`` and
    ``torch.einsum("bmn,bkn->mk")``; recorded as the ``bucket_*`` fields
    of K1's and K3's records in the kernels' line.
+14. The paper benches (``repro_torch.benchmarks.paper_benches``), the
+   six suites of ``python -m repro_torch.benchmarks.run`` at full size:
+   first the kernels at the benches' new shapes against their twins and
+   timed eagerly (in turns with the twin or the library call) and as
+   CUDA-graph replays beside their bound (the ``bench_*`` fields of their
+   records): K4-K6 at streaming_gram's (14, 1, 4000000) leaf, K3 and K2 at
+   fig4's arena. Then fig4's gated Trainer run alone (13 ``fit`` calls:
+   K1 290 records + 20 backward, K2 20; its summed ``graph_stats``). Then
+   each suite, its launches counted (sec3: K3 = K2 = 11; streaming_gram:
+   K4 25, K5 22, K6 11; staggered_jump: K1 per recording bucket and
+   record, K2 per jumped bucket; controller: K1 per record of its two
+   Trainers, K2 per jump and per timed jump step; fig3: K3 = K2 = the
+   reference's jump counts; fig4: K3 20, K2 40, K1 310), its rows in the
+   schema of the committed reference ``BENCH_<suite>.json`` with the same
+   schedule-determined and analytic fields (fig3's jump counts
+   21/21/21/17/17/17/14/14/14, fig4's 20 gate outcomes, staggered_jump's
+   285 / 1141 jump steps and 72083200 / 72016000 bytes, streaming_gram's
+   and sec3's analytic rows), every number finite and every measured one
+   positive; each summary row printed beside the reference's (the inits
+   differ, so the values are compared, not required equal). Last, fig4's
+   DMD run (``_train``: no guard, every jump recomputing the Gram) on the
+   card, K3 = K2 = its 20 jumps and no K1, held against the same run on
+   the CPU through the twins from the same seeded init: equal jump count,
+   both curves finite, the curve within 1e-5 before the first jump and
+   the first jump's loss ratio within ``FIG4_TOL`` (2e-3); after the
+   second jump the runs part (``FIG4_TOL``'s comment says why), and the
+   differences are printed.
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -233,6 +264,8 @@ from repro_torch.kernels import device as kd  # noqa: E402
 from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import gram as kg  # noqa: E402
 from repro_torch.kernels import gram_row as kgr  # noqa: E402
+from repro_torch.benchmarks import paper_benches as pb  # noqa: E402
+from repro_torch.benchmarks import run as bench_run  # noqa: E402
 from repro_torch.launch import pollutant_regression  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.mlp_net import MLPModel, init_mlp  # noqa: E402
@@ -1075,8 +1108,7 @@ def run_serve(dev):
 
 # fig4's gated run (benchmarks/paper_benches.py::_train_gated): the
 # validation-gated controller with the shrink ladder and meta-tuning
-GATED_CTRL = dict(enabled=True, eval_rows=0, val_gate=True,
-                  shrink_levels=(0.5, 0.25), meta_lr=0.05)
+GATED_CTRL = pb.GATED_CTRL
 GATED_DMD = dict(m=14, s=55, tol=1e-4, warmup_steps=100, cooldown_steps=10)
 GATED_STEPS, VAL_ROWS = 600, 150
 
@@ -1338,6 +1370,10 @@ POLLUTANT = dict(n_samples=1000, nx=96, ny=48, n_points=PAPER_SIZES[-1],
 EPOCHS = 3000                 # the paper's
 # the launcher's DMD run (examples/pollutant_regression.py's default)
 PAPER_DMD = dict(m=14, s=55, tol=1e-4, warmup_steps=100, cooldown_steps=10)
+# 11(b)'s DMD run when it carried streaming Grams (NVIDIA H100 80GB HBM3,
+# 700 W, PR 18), and 13(a)'s (PR 20)
+STREAMING_11B = "0.012318, 14 of 120 jumps accepted"
+STREAMING_13A = "212 of 212 jumps reverted, equal to DMD off"
 # the card's march against the port's CPU march of the same samples
 # (tests/test_torch_data.py's bound against the reference): each sample's
 # iteration count equal or off by one, c3 within 5 * tol absolute
@@ -1401,29 +1437,31 @@ def _jump_summary(jumps):
 
 
 def run_pollutant_loop(dev, split):
-    """Phase 11(b): the paper loop for EPOCHS epochs on the 800 training
-    rows, DMD off and on (arena route), counted; train and test MSE every
-    200 epochs. Returns {run: (train MSE, test MSE)}."""
-    (Xtr, Ytr), test = split
+    """Phase 11(b): the launcher's ``run`` for EPOCHS epochs on the 800
+    training rows, DMD off and on (arena route, no carried Gram), counted;
+    train and test MSE every 200 epochs. Returns ({run: (train MSE, test
+    MSE)}, the DMD run's launches)."""
+    (Xtr, Ytr), (Xte, Yte) = split
     on = DMDConfig(**PAPER_DMD)
     sched = DMDAccelerator(on, device=dev)
     jumps = [t for t in range(EPOCHS) if sched.should_apply(t)]
-    n_rec = sum(sched.should_record(t) for t in range(EPOCHS))
     require(jumps == list(range(123, EPOCHS, 24)),
             f"pollutant (b): jumps at {jumps[:4]} ...")
     finals = {}
     for name, cfg, want in (
             ("dmd-off", DMDConfig(enabled=False), {}),
-            ("dmd", on, {"gram_row": n_rec, "combine": len(jumps)})):
+            ("dmd", on, {"gram": len(jumps), "combine": len(jumps)})):
         what = f"pollutant (b) {name}"
+        print(f"{what}: the launcher's run, (epoch, train MSE, test MSE):")
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        res = paper_loop.train(Xtr, Ytr, PAPER_SIZES, cfg, EPOCHS,
-                               test=test, device=dev)
+        res = pollutant_regression.run(Xtr, Ytr, Xte, Yte, PAPER_SIZES, cfg,
+                                       EPOCHS, dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = require_counts(what, want)
+        require(res.grams is None, f"{what}: a Gram was carried")
         loss = res.losses
         last = jumps[0] if name == "dmd" else EPOCHS - 1
         require(np.isfinite(loss).all(), f"{what}: non-finite loss")
@@ -1432,17 +1470,20 @@ def run_pollutant_loop(dev, split):
         print(f"{what}: {EPOCHS} epochs in {wall} s, ms/step "
               f"{wall / EPOCHS * 1e3} (train + test MSE every 200), launches"
               f" {launches}, loss {loss[0]} -> {loss[last]} at step {last}")
-        print(f"{what}: (epoch, train MSE, test MSE) {res.curve}")
         if res.jumps:
-            print(f"{what}: {_jump_summary(res.jumps)}; reverted "
+            accepted = sorted(set(jumps) - set(res.reverted))
+            print(f"{what}: {_jump_summary(res.jumps)}; accepted "
+                  f"{len(accepted)}: {accepted}; reverted "
                   f"{len(res.reverted)}: {res.reverted}")
+            dmd_launches = launches
         finals[name] = res.curve[-1][1:]
         RUNS_11B[name] = res.losses
     (tr_b, te_b), (tr_d, te_d) = finals["dmd-off"], finals["dmd"]
     print(f"pollutant (b) final MSE: train dmd-off {tr_b} dmd {tr_d} (off / "
           f"dmd {tr_b / tr_d}); test dmd-off {te_b} dmd {te_d} (off / dmd "
-          f"{te_b / te_d}); DMD beats the baseline on test: {te_d < te_b}")
-    return finals
+          f"{te_b / te_d}); DMD beats the baseline on test: {te_d < te_b}; "
+          f"the streaming route's test MSE (PR 18): {STREAMING_11B}")
+    return finals, dmd_launches
 
 
 def run_pollutant_gated(dev, split, finals):
@@ -1493,12 +1534,13 @@ def run_pollutant_gated(dev, split, finals):
 
 def run_pollutant(dev):
     """Phase 11: the paper's problem on its own dataset. Returns the split
-    and (b)'s final MSEs, which phase 13(a) reuses."""
+    and (b)'s final MSEs, which phase 13(a) reuses, and (b)'s DMD run's
+    launches."""
     data = check_pollutant_data(dev)
     split = pollutant.train_test_split(data, 0.8)
-    finals = run_pollutant_loop(dev, split)
+    finals, launches = run_pollutant_loop(dev, split)
     run_pollutant_gated(dev, split, finals)
-    return split, finals
+    return split, finals, launches
 
 
 # -- phase 12: checkpoints and the weights channel ---------------------------
@@ -1761,23 +1803,24 @@ def _require_tickets(what, dev):
 
 
 def run_paper_full(dev, split, finals):
-    """Phase 13(a): ``pollutant_regression --full``'s DMD on phase 11's
-    training rows for EPOCHS epochs, counted."""
-    (Xtr, Ytr), test = split
+    """Phase 13(a): ``pollutant_regression --full``'s DMD through the
+    launcher's ``run`` on phase 11's training rows for EPOCHS epochs,
+    counted."""
+    (Xtr, Ytr), (Xte, Yte) = split
     cfg = pollutant_regression.full_dmd_config()
     sched = DMDAccelerator(cfg, device=dev)
     jumps = [t for t in range(EPOCHS) if sched.should_apply(t)]
-    n_rec = sum(sched.should_record(t) for t in range(EPOCHS))
     what = "paper config (a) --full"
+    print(f"{what}: the launcher's run, (epoch, train MSE, test MSE):")
     dmd_math.reset_eig_stats()
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    res = paper_loop.train(Xtr, Ytr, PAPER_SIZES, cfg, EPOCHS, test=test,
-                           device=dev)
+    res = pollutant_regression.run(Xtr, Ytr, Xte, Yte, PAPER_SIZES, cfg,
+                                   EPOCHS, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = require_counts(what, {"gram_row": n_rec,
+    launches = require_counts(what, {"gram": len(jumps),
                                      "combine": len(jumps)})
     _require_tickets(what, dev)
     eig = dmd_math.eig_stats()
@@ -1788,17 +1831,17 @@ def run_paper_full(dev, split, finals):
     require(loss[jumps[0]] < loss[0], f"{what}: loss did not fall before "
             f"the first jump: {loss[0]} -> {loss[jumps[0]]}")
     print(f"{what}: {EPOCHS} epochs in {wall} s, ms/step "
-          f"{wall / EPOCHS * 1e3} (train + test MSE every 200), {n_rec} "
-          f"records, {len(jumps)} jumps (first {jumps[:3]}), launches "
-          f"{launches}; host eig round trips {eig['calls']} of "
-          f"{eig['systems']} systems, the guard's matpow fallbacks "
-          f"{eig['fallbacks']}; loss {loss[0]} -> {loss[jumps[0]]} at the "
-          f"first jump, {loss[-1]} at the end")
+          f"{wall / EPOCHS * 1e3} (train + test MSE every 200), "
+          f"{len(jumps)} jumps (first {jumps[:3]}), launches {launches}; "
+          f"host eig round trips {eig['calls']} of {eig['systems']} "
+          f"systems, the guard's matpow fallbacks {eig['fallbacks']}; loss "
+          f"{loss[0]} -> {loss[jumps[0]]} at the first jump, {loss[-1]} at "
+          f"the end")
     print(f"{what}: {_jump_summary(res.jumps)}; reverted "
-          f"{len(res.reverted)} of {len(jumps)}")
+          f"{len(res.reverted)} of {len(jumps)} (the streaming route, PR "
+          f"20: {STREAMING_13A})")
     print(f"{what}: jump loss ratios {res.jumps}")
     print(f"{what}: reverted steps {res.reverted}")
-    print(f"{what}: (epoch, train MSE, test MSE) {res.curve}")
     tr_f, te_f = res.curve[-1][1:]
     (tr_b, te_b), (tr_d, te_d) = finals["dmd-off"], finals["dmd"]
     # the moments are kept across jumps, so a run whose every jump is
@@ -1808,6 +1851,12 @@ def run_paper_full(dev, split, finals):
           f"{tr_b}, 11(b) dmd {tr_d}; test --full {te_f}, dmd-off {te_b}, "
           f"dmd {te_d}; every per-step loss equal to 11(b) dmd-off's: "
           f"{same}")
+    if len(res.reverted) == len(jumps):
+        require(same, f"{what}: every jump reverted, yet the losses differ "
+                "from 11(b)'s DMD off")
+    else:
+        print(f"{what}: first accepted jump at step "
+              f"{min(set(jumps) - set(res.reverted))}")
 
 
 def run_bucket_path(dev, X, Y, phase4_grams):
@@ -2083,6 +2132,259 @@ def run_paper_config(dev, X, Y, phase4_grams, split, finals, records):
     return out
 
 
+# -- phase 14: the paper benches ---------------------------------------------
+
+# fig4's size (benchmarks/paper_benches.py::fig4_curves): the 900-row
+# teacher split 600 / 150 / 150, the MLP (6, 40, 200, 400), 600 steps. Its
+# DMD run (``_train``: no guard) on the card against the CPU's twins from
+# the same seeded init: the curve within 1e-5 before the first jump (fp32
+# summation order), the first jump's loss ratio within FIG4_TOL (the CPU
+# tests' bound after a jump; measured 4.6e-4 on NVIDIA H100 80GB HBM3,
+# 700 W). From the second jump (step 147) on no bound holds: its Gram's
+# rank mask at tol 1e-4 (eigenvalue ratio 1e-8, under fp32's 1.2e-7) keeps
+# noise modes, whose 1/sigma the s = 55 power amplifies, and unguarded
+# runs keep whatever that gives (ratio 631 on the card, 5.23 on the CPU;
+# on the CPU a 1e-7 nudge of the init moves the port's to 8.51, and the
+# reference gives 8.87: examples/torch_noise_floor.py; ROADMAP Queue 3).
+# There both runs must stay finite and make the same number of jumps.
+FIG4_SIZES, FIG4_STEPS = (6, 40, 200, 400), 600
+FIG4_TOL = 2e-3
+# the suites' timed repetitions (their defaults): sec3, streaming_gram and
+# staggered_jump take one warm-up call and BENCH_REPS timed ones; the
+# controller times each jump step once warm and CTRL_REPS times
+BENCH_REPS, CTRL_REPS = 10, 7
+
+
+def _fig4_split():
+    X, Y = synthetic_regression(n=900)
+    return X[:600], Y[:600], X[600:750], Y[600:750], X[750:], Y[750:]
+
+
+def _windows(cfg, steps):
+    """(records, jumps) of a one-group schedule over `steps` steps."""
+    acc = DMDAccelerator(cfg, device="cpu")
+    return (sum(acc.should_record(t) for t in range(steps)),
+            sum(acc.should_apply(t) for t in range(steps)))
+
+
+def _counted(what, fn, want):
+    """fn(), its launches counted (set to 0 just before, required equal to
+    `want` just after) and its wall printed."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"{what}: {wall} s, launches {require_counts(what, want)}")
+    return out
+
+
+def check_fig4_dmd(dev):
+    """Phase 14: fig4's DMD run on the card, counted, against the CPU."""
+    X, Y, _, _, Xte, Yte = _fig4_split()
+    cfg = DMDConfig(**GATED_DMD)
+    _, n_jump = _windows(cfg, FIG4_STEPS)
+    first = next(t for t in range(FIG4_STEPS)
+                 if DMDAccelerator(cfg, device="cpu").should_apply(t))
+    what = "benches fig4 dmd"
+    card, j_card = _counted(what, lambda: pb._train(
+        cfg, FIG4_SIZES, X, Y, Xte, Yte, FIG4_STEPS, device=dev),
+        {"gram": n_jump, "combine": n_jump})
+    t0 = time.perf_counter()
+    cpu, j_cpu = pb._train(cfg, FIG4_SIZES, X, Y, Xte, Yte, FIG4_STEPS,
+                           device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card, cpu = np.asarray(card), np.asarray(cpu)
+    before = card[:, 0] < first
+    rel = np.abs(card[:, 1:] / cpu[:, 1:] - 1).max(axis=1)
+    n = min(len(j_card), len(j_cpu))
+    rel_j = np.abs(np.asarray(j_card[:n]) / np.asarray(j_cpu[:n]) - 1)
+    print(f"{what}: card against the CPU's twins ({cpu_s} s there): "
+          f"{len(j_card)} and {len(j_cpu)} jumps; curve rel diff before the "
+          f"first jump (step {first}) {rel[before].max()}, after it "
+          f"{rel[~before].max()} (per sampled step {rel.tolist()}); jump "
+          f"ratio rel diff max {rel_j.max()}, first {rel_j[0]}")
+    print(f"{what}: card jump ratios {j_card}")
+    print(f"{what}: card (step, train MSE, test MSE) {card.tolist()}")
+    require(len(j_card) == len(j_cpu) == n_jump,
+            f"{what}: {len(j_card)} jumps on the card, {len(j_cpu)} on the "
+            f"CPU, {n_jump} scheduled")
+    require(np.isfinite(card).all() and np.isfinite(cpu).all(),
+            f"{what}: a non-finite MSE")
+    require(rel[before].max() <= 1e-5 and rel_j[0] <= FIG4_TOL,
+            f"{what}: card against CPU {rel[before].tolist()} before step "
+            f"{first} (bound 1e-5), first jump ratio off by {rel_j[0]} "
+            f"(bound {FIG4_TOL})")
+
+
+def check_fig4_gated(dev):
+    """Phase 14: fig4's gated Trainer run alone, counted, with the CUDA
+    graphs its 13 ``fit`` calls captured and replayed."""
+    X, Y, Xv, Yv, Xte, Yte = _fig4_split()
+    n_rec, n_jump = _windows(DMDConfig(**GATED_DMD), FIG4_STEPS)
+    what = "benches fig4 gated"
+    t0 = time.perf_counter()
+    curve, outcomes, graphs = _counted(what, lambda: pb._train_gated(
+        FIG4_SIZES, X, Y, Xv, Yv, Xte, Yte, FIG4_STEPS, device=dev),
+        {"gram_row": n_rec + n_jump, "combine": n_jump})
+    wall = time.perf_counter() - t0
+    bwd = ka.BWD_LAUNCHES["gram_row_bwd"]
+    require(bwd == n_jump, f"{what}: {bwd} K1 backward launches, expected "
+            f"{n_jump}")
+    require(sum(outcomes.values()) == n_jump,
+            f"{what}: outcomes {outcomes} for {n_jump} jumps")
+    require(np.isfinite(np.asarray(curve)).all(), f"{what}: non-finite MSE")
+    print(f"{what}: {FIG4_STEPS} steps in {wall} s ({wall / FIG4_STEPS * 1e3}"
+          f" ms/step, 13 fit calls and their curve MSEs included), K1 "
+          f"{n_rec} + {bwd} backward, K2 {n_jump}; outcomes (0 reject, 1 "
+          f"scaled, 2 accept) {outcomes}; graph_stats summed over the fit "
+          f"calls {graphs}; final (step, train MSE, test MSE) {curve[-1]}")
+
+
+def _staggered_want():
+    """K1 and K2 launches of ``staggered_jump`` at its defaults: one K1 per
+    recording bucket per fill step, one K2 per bucket per timed jump."""
+    params = init_mlp(torch.Generator().manual_seed(0), (6, 800, 800, 800),
+                      device="cpu")
+    k1 = k2 = 0
+    stag = pb.staggered_config(14)
+    for cfg in (dataclasses.replace(stag, groups=()), stag):
+        acc = DMDAccelerator(cfg, device="cpu")
+        table = acc.arena_for(params).values()
+        k1 += sum(acc.groups[b.group].should_record(t) for b in table
+                  for t in range(pb.staggered_fill(acc)))
+        k2 += (1 + BENCH_REPS) * len(table)
+    return {"gram_row": k1, "combine": k2}
+
+
+def _bench_want(name, ref_rows):
+    """The launches of suite `name` at its defaults."""
+    if name == "sec3_overhead":
+        return {"gram": 1 + BENCH_REPS, "combine": 1 + BENCH_REPS}
+    if name == "streaming_gram":
+        m = 14
+        return {"flat_gram_row": m + 1 + BENCH_REPS,
+                "flat_combine": 2 * (1 + BENCH_REPS),
+                "flat_gram": 1 + BENCH_REPS}
+    if name == "staggered_jump":
+        return _staggered_want()
+    if name == "controller":
+        n_rec, n_jump = _windows(DMDConfig(**GATED_DMD), 450)
+        return {"gram_row": 2 * n_rec,
+                "combine": 2 * n_jump + 2 * (1 + CTRL_REPS)}
+    if name == "fig3":
+        n = sum(int(r.split(",")[-1]) for r in ref_rows[1:])
+        return {"gram": n, "combine": n}
+    if name == "fig4":
+        n_rec, n_jump = _windows(DMDConfig(**GATED_DMD), FIG4_STEPS)
+        return {"gram": n_jump, "combine": 2 * n_jump,
+                "gram_row": n_rec + n_jump}
+    raise KeyError(name)
+
+
+def time_bench_kernels(dev, records):
+    """Phase 14: the kernels at the benches' new shapes, against their
+    twins and timed (eager in turns with the twin or the library call, and
+    replayed in a CUDA graph): K4-K6 at streaming_gram's (14, 1, 4000000)
+    leaf (fp32, anchored where the bench anchors), K3 (anchored) and K2 at
+    fig4's arena. Recorded as the ``bench_*`` fields of each kernel's
+    record."""
+    m, n = 14, 4_000_000
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((m, 1, n), generator=g, device=dev)
+    c = torch.randn((1, m), generator=g, device=dev)
+    _check_flat(f"{(m, 1, n)} float32", x, c, 1, False)
+    q, x2, c1 = x[m - 1], x.view(m, n), c.view(m)
+    xbytes = x.numel() * 4
+    params = init_mlp(torch.Generator().manual_seed(0), FIG4_SIZES,
+                      device=dev)
+    (bucket,) = DMDAccelerator(DMDConfig(**GATED_DMD), device=dev).arena_for(
+        params).values()
+    seg = bucket.tables_on(dev)
+    ab = (bucket.n_blocks, bucket.m, bucket.block_n)
+    xa = torch.randn(ab, generator=g, device=dev)
+    ca = torch.randn((seg.n_sys, bucket.m), generator=g, device=dev)
+    abytes = xa.numel() * 4
+    runs = {
+        "flat_gram_row": (
+            (m, 1, n), lambda: kgr.gram_row(x, q, anchor_first=True),
+            lambda: kgr.gram_row_ref(x, q, anchor_first=True),
+            lambda: torch.mv(x2, q.view(n)), xbytes + m * 4, 2.0 * m * n),
+        "flat_combine": (
+            (m, 1, n), lambda: kc.combine(x, c), lambda: kc.combine_ref(x, c),
+            lambda: c1 @ x2, xbytes + n * 4 + m * 4, 2.0 * m * n),
+        "flat_gram": (
+            (m, 1, n), lambda: kg.gram(x, anchor_first=True),
+            lambda: kg.gram_ref(x, anchor_first=True), lambda: x2 @ x2.T,
+            xbytes + m * m * 4, 2.0 * m * m * n),
+        "gram": (
+            ab, lambda: ka.gram(xa, seg, anchor_first=True),
+            lambda: ka.gram_ref(xa, seg.block_sys, seg.n_sys,
+                                anchor_first=True), None,
+            abytes + seg.n_sys * m * m * 4, 2.0 * xa.numel() * m),
+        "combine": (
+            ab, lambda: ka.combine(xa, ca, seg),
+            lambda: ka.combine_ref(xa, ca, seg.block_sys), None,
+            abytes + bucket.n_blocks * bucket.block_n * 4 + ca.numel() * 4,
+            2.0 * xa.numel()),
+    }
+    for name, (shape, kern, twin, lib, nbytes, flops) in runs.items():
+        rows = 1 if name.startswith("flat") else (
+            seg.n_sys if name == "gram" else bucket.n_blocks)
+        err = check_close(f"{name} {shape}", kern(), twin(), rows)
+        if lib is None:
+            k_ms, p_ms = in_turns(kern, twin)
+            l_ms = None
+        else:
+            k_ms, l_ms = in_turns(kern, lib)
+            p_ms = cuda_ms(twin)
+        r_ms = graph_ms(kern)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        print(f"bench kernel {name} {shape} float32: kernel_ms {k_ms} "
+              f"graph_ms {r_ms} ref_ms {p_ms} library_ms {l_ms} bound_ms "
+              f"{b_ms} ({b_by}), {b_ms / r_ms} of the bound replayed, "
+              f"max_abs_err {err}")
+        records[name].update(
+            bench_shape=list(shape), bench_ms=k_ms, bench_graph_ms=r_ms,
+            bench_plain_ms=p_ms, bench_library_ms=l_ms, bench_bound_ms=b_ms,
+            bench_max_abs_err=err)
+    _require_tickets("bench kernels", dev)
+
+
+def run_benches(dev, records):
+    """Phase 14: the kernels at the benches' shapes, then the six paper
+    benches on the card, each counted and held to the committed reference
+    file's schema and fixed fields."""
+    t_phase = time.perf_counter()
+    time_bench_kernels(dev, records)
+    check_fig4_gated(dev)
+    for name, fn in bench_run.suites(quick=False, device=dev):
+        ref = json.loads((ROOT / f"BENCH_{name}.json").read_text())["rows"]
+        what = f"benches {name}"
+        rows = _counted(what, fn, _bench_want(name, ref))
+        if name == "fig4":
+            bwd = ka.BWD_LAUNCHES["gram_row_bwd"]
+            require(bwd == _windows(DMDConfig(**GATED_DMD), FIG4_STEPS)[1],
+                    f"{what}: {bwd} K1 backward launches")
+        errs = pb.schema_errors(rows, ref)
+        require(not errs, f"{what}: out of the reference's schema: "
+                f"{errs[:4]}")
+        mine, theirs = pb.fixed_fields(name, rows), pb.fixed_fields(name, ref)
+        require(mine == theirs, f"{what}: schedule and analytic fields "
+                f"{mine} against the reference's {theirs}")
+        measured = pb.measured_values(name, rows)
+        require(measured and all(v > 0 for v in measured),
+                f"{what}: measured values {measured}")
+        for row, r in zip(rows, ref):
+            label = row.split(",")[1]
+            if not ((name == "fig4" and label.isdigit()) or label in (
+                    "curve_fixed", "curve_gated", "gate")):
+                print(f"{what}: {row}  | reference (its CPU run): {r}")
+    check_fig4_dmd(dev)
+    print(f"benches: phase 14 wall {time.perf_counter() - t_phase} s")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2109,7 +2411,7 @@ def main():
     X, Y = synthetic_regression(seed=0, n=ROWS, n_out=PAPER_SIZES[-1])
     main_launches = run_main_path(dev, X, Y)
     arena_grams = check_window_gram(dev, X, Y)
-    rec_launches = run_recompute_path(
+    run_recompute_path(
         dev, X, Y, "recompute path",
         dataclasses.replace(DMDConfig(), streaming_gram=False),
         {"gram": 2, "combine": 2})
@@ -2124,11 +2426,12 @@ def main():
         {"flat_gram": 2 * 8, "flat_combine": 2 * 8})
     serve_launches = run_serve(dev)
     _, witness = run_trainer(dev, X, Y, MS_PER_STEP["main path"])
-    split, finals = run_pollutant(dev)
+    split, finals, pollutant_launches = run_pollutant(dev)
     run_checkpoint(dev, X, Y, witness)
     del witness
     bucket_launches = run_paper_config(dev, X, Y, arena_grams, split, finals,
                                        records)["bucket"]
+    run_benches(dev, records)
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",
@@ -2139,7 +2442,7 @@ def main():
                 "flash_attention": "src/repro/kernels/flash_attention.py:82"}
     launches = {"gram_row": main_launches["gram_row"],
                 "combine": main_launches["combine"],
-                "gram": rec_launches["gram"],
+                "gram": pollutant_launches["gram"],
                 "flat_gram_row": leaf_launches["flat_gram_row"],
                 "flat_combine": leaf_launches["flat_combine"],
                 "flat_gram": leaf_rec_launches["flat_gram"],

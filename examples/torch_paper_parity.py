@@ -2,13 +2,15 @@
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python examples/torch_paper_parity.py \
         [--steps 300] [--rows 1000] [--sizes 6 40 200 1000 2670]
+        [--scope leaf|bucket] [--mode matpow|eig]
 
 Runs the reference loop (JAX, ``repro``) and the port's
 ``repro_torch.train.paper_loop.train`` from the same ``init_mlp`` weights
-on the same numpy teacher rows, with the default DMDConfig and streaming
-Grams, and prints each package's losses at the jump steps, every jump's
-loss ratio and which jumps the guard reverted. Takes a few minutes at the
-paper's full width.
+on the same numpy teacher rows, with the default DMDConfig (at the given
+DMD ``scope`` and coefficient ``mode``) and streaming Grams, and prints
+each package's losses at the jump steps, every jump's loss ratio and
+which jumps the guard reverted. Takes a few minutes at the paper's full
+width.
 """
 import argparse
 import sys
@@ -31,11 +33,11 @@ from repro_torch.data.synthetic import synthetic_regression  # noqa: E402
 from repro_torch.train import paper_loop  # noqa: E402
 
 
-def reference_loop(X, Y, sizes, steps, seed):
+def reference_loop(X, Y, sizes, steps, seed, cfg):
     params = init_mlp(jax.random.PRNGKey(seed), sizes)
     opt = make_optimizer(OptimizerConfig(name="adam", lr=1e-3))
     state = opt.init(params)
-    acc = DMDAccelerator(DMDConfig())
+    acc = DMDAccelerator(cfg)
     bufs = acc.init(params)
     grams = acc.init_grams(bufs)
 
@@ -76,22 +78,26 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sizes", type=int, nargs="+",
                     default=[6, 40, 200, 1000, 2670])
+    ap.add_argument("--scope", choices=("leaf", "bucket"), default="leaf")
+    ap.add_argument("--mode", choices=("matpow", "eig"), default="matpow")
     args = ap.parse_args()
+    dmd = dict(scope=args.scope, mode=args.mode)
     sizes = tuple(args.sizes)
     X, Y = synthetic_regression(seed=args.seed, n=args.rows, n_out=sizes[-1])
 
     t0 = time.perf_counter()
     ref = reference_loop(jnp.asarray(X), jnp.asarray(Y), sizes, args.steps,
-                         args.seed)
+                         args.seed, DMDConfig(**dmd))
     t1 = time.perf_counter()
     weights = jax.tree_util.tree_map(
         np.asarray, init_mlp(jax.random.PRNGKey(args.seed), sizes))
-    port = paper_loop.train(X, Y, sizes, TorchDMDConfig(), args.steps,
+    port = paper_loop.train(X, Y, sizes, TorchDMDConfig(**dmd), args.steps,
                             params=params_from_jax(weights, "cpu"),
                             device="cpu")
     t2 = time.perf_counter()
 
-    print(f"sizes {sizes}, {args.rows} rows, {args.steps} steps "
+    print(f"sizes {sizes}, {args.rows} rows, {args.steps} steps, scope "
+          f"{args.scope}, mode {args.mode} "
           f"(CPU walls: reference {t1 - t0:.1f} s, port {t2 - t1:.1f} s)")
     print(f"loss at step 0:   reference {ref[0][0]:.6e}  port "
           f"{port.losses[0]:.6e}")

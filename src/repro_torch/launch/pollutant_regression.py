@@ -11,7 +11,9 @@
    (6-40-200-1000-points) with Adam through ``train/paper_loop.py``: once
    without DMD, then with DMD (m=14, s=55, tol=1e-4, warmup 100, cooldown
    10; ``--staggered``: the matrices on m=14, the biases on m=6 windows
-   shifted by 7), each jump guarded by the training loss.
+   shifted by 7), each jump guarded by the training loss. As in the
+   reference's ``examples/pollutant_regression.py``, no Gram is carried:
+   every jump recomputes it from the ring buffer (kernel K3).
 3. Prints the train and test MSE every 200 epochs and a summary: both final
    MSEs, their ratios, the per-jump loss ratios.
 
@@ -47,9 +49,10 @@ def full_dmd_config() -> DMDConfig:
 
 
 def run(Xtr, Ytr, Xte, Yte, sizes, cfg, epochs, device):
-    """One paper-loop run with its curve printed; the TrainResult."""
+    """One paper-loop run on the reference example's route (no carried
+    Gram) with its curve printed; the TrainResult."""
     res = paper_loop.train(Xtr, Ytr, sizes, cfg, epochs, test=(Xte, Yte),
-                           device=device)
+                           carry_grams=False, device=device)
     for t, tr, te in res.curve:
         print(f"  epoch {t:5d}: train {tr:.5e}  test {te:.5e}")
     return res

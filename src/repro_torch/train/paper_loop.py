@@ -8,8 +8,11 @@ Each step takes an Adam step; on recorded steps the params go into the
 arena ring buffer and one streaming Gram row is refreshed (kernel K1);
 when a window closes the accelerator jumps (coefficient solve, kernel K2)
 and the optimizer moments of the jumped groups reset. A jump that raises
-the training loss is reverted (the guard). With ``streaming_gram=False``
-no Gram is carried and each jump recomputes it (kernel K3). With
+the training loss is reverted (the guard; ``guard=False`` keeps every
+jump). With ``streaming_gram=False``, or with ``carry_grams=False`` (the
+route of the reference's example and benchmark loops, which record and
+jump without Grams), no Gram is carried and each jump recomputes it
+(kernel K3). With
 ``arena=False`` (``--no-arena``) every leaf keeps its own ring buffer and
 the same steps run once per leaf through the flat kernels: K4 for the
 Gram row, K5 for the combine and K6 for the recompute.
@@ -51,7 +54,7 @@ class TrainResult(NamedTuple):
     losses: np.ndarray           # (steps,) loss before each step's update
     jumps: List[float]           # loss after / before, per jump
     reverted: List[int]          # steps whose jump the guard reverted
-    # (step, train MSE, test MSE) after every LOG_EVERY-th step and the
+    # (step, train MSE, test MSE) after every `log_every`-th step and the
     # last, when a test split was given
     curve: List[Tuple[int, float, float]]
 
@@ -67,16 +70,23 @@ def value_and_grad(params, X, Y):
 
 
 LR = 1e-3                        # the paper's Adam learning rate
-LOG_EVERY = 200                  # steps between two test evaluations
+LOG_EVERY = 200                  # the launcher's steps between two test MSEs
 
 
 def train(X, Y, sizes, dmd_cfg: DMDConfig, steps: int, *, seed: int = 0,
-          params=None, test=None, device="cuda") -> TrainResult:
+          params=None, test=None, log_every: int = LOG_EVERY,
+          carry_grams: bool = True, guard: bool = True,
+          device="cuda") -> TrainResult:
     """Train the MLP `sizes` on (X, Y) for `steps` Adam steps with DMD
     jumps. `params` (the reference's layout, e.g. from
     ``convert.params_from_jax``) overrides the seeded Xavier init. With a
     `test` split (Xte, Yte), the train and test MSE of the params after
-    every ``LOG_EVERY``-th step and the last go into ``curve``."""
+    every `log_every`-th step and the last go into ``curve``.
+    ``carry_grams=False`` records without streaming Grams, so every jump
+    recomputes the Gram from the ring buffer (K3 on the arena route, K6
+    per leaf), as the reference's ``examples/pollutant_regression.py``
+    and ``benchmarks/paper_benches.py::_train`` do. ``guard=False`` keeps
+    every jump, also one that raises the training loss."""
     dev = resolve_device(device)
 
     def put(a):
@@ -93,7 +103,7 @@ def train(X, Y, sizes, dmd_cfg: DMDConfig, steps: int, *, seed: int = 0,
     state = opt.init(params)
     acc = DMDAccelerator(dmd_cfg, device=dev)
     bufs = acc.init(params)
-    grams = acc.init_grams(bufs)
+    grams = acc.init_grams(bufs) if carry_grams else None
 
     losses, jumps, reverted, curve = [], [], [], []
     for t in range(steps):
@@ -110,7 +120,7 @@ def train(X, Y, sizes, dmd_cfg: DMDConfig, steps: int, *, seed: int = 0,
                 new_params, _ = acc.apply(params, bufs, grams=grams, step=t)
                 after = float(mse_loss(new_params, X, Y))
             jumps.append(after / max(before, 1e-30))
-            if after > before:
+            if guard and after > before:
                 reverted.append(t)        # keep the pre-jump params
             else:
                 params = new_params
@@ -119,7 +129,7 @@ def train(X, Y, sizes, dmd_cfg: DMDConfig, steps: int, *, seed: int = 0,
                     state = reset_opt_state_after_jump(
                         opt, state, params, acc.plans_for(params), reset,
                         acc.n_groups)
-        if test is not None and (t % LOG_EVERY == 0 or t == steps - 1):
+        if test is not None and (t % log_every == 0 or t == steps - 1):
             with torch.no_grad():
                 curve.append((t, float(mse_loss(params, X, Y)),
                               float(mse_loss(params, Xte, Yte))))

@@ -1008,3 +1008,132 @@ def test_host_eig_never_runs_inside_a_capture(cuda):
     assert tr.graph_stats["replayed"] > 0
     st = dmd.eig_stats()
     assert (st["calls"], st["systems"]) == (n_jump, n_jump)
+
+
+# ---------------------------------------------------------------------------
+# The launcher's recompute route and the paper benches' shapes
+# ---------------------------------------------------------------------------
+
+def _all_launches():
+    return {**ka.LAUNCHES, **kgr.LAUNCHES, **kc.LAUNCHES, **kg.LAUNCHES}
+
+
+@pytest.mark.parametrize("arena", [True, False])
+def test_recompute_route_on_card(cuda, arena):
+    """``carry_grams=False``, the launcher's and the benches' route: a
+    record launches nothing, each jump recomputes the Gram (K3 on the
+    arena, K6 per leaf) and combines (K2, K5); with the benches' ``guard=
+    False`` every jump is kept. Losses within rtol 2e-3 of the CPU run's
+    (the paper-loop parity bound)."""
+    X, Y = synthetic_regression(seed=0, n=64, n_out=130)
+    cfg = DMDConfig(m=4, s=5, warmup_steps=5, cooldown_steps=2,
+                    arena_block_n=128, arena=arena)
+    params = init_mlp(torch.Generator().manual_seed(0), (6, 16, 40, 130),
+                      device="cpu")
+    runs = {}
+    for guard in (True, False):
+        before = _all_launches()
+        on_card = paper_loop.train(X, Y, (6, 16, 40, 130), cfg, 30,
+                                   params=params, carry_grams=False,
+                                   guard=guard, device=cuda)
+        after = _all_launches()
+        on_cpu = paper_loop.train(X, Y, (6, 16, 40, 130), cfg, 30,
+                                  params=params, carry_grams=False,
+                                  guard=guard, device="cpu")
+        want = ({"gram": 4, "combine": 4} if arena
+                else {"flat_gram": 4 * 6, "flat_combine": 4 * 6})
+        assert {k: after[k] - before[k] for k in after} == \
+            {k: want.get(k, 0) for k in after}
+        assert on_card.grams is None and len(on_card.jumps) == 4
+        assert on_card.reverted == on_cpu.reverted
+        np.testing.assert_allclose(on_card.losses, on_cpu.losses, rtol=2e-3)
+        runs[guard] = on_card
+    assert runs[False].reverted == []
+    _assert_tickets_zero(cuda)
+
+
+def _bench_buckets(device):
+    """The arena buckets the paper benches' DMD runs jump: fig3's and the
+    controller's MLP, fig4's, and staggered_jump's synchronous and
+    three-group tables."""
+    from repro_torch.benchmarks import paper_benches as pb
+    cfg = DMDConfig(m=14, s=55, tol=1e-4, warmup_steps=100,
+                    cooldown_steps=10)
+    gen = torch.Generator().manual_seed(0)
+    out = []
+    for sizes, c in (((6, 40, 100, 400), cfg), ((6, 40, 200, 400), cfg),
+                     ((6, 800, 800, 800), pb.staggered_config(14))):
+        params = init_mlp(gen, sizes, device=device)
+        out += list(DMDAccelerator(c, device=device).arena_for(
+            params).values())
+    return out
+
+
+def test_arena_kernels_match_twins_at_the_bench_arenas(cuda):
+    """K1 (anchored, the query a slot), K3 (anchored and not) and K2 on
+    random data laid out as each bench arena: within 1e-5 of each twin's
+    largest entry."""
+    buckets = _bench_buckets(cuda)
+    assert len(buckets) == 5
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for b in buckets:
+        seg = b.tables_on(cuda)
+        x = torch.randn((b.n_blocks, b.m, b.block_n), generator=g,
+                        device=cuda)
+        c = torch.randn((seg.n_sys, b.m), generator=g, device=cuda)
+        q = x[:, b.m - 1, :]
+        _compare(ka.gram_row(x, q, seg, anchor_first=True),
+                 ka.gram_row_ref(x, q, seg.block_sys, seg.n_sys,
+                                 anchor_first=True), False)
+        for anchor_first in (False, True):
+            _compare(ka.gram(x, seg, anchor_first=anchor_first),
+                     ka.gram_ref(x, seg.block_sys, seg.n_sys,
+                                 anchor_first=anchor_first), False)
+        _compare(ka.combine(x, c, seg), ka.combine_ref(x, c, seg.block_sys),
+                 False)
+    _assert_tickets_zero(cuda)
+
+
+def test_flat_kernels_match_twins_at_the_streaming_leaf(cuda):
+    """K4-K6 on streaming_gram's (14, 1, 4000000) leaf: within 1e-5 of the
+    twin's largest entry, anchored and not; bit-identical on integer
+    data."""
+    m, n = 14, 4_000_000
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for integer in (False, True):
+        x = (torch.randint(-1, 2, (m, 1, n), generator=g, device=cuda)
+             .float() if integer else
+             torch.randn((m, 1, n), generator=g, device=cuda))
+        c = torch.randn((1, m), generator=g, device=cuda)
+        if integer:
+            c = c.round()
+        for anchor_first in (False, True):
+            _compare(kgr.gram_row(x, x[m - 1], anchor_first=anchor_first),
+                     kgr.gram_row_ref(x, x[m - 1],
+                                      anchor_first=anchor_first), integer)
+            _compare(kg.gram(x, anchor_first=anchor_first),
+                     kg.gram_ref(x, anchor_first=anchor_first), integer)
+        _compare(kc.combine(x, c), kc.combine_ref(x, c), integer)
+    _assert_tickets_zero(cuda)
+
+
+def test_bench_suites_launch_counts_on_card(cuda):
+    """streaming_gram and sec3_overhead at small arguments on the card:
+    K4 once per fill record and per timed streaming record, K5 once per
+    apply, K6 once per recompute apply; sec3's K3 and K2 once per timed
+    jump and its warm-up, no K1."""
+    from repro_torch.benchmarks import paper_benches as pb
+    before = _all_launches()
+    rows = pb.streaming_gram(m=4, n=4096, reps=2, device=cuda)
+    after = _all_launches()
+    want = {"flat_gram_row": 4 + 1 + 2, "flat_combine": 2 * 3,
+            "flat_gram": 3}
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: want.get(k, 0) for k in after}
+    assert rows[-1] == "streaming,m,4,n,4096"
+    before = _all_launches()
+    rows = pb.sec3_overhead(m=4, t_samples=16, device=cuda)
+    after = _all_launches()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: {"gram": 11, "combine": 11}.get(k, 0) for k in after}
+    assert rows[0] == "sec3,analytic_dmd_ops_per_round,1.643e+08"

@@ -1,7 +1,10 @@
 """The whole slice: the port's paper loop against a JAX loop built here from
-the reference's public pieces (the same loop as the reference example,
-carrying streaming Grams as its benchmarks do), on injected ``init_mlp``
-weights and the shared numpy teacher, plus the pieces the loop is made of.
+the reference's public pieces (the reference example's guarded loop, but
+carrying streaming Grams as the reference's Trainer does; the example and
+the benchmarks' ``_train`` carry none and recompute the Gram at every
+jump, which ``test_torch_launch.py`` and ``test_torch_benches.py`` hold),
+on injected ``init_mlp`` weights and the shared numpy teacher, plus the
+pieces the loop is made of.
 
 Tolerances: up to the first jump the losses agree to rtol 1e-5 (fp32
 summation order in the matmuls). Each jump passes that noise through an
