@@ -90,9 +90,10 @@ def _train(dmd_cfg, sizes, X, Y, Xte, Yte, steps, *, params=None,
     and ``opt.init``. `params` (the reference's layout) replaces the
     seeded init. Returns ((t, train MSE, test MSE) every 50 steps and at
     the last, the per-jump loss ratios)."""
-    res = paper_loop.train(X, Y, sizes, dmd_cfg, steps, params=params,
-                           test=(Xte, Yte), log_every=CURVE_EVERY,
-                           carry_grams=False, guard=False, device=device)
+    res = paper_loop.train(X, Y, sizes,
+                           dataclasses.replace(dmd_cfg, streaming_gram=False),
+                           steps, params=params, test=(Xte, Yte),
+                           log_every=CURVE_EVERY, guard=False, device=device)
     return res.curve, res.jumps
 
 
@@ -150,25 +151,41 @@ def _train_gated(sizes, X, Y, Xval, Yval, Xte, Yte, steps, m=14, s=55, *,
     return curve, outcomes, graphs
 
 
-def fig4_curves(steps=600, device="cuda") -> List[str]:
-    """Paper Fig 4: MSE against steps, train and test, for the baseline,
-    the paper's ungated DMD schedule and the validation-gated controller,
-    at equal step count. One teacher gives every split: 600 train rows, a
-    150-row validation fold (the gate's) and 150 held-out test rows. The
-    final rows give signed deltas against the baseline with explicit
-    WINS/LOSES tokens."""
-    Xall, Yall = synthetic_regression(n=900)
-    X, Y = Xall[:600], Yall[:600]
-    Xval, Yval = Xall[600:750], Yall[600:750]
-    Xte, Yte = Xall[750:], Yall[750:]
+FIG4_DMD = dict(m=14, s=55, tol=1e-4, warmup_steps=100, cooldown_steps=10)
+
+
+def fig4_split():
+    """fig4's one teacher in every split: 600 train rows, a 150-row
+    validation fold (the gate's) and 150 held-out test rows."""
+    X, Y = synthetic_regression(n=900)
+    return X[:600], Y[:600], X[600:750], Y[600:750], X[750:], Y[750:]
+
+
+def fig4_runs(steps=600, device="cuda") -> dict:
+    """fig4's three runs at equal step count on (6, 40, 200, 400): the
+    baseline's curve, the paper's ungated DMD schedule (curve, jump
+    ratios), and the validation-gated controller (curve, {outcome:
+    count}, summed ``graph_stats``, wall seconds)."""
+    dev = resolve_device(device)
+    X, Y, Xval, Yval, Xte, Yte = fig4_split()
     sizes = (6, 40, 200, Y.shape[1])
     base, _ = _train(DMDConfig(enabled=False), sizes, X, Y, Xte, Yte, steps,
                      device=device)
-    dmd, _ = _train(DMDConfig(m=14, s=55, tol=1e-4, warmup_steps=100,
-                              cooldown_steps=10),
-                    sizes, X, Y, Xte, Yte, steps, device=device)
-    gated, outcomes, _ = _train_gated(sizes, X, Y, Xval, Yval, Xte, Yte,
-                                      steps, device=device)
+    dmd = _train(DMDConfig(**FIG4_DMD), sizes, X, Y, Xte, Yte, steps,
+                 device=device)
+    t0 = _now(dev)
+    gated = _train_gated(sizes, X, Y, Xval, Yval, Xte, Yte, steps,
+                         device=device)
+    return {"baseline": base, "dmd": dmd,
+            "gated": gated + (_now(dev) - t0,)}
+
+
+def fig4_rows(runs: dict) -> List[str]:
+    """Paper Fig 4's rows from ``fig4_runs``: MSE against steps, train and
+    test, per run; the final rows give signed deltas against the baseline
+    with explicit WINS/LOSES tokens."""
+    base, (dmd, _) = runs["baseline"], runs["dmd"]
+    gated, outcomes = runs["gated"][:2]
     rows = ["fig4,step,baseline_train,baseline_test,dmd_train,dmd_test,"
             "gated_train,gated_test"]
     for (t, btr, bte), (_, dtr, dte), (_, gtr, gte) in zip(base, dmd, gated):
@@ -192,6 +209,11 @@ def fig4_curves(steps=600, device="cuda") -> List[str]:
     rows.append(f"fig4_gate_outcomes,accepts,{outcomes[2]},scaled,"
                 f"{outcomes[1]},rejects,{outcomes[0]}")
     return rows
+
+
+def fig4_curves(steps=600, device="cuda") -> List[str]:
+    """Paper Fig 4: ``fig4_rows`` of ``fig4_runs``."""
+    return fig4_rows(fig4_runs(steps, device))
 
 
 def controller(steps=450, sizes=(6, 40, 100, 400), m=14, s=55,

@@ -10,7 +10,9 @@ Gram ``G = D D^T``:
 
 so only the Gram (or its streaming rows) and the combine ``S^T c`` touch the
 n-sized data; ``dmd_coefficients`` is O(m^3) algebra on (n_sys, m, m)
-batches, run on the Gram's own device.
+batches, run on the Gram's own device apart from one step: the
+symmetric eigendecomposition of X^T X (``_lag_eigh``) runs on the host's
+LAPACK for a Gram on either device.
 
 Both modes of the operator power are here. ``mode="matpow"`` raises
 Atilde to the s-th power by binary exponentiation on the device.
@@ -132,6 +134,45 @@ def set_gram_row(gram: torch.Tensor, row: torch.Tensor, slot: int
     gram[..., slot, :] = row
     gram[..., :, slot] = row
     return gram
+
+
+def _mean_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis rounded as the reference's XLA reduce
+    rounds it: an fp32 sum from the first element to the last, times the
+    fp32 reciprocal of the count. ``torch.mean`` sums in another order,
+    and one ulp of the affine shift moves the eigenvalues the rank mask
+    reads (``_lag_eigh``)."""
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc * torch.tensor(1.0 / x.shape[-1], dtype=x.dtype,
+                              device=x.device)
+
+
+def _lag_eigh(g_lag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigenpairs (ascending) of a (batch, k, k) stack of lag Grams X^T X,
+    by the host's LAPACK (``torch.linalg.eigh`` on the CPU) for a stack on
+    either device.
+
+    The rank mask compares eigenvalue ratios down to tol^2 (1e-8 at the
+    benches' tol 1e-4), under fp32's 1.2e-7, so which modes it keeps is
+    decided by the solver's rounding. LAPACK's divide and conquer
+    (``syevd``, also the reference's CPU ``jnp.linalg.eigh``) errs by ~eps
+    * lambda_max either way and drops about half of those modes; cuSOLVER's
+    fp32 solvers (``torch.linalg.eigh`` on the card) resolve them and keep
+    them, so that s = 55 powers their 1/sigma into jumps of 52-1117x the
+    loss in every unguarded fig4 run on the card, where the host's solve
+    stays under 5.1x (``examples/torch_noise_floor.py --case card``). On the host a stack on
+    the card is solved to the same bits as on the CPU. One device round
+    trip per solve: no CUDA graph may capture it, and the result has no
+    derivative (the Gram never needs one)."""
+    if not g_lag.is_cuda:
+        return torch.linalg.eigh(g_lag)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the DMD solve's host eigh cannot run inside a "
+                           "CUDA graph capture: run the jump step eagerly")
+    w, v = torch.linalg.eigh(g_lag.detach().cpu())
+    return w.to(g_lag.device), v.to(g_lag.device)
 
 
 def _masked_inv_sigma(eigvals: torch.Tensor, tol: float, energy: float = 0.0,
@@ -374,18 +415,18 @@ def dmd_coefficients(gram: torch.Tensor, *, s: int, tol: float = 1e-10,
     if affine:
         # rank-one Gram update G + gamma^2 1 1^T, gamma^2 = mean(diag(G))
         diag = torch.diagonal(gram, dim1=-2, dim2=-1)
-        gamma2 = torch.clamp_min(diag.mean(dim=-1), 1e-30)
+        gamma2 = torch.clamp_min(_mean_in_order(diag), 1e-30)
         gram = gram + gamma2[..., None, None]
     g_lag = gram[..., :-1, :-1]                  # X^T X
     g_cross = gram[..., :-1, 1:]                 # X^T Z
     g_last = gram[..., :-1, -1]                  # X^T d_last
 
-    # LAPACK/cuSOLVER raise on a non-finite matrix where XLA returns
-    # garbage; either way the final guard below turns c into e_last, so
-    # hand eigh a finite stand-in
+    # LAPACK misbehaves on a non-finite matrix where XLA returns garbage;
+    # either way the final guard below turns c into e_last, so hand eigh
+    # a finite stand-in
     g_lag = torch.where(torch.isfinite(g_lag), g_lag,
                         torch.zeros_like(g_lag))
-    eigvals, v = torch.linalg.eigh(g_lag)        # ascending; batched
+    eigvals, v = _lag_eigh(g_lag)                # ascending; batched
     sigma, inv_sigma, mask = _masked_inv_sigma(eigvals, tol, energy, atol)
     vt = v.transpose(-1, -2)
     if ridge_dyn is not None:

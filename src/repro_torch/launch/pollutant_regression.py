@@ -51,8 +51,9 @@ def full_dmd_config() -> DMDConfig:
 def run(Xtr, Ytr, Xte, Yte, sizes, cfg, epochs, device):
     """One paper-loop run on the reference example's route (no carried
     Gram) with its curve printed; the TrainResult."""
-    res = paper_loop.train(Xtr, Ytr, sizes, cfg, epochs, test=(Xte, Yte),
-                           carry_grams=False, device=device)
+    res = paper_loop.train(Xtr, Ytr, sizes,
+                           dataclasses.replace(cfg, streaming_gram=False),
+                           epochs, test=(Xte, Yte), device=device)
     for t, tr, te in res.curve:
         print(f"  epoch {t:5d}: train {tr:.5e}  test {te:.5e}")
     return res

@@ -9,10 +9,9 @@ arena ring buffer and one streaming Gram row is refreshed (kernel K1);
 when a window closes the accelerator jumps (coefficient solve, kernel K2)
 and the optimizer moments of the jumped groups reset. A jump that raises
 the training loss is reverted (the guard; ``guard=False`` keeps every
-jump). With ``streaming_gram=False``, or with ``carry_grams=False`` (the
-route of the reference's example and benchmark loops, which record and
-jump without Grams), no Gram is carried and each jump recomputes it
-(kernel K3). With
+jump). With ``streaming_gram=False`` (the route of the reference's
+example and benchmark loops, which record and jump without Grams), no
+Gram is carried and each jump recomputes it (kernel K3). With
 ``arena=False`` (``--no-arena``) every leaf keeps its own ring buffer and
 the same steps run once per leaf through the flat kernels: K4 for the
 Gram row, K5 for the combine and K6 for the recompute.
@@ -75,18 +74,14 @@ LOG_EVERY = 200                  # the launcher's steps between two test MSEs
 
 def train(X, Y, sizes, dmd_cfg: DMDConfig, steps: int, *, seed: int = 0,
           params=None, test=None, log_every: int = LOG_EVERY,
-          carry_grams: bool = True, guard: bool = True,
-          device="cuda") -> TrainResult:
+          guard: bool = True, device="cuda") -> TrainResult:
     """Train the MLP `sizes` on (X, Y) for `steps` Adam steps with DMD
     jumps. `params` (the reference's layout, e.g. from
     ``convert.params_from_jax``) overrides the seeded Xavier init. With a
     `test` split (Xte, Yte), the train and test MSE of the params after
     every `log_every`-th step and the last go into ``curve``.
-    ``carry_grams=False`` records without streaming Grams, so every jump
-    recomputes the Gram from the ring buffer (K3 on the arena route, K6
-    per leaf), as the reference's ``examples/pollutant_regression.py``
-    and ``benchmarks/paper_benches.py::_train`` do. ``guard=False`` keeps
-    every jump, also one that raises the training loss."""
+    ``guard=False`` keeps every jump, also one that raises the training
+    loss."""
     dev = resolve_device(device)
 
     def put(a):
@@ -103,7 +98,7 @@ def train(X, Y, sizes, dmd_cfg: DMDConfig, steps: int, *, seed: int = 0,
     state = opt.init(params)
     acc = DMDAccelerator(dmd_cfg, device=dev)
     bufs = acc.init(params)
-    grams = acc.init_grams(bufs) if carry_grams else None
+    grams = acc.init_grams(bufs)
 
     losses, jumps, reverted, curve = [], [], [], []
     for t in range(steps):

@@ -1,13 +1,16 @@
 """The port's Gram-form DMD algebra against the reference's, on the same
 fp32 Grams. Only the coefficients ``c`` are compared, never eigenvectors
 (defined up to sign/rotation). Tolerance: |c_port - c_ref| <= 2e-4 *
-max(1, |c_ref|), the spread two LAPACK eigensolvers give after the
-s-step matrix power on these Grams (the two packages' ``eigh`` round
-differently)."""
+max(1, |c_ref|), the spread the two packages' matmuls leave after the
+s-step matrix power on these Grams: of the two steps that decide the rank
+mask, the affine shift's mean rounds as the reference's to the bit and
+the eigenvalues of X^T X agree to fp32's resolution
+(``test_rank_deciding_steps_round_as_the_reference``)."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import dmd as jdmd
@@ -78,6 +81,32 @@ def test_coefficients_match_reference(kind, case):
     for k in ("jump_scale", "jump_norm", "step_rms"):
         np.testing.assert_allclose(it[k].numpy(), np.asarray(ij[k]),
                                    rtol=1e-3, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("m", [3, 8, 14, 32])
+def test_rank_deciding_steps_round_as_the_reference(m):
+    """The two steps whose rounding decides the rank mask. The affine
+    shift's mean equals the reference's bit for bit (XLA's reduce: an
+    in-order fp32 sum times the fp32 reciprocal). The eigenvalues of X^T X
+    (LAPACK on the host: ``torch.linalg.eigh``'s here, the reference's is
+    scipy's ``syevd``) agree with the reference's to fp32's resolution,
+    k * eps * lambda_max for k x k matrices (LAPACK's backward error
+    bound; measured up to 5.7 eps * lambda_max), on symmetric fp32 Grams
+    across six decades of scale."""
+    rng = np.random.default_rng(m)
+    a = rng.normal(size=(6, m, 40)) * 10.0 ** rng.uniform(-3, 3, (6, 1, 1))
+    g = (a @ np.swapaxes(a, -1, -2)).astype(np.float32)
+    g = (g + np.swapaxes(g, -1, -2)) / np.float32(2)      # exactly symmetric
+    mean = jax.jit(lambda x: jnp.mean(
+        jnp.diagonal(x, axis1=-2, axis2=-1), axis=-1))
+    np.testing.assert_array_equal(
+        tdmd._mean_in_order(torch.diagonal(torch.from_numpy(g), dim1=-2,
+                                           dim2=-1)).numpy(),
+        np.asarray(mean(g)))
+    w, _ = tdmd._lag_eigh(torch.from_numpy(g))
+    jw = np.asarray(jax.jit(jnp.linalg.eigh)(g)[0])
+    res = m * np.finfo(np.float32).eps * np.abs(jw).max(axis=-1)
+    assert (np.abs(w.numpy() - jw).max(axis=-1) <= res).all()
 
 
 def test_ridge_zero_vs_positive():

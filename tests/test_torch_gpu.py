@@ -1020,26 +1020,26 @@ def _all_launches():
 
 @pytest.mark.parametrize("arena", [True, False])
 def test_recompute_route_on_card(cuda, arena):
-    """``carry_grams=False``, the launcher's and the benches' route: a
+    """``streaming_gram=False``, the launcher's and the benches' route: a
     record launches nothing, each jump recomputes the Gram (K3 on the
     arena, K6 per leaf) and combines (K2, K5); with the benches' ``guard=
     False`` every jump is kept. Losses within rtol 2e-3 of the CPU run's
     (the paper-loop parity bound)."""
     X, Y = synthetic_regression(seed=0, n=64, n_out=130)
     cfg = DMDConfig(m=4, s=5, warmup_steps=5, cooldown_steps=2,
-                    arena_block_n=128, arena=arena)
+                    arena_block_n=128, arena=arena, streaming_gram=False)
     params = init_mlp(torch.Generator().manual_seed(0), (6, 16, 40, 130),
                       device="cpu")
     runs = {}
     for guard in (True, False):
         before = _all_launches()
         on_card = paper_loop.train(X, Y, (6, 16, 40, 130), cfg, 30,
-                                   params=params, carry_grams=False,
-                                   guard=guard, device=cuda)
+                                   params=params, guard=guard,
+                                   device=cuda)
         after = _all_launches()
         on_cpu = paper_loop.train(X, Y, (6, 16, 40, 130), cfg, 30,
-                                  params=params, carry_grams=False,
-                                  guard=guard, device="cpu")
+                                  params=params, guard=guard,
+                                  device="cpu")
         want = ({"gram": 4, "combine": 4} if arena
                 else {"flat_gram": 4 * 6, "flat_combine": 4 * 6})
         assert {k: after[k] - before[k] for k in after} == \
@@ -1137,3 +1137,38 @@ def test_bench_suites_launch_counts_on_card(cuda):
     assert {k: after[k] - before[k] for k in after} == \
         {k: {"gram": 11, "combine": 11}.get(k, 0) for k in after}
     assert rows[0] == "sec3,analytic_dmd_ops_per_round,1.643e+08"
+
+
+def test_dmd_solve_on_card_is_the_cpu_solve(cuda, monkeypatch):
+    """Every Gram fig4's DMD run solves (the port's ``_train`` on the CPU
+    at fig4's full size: 20 jumps of 6 systems), solved on the card and on
+    the CPU: the same rank in every system (the eigendecomposition of
+    X^T X runs on the host's LAPACK for both, and the affine shift is the
+    same in-order fp32 sum) and c nearer the CPU's than a 1-ulp scaling of
+    the Gram moves the CPU's own c (measured: at most 0.12 of that, on
+    NVIDIA H100 80GB HBM3, 700 W). cuSOLVER's eigensolver kept other ranks
+    on such Grams, and its unguarded fig4 runs jumped 52-1117x
+    (``examples/torch_noise_floor.py --case card``)."""
+    from repro_torch.benchmarks import paper_benches as pb
+    from repro_torch.core import arena as arena_mod
+    solves = []
+    solve = arena_mod.dmd_math.dmd_coefficients
+
+    def recorded(gram, **kw):
+        solves.append((gram.clone(), kw))
+        return solve(gram, **kw)
+    monkeypatch.setattr(arena_mod.dmd_math, "dmd_coefficients", recorded)
+    X, Y, _, _, Xte, Yte = pb.fig4_split()
+    pb._train(DMDConfig(**pb.FIG4_DMD), (6, 40, 200, 400), X, Y, Xte, Yte,
+              600, device="cpu")
+    monkeypatch.undo()
+    assert len(solves) == 20
+    eps = np.finfo(np.float32).eps
+    for gram, kw in solves:
+        c, info = solve(gram, **kw)
+        spread = torch.stack([(solve(gram * (1 + k * eps), **kw)[0] - c)
+                              .abs().amax(dim=-1) for k in (1, -1, 2, -2)]
+                             ).amax(dim=0)
+        gc, ginfo = solve(gram.to(cuda), **kw)
+        assert torch.equal(ginfo["rank"].cpu(), info["rank"])
+        assert ((gc.cpu() - c).abs().amax(dim=-1) <= spread).all()

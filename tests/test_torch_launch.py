@@ -1,31 +1,35 @@
 """The port's paper-experiment launcher (``launch/pollutant_regression.py``)
 against the reference's ``examples/pollutant_regression.py::train`` itself,
-on the CPU, on the reference's own rows: 4 samples of its dataset on the
-32 x 16 grid (50 probes), split 3 / 1 by its ``train_test_split``, the MLP
-(6, 16, 40, 50), the reference's init injected.
+on the CPU, on the reference's own rows (its dataset on the 32 x 16 grid,
+50 probes, split 0.8 by its ``train_test_split``), the MLP (6, 16, 40, 50),
+the reference's init injected.
 
 Both record and jump without a carried Gram, so every jump recomputes it
 from the ring buffer (K3 on the arena route): the port's launcher makes no
 Gram-row call at all, and one Gram recompute and one combine per jump.
-The default DMD (m 14, s 55, warmup 100, cooldown 10) over 200 epochs
-jumps at 123, 147, 171 and 195; ``--full``'s (eig mode, tol 1e-10,
-unanchored, warmup 28, no cooldown) over 100 epochs at 41, 55, 69, 83
-and 97. The jump counts are equal.
 
-A reverted jump leaves the params and the moments as they were, so up to
-the first jump the reference accepts both runs are one trajectory: there
-the per-epoch train and test MSE agree to rtol 1e-5 (fp32 summation order
-in the matmuls; measured 3.7e-7) and every decision up to and including
-that jump is equal. ``--full`` reverts every jump in both packages, so
-that holds over the whole run. After an accepted m 14, s 55 jump on 3
-training rows no tolerance holds, not even for the reference against
-itself: with its targets moved by a relative 1e-7 it moves its later
-losses by up to 23.1 (relative) and flips two of its three later
-decisions (``examples/torch_noise_floor.py --case launcher``), so the
-runs are held to be finite there. The route's parity
-where the jumps are well conditioned is held by
-``test_torch_benches.py::test_train_matches_reference`` and
-``test_torch_paper_loop.py``'s recompute variants.
+Three configurations, each with equal jump counts:
+
+* ``tol-1e-2``: the launcher's default DMD (m 14, s 55, warmup 100,
+  cooldown 10) at tol 1e-2, 8 samples (6 training rows), 240 epochs,
+  jumps at 123, 147, 171, 195 and 219; the reference accepts 123 only.
+  Every decision is equal and the per-epoch train and test MSE agree to
+  rtol 1e-5 before the first jump (fp32 summation order in the matmuls;
+  measured 4.5e-7) and to 2e-3 through and after the accepted jump
+  (measured 8.4e-4; the reference moves itself by up to 1.6e-3 there
+  under a 1e-7 nudge of its targets).
+* ``default``: the same DMD at the launcher's tol 1e-4, 4 samples (3
+  training rows), 200 epochs, jumps at 123, 147, 171 and 195. Only the
+  curve up to the first jump is one trajectory: at tol 1e-4 the rank mask
+  reads eigenvalue ratios of 1e-8, under fp32's 1.2e-7, so the jump is
+  decided by the Gram's rounding, and a 1e-7 nudge of the reference's
+  targets moves its own first jump's ratio (1.55) to 0.785-1.62 and
+  flips its decisions (``examples/torch_noise_floor.py --case
+  launcher``). After it the runs are held to be finite.
+* ``full``: ``--full``'s DMD (eig mode, tol 1e-10, unanchored, warmup 28,
+  no cooldown), 4 samples, 100 epochs, jumps at 41, 55, 69, 83 and 97:
+  every jump reverts in both packages, so the curves agree to rtol 1e-5
+  over the whole run.
 """
 import importlib.util
 import pathlib
@@ -48,11 +52,15 @@ from repro_torch.train import paper_loop
 SIZES = (6, 16, 40, 50)
 
 
-@pytest.fixture(scope="module")
-def split():
-    data = R.generate_dataset(n_samples=4, nx=32, ny=16, n_points=50,
-                              n_iter=5000, seed=0, batch=4)
+def _split(n_samples):
+    data = R.generate_dataset(n_samples=n_samples, nx=32, ny=16,
+                              n_points=50, n_iter=5000, seed=0, batch=4)
     return R.train_test_split(data, 0.8)
+
+
+@pytest.fixture(scope="module")
+def splits():
+    return {4: _split(4), 8: _split(8)}
 
 
 def _ref_example():
@@ -69,8 +77,9 @@ def _kw(config: str) -> dict:
     """The launcher's DMDConfig fields for `config`, as a dict both
     packages' DMDConfig take."""
     cfg = (pollutant_regression.full_dmd_config() if config == "full"
-           else DMDConfig(m=14, s=55, tol=1e-4, warmup_steps=100,
-                          cooldown_steps=10))
+           else DMDConfig(m=14, s=55,
+                          tol=1e-2 if config == "tol-1e-2" else 1e-4,
+                          warmup_steps=100, cooldown_steps=10))
     return {k: getattr(cfg, k) for k in ("m", "s", "tol", "warmup_steps",
                                          "cooldown_steps", "anchor",
                                          "affine", "trust_region", "mode",
@@ -97,11 +106,14 @@ def _port_run(monkeypatch, split, cfg, epochs, calls):
                                     "cpu")
 
 
-@pytest.mark.parametrize("config,epochs,jumps", [
-    ("default", 200, [123, 147, 171, 195]),
-    ("full", 100, [41, 55, 69, 83, 97])])
-def test_launcher_matches_reference_example(monkeypatch, capsys, split,
-                                            config, epochs, jumps):
+@pytest.mark.parametrize("config,n_samples,epochs,jumps", [
+    ("tol-1e-2", 8, 240, [123, 147, 171, 195, 219]),
+    ("default", 4, 200, [123, 147, 171, 195]),
+    ("full", 4, 100, [41, 55, 69, 83, 97])])
+def test_launcher_matches_reference_example(monkeypatch, capsys, splits,
+                                            config, n_samples, epochs,
+                                            jumps):
+    split = splits[n_samples]
     (Xtr, Ytr), (Xte, Yte) = split
     kw = _kw(config)
     _, tr_curve, te_curve, jj = _ref_example().train(
@@ -116,17 +128,17 @@ def test_launcher_matches_reference_example(monkeypatch, capsys, split,
     assert res.grams is None
     assert len(res.jumps) == len(jj) == len(jumps)
     ref_reverted = [t for t, r in zip(jumps, jj) if r > 1.0]
-    # one trajectory up to the reference's first accepted jump
-    first = next((t for t, r in zip(jumps, jj) if r <= 1.0), epochs)
-    assert [t for t in res.reverted if t <= first] == \
-        [t for t in ref_reverted if t <= first]
     got = np.asarray([c[1:] for c in res.curve])
     want = np.stack([np.asarray(tr_curve)[:, 1], np.asarray(te_curve)[:, 1]],
                     axis=1)
     assert [c[0] for c in res.curve] == list(range(epochs))
-    np.testing.assert_allclose(got[:first], want[:first], rtol=1e-5)
     assert np.isfinite(got).all()
-    if config == "full":
+    # one trajectory up to the first jump
+    np.testing.assert_allclose(got[:jumps[0]], want[:jumps[0]], rtol=1e-5)
+    if config == "tol-1e-2":
+        assert ref_reverted == jumps[1:]            # 123 accepted
+        assert res.reverted == ref_reverted
+        np.testing.assert_allclose(got, want, rtol=2e-3)
+    elif config == "full":
         assert res.reverted == ref_reverted == jumps
-    else:
-        assert jumps[0] < first < epochs        # both decisions are seen
+        np.testing.assert_allclose(got, want, rtol=1e-5)
