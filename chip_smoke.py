@@ -9,10 +9,11 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    versions.
 2. Build the CUDA kernels (``src/repro_torch/kernels/csrc/*.cu``, one
    ``nvcc`` per source, in parallel) and print ptxas's registers, shared
-   memory and spills (``-Xptxas -v``) of the Hopper flash-attention design,
-   of K1 and K3-K6; K7's design, K1, K5 and every m <= 16 instantiation of
-   K3 and K6 must not spill, and every K3 and K6 instantiation must be in
-   the report.
+   memory and spills (``-Xptxas -v``) of the Hopper flash-attention design
+   (with and without its log-sum-exp output), of K7b's bf16 designs and
+   of K1 and K3-K6; K7's design, K7b's at d 64, K1, K5 and every m <= 16
+   instantiation of K3 and K6 must not spill, and every one of those
+   instantiations must be in the report.
 3. The arena kernels K1-K3 against their plain PyTorch twins at the paper
    MLP's arena shape, (5633, 14, 512), with the paper bucket's real block
    -> system table: fp32 and bf16 buffers, both anchors of the Gram row,
@@ -222,13 +223,46 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    the curve within 1e-5 before the first jump, the first jump's loss
    ratio within ``FIG4_TOL`` (2e-3), and after it every sampled train and
    test MSE within ``FIG4_ENVELOPE`` of the CPU run's, the reference's own
-   spread between two fp32-perturbed runs.
+   spread between two fp32-perturbed runs. K2 at fig4's arena is timed
+   in turns with ``torch.einsum("bmn,bm->bn")`` on the block-gathered
+   coefficients (the same function, checked against the twin).
+15. TinyLlama-1.1B training ("tinyllama-train"). First K7b, the
+   flash-attention backward (``kernels/csrc/flash_bwd.cu``), against its
+   twin (autograd through K7's twin) in fp32 and bf16, row by row
+   (``BWD_ROW_TOL``): one microbatch's attention (2, 4096, 32, 4, 64)
+   causal, GQA rep 1 and 8, windows, non-causal, d 16-128, lengths
+   127-257 at d 64 and 128; at the first, a sound bf16 control must pass
+   the same limit and a wrong design must fail it; repeat launches
+   bit-identical; K7's log-sum-exp output within ``LSE_ATOL`` of its twin
+   and K7's output unchanged by it. K7b timed at (2, 4096, 32, 4, 64) bf16 eager and
+   replayed beside its bound (10 d flops per seen pair and head at the
+   bf16 peak) and in turns with the backward of
+   ``scaled_dot_product_attention``. Then the launcher's ``run``
+   (``launch/train.py``) at TinyLlama's full widths, bf16, cut to
+   ``LM_LAYERS`` layers (the state's bytes at 22 layers are printed and
+   must exceed 90% of the card), with the config's DMD (m 14, s 55, fp32
+   ring, leaf scope, warm-up 24 = steps // 4), adamw with clip and the
+   cosine schedule, grad_accum 4 and remat "block", on the synthetic token
+   stream at 8 x 4096 for 96 steps with CUDA graphs. Launches exactly: K1
+   once per bucket per record, K2 once per bucket per jump, K7 2 x layers x
+   4 per step (all through the wgmma design), K7b layers x 4 per step;
+   at least two jumps; finite losses, the last 10's mean below the first
+   10's; ms/step, tokens/s and peak memory beside the reckoned state. K1
+   and K2 on that run's own rings, every bucket, against their twins (K1's
+   in float64) and timed (the ``lm_buckets`` fields of their records).
+   Once the run's Trainer and state are dropped, without the garbage
+   collector, at most ``LM_LEFT_BYTES`` more is allocated than before it
+   (the graphs' shared pool went with them). Then 40 steps
+   eagerly from the same init: at the first jump the carried Grams equal
+   K3's recompute of the ring, and the losses and the params after 40
+   steps equal the graphed run's bit for bit.
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -269,6 +303,7 @@ from repro_torch.benchmarks import paper_benches as pb  # noqa: E402
 from repro_torch.benchmarks import run as bench_run  # noqa: E402
 from repro_torch.launch import pollutant_regression  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.mlp_net import MLPModel, init_mlp  # noqa: E402
 from repro_torch.models.mlp_net import mlp_forward, mse_loss  # noqa: E402
 from repro_torch.serve import WeightsChannel  # noqa: E402
@@ -414,12 +449,12 @@ def max_err(got, want):
     return float((got - want).abs().max())
 
 
-def check_close(name, got, want, rows):
-    """|got - want| <= RTOL * max(1, max |want|) within each of `rows`
+def check_close(name, got, want, rows, rtol=RTOL):
+    """|got - want| <= rtol * max(1, max |want|) within each of `rows`
     leading rows (one per system, or one per block); returns the largest
     error."""
     diff = (got - want).abs().reshape(rows, -1).amax(dim=1)
-    limit = RTOL * want.abs().reshape(rows, -1).amax(dim=1).clamp_min(1.0)
+    limit = rtol * want.abs().reshape(rows, -1).amax(dim=1).clamp_min(1.0)
     bad = torch.nonzero(diff > limit).flatten().tolist()
     require(not bad, f"{name}: rows {bad[:8]}: max |kernel - twin| "
             f"{diff[bad[:8]].tolist()} > {limit[bad[:8]].tolist()}")
@@ -701,17 +736,24 @@ def _check_flat(tag, x, c, n_sys, exact):
 
 
 # kernels whose ptxas report must show no spill: K7's Hopper design, K1, K5,
-# and K3 and K6 (arena_gram_k, gram_flat) where m <= 16
-NO_SPILL = ("flash_wgmma", "arena_row", "combine_flat")
+# K7b's bf16 designs at the LM's head size 64, and K3 and K6
+# (arena_gram_k, gram_flat) where m <= 16
+NO_SPILL = ("flash_wgmma", "arena_row", "combine_flat", "bwd_dkdv_bf16<64>",
+            "bwd_dq_bf16<64>")
 NO_SPILL_M16 = ("arena_gram_k", "gram_flat")
 
 
 def _kernel_name(mangled):
-    """flash_wgmma<64>, row_part<float,16,vec=1> (K4), arena_row<...> (K1),
-    combine_flat<...> (K5), arena_gram_k<...> (K3) and gram_flat<...> (K6)
-    from ptxas's mangled names, with their MMAX (None for K7)."""
+    """flash_wgmma<64> and flash_wgmma<64,lse> (K7), bwd_dkdv_bf16<64> and
+    bwd_dq_bf16<64> (K7b), row_part<float,16,vec=1> (K4), arena_row<...>
+    (K1), combine_flat<...> (K5), arena_gram_k<...> (K3) and
+    gram_flat<...> (K6) from ptxas's mangled names, with their MMAX (None
+    for K7 and K7b)."""
     if m := re.search(r"flash_wgmmaILi(\d+)E", mangled):
-        return f"flash_wgmma<{m.group(1)}>", None
+        lse = ",lse" if "ProblemLse" in mangled else ""   # with its LSE
+        return f"flash_wgmma<{m.group(1)}{lse}>", None
+    if m := re.search(r"(bwd_dkdv_bf16|bwd_dq_bf16)ILi(64|128)E", mangled):
+        return f"{m.group(1)}<{m.group(2)}>", None       # K7b, bf16
     if m := re.search(r"(row_part|arena_row|combine_flat|arena_gram_k|"
                       r"gram_flat)I(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
                       mangled):
@@ -743,6 +785,10 @@ def report_ptxas():
                     res.get("spill_loads") == 0, f"{name} spills: {res}")
     want = {f"{k}<{d},{mm},vec={v}>" for k in NO_SPILL_M16
             for d in ("float", "bf16") for mm in (8, 16, 32) for v in (0, 1)}
+    want |= {f"{k}<{d}>" for k in ("bwd_dkdv_bf16", "bwd_dq_bf16")
+             for d in (64, 128)}
+    want |= {f"flash_wgmma<{d}{lse}>" for d in (64, 128)
+             for lse in ("", ",lse")}
     require(want <= seen, f"ptxas report lacks {sorted(want - seen)}")
 
 
@@ -1216,19 +1262,22 @@ def check_graph_steps(dev, acfg, batch):
     return host_ms
 
 
+def _device_us(evt):
+    """An event's own device time in us (0 for host events), under the
+    attribute names torch.profiler has used."""
+    if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        return 0.0
+    for name in ("self_device_time_total", "self_cuda_time_total",
+                 "device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
 def _profiled_busy(what, trainer, batch, steps):
     """Busy share of the device under torch.profiler over one fit: summed
     kernel time over the profiled wall (one stream at a time)."""
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(evt):
-        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            return 0.0
-        for name in ("self_device_time_total", "self_cuda_time_total",
-                     "device_time_total", "cuda_time_total"):
-            if hasattr(evt, name):
-                return float(getattr(evt, name))
-        return 0.0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1236,7 +1285,7 @@ def _profiled_busy(what, trainer, batch, steps):
         trainer.fit(iter(lambda: batch, None), steps)
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t0
-    rows = sorted(((device_us(e), e.count, e.key)
+    rows = sorted(((_device_us(e), e.count, e.key)
                    for e in prof.key_averages()), reverse=True)
     busy_us = sum(r[0] for r in rows)
     if busy_us <= 0:
@@ -2299,6 +2348,7 @@ def time_bench_kernels(dev, records):
     ab = (bucket.n_blocks, bucket.m, bucket.block_n)
     xa = torch.randn(ab, generator=g, device=dev)
     ca = torch.randn((seg.n_sys, bucket.m), generator=g, device=dev)
+    cg = ca[seg.block_sys.to(dev, torch.long)]      # each block's row of c
     abytes = xa.numel() * 4
     runs = {
         "flat_gram_row": (
@@ -2319,7 +2369,8 @@ def time_bench_kernels(dev, records):
             abytes + seg.n_sys * m * m * 4, 2.0 * xa.numel() * m),
         "combine": (
             ab, lambda: ka.combine(xa, ca, seg),
-            lambda: ka.combine_ref(xa, ca, seg.block_sys), None,
+            lambda: ka.combine_ref(xa, ca, seg.block_sys),
+            lambda: torch.einsum("bmn,bm->bn", xa, cg).reshape(-1),
             abytes + bucket.n_blocks * bucket.block_n * 4 + ca.numel() * 4,
             2.0 * xa.numel()),
     }
@@ -2331,6 +2382,8 @@ def time_bench_kernels(dev, records):
             k_ms, p_ms = in_turns(kern, twin)
             l_ms = None
         else:
+            if name == "combine":         # the same function, one call
+                check_close(f"einsum {shape}", lib(), twin(), rows)
             k_ms, l_ms = in_turns(kern, lib)
             p_ms = cuda_ms(twin)
         r_ms = graph_ms(kern)
@@ -2377,6 +2430,554 @@ def run_benches(dev, records):
                     "curve_fixed", "curve_gated", "gate")):
                 print(f"{what}: {row}  | reference (its CPU run): {r}")
     print(f"benches: phase 14 wall {time.perf_counter() - t_phase} s")
+
+
+# -- phase 15: TinyLlama-1.1B training --------------------------------------
+
+# the depth cut: the deepest TinyLlama whose training run stays under ~90%
+# of an 80 GB card (PERF.md §4: 22 layers need 79 GB of state alone; 15,
+# 16 and 17 ran out of memory by their first record step in
+# examples/torch_lm_depth.py; 14 peaked at 0.76 of the card; NVIDIA H100
+# 80GB HBM3, 700 W)
+LM_LAYERS = 14
+LM_STEPS, LM_BATCH, LM_SEQ = 96, 8, 4096
+# the graphed run's prefix held to an eager run: 40 steps, or through the
+# first jump where that comes later
+LM_EAGER_STEPS = 40
+# K1 on the LM's rings is held to a float64 twin that anchors explicitly
+# (``_gram_row_f64``), as K1 does, at RTOL. The fp32 twin's partials
+# identity <qa, x_j> - <qa, x_0> cancels where the snapshots are close: its
+# own distance from the float64 twin is printed beside K1's.
+# what the graphed run may leave allocated once its Trainer and state are
+# dropped: the kernels' per-stream ticket buffers and tables, not a step's
+# activations (the shared graph pool held 14.7 GiB at 14 layers)
+LM_LEFT_BYTES = 256 * 2 ** 20
+# eager record steps traced by torch.profiler, just before the first jump:
+# the step's device time by kernel family (PERF.md §5)
+LM_PROFILED = 3
+# kernel families of the step's trace, by substrings of the kernel's name
+LM_FAMILIES = (("K7b", ("bwd_dkdv", "bwd_dq", "bwd_delta")),
+               ("K7", ("flash_wgmma", "flash_bf16", "flash_f32")),
+               ("K1", ("arena_row",)),
+               ("GEMM", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
+               ("elementwise", ("elementwise_kernel",)))
+FLASH_BWD_SRC = "src/repro_torch/kernels/csrc/flash_bwd.cu"
+# K7b against its twin (autograd through flash_attention_ref) on unit-normal
+# q, k, v and dO, row by row: every row of dq (one query and head), of dk
+# and of dv (one key and kv head) within ||kernel - twin|| <= BWD_ROW_TOL *
+# ||twin||. The twin's dq is the one given K7's output as K7b receives it
+# (``out=``): the output's own rounding shifts a whole dq row, not K7b. A
+# design that loses a share f of a row's terms reads about sqrt(f) there,
+# whatever the row's size. The bf16 limit sits between a sound bf16 design
+# (``_bwd_control``: the twin's arithmetic with K7b's bf16 roundings, which
+# must pass) and a deliberately wrong one (the same with the last BWD_DROP
+# queries blind to the first BWD_DROP keys, about 1.6% of those rows'
+# terms at the LM's length, which must fail); both are read at the LM's
+# shape on every run (PERF.md §6).
+BWD_ROW_TOL = {torch.float32: 2e-4, torch.bfloat16: 1.2e-2}
+BWD_DROP = 64
+# K7's log-sum-exp output against lse_ref, absolute (values ~ ln S)
+LSE_ATOL = 1e-4
+# a row whose twin's norm is under ROW_FLOOR times the gradient's
+# root-mean-square row norm (the first query's dq is 0) is held to that
+ROW_FLOOR = 1e-1
+# (B, S, H, K, d, causal, window), Sq = Sk: one microbatch's attention in
+# the LM phase first, then GQA rep 1 and 8, windows, non-causal, d 16-128
+# and the tile edges (64 keys per dK/dV CTA, 64 queries per dQ CTA, inner
+# tiles of 32 / 16)
+LM_ATTN = (2, LM_SEQ, 32, 4, 64, True, 0)
+BWD_CASES = (
+    [LM_ATTN, (2, 256, 8, 2, 64, True, 0), (1, 200, 8, 8, 128, True, 0),
+     (1, 160, 8, 1, 64, False, 0), (1, 256, 4, 2, 64, True, 48),
+     (2, 100, 4, 2, 16, False, 30), (1, 96, 4, 4, 48, True, 0)]
+    + [(1, s, 8, 1, d, True, 0) for d in (64, 128)
+       for s in (127, 128, 129, 257)])
+
+
+def row_err(got, want):
+    """The largest ||got - want|| / ||want|| over the rows (last axis) of
+    two (B, S, heads, d) gradients. A row whose twin is (near) zero, as
+    the first query's dq is, is measured against ROW_FLOOR times the
+    gradient's root-mean-square row norm instead."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    norm = want.float().norm(dim=-1)
+    floor = ROW_FLOOR * float(norm.square().mean().sqrt())
+    return float((diff / norm.clamp_min(max(floor, 1e-30))).max())
+
+
+def _bwd_control(q, k, v, out, dout, *, drop=0):
+    """K7b's arithmetic in plain PyTorch at a causal case, one batch row at
+    a time: P from the twin's log-sum-exp, rounded to bf16 for dV; dS =
+    P (dP - D) rounded to bf16 for dK and dQ; D from the bf16 output; fp32
+    sums; the gradients rounded to bf16. With `drop`, the deliberately
+    wrong design: the last `drop` queries do not see the first `drop`
+    keys."""
+    B, S, H, d = q.shape
+    K = k.shape[2]
+    rep = H // K
+    lse = kf.lse_ref(q, k)
+    grads = []
+    for b in range(B):
+        qb, kb, vb, ob, gb = (t[b:b + 1].float()
+                              for t in (q, k, v, out, dout))
+        s, _ = kf._scores_ref(q[b:b + 1], k[b:b + 1], True, 0)
+        p = torch.exp(s - lse[b:b + 1, :, :, None])      # (1, H, S, S)
+        del s
+        if drop:
+            p[..., -drop:, :drop] = 0
+        kr, vr = (t.repeat_interleave(rep, dim=2) for t in (kb, vb))
+        dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), gb)
+        D = (gb * ob).sum(-1).transpose(1, 2)[..., None]  # (1, H, S, 1)
+        ds = (p * (torch.einsum("bqhd,bkhd->bhqk", gb, vr) - D))
+        del p
+        ds = ds.bfloat16().float()
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) / d ** 0.5
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, qb) / d ** 0.5
+        del ds
+        grads.append([dq] + [t.reshape(1, S, K, rep, d).sum(3)
+                             for t in (dk, dv)])
+    return [torch.cat(t).to(q.dtype) for t in zip(*grads)]
+
+
+def _bwd_case(case, dtype, dev, seed):
+    """K7 with its log-sum-exp and K7b on one case against the twins;
+    returns ({gradient: row error, "max_abs": largest |kernel - twin|},
+    the log-sum-exp's error, inputs, forward outputs)."""
+    B, S, H, K, d, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((B, S, H, d), (B, S, K, d), (B, S, K, d),
+                                   (B, S, H, d)))
+    out, lse = kf.flash_attention_lse(q, k, v, causal=causal, window=window)
+    require(torch.equal(out, kf.flash_attention(q, k, v, causal=causal,
+                                                window=window)),
+            f"K7 {case} {dtype}: the log-sum-exp output changed the output")
+    lse_err = float((lse - kf.lse_ref(q, k, causal=causal, window=window))
+                    .abs().max())
+    require(lse_err <= LSE_ATOL, f"K7 {case} {dtype}: log-sum-exp off its "
+            f"twin by {lse_err} > {LSE_ATOL}")
+    got = kf.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                 window=window)
+    again = kf.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                   window=window)
+    want = kf.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                      window=window, out=out)
+    errs = {"max_abs": max(max_err(a.float(), w.float())
+                           for a, w in zip(got, want))}
+    for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+        require(a.dtype == dtype and a.shape == w.shape, f"K7b {case} {name}")
+        require(torch.equal(a, b), f"K7b {case} {dtype} {name}: repeat "
+                "launches differ")
+        errs[name] = row_err(a, w)
+        require(errs[name] <= BWD_ROW_TOL[dtype], f"K7b {case} {dtype} "
+                f"{name}: a row off its twin by {errs[name]} of its norm > "
+                f"{BWD_ROW_TOL[dtype]}")
+    if case == LM_ATTN and dtype == torch.bfloat16:
+        # the limit admits a sound bf16 design and refuses a wrong one
+        for what, drop in (("control", 0), ("wrong", BWD_DROP)):
+            ctl = _bwd_control(q, k, v, out, dout, drop=drop)
+            errs[what] = {n: row_err(a, w) for n, a, w in
+                          zip(("dq", "dk", "dv"), ctl, want)}
+            del ctl
+        tol = BWD_ROW_TOL[dtype]
+        require(max(errs["control"].values()) <= tol, f"K7b {case}: the "
+                f"bf16 control reads {errs['control']}, over {tol}")
+        require(min(errs["wrong"].values()) > tol, f"K7b {case}: the wrong "
+                f"design reads {errs['wrong']}, not all over {tol}")
+    del want
+    return errs, lse_err, (q, k, v, dout), (out, lse)
+
+
+def check_flash_bwd(dev):
+    """Phase 15, first: K7b against its twin on every case in fp32 and bf16,
+    then timed at the LM's attention shape in bf16 beside its bound and
+    beside the backward of scaled_dot_product_attention. Returns K7b's
+    record."""
+    worst, lse_worst = {}, 0.0
+    n = 0
+    for case in BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            errs, lse_err, _, _ = _bwd_case(case, dtype, dev, seed=300 + n)
+            key = str(dtype).split(".")[-1]
+            worst[key] = max([worst.get(key, 0.0)] +
+                             [errs[g] for g in ("dq", "dk", "dv")])
+            lse_worst = max(lse_worst, lse_err)
+            if "control" in errs:
+                print(f"flash bwd {case} bf16: row error per gradient, "
+                      f"kernel { {g: errs[g] for g in ('dq', 'dk', 'dv')} }, "
+                      f"bf16 control {errs['control']}, wrong design "
+                      f"(last {BWD_DROP} queries blind to the first "
+                      f"{BWD_DROP} keys) {errs['wrong']}; limit "
+                      f"{BWD_ROW_TOL[dtype]}")
+            n += 1
+    torch.cuda.empty_cache()
+    print(f"flash bwd: {n} cases match the twins row by row within "
+          f"{BWD_ROW_TOL} (largest row error {worst}); log-sum-exp within "
+          f"{lse_worst} <= {LSE_ATOL}; repeat launches bit-identical; the "
+          "log-sum-exp output leaves K7's output unchanged")
+    errs, _, (q, k, v, dout), (out, lse) = _bwd_case(
+        LM_ATTN, torch.bfloat16, dev, seed=7)
+    err = max(errs[g] for g in ("dq", "dk", "dv"))
+    torch.cuda.empty_cache()
+    B, S, H, K, d = LM_ATTN[:5]
+    kern = lambda: kf.flash_attention_bwd(q, k, v, out, dout, lse)  # noqa
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    with torch.enable_grad():
+        o_lib = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=True)
+    d_lib = dout.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(o_lib, leaves, d_lib,  # noqa: E731
+                                      retain_graph=True)
+    k_ms, l_ms = in_turns(kern, lib, iters=20)
+    p_ms = cuda_ms(lambda: kf.flash_attention_bwd_ref(q, k, v, dout),
+                   iters=3, warmup=1)
+    g_ms = graph_ms(kern)
+    pairs = _flash_pairs(S, S, True, 0)
+    flops = 10.0 * d * pairs * B * H          # S, dP, dV, dK, dQ
+    nbytes = 2 * (3 * q.numel() + 3 * k.numel() + 2 * q.numel()) \
+        + 4 * lse.numel()                     # q,k,v,O,dO in; dq,dk,dv out
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+    print(f"kernel flash_attention_bwd bf16 {LM_ATTN[:5]} causal: kernel_ms "
+          f"{k_ms} graph_ms {g_ms} ref_ms {p_ms} sdpa_bwd_ms {l_ms} "
+          f"bound_ms {b_ms} ({b_by}) row error {err} TFLOP/s "
+          f"{flops / k_ms / 1e9}")
+    print(f"K7b {LM_ATTN[:5]}: kernel / sdpa backward {k_ms / l_ms} (same "
+          f"call, in turns); {b_ms / k_ms} of the bound eager, "
+          f"{b_ms / g_ms} replayed")
+    del o_lib, leaves
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=l_ms, max_abs_err=errs["max_abs"],
+                row_err=err, control_row_err=errs["control"],
+                wrong_row_err=errs["wrong"], graph_ms=g_ms,
+                shape=list(LM_ATTN[:5]))
+
+
+def _gram_row_f64(x, q, block_sys, n_sys, anchor, chunk=1 << 16):
+    """K1's float64 twin, a block range at a time: the anchor subtracted
+    from every row and from the query before the products, as K1 does."""
+    out = torch.zeros((n_sys, x.shape[1]), dtype=torch.float64,
+                      device=x.device)
+    idx = block_sys.to(x.device, torch.long)
+    for a in range(0, x.shape[0], chunk):
+        xs, qs = x[a:a + chunk].double(), q[a:a + chunk].double()
+        if anchor:
+            qs = qs - xs[:, 0, :]
+            xs = xs - xs[:, 0:1, :]
+        out.index_add_(0, idx[a:a + chunk],
+                       torch.bmm(xs, qs.unsqueeze(-1)).squeeze(-1))
+    return out
+
+
+def _combine_twin(x, c, block_sys, chunk=1 << 16):
+    """K2's twin a block range at a time (its float64 copy of the LM's ring
+    would not fit beside it)."""
+    return torch.cat([ka.combine_ref(x[a:a + chunk], c, block_sys[a:a + chunk])
+                      for a in range(0, x.shape[0], chunk)])
+
+
+def check_lm_buckets(dev, trainer, state, records):
+    """K1 and K2 on the LM's own rings (the graphed run's state), every
+    bucket, against their twins, timed eager and replayed beside their
+    bounds; K1 in turns with its twin (no single PyTorch call computes a
+    segmented row), K2 with ``einsum`` on the block-gathered coefficients.
+    Recorded as the ``lm_buckets`` fields of K1's and K2's records."""
+    table = trainer.acc.arena_for(state.params)
+    bufs = state.dmd_buffers["__arena__"]
+    anchor = trainer.acfg.dmd.anchor == "first"
+    for name in ("gram_row", "combine"):
+        records[name]["lm_buckets"] = []
+    for key, b in table.items():
+        x, seg = bufs[key], b.tables_on(dev)
+        nb, m, bn = x.shape
+        q = x[:, m - 1, :]
+        idx = seg.block_sys.to(dev, torch.long)
+        c = torch.randn((seg.n_sys, m), generator=torch.Generator(
+            device=dev).manual_seed(9), device=dev)
+        cg = c[idx]
+        xbytes = x.numel() * x.element_size()
+        runs = {
+            "gram_row": (
+                lambda: ka.gram_row(x, q, seg, anchor_first=anchor),
+                lambda: ka.gram_row_ref(x, q, seg.block_sys, seg.n_sys,
+                                        anchor_first=anchor), None,
+                xbytes + seg.n_sys * m * 4, 2.0 * x.numel(), seg.n_sys),
+            "combine": (
+                lambda: ka.combine(x, c, seg),
+                lambda: _combine_twin(x, c, seg.block_sys),
+                lambda: torch.einsum("bmn,bm->bn", x, cg),
+                xbytes + nb * bn * 4 + c.numel() * 4, 2.0 * x.numel(), nb),
+        }
+        exact = _gram_row_f64(x, q, seg.block_sys, seg.n_sys, anchor)
+        for name, (kern, twin, lib, nbytes, flops, rows) in runs.items():
+            if name == "gram_row":
+                err = check_close(f"{name} LM bucket {key} (float64 twin)",
+                                  kern().double(), exact, rows)
+                print(f"LM bucket {key}: K1's largest distance from the "
+                      f"float64 twin {err}, the fp32 twin's "
+                      f"{max_err(twin().double(), exact)}")
+            else:
+                err = check_close(f"{name} LM bucket {key}", kern(), twin(),
+                                  rows)
+            require(torch.equal(kern(), kern()), f"{name} LM bucket {key}: "
+                    "repeat launches differ")
+            if lib is None:
+                k_ms, p_ms = in_turns(kern, twin, iters=10)
+                l_ms = None
+            else:
+                check_close(f"einsum LM bucket {key}", lib().reshape(-1),
+                            twin(), rows)
+                k_ms, l_ms = in_turns(kern, lib, iters=10)
+                p_ms = cuda_ms(twin, iters=1, warmup=1)
+            r_ms = graph_ms(kern, iters=5)
+            b_ms, b_by = bound_ms(nbytes, flops)
+            print(f"LM bucket {key} {(nb, m, bn)} n_sys {seg.n_sys} "
+                  f"{x.dtype}: {name} kernel_ms {k_ms} graph_ms {r_ms} "
+                  f"ref_ms {p_ms} library_ms {l_ms} bound_ms {b_ms} "
+                  f"({b_by}), {b_ms / r_ms} of the bound replayed, "
+                  f"max_abs_err {err}")
+            records[name]["lm_buckets"].append(dict(
+                bucket=key, shape=[nb, m, bn], n_sys=seg.n_sys, ms=k_ms,
+                graph_ms=r_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=b_ms, max_abs_err=err))
+            torch.cuda.empty_cache()
+        del exact
+    _require_tickets("LM bucket kernels", dev)
+
+
+def _flat_params(state):
+    """The state's params (resident buffers and per-leaf leaves) on the
+    host, by path."""
+    return {path: x.detach().to("cpu", copy=True)
+            for path, x in leaves_with_paths(state.params) if x is not None}
+
+
+def _lm_fit(acfg, model, steps, on_step, cuda_graphs=True):
+    """One run of the launcher's ``run`` from fresh params, the counts set
+    to 0 just before (read them just after); ``on_step(t, trainer,
+    state)`` after every step, on the resident state the loop updates in
+    place. Returns (trainer, state, losses, per-step seconds)."""
+    trainer = launch_train.make_trainer(acfg, model, cuda_graphs=cuda_graphs)
+    state = launch_train.fresh_state(trainer)
+    losses, stamps = [], [time.perf_counter()]
+
+    def on_metrics(t, m):
+        losses.append(float(m["loss"]))        # synchronises
+        stamps.append(time.perf_counter())
+        on_step(t, trainer, state)
+    reset_counts()
+    launch_train.run(acfg, model, steps=steps, trainer=trainer, state=state,
+                     log_every=0, on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    return trainer, state, losses, np.diff(stamps)
+
+
+def _live_cuda_tensors(n=8):
+    """The n largest CUDA tensors the collector can reach, by bytes."""
+    found = []
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                found.append((obj.numel() * obj.element_size(),
+                              tuple(obj.shape), obj.dtype))
+        except ReferenceError:  # a weak proxy whose referent is gone
+            continue
+    return sorted(found, key=lambda t: t[0], reverse=True)[:n]
+
+
+def _lm_breakdown(prof, wall_s, steps):
+    """Device ms per step by kernel family, the busy share over the traced
+    wall, and the top kernels."""
+    fams, rows = {}, []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us <= 0:
+            continue
+        rows.append((us, evt.count, evt.key))
+        name = evt.key.lower()
+        fam = next((f for f, keys in LM_FAMILIES
+                    if any(k in name for k in keys)), "other")
+        fams[fam] = fams.get(fam, 0.0) + us
+    busy = sum(fams.values())
+    if busy <= 0:
+        print("tinyllama-train profile: no device time in the trace (busy "
+              "share not measured)")
+        return
+    per_step = {f: us / steps / 1e3 for f, us in sorted(
+        fams.items(), key=lambda kv: -kv[1])}
+    print(f"tinyllama-train profile ({steps} eager record steps): wall {wall_s / steps * 1e3} ms/step, device "
+          f"{busy / steps / 1e3} ms/step, busy share {busy / 1e6 / wall_s}; "
+          f"device ms/step by family {per_step}; shares "
+          f"{ {f: us / busy for f, us in fams.items()} }")
+    for us, count, key in sorted(rows, reverse=True)[:10]:
+        print(f"  {us / steps / 1e3:10.3f} ms/step {count // steps:6d} a step "
+              f"{us / busy:7.3f}  {key[:100]}")
+
+
+def run_lm_train(dev, records):
+    """Phase 15. Returns the graphed run's launches."""
+    t_phase = time.perf_counter()
+    # the earlier phases' objects (engines, Trainers and their graph pools
+    # held in reference cycles) leave the card before the LM's state
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    print(f"tinyllama-train: {held} bytes allocated before the phase"
+          + (f"; largest live CUDA tensors {_live_cuda_tensors()}"
+             if held > 2 ** 30 else ""))
+    records["flash_attention_bwd"] = check_flash_bwd(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    full = launch_train.configure("tinyllama-1.1b", steps=LM_STEPS)
+    n_full = launch_train.param_count(launch_train.make_model(full, device=dev))
+    need_full = sum(launch_train.state_bytes(full, n_full).values())
+    acfg = launch_train.configure(
+        "tinyllama-1.1b", steps=LM_STEPS, global_batch=LM_BATCH, seq=LM_SEQ,
+        n_layers=LM_LAYERS)
+    mc = acfg.model
+    require((mc.d_model, mc.n_heads, mc.n_kv_heads, mc.head_dim, mc.d_ff,
+             mc.vocab_size, mc.dtype, acfg.parallel.grad_accum,
+             acfg.parallel.remat, acfg.dmd.m, acfg.dmd.s,
+             acfg.dmd.warmup_steps) ==
+            (2048, 32, 4, 64, 5632, 32000, "bfloat16", 4, "block", 14, 55,
+             LM_STEPS // 4), f"LM config {mc} {acfg.dmd} {acfg.parallel}")
+    model = launch_train.make_model(acfg, device=dev)
+    n_params = launch_train.param_count(model)
+    need = launch_train.check_fits(acfg, n_params, total)
+    print(f"tinyllama-train: {full.model.n_layers} layers {n_full} params: "
+          f"state {need_full} bytes ({need_full / total} of the card's "
+          f"{total}); cut to {LM_LAYERS} layers {n_params} params: state "
+          f"{need} bytes {launch_train.state_bytes(acfg, n_params)} "
+          f"({need / total} of the card)")
+    require(need_full > launch_train.CARD_FRACTION * total,
+            "the full depth fits: the cut is not needed")
+
+    # the schedule's launches: K1 once per bucket per record, K2 once per
+    # bucket per jump, K7 twice per layer and microbatch (remat), K7b once
+    ga = acfg.parallel.grad_accum
+    want = {"flash_attention": 2 * LM_LAYERS * ga * LM_STEPS,
+            "flash_attention_bwd": LM_LAYERS * ga * LM_STEPS}
+    # the schedule (a function of the DMD config) gives the jumps, and the
+    # eager run's length: LM_EAGER_STEPS, or through the first jump
+    acc = launch_train.make_trainer(acfg, model).acc
+    jumps = [t for t in range(LM_STEPS) if acc.apply_groups(t)]
+    require(len(jumps) >= 2, f"tinyllama-train: {len(jumps)} jumps")
+    require(acc.slot(jumps[0]) == acfg.dmd.m - 1,
+            f"tinyllama-train: the first jump at {jumps[0]} does not close a "
+            "window")
+    eager_steps = max(LM_EAGER_STEPS, jumps[0] + 1)
+    witness = {}
+
+    def at_step(t, trainer, state):
+        if t == eager_steps - 1:
+            witness["graphed"] = _flat_params(state)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before_fit = torch.cuda.memory_allocated(dev)
+    trainer, state, losses, secs = _lm_fit(acfg, model, LM_STEPS, at_step)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    table = trainer.acc.arena_for(state.params)
+    want["gram_row"] = sum(acc.slots(t)[b.group] >= 0
+                           for t in range(LM_STEPS) for b in table.values())
+    want["combine"] = sum(b.group in acc.apply_groups(t)
+                          for t in jumps for b in table.values())
+    require_counts("tinyllama-train graphed", want)
+    require_wgmma("tinyllama-train graphed")
+    reset_counts()
+    print(f"tinyllama-train graphed: launches {launches}; jumps at {jumps}; "
+          f"graphs {trainer.graph_stats}; buckets "
+          f"{[(k, b.n_blocks, b.m, b.block_n) for k, b in table.items()]}")
+    require(np.isfinite(losses).all(), "tinyllama-train: non-finite loss")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    require(last < first, f"tinyllama-train: loss {first} -> {last}")
+    tokens = LM_BATCH * LM_SEQ
+    g_ms = float(np.mean(secs[1:])) * 1e3
+    # a step's time once every graph is captured (median: the jumps aside)
+    g_med = float(np.median(secs[jumps[0] + 1:])) * 1e3
+    print(f"tinyllama-train losses {losses}")
+    print(f"tinyllama-train graphed: loss mean of the first 10 {first}, of "
+          f"the last 10 {last}; ms/step {g_ms} (steps 1-{LM_STEPS - 1}, "
+          f"host clock, synchronised per step; step 0 {secs[0] * 1e3}; "
+          f"median after the first jump {g_med}), {tokens / g_ms * 1e3} "
+          f"tokens/s; peak allocated {peak} bytes "
+          f"({peak / 2 ** 30} GiB, {peak / total} of the card) beside the "
+          f"reckoned state {need} bytes")
+    check_lm_buckets(dev, trainer, state, records)
+    table_keys = sorted(table)
+    records["flash_attention"]["train_launches"] = launches["flash_attention"]
+    # the state, the graphs and their shared pool leave with their last
+    # reference, without the garbage collector
+    del trainer, state, table
+    after_fit = torch.cuda.memory_allocated(dev)
+    print(f"tinyllama-train: {before_fit} bytes allocated before the "
+          f"graphed run, {after_fit} once its Trainer and state are dropped "
+          "(no gc.collect)")
+    require(after_fit - before_fit <= LM_LEFT_BYTES,
+            f"tinyllama-train: {after_fit - before_fit} bytes outlive the "
+            f"graphed run > {LM_LEFT_BYTES}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    traced = range(eager_steps - 1 - LM_PROFILED, eager_steps - 1)
+    require(all(acc.slots(t)[0] >= 0 for t in traced) and
+            not any(acc.apply_groups(t) for t in traced),
+            f"tinyllama-train: traced steps {list(traced)} are not plain "
+            "record steps")
+
+    def at_step_eager(t, trainer, state):
+        if t == traced[0] - 1:
+            torch.cuda.synchronize()
+            prof.start()
+            witness["t_prof"] = time.perf_counter()
+        if t == traced[-1]:
+            torch.cuda.synchronize()
+            witness["prof_wall"] = time.perf_counter() - witness["t_prof"]
+            prof.stop()
+        if t == jumps[0]:
+            # the first jump's window is complete: the carried Grams equal
+            # K3's recompute of the ring
+            tab = trainer.acc.arena_for(state.params)
+            bufs = state.dmd_buffers["__arena__"]
+            grams = state.dmd_gram["__arena__"]
+            for key, b in tab.items():
+                full_g = ka.gram(bufs[key], b.tables_on(dev),
+                                 anchor_first=True)
+                _require_gram(f"LM step {t} {key} carried vs K3",
+                              grams[key], full_g)
+            witness["gram"] = sorted(tab)
+        if t == eager_steps - 1:
+            witness["eager"] = _flat_params(state)
+            witness["eager_peak"] = torch.cuda.max_memory_allocated(dev)
+
+    _, _, losses_e, secs_e = _lm_fit(acfg, model, eager_steps,
+                                     at_step_eager, cuda_graphs=False)
+    reset_counts()
+    # eager ms/step over the steps before the traced ones
+    e_ms = float(np.mean(secs_e[1:traced[0]])) * 1e3
+    e_med = float(np.median(secs_e[1:traced[0]])) * 1e3
+    _lm_breakdown(prof, witness["prof_wall"], LM_PROFILED)
+    del prof
+    require(len(witness.get("gram", ())) == len(table_keys),
+            "tinyllama-train: the carried Grams were not checked")
+    require(losses[:eager_steps] == losses_e,
+            f"tinyllama-train: graphed losses differ from eager in the "
+            f"first {eager_steps} steps")
+    a, b = witness["graphed"], witness["eager"]
+    require(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+            f"tinyllama-train: params after {eager_steps} steps differ "
+            "between the graphed and the eager run")
+    print(f"tinyllama-train: graphed = eager bit for bit over the first "
+          f"{eager_steps} steps (losses and every param); ms/step graphed "
+          f"{g_ms}, eager {e_ms} ({tokens / e_ms * 1e3} tokens/s; median "
+          f"{e_med}); eager peak allocated {witness['eager_peak']} bytes "
+          f"({witness['eager_peak'] / total} of the card)")
+    del witness
+    torch.cuda.empty_cache()
+    print(f"tinyllama-train: phase 15 wall {time.perf_counter() - t_phase} s")
+    return launches
 
 
 def main():
@@ -2426,6 +3027,8 @@ def main():
     bucket_launches = run_paper_config(dev, X, Y, arena_grams, split, finals,
                                        records)["bucket"]
     run_benches(dev, records)
+    torch.cuda.empty_cache()
+    lm_launches = run_lm_train(dev, records)
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",
@@ -2433,17 +3036,22 @@ def main():
                 "flat_gram_row": "src/repro/kernels/gram_row.py:48",
                 "flat_combine": "src/repro/kernels/combine.py:27",
                 "flat_gram": "src/repro/kernels/gram.py:45",
-                "flash_attention": "src/repro/kernels/flash_attention.py:82"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:82",
+                # no Pallas kernel: the gradient jax.grad takes of the
+                # reference's jnp attention core
+                "flash_attention_bwd": "src/repro/models/attention.py:59"}
     launches = {"gram_row": main_launches["gram_row"],
                 "combine": main_launches["combine"],
                 "gram": pollutant_launches["gram"],
                 "flat_gram_row": leaf_launches["flat_gram_row"],
                 "flat_combine": leaf_launches["flat_combine"],
                 "flat_gram": leaf_rec_launches["flat_gram"],
-                "flash_attention": serve_launches["flash_attention"]}
+                "flash_attention": serve_launches["flash_attention"],
+                "flash_attention_bwd": lm_launches["flash_attention_bwd"]}
     sources = {"gram_row": SRC, "combine": SRC, "gram": SRC,
                "flat_gram_row": FLAT_SRC, "flat_combine": FLAT_SRC,
-               "flat_gram": FLAT_SRC, "flash_attention": FLASH_SRC}
+               "flat_gram": FLAT_SRC, "flash_attention": FLASH_SRC,
+               "flash_attention_bwd": FLASH_BWD_SRC}
     records["gram_row"]["bucket_launches"] = bucket_launches["gram_row"]
     kernels = [dict(name=name, route="cuda", source=sources[name],
                     replaces=replaces[name], launches=launches[name],

@@ -1,15 +1,16 @@
 """Config registry: ``get_config("<arch-id>")`` for the architectures the
-port builds so far."""
+port builds so far; ``list_archs`` and ``shape_by_name`` as the reference
+has them."""
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
 
-from repro_torch.configs.base import (ArchConfig, DMDConfig,
+from repro_torch.configs.base import (STANDARD_SHAPES, ArchConfig, DMDConfig,
                                       DMDControllerConfig, ModelConfig,
                                       MoEConfig, OptimizerConfig,
-                                      ParallelConfig, SSMConfig, TrainConfig,
-                                      reduced)
+                                      ParallelConfig, SSMConfig, ShapeConfig,
+                                      TrainConfig, reduced)
 
 _ARCH_MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
@@ -30,6 +31,25 @@ _LATER: Dict[str, str] = {
 }
 
 
+# every architecture of the reference's registry, in its order
+ARCHS = ("minicpm-2b", "granite-20b", "gemma3-27b", "tinyllama-1.1b",
+         "whisper-base", "qwen2-vl-7b", "zamba2-2.7b", "mamba2-2.7b",
+         "llama4-maverick-400b-a17b", "qwen3-moe-30b-a3b")
+
+
+def list_archs() -> List[str]:
+    """The reference's architecture ids (``get_config`` builds the ported
+    ones and names the slice that brings each other one)."""
+    return list(ARCHS)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in STANDARD_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
 def get_config(name: str) -> ArchConfig:
     if name in _LATER:
         raise KeyError(f"arch {name!r} is not ported yet: it comes with "
@@ -42,4 +62,5 @@ def get_config(name: str) -> ArchConfig:
 
 __all__ = ["ArchConfig", "DMDConfig", "DMDControllerConfig", "ModelConfig",
            "MoEConfig", "OptimizerConfig", "ParallelConfig", "SSMConfig",
-           "TrainConfig", "get_config", "reduced"]
+           "STANDARD_SHAPES", "ShapeConfig", "TrainConfig", "get_config",
+           "list_archs", "reduced", "shape_by_name"]

@@ -180,6 +180,23 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One dry-run cell: (kind, seq_len, global_batch)."""
+    name: str = "train_4k"
+    kind: str = "train"              # train | prefill | decode
+    seq_len: int = 4096
+    global_batch: int = 256
+
+
+STANDARD_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     """Everything needed to build and run one architecture."""
     model: ModelConfig

@@ -596,9 +596,11 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
             flat = ka.combine(buf, cb, b.tables_on(buf.device, scope))
             # a non-finite BUFFER poisons the combine even under
             # c = e_last (0 * inf = NaN): never leave params less finite
-            # than the last snapshot
-            flat = torch.where(torch.isfinite(flat), flat,
-                               buf[:, -1, :].reshape(-1).float())
+            # than the last snapshot (read in place: a copy of that row is
+            # params-sized, at an LM's width gigabytes)
+            rows = flat.view(b.n_blocks, b.block_n)
+            flat = torch.where(torch.isfinite(rows), rows,
+                               buf[:, -1, :].float()).reshape(-1)
             if b.bucket_scoped(scope):
                 seg_ranks = [rb.float().mean()] * len(b.segments)
             else:

@@ -43,18 +43,24 @@ def _leaves(tree: PyTree, children: Callable, name: Callable
     """[(name(key string), leaf)] walking nodes by `children`; ``None`` is
     an empty subtree, as in JAX."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(prefix, t):
-        if t is None:
-            return
-        if _is_node(t):
-            for k, v in children(t):
-                walk(prefix + k, v)
-        else:
-            out.append((name(prefix), t))
-
-    walk("", tree)
+    _collect(tree, "", children, name, out)
     return out
+
+
+# The walkers are module-level functions with everything passed in: a
+# nested function that calls itself sits in a reference cycle with its
+# closure, which would keep every tensor it reaches (a step's gradients,
+# a graph's outputs) alive until the garbage collector runs.
+
+def _collect(t, prefix: str, children: Callable, name: Callable,
+             out: list) -> None:
+    if t is None:
+        return
+    if _is_node(t):
+        for k, v in children(t):
+            _collect(v, prefix + k, children, name, out)
+    else:
+        out.append((name(prefix), t))
 
 
 def leaves_with_paths(tree: PyTree) -> List[Tuple[str, Any]]:
@@ -76,18 +82,18 @@ def _rebuild(node, children: list):
 
 def map_with_paths(fn: Callable[[str, Any], Any], tree: PyTree) -> PyTree:
     """Rebuild `tree` with every leaf replaced by ``fn(path, leaf)``."""
+    return _map(tree, "", fn)
 
-    def walk(prefix, t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: walk(prefix + f"['{k}']", t[k]) for k in t}
-        if isinstance(t, (list, tuple)):
-            return _rebuild(t, [walk(prefix + f"[{i}]", v)
-                                for i, v in enumerate(t)])
-        return fn(normalize_path(prefix), t)
 
-    return walk("", tree)
+def _map(t, prefix: str, fn: Callable):
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _map(t[k], prefix + f"['{k}']", fn) for k in t}
+    if isinstance(t, (list, tuple)):
+        return _rebuild(t, [_map(v, prefix + f"[{i}]", fn)
+                            for i, v in enumerate(t)])
+    return fn(normalize_path(prefix), t)
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
@@ -101,16 +107,16 @@ def fill_paths(tree: PyTree, values: Dict[str, Any]) -> PyTree:
     """Rebuild `tree` with every leaf, and every ``None`` node, whose path
     is in `values` replaced by that value (the arena-resident wrapper keeps
     None at the paths its buckets hold)."""
+    return _fill(tree, "", values)
 
-    def walk(prefix, t):
-        if isinstance(t, dict):
-            return {k: walk(prefix + f"['{k}']", t[k]) for k in t}
-        if isinstance(t, (list, tuple)):
-            return _rebuild(t, [walk(prefix + f"[{i}]", v)
-                                for i, v in enumerate(t)])
-        return values.get(normalize_path(prefix), t)
 
-    return walk("", tree)
+def _fill(t, prefix: str, values: Dict[str, Any]):
+    if isinstance(t, dict):
+        return {k: _fill(t[k], prefix + f"['{k}']", values) for k in t}
+    if isinstance(t, (list, tuple)):
+        return _rebuild(t, [_fill(v, prefix + f"[{i}]", values)
+                            for i, v in enumerate(t)])
+    return values.get(normalize_path(prefix), t)
 
 
 def _keyed_children(tree) -> List[Tuple[str, Any]]:
@@ -134,15 +140,15 @@ def keystr_leaves(tree: PyTree) -> List[Tuple[str, Any]]:
 def map_keystrs(fn: Callable[[str, Any], Any], tree: PyTree) -> PyTree:
     """Rebuild `tree` with every leaf replaced by ``fn(key string, leaf)``
     (the ``keystr_leaves`` spelling); ``None`` stays ``None``."""
+    return _map_keyed(tree, "", fn)
 
-    def walk(prefix, t):
-        if t is None:
-            return None
-        if not _is_node(t):
-            return fn(prefix, t)
-        kids = {k: walk(prefix + k, v) for k, v in _keyed_children(t)}
-        if isinstance(t, dict):
-            return {k: kids[f"[{k!r}]"] for k in t}
-        return _rebuild(t, list(kids.values()))
 
-    return walk("", tree)
+def _map_keyed(t, prefix: str, fn: Callable):
+    if t is None:
+        return None
+    if not _is_node(t):
+        return fn(prefix, t)
+    kids = {k: _map_keyed(v, prefix + k, fn) for k, v in _keyed_children(t)}
+    if isinstance(t, dict):
+        return {k: kids[f"[{k!r}]"] for k in t}
+    return _rebuild(t, list(kids.values()))

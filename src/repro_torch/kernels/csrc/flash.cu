@@ -9,7 +9,13 @@
 //   causal, i - j >= 0 and, if window > 0, i - j < window, with query and
 //   key positions both counted from 0 (not right-aligned when Sq != Sk);
 //   an online softmax over key tiles with an fp32 running max m, sum l and
-//   accumulator; out = acc / max(l, 1e-30) in q's dtype.
+//   accumulator; out = acc / max(l, 1e-30) in q's dtype; and, where the
+//   caller passes a buffer for it, each row's fp32 log-sum-exp of its
+//   scaled scores, (B, H, Sq), which the backward K7b (flash_bwd.cu)
+//   recomputes the softmax from. Without the buffer the sm_80-unit
+//   designs add one null test per row at the end; the Hopper design takes
+//   it as a template argument, so its launches without it run the code
+//   they ran before the output existed.
 // Key tiles that no query of the CTA's tile can see (causal or window) are
 // skipped whole, as the Pallas kernel skips its grid steps. A row that sees
 // no key at all gets the mean of V over the keys of its visible tiles, as
@@ -75,27 +81,34 @@
 // Each launcher returns cudaGetLastError(); the Python wrapper raises if it
 // is not 0. Launches go to the caller's stream and do not synchronise.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#include <cmath>
+#include "flash.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-
-struct Strides {                     // in elements; the d stride is 1
-  long long b, s, h;
-};
+using namespace flash;
 
 struct Problem {
   int Sq, Sk, H, rep, causal, window;
   float scale;                       // 1 / sqrt(d)
   float scale_log2;                  // log2(e) / sqrt(d) (bf16 path)
   Strides q, k, v, o;
+  static constexpr bool kLse = false;
 };
+
+// The Hopper design's problem when it writes the log-sum-exp. A type of its
+// own: the launches without it keep Problem's layout as their parameter
+// (one more field in it cost those launches 4-5% on the card, PERF.md §6).
+struct ProblemLse : Problem {
+  float* lse;                        // (B, H, Sq) fp32
+  static constexpr bool kLse = true;
+};
+
+// The row's log-sum-exp of its scaled scores, ln sum_j exp(s_ij), from the
+// running max m and sum l of an online softmax kept in log2 units (the
+// bf16 designs): (m + log2 l) ln 2. K7b recomputes P from it.
+__device__ __forceinline__ float lse_of_log2(float m, float l) {
+  return (m + log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
+}
 
 __device__ __forceinline__ bool visible_tile(const Problem& p, int q0, int bq,
                                              int k0, int bk) {
@@ -127,62 +140,14 @@ constexpr int kBQ = 64;              // query rows per CTA (16 per warp)
 constexpr int kBK = 64;              // keys per tile
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Asynchronous 16-byte copy global -> shared (both 16-byte aligned);
-// `valid` false fills zeros (nothing is read). The thread's copies
-// complete at cp_async_wait().
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t dst =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices from shared memory, transposed: lane L names row
-// L % 8 of matrix L / 8; register i receives matrix i's fragment
-// (M[2t][g], M[2t+1][g]).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layouts of mma m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16 x 16, row major): reg 0 = A[g][2t, 2t+1], reg 1 = A[g+8][2t, 2t+1],
-//     reg 2 = A[g][2t+8, 2t+9], reg 3 = A[g+8][2t+8, 2t+9]
-//   B (16 x 8, "col"): reg 0 = B[2t, 2t+1][g], reg 1 = B[2t+8, 2t+9][g]
-//   C (16 x 8): c0, c1 = C[g][2t, 2t+1]; c2, c3 = C[g+8][2t, 2t+1]
+// (mma m16n8k16 fragment layouts: flash.cuh)
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16(const __nv_bfloat16* __restrict__ q,
            const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v,
-           __nv_bfloat16* __restrict__ o, Problem p) {
+           __nv_bfloat16* __restrict__ o, Problem p,
+           float* __restrict__ lse) {
   constexpr int kLd = D + 8;                 // padded smem row (elements)
   constexpr int kNT = kBK / 8;               // 8-key column tiles of S
   constexpr int kKD = D / 16;                // 16-deep steps over d
@@ -341,6 +306,11 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  if (lse != nullptr && t == 0) {
+    float* lb = lse + (b * p.H + h) * (long long)p.Sq;
+    if (row_a < p.Sq) lb[row_a] = lse_of_log2(m_a, l_a);
+    if (row_b < p.Sq) lb[row_b] = lse_of_log2(m_b, l_b);
+  }
   __nv_bfloat16* ob = o + b * p.o.b + (long long)h * p.o.h;
 #pragma unroll
   for (int dt = 0; dt < kDT; ++dt) {
@@ -362,7 +332,8 @@ constexpr int kFBK = 32;             // keys per tile (one per lane)
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, Problem p) {
+          const float* __restrict__ v, float* __restrict__ o, Problem p,
+          float* __restrict__ lse) {
   constexpr int kCols = (D + 31) / 32;       // output columns per lane
   constexpr int kRows = kFBQ / (kThreads / 32);
   __shared__ float qs[kFBQ][D];
@@ -446,6 +417,9 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + warp * kRows + r;
     if (row >= p.Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[(b * p.H + h) * (long long)p.Sq + row] =
+          m[r] + logf(fmaxf(l[r], 1e-30f));
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
@@ -899,9 +873,10 @@ __device__ __forceinline__ void produce(
 }
 
 // A consumer warpgroup cw: query rows q0 + 64 cw ... + 63 over the key
-// tiles [lo, hi), of which [ulo, uhi) need no mask; then O to memory.
-template <int D>
-__device__ __forceinline__ void consume(const Problem& p,
+// tiles [lo, hi), of which [ulo, uhi) need no mask; then O to memory, and
+// with P::kLse each row's log-sum-exp.
+template <int D, class P>
+__device__ __forceinline__ void consume(const P& p,
                                         __nv_bfloat16* __restrict__ o,
                                         uint32_t base, uint32_t full,
                                         uint32_t empty, uint32_t qbar, int q0,
@@ -950,6 +925,13 @@ __device__ __forceinline__ void consume(const Problem& p,
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  if constexpr (P::kLse) {
+    if (c.t == 0) {
+      float* lb = p.lse + ((long long)b * p.H + h) * p.Sq;
+      if (c.row_a < p.Sq) lb[c.row_a] = lse_of_log2(c.m_a, l_a);
+      if (c.row_b < p.Sq) lb[c.row_b] = lse_of_log2(c.m_b, l_b);
+    }
+  }
   __nv_bfloat16* ob = o + (long long)b * p.o.b + (long long)h * p.o.h;
 #pragma unroll
   for (int pn = 0; pn < L::kPanels; ++pn)
@@ -984,13 +966,15 @@ __device__ __forceinline__ void consume(const Problem& p,
 // under the other's products. The tiles that need the per-element mask
 // (the causal diagonal, a window's edge, the ragged end of Sk) are walked
 // by loops of their own, so no branch on the mask sits where a product is
-// in flight.
-template <int D>
+// in flight. P is Problem, or ProblemLse to write the log-sum-exp (a type,
+// so that the launches without it run the code and take the parameters
+// they did before it existed).
+template <int D, class P>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv,
-            __nv_bfloat16* __restrict__ o, Problem p) {
+            __nv_bfloat16* __restrict__ o, P p) {
   using L = Smem<D>;
   constexpr int BK = L::kBK;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -1037,8 +1021,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
   } else {
     // ---- consumers ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<D>(p, o, base, full, empty, qbar, q0, h, b, wg - 1, lo, hi, ulo,
-               uhi);
+    consume<D, P>(p, o, base, full, empty, qbar, q0, h, b, wg - 1, lo, hi,
+                  ulo, uhi);
   }
 }
 
@@ -1096,9 +1080,9 @@ bool encode_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, class P>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int K, const Problem& p, cudaStream_t st) {
+                 int K, const P& p, cudaStream_t st) {
   using L = hopper::Smem<D>;
   const int nq = (p.Sq + hopper::kBQ - 1) / hopper::kBQ;
   CUtensorMap mq, mk, mv;
@@ -1108,30 +1092,30 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
       !encode_map(&mv, v, D, K, p.Sk, B, p.v, L::kBK))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      hopper::flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kAlloc);
+      hopper::flash_wgmma<D, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (err != cudaSuccess) return (int)err;
-  hopper::flash_wgmma<D><<<dim3(p.H, B, nq), hopper::kThreads, L::kAlloc,
-                           st>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o),
-                                 p);
+  hopper::flash_wgmma<D, P><<<dim3(p.H, B, nq), hopper::kThreads,
+                              L::kAlloc, st>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), p);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 void launch_d(int dtype, const void* q, const void* k, const void* v, void* o,
-              int B, const Problem& p, cudaStream_t st) {
+              int B, const Problem& p, float* lse, cudaStream_t st) {
   if (dtype == 1) {
     const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
     flash_bf16<D><<<grid, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), p);
+        static_cast<__nv_bfloat16*>(o), p, lse);
   } else {
     const dim3 grid((p.Sq + kFBQ - 1) / kFBQ, p.H, B);
     flash_f32<D><<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), p);
+        static_cast<const float*>(v), static_cast<float*>(o), p, lse);
   }
 }
 
@@ -1159,27 +1143,46 @@ Problem make_problem(int Sq, int Sk, int H, int K, int d, long long qsb,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides in elements, (batch, seq, head)
-// for each of q, k, v, out. d in {16, 32, ..., 128}; H % K == 0. The
-// sm_80-unit designs: flash_f32 (float32), flash_bf16 (bfloat16).
+// for each of q, k, v, out. lse: a (B, H, Sq) fp32 buffer for each row's
+// log-sum-exp, or null (then nothing else changes). d in {16, 32, ...,
+// 128}; H % K == 0. The sm_80-unit designs: flash_f32 (float32),
+// flash_bf16 (bfloat16).
 extern "C" int flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
     int Sq, int Sk, int H, int K, int d, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
-    long long oss, long long osh, int causal, int window, void* stream) {
+    long long oss, long long osh, int causal, int window, void* lse,
+    void* stream) {
   const Problem p = make_problem(Sq, Sk, H, K, d, qsb, qss, qsh, ksb, kss,
                                  ksh, vsb, vss, vsh, osb, oss, osh, causal,
                                  window);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: launch_d<16>(dtype, q, k, v, o, B, p, st); break;
-    case 32: launch_d<32>(dtype, q, k, v, o, B, p, st); break;
-    case 48: launch_d<48>(dtype, q, k, v, o, B, p, st); break;
-    case 64: launch_d<64>(dtype, q, k, v, o, B, p, st); break;
-    case 80: launch_d<80>(dtype, q, k, v, o, B, p, st); break;
-    case 96: launch_d<96>(dtype, q, k, v, o, B, p, st); break;
-    case 112: launch_d<112>(dtype, q, k, v, o, B, p, st); break;
-    case 128: launch_d<128>(dtype, q, k, v, o, B, p, st); break;
+    case 16:
+      launch_d<16>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
+      break;
+    case 32:
+      launch_d<32>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
+      break;
+    case 48:
+      launch_d<48>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
+      break;
+    case 64:
+      launch_d<64>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
+      break;
+    case 80:
+      launch_d<80>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
+      break;
+    case 96:
+      launch_d<96>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
+      break;
+    case 112:
+      launch_d<112>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
+      break;
+    case 128:
+      launch_d<128>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -1192,13 +1195,21 @@ extern "C" int flash_attention_wgmma(
     int Sq, int Sk, int H, int K, int d, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
-    long long oss, long long osh, int causal, int window, void* stream) {
+    long long oss, long long osh, int causal, int window, void* lse,
+    void* stream) {
   const Problem p = make_problem(Sq, Sk, H, K, d, qsb, qss, qsh, ksb, kss,
                                  ksh, vsb, vss, vsh, osb, oss, osh, causal,
                                  window);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (d == 64) return launch_wgmma<64>(q, k, v, o, B, K, p, st);
-  if (d == 128) return launch_wgmma<128>(q, k, v, o, B, K, p, st);
+  ProblemLse pl;
+  static_cast<Problem&>(pl) = p;
+  pl.lse = static_cast<float*>(lse);
+  if (d == 64)
+    return lse ? launch_wgmma<64>(q, k, v, o, B, K, pl, st)
+               : launch_wgmma<64>(q, k, v, o, B, K, p, st);
+  if (d == 128)
+    return lse ? launch_wgmma<128>(q, k, v, o, B, K, pl, st)
+               : launch_wgmma<128>(q, k, v, o, B, K, p, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,9 @@ Two cores, chosen by what the call attends:
   * the whole in-context sequence (``forward``, and prefill into a fresh
     cache: query offset the host integer 0, every key in context) goes to
     ``kernels.ops.flash_attention``, the flash-attention kernel K7 on the
-    card and its plain twin on the CPU;
+    card and its plain twin on the CPU; in training (q, k and v require a
+    gradient) its backward is K7b on the card and autograd through the
+    twin on the CPU;
   * everything else (decode against a cache, per-row cache lengths) goes to
     ``blockwise_attention``, plain torch: the reference's jnp online-softmax
     core, which is not a Pallas kernel there either.

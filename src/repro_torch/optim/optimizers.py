@@ -13,6 +13,15 @@ corrections are fp32 tensor arithmetic on it, as the reference computes
 them, and nothing is read back to the host: a captured CUDA graph
 recomputes them from the counter on every replay.
 
+The elementwise optimizers (sgd, momentum, adam, adamw; with or without
+clipping) also have ``update_(grads, state, params, step)``, which the
+train step uses: their ``update`` run in place on ``CHUNK`` elements of
+every leaf at a time (``_in_place``), the moments written into ``state``
+and the update added to ``params``, so its temporaries are a few chunks
+and not several params-sized trees (at TinyLlama's width those would not
+fit beside the DMD ring). Elementwise arithmetic gives the same bits in
+chunks.
+
 Trees are the port's nested dicts, including the arena-resident wrapper
 ``{"__arena__": {bucket: flat}, "leaf": tree with None}``: every update
 is elementwise per path, so a flat resident buffer updates as one leaf
@@ -22,19 +31,53 @@ run only on per-leaf params.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.paths import by_path, map_with_paths, tree_map
+from repro_torch.core.paths import (by_path, leaves_with_paths,
+                                    map_with_paths, tree_map)
 from repro_torch.optim.schedules import make_schedule
 
 PyTree = Any
 
 
+CHUNK = 1 << 24                     # elements per pass of ``update_``
+
+
 class Optimizer(NamedTuple):
     init: Callable[[PyTree], PyTree]
     update: Callable[..., tuple]   # (grads, state, params, step) -> (u, state)
+    # (grads, state, params, step) -> None, in place (elementwise ones only)
+    update_: Optional[Callable[..., None]] = None
+
+
+def _in_place(update):
+    """``update`` as ``update_(grads, state, params, step, scale=None)``:
+    run on CHUNK-element views of every leaf of grads, state and params at
+    a time (grads times `scale` first, as ``clip_by_global_norm`` leaves
+    them), the new state written into the state's views and the update
+    added to the params'. Writes into a view land in its tensor; an
+    elementwise update gives the same bits a chunk at a time."""
+    def update_(grads, state, params, step, scale=None):
+        trees = (grads, state, params)
+        if not all(x.is_contiguous() for t in trees
+                   for _, x in leaves_with_paths(t)):
+            raise ValueError("update_ needs contiguous params, grads and "
+                             "moments")
+        n = max(x.numel() for _, x in leaves_with_paths(grads))
+        for a in range(0, n, CHUNK):
+            g, s, p = (map_with_paths(
+                lambda _, x: x.view(-1)[a:a + CHUNK], t) for t in trees)
+            if scale is not None:
+                g = map_with_paths(lambda _, x: x * scale.to(x.dtype), g)
+            u, new_s = update(g, s, p, step)
+            new_of, u_of = by_path(new_s), by_path(u)
+            for path, x in leaves_with_paths(s):
+                x.copy_(new_of[path])
+            for path, x in leaves_with_paths(p):
+                x.add_(u_of[path].to(x.dtype))
+    return update_
 
 
 def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
@@ -80,7 +123,8 @@ def sgd(lr_fn) -> Optimizer:
     def update(grads, state, params, step):
         lr = lr_fn(step)
         return tree_map(lambda g: -lr * g.float(), grads), state
-    return Optimizer(init, update)
+
+    return Optimizer(init, update, _in_place(update))
 
 
 def momentum(lr_fn, beta: float = 0.9) -> Optimizer:
@@ -91,7 +135,8 @@ def momentum(lr_fn, beta: float = 0.9) -> Optimizer:
         lr = lr_fn(step)
         new_m = tree_map(lambda m, g: beta * m + g.float(), state, grads)
         return tree_map(lambda m: -lr * m, new_m), new_m
-    return Optimizer(init, update)
+
+    return Optimizer(init, update, _in_place(update))
 
 
 class AdamState(NamedTuple):
@@ -125,7 +170,8 @@ def adam(lr_fn, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0) -> Optimizer:
         return updates, AdamState(
             map_with_paths(lambda p, _: new_m[p], grads),
             map_with_paths(lambda p, _: new_v[p], grads))
-    return Optimizer(init, update)
+
+    return Optimizer(init, update, _in_place(update))
 
 
 def adamw(lr_fn, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01) -> Optimizer:
@@ -283,5 +329,11 @@ def make_optimizer(cfg) -> Optimizer:
         def update(grads, state, params, step):
             grads = clip_by_global_norm(grads, cfg.grad_clip)
             return inner.update(grads, state, params, step)
-        base = Optimizer(inner.init, update)
+
+        def update_(grads, state, params, step):
+            scale = torch.clamp_max(
+                cfg.grad_clip / (global_norm(grads) + 1e-12), 1.0)
+            inner.update_(grads, state, params, step, scale)
+        base = Optimizer(inner.init, update,
+                         None if inner.update_ is None else update_)
     return base

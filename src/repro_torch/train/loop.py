@@ -21,8 +21,9 @@ the kernels' ticket buffer and segment tables for that stream, loads the
 kernel library and cuBLAS), the second is captured and replayed, every
 later one replayed. The batch is copied into static input tensors before
 each replay; the step counter, the lr and the bias corrections are device
-tensors inside the graph; the graph's temporaries live in its private
-memory pool, so a replay allocates nothing and reads nothing back. A
+tensors inside the graph; the graphs' temporaries live in one memory pool
+that the graphs of a ``fit`` call share, so a replay allocates nothing and
+reads nothing back. A
 capture error is an error: nothing falls back to eager steps. The kernel
 wrappers count their launches when Python calls them, which a replay
 does not: the capture's counts (the launches it recorded, none of which
@@ -59,19 +60,21 @@ from repro_torch.core.paths import leaves_with_paths, map_with_paths
 from repro_torch.data.tokens import validation_batch
 from repro_torch.kernels import arena as _ka
 from repro_torch.kernels import combine as _kc
+from repro_torch.kernels import flash_attention as _kf
 from repro_torch.kernels import gram as _kg
 from repro_torch.kernels import gram_row as _kgr
 from repro_torch.kernels.device import resolve_device
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.train.state import TrainState
 from repro_torch.train.step import (make_dmd_step, make_train_step,
-                                    state_resident, state_unresident)
+                                    model_stack_dims, state_resident,
+                                    state_unresident)
 
 PyTree = Any
 PLAIN = ()                          # graph key of a step that records nothing
 # the launch counters of the kernels a train step can launch
 _COUNTERS = (_ka.LAUNCHES, _ka.BWD_LAUNCHES, _kgr.LAUNCHES,
-             _kgr.BWD_LAUNCHES, _kc.LAUNCHES, _kg.LAUNCHES)
+             _kgr.BWD_LAUNCHES, _kc.LAUNCHES, _kg.LAUNCHES, _kf.LAUNCHES)
 
 
 def _clone(tree: PyTree) -> PyTree:
@@ -97,14 +100,32 @@ def _add_counts(delta: list, sign: int) -> None:
             counter[k] += sign * v
 
 
+_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one side stream per device every ``fit`` warms up and captures
+    on: what the kernels and cuBLAS keep per stream (the ticket buffer,
+    the workspaces) is made once, not once per ``fit``."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
 class _GraphedSteps:
     """The fused train step as CUDA graphs, one per key (the slot vector of
     the recording groups, ``PLAIN`` for none). Keyed graphs hold the
-    addresses of one state's tensors: build one per ``fit`` call."""
+    addresses of one state's tensors: build one per ``fit`` call; it, its
+    graphs and their pool go with ``fit``'s return (no reference cycle
+    holds them). Every graph is captured into one shared memory pool:
+    replays run one at a time and their outputs are cloned, so the
+    graphs' temporaries may overlap, and the pool holds one step's
+    activations instead of one per graph (15 at the default m of 14)."""
 
     def __init__(self, train_step, device: torch.device):
         self.train_step = train_step
-        self.side = torch.cuda.Stream(device)
+        self.side = _capture_stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[tuple, tuple] = {}    # key -> (graph, outs, counts)
         self.warm: set = set()
         self.static_batch: Optional[PyTree] = None
@@ -139,7 +160,7 @@ class _GraphedSteps:
                 return metrics
             before = _counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=self.side):
+            with torch.cuda.graph(graph, stream=self.side, pool=self.pool):
                 _, outs = self.train_step(state, batch, slots)
             main.wait_stream(self.side)
             # the launches the capture recorded ran nowhere yet
@@ -176,8 +197,7 @@ class Trainer:
         # steps
         self.acc = DMDAccelerator(
             acfg.dmd, device=self.device,
-            stack_dims=(model.param_stack_dims()
-                        if hasattr(model, "param_stack_dims") else None))
+            stack_dims=model_stack_dims(model))
         self.opt = make_optimizer(acfg.optimizer)
         self.checkpoint_dir = checkpoint_dir or acfg.train.checkpoint_dir
         self.fail_at_step = fail_at_step

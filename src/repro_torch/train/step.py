@@ -3,7 +3,8 @@
 ``train_step(state, batch, slots)`` (``make_train_step``):
 
   * gradient of the model's loss (microbatch accumulation in fp32 when
-    ``grad_accum > 1``), the optimizer update,
+    ``grad_accum > 1``), the optimizer update (in place, chunk by chunk,
+    for the elementwise optimizers: ``Optimizer.update_``),
   * the DMD record fused in: with the per-group slot vector ``slots``
     (``acc.slots(step)``; a group whose entry is negative does not record)
     each recording bucket copies its params into the ring slot and, with
@@ -139,13 +140,22 @@ def assign_(dst: PyTree, src: PyTree) -> None:
             d.copy_(s.detach())
 
 
+def model_stack_dims(model) -> Optional[dict]:
+    """The model's ``param_stack_dims()`` (the reference's form: a tree of
+    ints mirroring its params, or None) by normalised path, as
+    ``DMDAccelerator`` takes it; None for a model without stacked
+    leaves."""
+    sd = model.param_stack_dims() if hasattr(model, "param_stack_dims") \
+        else None
+    return None if sd is None else by_path(sd)
+
+
 def _accelerator_for(model, acfg, acc: Optional[DMDAccelerator], device
                      ) -> DMDAccelerator:
     if acc is not None:
         return acc
-    sd = model.param_stack_dims() if hasattr(model, "param_stack_dims") \
-        else None
-    return DMDAccelerator(acfg.dmd, stack_dims=sd, device=device)
+    return DMDAccelerator(acfg.dmd, stack_dims=model_stack_dims(model),
+                          device=device)
 
 
 def _loss_of(model, loss_fn):
@@ -200,37 +210,50 @@ def make_train_step(model, acfg, *, global_batch=None,
         if ga > 1:
             mbs = tree_map(lambda x: x.reshape((ga, x.shape[0] // ga)
                                                + tuple(x.shape[1:])), batch)
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
+            # the fp32 sum and its mean are formed in place: a + b.float()
+            # and g / ga in the same precision, without a second
+            # params-sized fp32 tree (the LM's state fills the card)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            g_of = by_path(grads)
             lsum = None
             for i in range(ga):
                 mb = tree_map(lambda x: x[i], mbs)
                 value, g = value_and_grad(one_loss, params, mb)
-                gsum = tree_map(lambda a, b: a + b.float(), gsum, g)
+                for path, gi in leaves_with_paths(g):
+                    g_of[path].add_(gi)
+                del g
                 lsum = value if lsum is None else lsum + value
-            grads = tree_map(lambda g: g / ga, gsum)
+            for g in g_of.values():
+                g.div_(ga)
+            del g_of
             loss = lsum / ga
         else:
             loss, grads = value_and_grad(one_loss, params, batch)
             grads = tree_map(lambda g: g.float(), grads)
 
         with torch.no_grad():
-            updates, opt_state = opt.update(grads, state.opt_state, params,
-                                            state.step)
-            u_of = by_path(updates)
-            for path, p in leaves_with_paths(params):
-                p.add_(u_of[path].to(p.dtype))
-            assign_(state.opt_state, opt_state)
-            if dmd_on and state.dmd_buffers is not None and slots is not None \
-                    and (np.asarray(slots) >= 0).any():
-                acc.record(state.dmd_buffers, params, slots,
-                           state.dmd_gram if acc.streaming else None)
-            state.step.add_(1)
             gnorm = None
             for _, g in leaves_with_paths(grads):
                 sq = torch.vdot(g.reshape(-1), g.reshape(-1))
                 gnorm = sq if gnorm is None else gnorm + sq
             gnorm = torch.sqrt(gnorm)
+            if opt.update_ is not None:
+                # the same arithmetic, in place, a chunk at a time
+                opt.update_(grads, state.opt_state, params, state.step)
+            else:
+                updates, opt_state = opt.update(grads, state.opt_state,
+                                                params, state.step)
+                u_of = by_path(updates)
+                for path, p in leaves_with_paths(params):
+                    p.add_(u_of[path].to(p.dtype))
+                assign_(state.opt_state, opt_state)
+            del grads
+            if dmd_on and state.dmd_buffers is not None and slots is not None \
+                    and (np.asarray(slots) >= 0).any():
+                acc.record(state.dmd_buffers, params, slots,
+                           state.dmd_gram if acc.streaming else None)
+            state.step.add_(1)
         return state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

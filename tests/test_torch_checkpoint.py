@@ -53,7 +53,7 @@ from repro_torch.core.paths import (by_path, keystr_leaves, map_keystrs,
 from repro_torch.core.schedule import GroupSchedule
 from repro_torch.models.mlp_net import MLPModel
 from repro_torch.train import Trainer, TrainState
-from repro_torch.train.step import resident_enabled
+from repro_torch.train.step import model_stack_dims, resident_enabled
 from test_torch_trainer import (DMD, GATED, GATED_DMD, LEAVES, SIZES,
                                 _cfgs, _data, _DotModel, _dot_acfg,
                                 _int_batches)
@@ -565,7 +565,7 @@ def test_leafwise_views_roundtrip(dtype):
                for k, s in LEAVES.items()} for _ in range(5)]
     out = {}
     for arena, cfg in cfgs.items():
-        acc = DMDAccelerator(cfg, stack_dims=_DotModel().param_stack_dims(),
+        acc = DMDAccelerator(cfg, stack_dims=model_stack_dims(_DotModel()),
                              device="cpu")
         bufs = acc.init(params)
         grams = acc.init_grams(bufs)

@@ -78,8 +78,8 @@ def test_refusals():
         kf.flash_attention(q, q[:, :, :3], q[:, :, :3])
     with pytest.raises(ValueError, match="dtype"):
         kf.flash_attention(q, q.double(), q)
-    with pytest.raises(ValueError, match="gradient"):
-        kf.flash_attention(q.clone().requires_grad_(), q, q)
+    with pytest.raises(ValueError, match="must match"):
+        kf.flash_attention_bwd(q, q, q, q, q[:, :4], None)
     with pytest.raises(ValueError, match="window"):
         kf.flash_attention(q, q, q, window=-1)
     with pytest.raises(ValueError, match="devices"):
@@ -100,5 +100,9 @@ def test_cpu_calls_count_no_launch_of_either_design():
     q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
     before = dict(kf.LAUNCHES)
     kf.flash_attention(q, q, q)
+    qg = q.float().requires_grad_()
+    kf.flash_attention(qg, qg, qg).sum().backward()
+    kf.flash_attention_bwd(q, q, q, q, q, None)
     assert kf.LAUNCHES == before
-    assert set(before) == {"flash_attention", "flash_attention_wgmma"}
+    assert set(before) == {"flash_attention", "flash_attention_wgmma",
+                           "flash_attention_bwd"}

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (the arena kernels K1-K3, the flat per-leaf
-kernels K4-K6 and flash attention K7) against their plain PyTorch twins,
-on the card.
+kernels K4-K6, flash attention K7 and its backward K7b) against their
+plain PyTorch twins, on the card.
 
 Marked ``gpu``; every test takes the ``cuda`` fixture, which skips (with a
 reason) where there is no CUDA device, so every process collects the same
@@ -18,6 +18,7 @@ inputs, over the rows that see at least one key: fp32 within 2e-5 + 1e-5 *
 bf16 within 1e-2 + 1.6e-2 * |twin| (one bf16 rounding step of the output,
 2^-7 relative, plus the kernel's bf16 rounding of the softmax weights).
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 from repro_torch.configs.base import DMDConfig
 from repro_torch.configs.pollutant_mlp import PAPER_SIZES
 from repro_torch.core.accelerator import DMDAccelerator
+from repro_torch.core.paths import leaves_with_paths
 from repro_torch.data.synthetic import synthetic_regression
 from repro_torch.kernels import arena as ka
 from repro_torch.kernels import combine as kc
@@ -292,8 +294,8 @@ def test_flash_attention_refusals(cuda):
         kf.flash_attention(q[..., :40], q[..., :40], q[..., :40])
     with pytest.raises(ValueError, match="multiple"):
         kf.flash_attention(q, q[:, :, :3], q[:, :, :3])
-    with pytest.raises(ValueError, match="gradient"):
-        kf.flash_attention(q.requires_grad_(), q, q)
+    with pytest.raises(ValueError, match="lse"):
+        kf.flash_attention_bwd(q, q, q, q, q, None)
     with pytest.raises(ValueError, match="devices"):
         kf.flash_attention(q.detach(), q.detach().cpu(), q.detach().cpu())
     odd = torch.zeros((1, 8, 4 * 64 + 4), device=cuda)[..., 4:]
@@ -322,7 +324,8 @@ def test_flash_wgmma_design_at_tile_edges(cuda, case):
     again = kf.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert {k_: kf.LAUNCHES[k_] - before[k_] for k_ in before} == {
-        "flash_attention": 2, "flash_attention_wgmma": 2}
+        "flash_attention": 2, "flash_attention_wgmma": 2,
+        "flash_attention_bwd": 0}
     assert torch.equal(got, again)
     want = kf.flash_attention_ref(q, k, v, causal=causal, window=window)
     rows = _seen_rows(case[1], case[2], causal, window).to(cuda)
@@ -1172,3 +1175,183 @@ def test_dmd_solve_on_card_is_the_cpu_solve(cuda, monkeypatch):
         gc, ginfo = solve(gram.to(cuda), **kw)
         assert torch.equal(ginfo["rank"].cpu(), info["rank"])
         assert ((gc.cpu() - c).abs().amax(dim=-1) <= spread).all()
+
+
+# K7b (the flash-attention backward) against its twin, autograd through
+# flash_attention_ref, on unit-normal q, k, v and dO: (B, S, H, K, d,
+# causal, window), Sq = Sk. Held row by row: every row of dq (one query and
+# head), dk and dv (one key and kv head) within ||kernel - twin|| <=
+# BWD_ROW_TOL * ||twin||, the twin's dq given K7's output as K7b receives
+# it (chip_smoke.py's rule, whose phase 15 reads a sound bf16 design and a
+# wrong one against the same limit); the log-sum-exp within LSE_ATOL
+# absolute
+BWD_ROW_TOL = {torch.float32: 2e-4, torch.bfloat16: 1.2e-2}
+LSE_ATOL = 1e-4
+# a row whose twin's norm is under ROW_FLOOR times the gradient's
+# root-mean-square row norm (the first query's dq is 0) is held to that
+ROW_FLOOR = 1e-1
+# what graphed fits may leave on the card: the capture stream's ticket
+# buffer and cuBLAS workspaces (67,109,376 bytes on NVIDIA H100 80GB HBM3)
+GRAPH_LEFT_BYTES = 80 * 2 ** 20
+
+
+def _row_err(got, want):
+    diff = (got.float() - want.float()).norm(dim=-1)
+    norm = want.float().norm(dim=-1)
+    floor = ROW_FLOOR * float(norm.square().mean().sqrt())
+    return float((diff / norm.clamp_min(max(floor, 1e-30))).max())
+
+
+BWD_CASES = (
+    [(2, 256, 8, 2, 64, True, 0), (1, 200, 8, 8, 128, True, 0),
+     (1, 160, 8, 1, 64, False, 0), (1, 256, 4, 2, 64, True, 48),
+     (2, 100, 4, 2, 16, False, 30), (1, 96, 4, 4, 48, True, 0)]
+    + [(1, s, 8, 1, d, True, 0) for d in (64, 128)
+       for s in (127, 128, 129, 257)])
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_matches_twin(cuda, case, dtype):
+    B, S, H, K, d, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(S + d)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                     for shape in ((B, S, H, d), (B, S, K, d), (B, S, K, d),
+                                   (B, S, H, d)))
+    out, lse = kf.flash_attention_lse(q, k, v, causal=causal, window=window)
+    want_lse = kf.lse_ref(q, k, causal=causal, window=window)
+    assert (lse - want_lse).abs().max() <= LSE_ATOL
+    assert torch.equal(out, kf.flash_attention(q, k, v, causal=causal,
+                                               window=window))
+    n0 = kf.LAUNCHES["flash_attention_bwd"]
+    got = kf.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                 window=window)
+    again = kf.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                   window=window)
+    assert kf.LAUNCHES["flash_attention_bwd"] == n0 + 2
+    want = kf.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                      window=window, out=out)
+    for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        assert torch.equal(a, b), f"{name} not repeatable"
+        err = _row_err(a, w)
+        assert err <= BWD_ROW_TOL[dtype], f"{name}: {err}"
+
+
+def test_flash_autograd_runs_k7_and_k7b(cuda):
+    """A gradient through flash_attention on the card: one K7 launch with
+    the log-sum-exp, one K7b call, and the gradients K7b gives alone."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((2, 130, 8, 64), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((2, 130, 2, 64), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    dout = torch.randn_like(q)
+    before = dict(kf.LAUNCHES)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = kf.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert {n: kf.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention": 1, "flash_attention_wgmma": 1,
+        "flash_attention_bwd": 1}
+    o2, lse = kf.flash_attention_lse(q, k, v)
+    assert torch.equal(out.detach(), o2)
+    for a, b in zip(grads, kf.flash_attention_bwd(q, k, v, o2, dout, lse)):
+        assert torch.equal(a, b)
+
+
+def _lm_trainer(cuda, graphs):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.models.transformer import LanguageModel
+    from repro_torch.train import Trainer
+    acfg = get_config("tinyllama-1.1b")
+    mc = reduced(acfg.model, n_layers=2, d_model=128, d_ff=256,
+                 vocab_size=512, n_heads=4, n_kv_heads=2, head_dim=64)
+    acfg = dataclasses.replace(
+        acfg, model=mc,
+        dmd=DMDConfig(m=4, s=10, warmup_steps=4, cooldown_steps=2),
+        optimizer=dataclasses.replace(acfg.optimizer, warmup_steps=4,
+                                      total_steps=24),
+        train=TrainConfig(global_batch=4, seq_len=128))
+    assert acfg.parallel.grad_accum == 4 and acfg.parallel.remat == "block"
+    model = LanguageModel(mc, chunk_k=128, remat="block", device=cuda)
+    return Trainer(model, acfg, device=cuda, cuda_graphs=graphs)
+
+
+def test_lm_trainer_graphed_fit_matches_eager(cuda):
+    """The reduced TinyLlama (bf16, d 128, heads of 64: K7's Hopper
+    design) through the Trainer with its config's grad_accum 4, remat,
+    adamw with clip and the cosine schedule: the graphed run's losses and
+    final params equal the eager run's bit for bit, with K7 twice and K7b
+    once per layer and microbatch, K1 per bucket per record and K2 per
+    bucket per jump."""
+    from repro_torch.data.tokens import synthetic_lm_batches
+    runs = {}
+    for graphs in (True, False):
+        tr = _lm_trainer(cuda, graphs)
+        losses = []
+        for c in (ka.LAUNCHES, kf.LAUNCHES):
+            for key in c:
+                c[key] = 0
+        st = tr.fit(synthetic_lm_batches(0, 4, 128, 512, device=cuda), 22,
+                    state=tr.init_state(key=torch.Generator(
+                        device=cuda).manual_seed(0)),
+                    on_metrics=lambda t, m: losses.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        n_buckets = len(tr.acc.arena_for(st.params))
+        assert n_buckets == 2                        # bf16 and fp32 norms
+        assert kf.LAUNCHES["flash_attention"] == 2 * 2 * 4 * 22
+        assert kf.LAUNCHES["flash_attention_bwd"] == 2 * 4 * 22
+        assert kf.LAUNCHES["flash_attention_wgmma"] == \
+            kf.LAUNCHES["flash_attention"]
+        assert ka.LAUNCHES["gram_row"] == n_buckets * 12     # 3 windows
+        assert ka.LAUNCHES["combine"] == n_buckets * 3       # 9, 15, 21
+        runs[graphs] = (losses, st, dict(tr.graph_stats))
+    (lg, sg, stats), (le, se, _) = runs[True], runs[False]
+    assert stats["replayed"] > 0
+    assert lg == le and np.isfinite(lg).all()
+    for (path, a), (_, b) in zip(leaves_with_paths(sg.params),
+                                 leaves_with_paths(se.params)):
+        assert torch.equal(a, b), path
+
+
+def test_lm_trainer_fit_releases_its_graphs(cuda, monkeypatch):
+    """A graphed fit's CUDA graphs, their shared pool and the state leave
+    the card with their last reference, without the garbage collector:
+    the graphs' owner is gone when fit returns, and once the state is
+    dropped the card holds what it held before, but for what the capture
+    stream keeps (its cuBLAS workspaces and the kernels' ticket buffer),
+    made by the first fit and reused by the second."""
+    import gc
+    import weakref
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.train import loop
+    made = []
+
+    class Recorded(loop._GraphedSteps):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(weakref.ref(self))
+    monkeypatch.setattr(loop, "_GraphedSteps", Recorded)
+    tr = _lm_trainer(cuda, True)
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    left, alive = [], []
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda)
+        for _ in range(2):
+            st = tr.fit(synthetic_lm_batches(0, 4, 128, 512, device=cuda),
+                        12, state=tr.init_state(key=torch.Generator(
+                            device=cuda).manual_seed(0)))
+            torch.cuda.synchronize()
+            alive.append([r() is not None for r in made])
+            del st
+            left.append(torch.cuda.memory_allocated(cuda) - base)
+    finally:
+        if enabled:
+            gc.enable()
+    assert tr.graph_stats["captured"] > 0
+    assert alive == [[False], [False, False]]
+    assert left[1] == left[0] <= GRAPH_LEFT_BYTES, left

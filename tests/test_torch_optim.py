@@ -241,3 +241,29 @@ def test_unknown_names_raise():
         make_optimizer(OptimizerConfig(name="lion"))
     with pytest.raises(ValueError, match="schedule"):
         make_schedule(OptimizerConfig(schedule="step"))
+
+
+@pytest.mark.parametrize("name", ["sgd", "momentum", "adam", "adamw"])
+@pytest.mark.parametrize("clip", [0.0, 0.5])
+def test_in_place_update_is_the_update_bit_for_bit(name, clip, monkeypatch):
+    """``update_`` (the train step's in-place form, a chunk of a leaf at a
+    time) writes the bits ``update`` + ``apply_updates`` give, moments
+    included, with chunks that split every leaf (CHUNK 7): five steps."""
+    H, w_star, p0 = _quad(3)
+    cfg = OptimizerConfig(name=name, lr=0.05, grad_clip=clip,
+                          schedule="constant")
+    opt = make_optimizer(cfg)
+    monkeypatch.setattr(topt, "CHUNK", 7)
+    pa = {k: torch.tensor(v) for k, v in p0.items()}
+    pb = {k: v.clone() for k, v in pa.items()}
+    sa, sb = opt.init(pa), opt.init(pb)
+    for t in range(5):
+        step = torch.tensor(t, dtype=torch.int32)
+        g = {k: torch.tensor(v) for k, v in
+             _grads_np(H, w_star, _np(pa)).items()}
+        u, sa = opt.update(g, sa, pa, step)
+        pa = apply_updates(pa, u)
+        opt.update_(g, sb, pb, step)
+        for (path, a), (_, b) in zip(leaves_with_paths((pa, sa)),
+                                     leaves_with_paths((pb, sb))):
+            assert torch.equal(a, b), (t, path)

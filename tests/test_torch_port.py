@@ -46,9 +46,22 @@ def _fields(cls):
                                   "OptimizerConfig", "MoEConfig",
                                   "SSMConfig", "ModelConfig",
                                   "ParallelConfig", "TrainConfig",
-                                  "ArchConfig"])
+                                  "ShapeConfig", "ArchConfig"])
 def test_config_fields_and_defaults_mirror_reference(name):
     _assert_mirrors(getattr(tbase, name), getattr(jbase, name), name)
+
+
+def test_shapes_and_arch_list_mirror_reference():
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+    assert [dataclasses.asdict(s) for s in tbase.STANDARD_SHAPES] == \
+        [dataclasses.asdict(s) for s in jbase.STANDARD_SHAPES]
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    for s in jbase.STANDARD_SHAPES:
+        assert dataclasses.asdict(tconfigs.shape_by_name(s.name)) == \
+            dataclasses.asdict(jconfigs.shape_by_name(s.name))
+    with pytest.raises(KeyError):
+        tconfigs.shape_by_name("train_8k")
 
 
 def _assert_mirrors(port_cls, ref_cls, where):
@@ -174,7 +187,7 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in ('configs.tinyllama_1_1b', 'models.layers', "
         "'models.attention', 'models.transformer', "
         "'kernels.flash_attention', 'serve.engine', 'serve.store', "
-        "'launch.serve'):\n"
+        "'launch.serve', 'launch.train', 'configs'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -262,7 +275,8 @@ def test_library_path_hashes_every_file_under_csrc(tmp_path, monkeypatch):
 
     for path in _build._inputs():
         shutil.copy(path, tmp_path / path.name)
-    assert {"arena.cu", "flat.cu", "flash.cu", "lanes.cuh"} <= {
+    assert {"arena.cu", "flat.cu", "flash.cu", "flash_bwd.cu", "flash.cuh",
+            "lanes.cuh"} <= {
         p.name for p in tmp_path.iterdir()}
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     base = _build.library_path()
@@ -275,4 +289,4 @@ def test_library_path_hashes_every_file_under_csrc(tmp_path, monkeypatch):
     (tmp_path / "more.cuh").write_text("// a new header\n")
     assert _build.library_path() != base
     assert [p.name for p in _build.sources()] == [
-        "arena.cu", "flash.cu", "flat.cu"]      # headers are not compiled
+        "arena.cu", "flash.cu", "flash_bwd.cu", "flat.cu"]   # not headers

@@ -443,7 +443,7 @@ class _DotModel:
                    for k in LEAVES), None
 
     def param_stack_dims(self):
-        return T_STACK
+        return STACK
 
 
 def _int_batches(n, seed=1):
