@@ -10,10 +10,11 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
 2. Build the CUDA kernels (``src/repro_torch/kernels/csrc/*.cu``, one
    ``nvcc`` per source, in parallel) and print ptxas's registers, shared
    memory and spills (``-Xptxas -v``) of the Hopper flash-attention design
-   (with and without its log-sum-exp output), of K7b's bf16 designs and
-   of K1 and K3-K6; K7's design, K7b's at d 64, K1, K5 and every m <= 16
-   instantiation of K3 and K6 must not spill, and every one of those
-   instantiations must be in the report.
+   (with and without its log-sum-exp output), of K7b's Hopper design
+   (its three kernels) and of K1 and K3-K6; K7's design, K7b's at d 64,
+   K1, K5 and every m <= 16 instantiation of K3 and K6 must not spill,
+   and every one of those instantiations must be in the report. ptxas's
+   notes where it serialises a kernel's wgmma are printed.
 3. The arena kernels K1-K3 against their plain PyTorch twins at the paper
    MLP's arena shape, (5633, 14, 512), with the paper bucket's real block
    -> system table: fp32 and bf16 buffers, both anchors of the Gram row,
@@ -233,19 +234,21 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    causal, GQA rep 1 and 8, windows, non-causal, d 16-128, lengths
    127-257 at d 64 and 128; at the first, a sound bf16 control must pass
    the same limit and a wrong design must fail it; repeat launches
-   bit-identical; K7's log-sum-exp output within ``LSE_ATOL`` of its twin
-   and K7's output unchanged by it. K7b timed at (2, 4096, 32, 4, 64) bf16 eager and
-   replayed beside its bound (10 d flops per seen pair and head at the
-   bf16 peak) and in turns with the backward of
-   ``scaled_dot_product_attention``. Then the launcher's ``run``
-   (``launch/train.py``) at TinyLlama's full widths, bf16, cut to
+   bit-identical; bf16 at d 64 and 128 through K7b's Hopper design, every
+   other case through the sm_80-unit kernels; K7's log-sum-exp output
+   within ``LSE_ATOL`` of its twin and K7's output unchanged by it. K7b
+   timed at (2, 4096, 32, 4, 64) bf16 eager and replayed beside its bound
+   (10 d flops per seen pair and head at the bf16 peak) and in turns with
+   the backward of ``scaled_dot_product_attention``. Then the launcher's
+   ``run`` (``launch/train.py``) at TinyLlama's full widths, bf16, cut to
    ``LM_LAYERS`` layers (the state's bytes at 22 layers are printed and
    must exceed 90% of the card), with the config's DMD (m 14, s 55, fp32
    ring, leaf scope, warm-up 24 = steps // 4), adamw with clip and the
    cosine schedule, grad_accum 4 and remat "block", on the synthetic token
    stream at 8 x 4096 for 96 steps with CUDA graphs. Launches exactly: K1
    once per bucket per record, K2 once per bucket per jump, K7 2 x layers x
-   4 per step (all through the wgmma design), K7b layers x 4 per step;
+   4 per step (all through the wgmma design), K7b layers x 4 per step
+   (all through its Hopper design);
    at least two jumps; finite losses, the last 10's mean below the first
    10's; ms/step, tokens/s and peak memory beside the reckoned state. K1
    and K2 on that run's own rings, every bucket, against their twins (K1's
@@ -351,6 +354,7 @@ def reset_counts():
 
 # design counters: a subset of their kernel's launches, not another kernel
 DESIGNS = {"flash_attention_wgmma": "flash_attention",
+           "flash_attention_bwd_wgmma": "flash_attention_bwd",
            "gram_row_bwd": "gram_row", "flat_gram_row_bwd": "flat_gram_row"}
 
 
@@ -376,13 +380,13 @@ def require_counts(what, want):
     return got
 
 
-def require_wgmma(what):
-    """Every K7 launch since the counts were set to 0 ran the Hopper
-    design."""
-    n, w = kf.LAUNCHES["flash_attention"], kf.LAUNCHES["flash_attention_wgmma"]
-    require(n > 0 and w == n, f"{what}: {w} of {n} K7 launches through the "
-            "wgmma design")
-    print(f"{what}: {w} of {n} K7 launches through the wgmma design")
+def require_wgmma(what, kernel="flash_attention", tag="K7"):
+    """Every K7 launch (or K7b call, with `kernel` flash_attention_bwd)
+    since the counts were set to 0 ran the Hopper design."""
+    n, w = kf.LAUNCHES[kernel], kf.LAUNCHES[kernel + "_wgmma"]
+    require(n > 0 and w == n, f"{what}: {w} of {n} {tag} launches through "
+            "the wgmma design")
+    print(f"{what}: {w} of {n} {tag} launches through the wgmma design")
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -736,24 +740,27 @@ def _check_flat(tag, x, c, n_sys, exact):
 
 
 # kernels whose ptxas report must show no spill: K7's Hopper design, K1, K5,
-# K7b's bf16 designs at the LM's head size 64, and K3 and K6
+# K7b's Hopper design at the LM's head size 64, and K3 and K6
 # (arena_gram_k, gram_flat) where m <= 16
-NO_SPILL = ("flash_wgmma", "arena_row", "combine_flat", "bwd_dkdv_bf16<64>",
-            "bwd_dq_bf16<64>")
+NO_SPILL = ("flash_wgmma", "arena_row", "combine_flat", "bwd_rows_wgmma<64>",
+            "bwd_dkdv_wgmma<64>", "bwd_dq_wgmma<64>")
+# K7b's Hopper kernels, which ptxas must report at d 64 and 128
+BWD_KERNELS = ("bwd_rows_wgmma", "bwd_dkdv_wgmma", "bwd_dq_wgmma")
 NO_SPILL_M16 = ("arena_gram_k", "gram_flat")
 
 
 def _kernel_name(mangled):
-    """flash_wgmma<64> and flash_wgmma<64,lse> (K7), bwd_dkdv_bf16<64> and
-    bwd_dq_bf16<64> (K7b), row_part<float,16,vec=1> (K4), arena_row<...>
+    """flash_wgmma<64> and flash_wgmma<64,lse> (K7), bwd_rows_wgmma<64>,
+    bwd_dkdv_wgmma<64> and bwd_dq_wgmma<64> (K7b's Hopper design),
+    row_part<float,16,vec=1> (K4), arena_row<...>
     (K1), combine_flat<...> (K5), arena_gram_k<...> (K3) and
     gram_flat<...> (K6) from ptxas's mangled names, with their MMAX (None
     for K7 and K7b)."""
     if m := re.search(r"flash_wgmmaILi(\d+)E", mangled):
         lse = ",lse" if "ProblemLse" in mangled else ""   # with its LSE
         return f"flash_wgmma<{m.group(1)}{lse}>", None
-    if m := re.search(r"(bwd_dkdv_bf16|bwd_dq_bf16)ILi(64|128)E", mangled):
-        return f"{m.group(1)}<{m.group(2)}>", None       # K7b, bf16
+    if m := re.search(r"(bwd_(?:rows|dkdv|dq)_wgmma)ILi(64|128)E", mangled):
+        return f"{m.group(1)}<{m.group(2)}>", None       # K7b, Hopper
     if m := re.search(r"(row_part|arena_row|combine_flat|arena_gram_k|"
                       r"gram_flat)I(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
                       mangled):
@@ -785,11 +792,15 @@ def report_ptxas():
                     res.get("spill_loads") == 0, f"{name} spills: {res}")
     want = {f"{k}<{d},{mm},vec={v}>" for k in NO_SPILL_M16
             for d in ("float", "bf16") for mm in (8, 16, 32) for v in (0, 1)}
-    want |= {f"{k}<{d}>" for k in ("bwd_dkdv_bf16", "bwd_dq_bf16")
-             for d in (64, 128)}
+    want |= {f"{k}<{d}>" for k in BWD_KERNELS for d in (64, 128)}
     want |= {f"flash_wgmma<{d}{lse}>" for d in (64, 128)
              for lse in ("", ",lse")}
     require(want <= seen, f"ptxas report lacks {sorted(want - seen)}")
+    # ptxas's notes where it serialises a kernel's wgmma (it then waits for
+    # each product before the next instruction): printed, not required
+    for line in _build.ptxas_log().splitlines():
+        if "wgmma" in line and "serialized" in line:
+            print(f"ptxas note: {line.strip()}")
 
 
 # ms/step of each counted paper-loop run, by name
@@ -2456,7 +2467,7 @@ LM_LEFT_BYTES = 256 * 2 ** 20
 # the step's device time by kernel family (PERF.md §5)
 LM_PROFILED = 3
 # kernel families of the step's trace, by substrings of the kernel's name
-LM_FAMILIES = (("K7b", ("bwd_dkdv", "bwd_dq", "bwd_delta")),
+LM_FAMILIES = (("K7b", ("bwd_dkdv", "bwd_dq", "bwd_delta", "bwd_rows")),
                ("K7", ("flash_wgmma", "flash_bf16", "flash_f32")),
                ("K1", ("arena_row",)),
                ("GEMM", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
@@ -2556,10 +2567,14 @@ def _bwd_case(case, dtype, dev, seed):
                     .abs().max())
     require(lse_err <= LSE_ATOL, f"K7 {case} {dtype}: log-sum-exp off its "
             f"twin by {lse_err} > {LSE_ATOL}")
+    w0 = kf.LAUNCHES["flash_attention_bwd_wgmma"]
     got = kf.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                  window=window)
     again = kf.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                    window=window)
+    require(kf.LAUNCHES["flash_attention_bwd_wgmma"] - w0 ==
+            2 * kf.uses_wgmma(dtype, d), f"K7b {case} {dtype}: wrong design "
+            "launched")
     want = kf.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
                                       window=window, out=out)
     errs = {"max_abs": max(max_err(a.float(), w.float())
@@ -2884,6 +2899,7 @@ def run_lm_train(dev, records):
                           for t in jumps for b in table.values())
     require_counts("tinyllama-train graphed", want)
     require_wgmma("tinyllama-train graphed")
+    require_wgmma("tinyllama-train graphed", "flash_attention_bwd", "K7b")
     reset_counts()
     print(f"tinyllama-train graphed: launches {launches}; jumps at {jumps}; "
           f"graphs {trainer.graph_stats}; buckets "

@@ -49,6 +49,8 @@ SIGNATURES = {
                               *(_LL,) * 12, _I, _I, _P, _P),
     "flash_attention_bwd": (_I, *(_P,) * 10, *(_I,) * 6, *(_LL,) * 24, _I,
                             _I, _P),
+    "flash_attention_bwd_wgmma": (_I, *(_P,) * 10, *(_I,) * 6, *(_LL,) * 24,
+                                  _I, _I, _P),
 }
 
 

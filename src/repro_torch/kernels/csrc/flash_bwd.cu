@@ -15,9 +15,10 @@
 //   dQ_i = sum_j dS_ij k_j / sqrt(d),  dK_j = sum_i dS_ij q_i / sqrt(d)
 // with dK and dV of kv head g summed over its H / K query heads.
 //
-// One call of the C entry point launches three kernels in order on the
+// One call of a C entry point launches three kernels in order on the
 // caller's stream, and the Python wrapper counts it as one K7b launch:
-//   1. delta: D (B, H, Sq) fp32, one warp per query row.
+//   1. the rows: D (B, H, Sq) fp32, one warp per query row (the Hopper
+//      design's also each row's LSE in log2 units, both padded).
 //   2. dK/dV: one CTA per (key tile, kv head, batch). The K and V tiles
 //      stay in shared memory while the CTA walks the group's query heads
 //      and, for each, the query tiles that see its keys (the causal and
@@ -30,32 +31,67 @@
 // No float atomics and a fixed order of every sum: repeat launches are
 // bit-identical (the Trainer's graphed-equals-eager check and its
 // bit-exact resume rely on this). Each pass recomputes P from q, k and
-// the LSE instead of storing it.
+// the LSE instead of storing it: 14 d flops a seen pair and head against
+// the 10 d of one pass whose dQ adds across key tiles, which would need
+// atomics (their order changes from run to run) or a fixed-order
+// reduction.
 //
-// Two designs, chosen by dtype; both take d = 16 ... 128 in steps of 16:
-//   * bf16, mma.sync m16n8k16 (bf16 inputs, fp32 accumulate): 4 warps,
-//     16 rows each (64 keys per dK/dV CTA over 32-query tiles; 64 queries
-//     per dQ CTA over 32-key tiles). Tiles are staged by cp.async in
-//     16-byte copies into rows padded by 8 elements; operands whose
-//     reduction runs along the tile's rows (dO and Q for dV and dK, K for
-//     dQ) are read by transposed ldmatrix. P and dS are rounded to bf16
-//     for the second products, as K7 rounds P; the exponentials are exp2f
-//     of log2-scaled scores.
+// Three designs, chosen by dtype and d alone (the wrapper's uses_wgmma):
+//   * bf16 at d = 64 and 128, the Hopper design (flash_attention_bwd_wgmma:
+//     bwd_rows_wgmma, bwd_dkdv_wgmma, bwd_dq_wgmma), built from K7's pieces
+//     (hopper.cuh: TMA, mbarriers, wgmma, the operand layouts). Both
+//     passes are CTAs of two consumer warpgroups, each owning 64 rows of
+//     the CTA's 128, and one producer warp, one thread of which issues
+//     every copy; the consumers take turns to issue their products
+//     (ping-pong on named barriers), so one's exponentials run under the
+//     other's products. dK/dV: the K and V tiles by TMA once, then a
+//     4-stage ring of (Q, dO) tiles (64 queries at d = 64, 16 at d = 128)
+//     for every query head of the group, each with its LSE and D slices by
+//     a bulk copy; per stage each consumer issues S^T = K Q^T and
+//     dP^T = V dO^T (wgmma SS, K-major), computes P^T and dS^T, then issues
+//     dV += bf16(P^T) dO and dK += bf16(dS^T) Q (wgmma RS, dO and Q as
+//     MN-major B, as K7 reads V). dQ: Q and dO by TMA once, a 4-stage ring
+//     of 64-key (K, V) tiles; S = Q K^T and dP = dO V^T on wgmma SS, dQ +=
+//     bf16(dS) K on wgmma RS, at d = 64 pipelined as K7 is (the dQ
+//     product of one stage under the exponentials of the next). The tiles
+//     that need the per-element mask (the causal diagonal, a window's
+//     edge, the ragged ends of Sq and Sk) are walked by loops of their
+//     own. The heaviest CTAs start first: dK/dV's key blocks lowest first,
+//     dQ's query blocks reversed under the causal mask.
+//     Registers decide the shapes: a thread of a CTA of 9 or 12 warps gets
+//     at most 168 (an SM sub-partition holds 3 of its warps), and ptxas
+//     holds K7's setmaxnreg shape to that budget as well. dK and dV take 64
+//     (d = 64) or 128 (d = 128) fp32 registers a thread, so the dK/dV pass
+//     waits for each group of products (pipelined as dQ is, it spilled and
+//     ran 1.6 times slower) and takes 16-query steps at d = 128. The
+//     producer is one warp, not K7's producer warpgroup: the three idle
+//     warps and setmaxnreg bought nothing here and cost 3% (PERF.md §6).
+//   * bf16 at the other head sizes (16, 32, 48, 80, 96, 112), mma.sync
+//     m16n8k16 (bf16 inputs, fp32 accumulate): 4 warps, 16 rows each (64
+//     keys per dK/dV CTA over 32-query tiles; 64 queries per dQ CTA over
+//     32-key tiles).
+//     Tiles are staged by cp.async in 16-byte copies into rows padded by 8
+//     elements; operands whose reduction runs along the tile's rows (dO
+//     and Q for dV and dK, K for dQ) are read by transposed ldmatrix.
 //   * fp32, IEEE fmaf throughout (no TF32): 4 warps over 32-key x 16-query
 //     tiles, each score a dot product of two shared-memory rows.
+// The bf16 designs round P and dS to bf16 for the second products, as K7
+// rounds P; the exponentials are of log2-scaled scores (exp2f; the Hopper
+// design the MUFU's ex2, flushing results below 2^-126 to zero).
 //
 // What bounds it on an H100: operations. The five products (S, dP, dV,
 // dK, dQ) take 10 d flops per seen (i, j) pair and head, 2.5 times the
 // forward's four; at (2, 4096, 32, 4, 64) bf16 causal that is 0.35 ms at
 // 989 TFLOP/s against 0.07 ms for its 216 MB of q, k, v, O, dO, dq, dk,
-// dv and the two (B, H, Sq) vectors at 3.35 TB/s. This first design is
-// far from that bound: mma.sync rather than wgmma, staging that the warps
-// wait for, S and dP recomputed in both passes, one CTA of 128 threads.
-// Later work: wgmma with TMA staging, a pipelined ring of tiles, one pass.
-// The launcher returns cudaGetLastError() after each kernel; the Python
+// dv and the two (B, H, Sq) vectors at 3.35 TB/s. The two passes' 14 d
+// flops put a ceiling of 71% of that bound on this structure; at d = 64
+// the exponentials (2 x 5.4e8 at the LM shape, ~0.14 ms a pass at 16 MUFU
+// results per clock per SM) are a second floor that the ping-pong hides
+// under the other warpgroup's products.
+// Each launcher returns cudaGetLastError() after each kernel; the Python
 // wrapper raises if it is not 0. Nothing is synchronised.
 
-#include "flash.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -78,7 +114,8 @@ struct Bwd {
   float scale_log2;                  // log2(e) / sqrt(d)
   Strides q, k, v, o, g, dq, dk, dv;  // g: dO
   const float* lse;                  // (B, H, Sq), natural log
-  float* delta;                      // (B, H, Sq)
+  float* delta;                      // (B, H, Sq); the Hopper design's:
+                                     // (B, H, 2, Sq padded), LSE_2 and D
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -620,6 +657,734 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- bf16, d 64 / 128, sm_90a --
+
+namespace hopper {
+
+constexpr int kRows = 64;            // rows per consumer warpgroup: keys in
+                                     // the dK/dV pass, queries in the dQ pass
+constexpr int kBlock = 2 * kRows;    // rows per CTA
+constexpr int kThreads = 288;        // two consumer warpgroups, a producer
+constexpr int kProducer = 2;         // warp 8 (threadIdx.x >> 7 == 2)
+constexpr int kRowBytes = 128;       // one swizzled smem row: 64 bf16
+constexpr int kStages = 4;           // ring stages
+constexpr int kPad = 128;            // LSE and D rows padded to a multiple
+
+// The shared memory of one dK/dV CTA (byte offsets from a 1024-aligned
+// base, as the 128-byte swizzle needs; a tile of R rows x D columns is
+// D / 64 panels of R rows x 128 bytes, one TMA box each): K and V of its
+// 128 keys, one 64-row tile per consumer warpgroup, loaded once; a ring of
+// (Q, dO) tiles of BQ queries with their slices of LSE (log2 units) and D.
+// BQ is 64 at d = 64 and 16 at d = 128, so that dK and dV (2 x 32 or 2 x
+// 64 fp32 registers) and S^T and dP^T (2 x BQ / 2) fit the 168 registers
+// a thread of a 9-warp CTA can have.
+template <int D>
+struct KvSmem {
+  static constexpr int kBQ = D == 64 ? 64 : 16;
+  static constexpr int kPanels = D / 64;
+  static constexpr int kKTile = kPanels * kRows * kRowBytes;   // K or V
+  static constexpr int kQTile = kPanels * kBQ * kRowBytes;     // Q or dO
+  static constexpr int kVec = 2 * kBQ * 4;                     // LSE, D
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + 2 * kKTile;
+  static constexpr int kQ = kV + 2 * kKTile;
+  static constexpr int kG = kQ + kStages * kQTile;
+  static constexpr int kL = kG + kStages * kQTile;
+  static constexpr int kBar = kL + kStages * kVec;     // full, empty, kv
+  static constexpr int kAlloc = kBar + (2 * kStages + 1) * 8 + 1024;
+};
+
+// The shared memory of one dQ CTA: Q and dO of its 128 queries (one
+// 64-row tile each per consumer warpgroup), loaded once; a ring of (K, V)
+// tiles of 64 keys.
+template <int D>
+struct QSmem {
+  static constexpr int kBK = 64;
+  static constexpr int kPanels = D / 64;
+  static constexpr int kQTile = kPanels * kRows * kRowBytes;   // Q or dO
+  static constexpr int kKVTile = kPanels * kBK * kRowBytes;    // K or V
+  static constexpr int kQ = 0;
+  static constexpr int kG = kQ + 2 * kQTile;
+  static constexpr int kK = kG + 2 * kQTile;
+  static constexpr int kV = kK + kStages * kKVTile;
+  static constexpr int kBar = kV + kStages * kKVTile;  // full, empty, q
+  static constexpr int kAlloc = kBar + (2 * kStages + 1) * 8 + 1024;
+};
+
+// Some pair of [q0, q0 + bq) x [k0, k0 + bk) is seen (K7's visible_tile).
+__device__ __forceinline__ bool tile_seen(const Bwd& p, int q0, int bq,
+                                          int k0, int bk) {
+  bool vis = true;
+  if (p.causal) vis = q0 + bq - 1 >= k0;
+  if (p.window > 0) vis = vis && (k0 + bk - 1 > q0 - p.window);
+  return vis;
+}
+
+// Every pair is seen: the tile needs no per-element mask (K7's whole_tile,
+// with the ragged end of Sq as well).
+__device__ __forceinline__ bool tile_whole(const Bwd& p, int q0, int bq,
+                                           int k0, int bk) {
+  return q0 + bq <= p.Sq && k0 + bk <= p.Sk &&
+         (!p.causal || k0 + bk - 1 <= q0) &&
+         (p.window <= 0 || q0 + bq - 1 - k0 < p.window);
+}
+
+// The run [lo, hi) of n tiles of `step` rows (tile i at i * step; queries
+// if `queries`, else keys) that see the CTA's fixed rows [r0, r0 + 128),
+// and within it the run [ulo, uhi) that needs no mask.
+__device__ __forceinline__ void tile_runs(const Bwd& p, bool queries, int r0,
+                                          int step, int n, int& lo, int& hi,
+                                          int& ulo, int& uhi) {
+  auto seen_at = [&](int i) {
+    return queries ? tile_seen(p, i * step, step, r0, kBlock)
+                   : tile_seen(p, r0, kBlock, i * step, step);
+  };
+  auto whole_at = [&](int i) {
+    return queries ? tile_whole(p, i * step, step, r0, kBlock)
+                   : tile_whole(p, r0, kBlock, i * step, step);
+  };
+  lo = 0;
+  while (lo < n && !seen_at(lo)) ++lo;
+  hi = lo;
+  while (hi < n && seen_at(hi)) ++hi;
+  ulo = lo;
+  while (ulo < hi && !whole_at(ulo)) ++ulo;
+  uhi = ulo;
+  while (uhi < hi && whole_at(uhi)) ++uhi;
+}
+
+// C (+)= A B^T over d: A a 64-row tile at `a` (K-major, panels of kRows
+// rows), B an N-row tile at `b` (K-major, panels of N rows); 16-deep steps
+// over d, 32 bytes apart inside a panel row. Neither fenced nor committed.
+template <int D, int N>
+__device__ __forceinline__ void ss_rows(float (&c)[N / 2], uint32_t a,
+                                        uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da =
+        sw128_desc(a + (kk >> 2) * kRows * kRowBytes + (kk & 3) * 32);
+    const uint64_t db =
+        sw128_desc(b + (kk >> 2) * N * kRowBytes + (kk & 3) * 32);
+    if constexpr (N == 64) {
+      wgmma_ss_n64(c, da, db, kk > 0);
+    } else {
+      wgmma_ss_n16(c, da, db, kk > 0);
+    }
+  }
+}
+
+// acc += A M, the sum over the N rows of M: A from registers (pack_a), M an
+// N-row tile at `m` read as an MN-major B (K7's V in P V): the kk-th
+// 16-row step starts 16 rows (2048 bytes) into each 64-column panel.
+// Neither fenced nor committed.
+template <int NP, int N>
+__device__ __forceinline__ void rs_rows(float (&acc)[NP][32],
+                                        const uint32_t (&a)[N / 16][4],
+                                        uint32_t m) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+      wgmma_rs_n64(acc[pn], a[kk],
+                   sw128_desc(m + pn * N * kRowBytes + kk * 16 * kRowBytes));
+}
+
+// A 64 x N fp32 accumulator (wgmma layout: c[4 n + 2 i + j] at row
+// 16 w + g + 8 i, column 8 n + 2 t + j) rounded to bf16, as the A operand
+// of the N / 16 16-deep steps of a product over its columns (K7's pack_p).
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
+                                       const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// A consumer warpgroup's place in the ring, its barriers and its turn.
+struct Ring {
+  int stage, prev;
+  uint32_t phase;
+  uint32_t full, empty;
+  int lane, cw;
+
+  __device__ __forceinline__ void init(uint32_t full_bar, uint32_t empty_bar,
+                                       int warpgroup) {
+    stage = prev = 0;
+    phase = 0;
+    full = full_bar;
+    empty = empty_bar;
+    lane = threadIdx.x & 31;
+    cw = warpgroup;
+  }
+  __device__ __forceinline__ void wait_full() {
+    mbar_wait(full + 8 * stage, phase);
+  }
+  // This warp is done with stage `prev` (its products have completed).
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+  }
+  __device__ __forceinline__ void advance() {
+    prev = stage;
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  // Ping-pong: a warpgroup issues its products between its own named
+  // barrier and the other's (1 + cw, 2 - cw; warpgroup 1 arrives once
+  // first, warpgroup 0 syncs once last), so the two warpgroups' products
+  // alternate and one's exponentials run under the other's products.
+  __device__ __forceinline__ void turn() { named_sync(1 + cw); }
+  __device__ __forceinline__ void pass() { named_arrive(2 - cw); }
+};
+
+// One consumer warpgroup of the dK/dV pass: 64 keys (rows a: key_a, rows
+// b: key_a + 8), dK and dV in fp32 registers over every step. A step is
+// one (Q, dO) stage of BQ queries of one head:
+//   S^T = K Q^T and dP^T = V dO^T (wgmma SS, both operands K-major);
+//   P^T = exp2(S^T log2(e) / sqrt(d) - LSE_col log2(e)), 0 where not seen;
+//   dS^T = P^T (dP^T - D_col);
+//   dV += bf16(P^T) dO and dK += bf16(dS^T) Q (wgmma RS, dO and Q as
+//   MN-major B).
+// The warpgroup waits for each group of products: the two pipelined (the
+// second products of one step under the exponentials of the next) would
+// hold 32 more registers than a thread has, and the other warpgroup's
+// products fill the wait.
+template <int D>
+struct KvConsumer {
+  using L = KvSmem<D>;
+  static constexpr int BQ = L::kBQ;
+  float dk[L::kPanels][32], dv[L::kPanels][32];
+  float s[BQ / 2], dp[BQ / 2];       // S^T, dP^T; then P^T, dS^T (fp32)
+  uint32_t pa[BQ / 16][4];           // P^T (bf16)
+  uint32_t sa[BQ / 16][4];           // dS^T (bf16)
+  Ring r;
+  uint32_t base, ks, vs;
+  const float* vec;                  // the ring's LSE / D slices (generic)
+  int t, key_a;
+
+  // P^T and dS^T in place of S^T and dP^T for the step at q0, the LSE and
+  // D of its columns read from the stage's slices.
+  template <bool kMasked>
+  __device__ __forceinline__ void grads(const Bwd& p, int q0) {
+    const float* lv = vec + r.stage * (2 * BQ);
+    const float scale = p.scale_log2;
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const float2 l = *reinterpret_cast<const float2*>(lv + 8 * n + 2 * t);
+      const float2 e =
+          *reinterpret_cast<const float2*>(lv + BQ + 8 * n + 2 * t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float pv = exp2_ftz(fmaf(s[4 * n + j], scale, (j & 1) ? -l.y : -l.x));
+        if constexpr (kMasked)
+          pv = seen(p, q0 + 8 * n + 2 * t + (j & 1), key_a + 8 * (j >> 1))
+                   ? pv
+                   : 0.f;
+        s[4 * n + j] = pv;
+        dp[4 * n + j] = pv * (dp[4 * n + j] - ((j & 1) ? e.y : e.x));
+      }
+    }
+  }
+
+  template <bool kMasked>
+  __device__ __forceinline__ void step(const Bwd& p, int q0) {
+    const uint32_t qs = base + L::kQ + r.stage * L::kQTile;
+    const uint32_t gs = base + L::kG + r.stage * L::kQTile;
+    r.wait_full();
+    r.turn();
+    wgmma_fence();
+    ss_rows<D, BQ>(s, ks, qs);
+    ss_rows<D, BQ>(dp, vs, gs);
+    wgmma_commit();
+    r.pass();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    grads<kMasked>(p, q0);
+    pack_a<BQ>(pa, s);
+    pack_a<BQ>(sa, dp);
+    r.turn();
+    wgmma_fence();
+    rs_rows<L::kPanels, BQ>(dv, pa, gs);
+    rs_rows<L::kPanels, BQ>(dk, sa, qs);
+    wgmma_commit();
+    r.pass();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pn = 0; pn < L::kPanels; ++pn) {
+      fence_regs(dk[pn]);
+      fence_regs(dv[pn]);
+    }
+    r.advance();
+    r.release();
+  }
+};
+
+// The dK/dV producer: one thread brings K and V of the CTA's keys, then
+// for every query head of the group the (Q, dO) tiles [lo, hi) and their
+// LSE / D slices into the ring, each stage once the consumers released it.
+template <int D>
+__device__ __forceinline__ void produce_kv(
+    const CUtensorMap& tq, const CUtensorMap& tg, const CUtensorMap& tk,
+    const CUtensorMap& tv, const Bwd& p, int sq_pad, uint32_t base,
+    uint32_t full, uint32_t empty, uint32_t kvbar, int k0, int kh, int b,
+    int lo, int hi) {
+  using L = KvSmem<D>;
+  constexpr int BQ = L::kBQ;
+  prefetch_map(&tq);
+  prefetch_map(&tg);
+  prefetch_map(&tk);
+  prefetch_map(&tv);
+  mbar_expect_tx(kvbar, 4 * L::kKTile);
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+#pragma unroll
+    for (int pn = 0; pn < L::kPanels; ++pn) {
+      const int off = w * L::kKTile + pn * kRows * kRowBytes;
+      tma_load(base + L::kK + off, &tk, kvbar, pn * 64, kh, k0 + w * kRows, b);
+      tma_load(base + L::kV + off, &tv, kvbar, pn * 64, kh, k0 + w * kRows, b);
+    }
+  int stage = 0;
+  uint32_t phase = 1;                  // the ring starts empty
+  for (int r = 0; r < p.rep; ++r) {
+    const int h = kh * p.rep + r;
+    const float* lv = p.delta + ((long long)b * p.H + h) * 2 * sq_pad;
+    for (int qt = lo; qt < hi; ++qt) {
+      const int q0 = qt * BQ;
+      mbar_wait(empty + 8 * stage, phase);
+      const uint32_t bar = full + 8 * stage;
+      mbar_expect_tx(bar, 2 * L::kQTile + L::kVec);
+#pragma unroll
+      for (int pn = 0; pn < L::kPanels; ++pn) {
+        const int off = stage * L::kQTile + pn * BQ * kRowBytes;
+        tma_load(base + L::kQ + off, &tq, bar, pn * 64, h, q0, b);
+        tma_load(base + L::kG + off, &tg, bar, pn * 64, h, q0, b);
+      }
+      const uint32_t vs = base + L::kL + stage * L::kVec;
+      bulk_load(vs, lv + q0, BQ * 4, bar);
+      bulk_load(vs + BQ * 4, lv + sq_pad + q0, BQ * 4, bar);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// 2. dK and dV of 128 keys of one kv head, over its query heads: one CTA
+// per (key block, kv head, batch) of two consumer warpgroups (64 keys
+// each) and one producer warp. The key blocks with the most queries start
+// first (the grid's slowest axis is the key block, lowest first). p.delta
+// holds LSE in log2 units and D, (B, H, 2, sq_pad).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tg,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               Bwd p, int sq_pad) {
+  using L = KvSmem<D>;
+  constexpr int BQ = L::kBQ;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t full = base + L::kBar;             // full[s]: + 8 s
+  const uint32_t empty = full + 8 * kStages;        // empty[s]: + 8 s
+  const uint32_t kvbar = empty + 8 * kStages;
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kBlock;
+  // the warpgroup, read from lane 0 so the compiler knows it is the same
+  // across the warp (role branches need warp-uniform paths)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  int lo, hi, ulo, uhi;
+  tile_runs(p, true, k0, BQ, (p.Sq + BQ - 1) / BQ, lo, hi, ulo, uhi);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);       // one arrival per consumer warp
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kProducer) {
+    if ((threadIdx.x & 31) == 0)
+      produce_kv<D>(tq, tg, tk, tv, p, sq_pad, base, full, empty, kvbar, k0,
+                    kh, b, lo, hi);
+    return;
+  }
+  KvConsumer<D> c;
+  const int tid = threadIdx.x & 127;
+  c.r.init(full, empty, wg);
+  c.t = c.r.lane & 3;
+  c.key_a = k0 + wg * kRows + (tid >> 5) * 16 + (c.r.lane >> 2);
+  c.base = base;
+  c.ks = base + L::kK + wg * L::kKTile;
+  c.vs = base + L::kV + wg * L::kKTile;
+  c.vec = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kL);
+#pragma unroll
+  for (int pn = 0; pn < L::kPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) c.dk[pn][i] = c.dv[pn][i] = 0.f;
+
+  if (wg == 1) c.r.pass();                          // warpgroup 0 goes first
+  mbar_wait(kvbar, 0);
+  for (int h = 0; h < p.rep; ++h) {
+    for (int qt = lo; qt < ulo; ++qt) c.template step<true>(p, qt * BQ);
+    for (int qt = ulo; qt < uhi; ++qt) c.template step<false>(p, qt * BQ);
+    for (int qt = uhi; qt < hi; ++qt) c.template step<true>(p, qt * BQ);
+  }
+  if (wg == 0) c.r.turn();                          // warpgroup 1's last pass
+
+  __nv_bfloat16* kb = dk + (long long)b * p.dk.b + (long long)kh * p.dk.h;
+  __nv_bfloat16* vb = dv + (long long)b * p.dv.b + (long long)kh * p.dv.h;
+#pragma unroll
+  for (int pn = 0; pn < L::kPanels; ++pn)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = pn * 64 + n * 8 + 2 * c.t;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const long long key = c.key_a + 8 * i;
+        if (key < p.Sk) {
+          *reinterpret_cast<uint32_t*>(kb + key * p.dk.s + col) =
+              pack_bf16(c.dk[pn][4 * n + 2 * i] * p.scale,
+                        c.dk[pn][4 * n + 2 * i + 1] * p.scale);
+          *reinterpret_cast<uint32_t*>(vb + key * p.dv.s + col) =
+              pack_bf16(c.dv[pn][4 * n + 2 * i], c.dv[pn][4 * n + 2 * i + 1]);
+        }
+      }
+    }
+}
+
+// One consumer warpgroup of the dQ pass: 64 queries (rows a: row_a, rows
+// b: row_a + 8), dQ in fp32 registers over every (K, V) stage of 64 keys:
+//   S = Q K^T and dP = dO V^T (wgmma SS, both operands K-major);
+//   dS = exp2(S log2(e) / sqrt(d) - LSE log2(e)) (dP - D), 0 where not seen;
+//   dQ += bf16(dS) K (wgmma RS, K as MN-major B).
+// At d = 64 a two-stage software pipeline (K7's): at stage t it issues S_t
+// and dP_t, then dQ += dS_{t-1} K_{t-1}, and computes dS_t while the
+// second product runs. At d = 128 dQ's 64 registers leave no room for
+// that: each group of products is waited for, as in the dK/dV pass.
+template <int D>
+struct QConsumer {
+  using L = QSmem<D>;
+  static constexpr int BK = L::kBK;
+  static constexpr bool kPipelined = D == 64;
+  float dq[L::kPanels][32];
+  float s[BK / 2], dp[BK / 2];       // S, dP; then dS in dp (fp32)
+  uint32_t sa[BK / 16][4];           // dS (bf16), of the previous stage
+                                     // while pipelined
+  Ring r;
+  uint32_t base, qs, gs;
+  float lse_a, lse_b, del_a, del_b;  // log2 units / D of rows a and b
+  int t, row_a;
+
+  __device__ __forceinline__ void issue_sdp() {
+    wgmma_fence();
+    ss_rows<D, BK>(s, qs, base + L::kK + r.stage * L::kKVTile);
+    ss_rows<D, BK>(dp, gs, base + L::kV + r.stage * L::kKVTile);
+    wgmma_commit();
+  }
+
+  // dQ += dS K over the stage `prev`.
+  __device__ __forceinline__ void issue_dq() {
+    wgmma_fence();
+    rs_rows<L::kPanels, BK>(dq, sa, base + L::kK + r.prev * L::kKVTile);
+    wgmma_commit();
+  }
+
+  template <bool kMasked>
+  __device__ __forceinline__ void grads(const Bwd& p, int k0) {
+    const float scale = p.scale_log2;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool a = j < 2;
+        float pv = exp2_ftz(fmaf(s[4 * n + j], scale, a ? -lse_a : -lse_b));
+        if constexpr (kMasked)
+          pv = seen(p, a ? row_a : row_a + 8, k0 + 8 * n + 2 * t + (j & 1))
+                   ? pv
+                   : 0.f;
+        dp[4 * n + j] = pv * (dp[4 * n + j] - (a ? del_a : del_b));
+      }
+  }
+
+  __device__ __forceinline__ void fence_acc() {
+#pragma unroll
+    for (int pn = 0; pn < L::kPanels; ++pn) fence_regs(dq[pn]);
+  }
+
+  // One stage, unpipelined: its products waited for.
+  template <bool kMasked>
+  __device__ __forceinline__ void step(const Bwd& p, int k0) {
+    r.wait_full();
+    r.turn();
+    issue_sdp();
+    r.pass();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    grads<kMasked>(p, k0);
+    pack_a<BK>(sa, dp);
+    r.advance();
+    r.turn();
+    issue_dq();
+    r.pass();
+    wgmma_wait<0>();
+    fence_acc();
+    r.release();
+  }
+
+  // The first stage: S, dP and dS (nothing else in flight, so the mask may
+  // be chosen at run time).
+  __device__ __forceinline__ void first(const Bwd& p, int k0, bool masked) {
+    if constexpr (!kPipelined) {
+      if (masked) {
+        step<true>(p, k0);
+      } else {
+        step<false>(p, k0);
+      }
+    } else {
+      r.wait_full();
+      r.turn();
+      issue_sdp();
+      r.pass();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (masked) {
+        grads<true>(p, k0);
+      } else {
+        grads<false>(p, k0);
+      }
+      pack_a<BK>(sa, dp);
+      r.advance();
+    }
+  }
+
+  // A later stage: S_t, dP_t and dQ += dS_{t-1} K_{t-1} in flight, dS_t
+  // under the second product, then the stage of t - 1 released.
+  template <bool kMasked>
+  __device__ __forceinline__ void next(const Bwd& p, int k0) {
+    if constexpr (!kPipelined) {
+      step<kMasked>(p, k0);
+    } else {
+      r.wait_full();
+      r.turn();
+      issue_sdp();
+      issue_dq();
+      r.pass();
+      wgmma_wait<1>();
+      fence_regs(s);
+      fence_regs(dp);
+      grads<kMasked>(p, k0);
+      fence_regs(dp);                // computed before the wait below
+      wgmma_wait<0>();
+      fence_acc();
+      r.release();
+      pack_a<BK>(sa, dp);
+      r.advance();
+    }
+  }
+
+  // The last stage's dQ product.
+  __device__ __forceinline__ void last() {
+    if constexpr (kPipelined) {
+      issue_dq();
+      wgmma_wait<0>();
+      fence_acc();
+      r.release();
+    }
+  }
+};
+
+// The dQ producer: one thread brings Q and dO of the CTA's queries, then
+// the (K, V) tiles [lo, hi) into the ring.
+template <int D>
+__device__ __forceinline__ void produce_q(
+    const CUtensorMap& tq, const CUtensorMap& tg, const CUtensorMap& tk,
+    const CUtensorMap& tv, const Bwd& p, uint32_t base, uint32_t full,
+    uint32_t empty, uint32_t qbar, int q0, int h, int b, int lo, int hi) {
+  using L = QSmem<D>;
+  constexpr int BK = L::kBK;
+  prefetch_map(&tq);
+  prefetch_map(&tg);
+  prefetch_map(&tk);
+  prefetch_map(&tv);
+  const int kh = h / p.rep;
+  mbar_expect_tx(qbar, 4 * L::kQTile);
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+#pragma unroll
+    for (int pn = 0; pn < L::kPanels; ++pn) {
+      const int off = w * L::kQTile + pn * kRows * kRowBytes;
+      tma_load(base + L::kQ + off, &tq, qbar, pn * 64, h, q0 + w * kRows, b);
+      tma_load(base + L::kG + off, &tg, qbar, pn * 64, h, q0 + w * kRows, b);
+    }
+  int stage = 0;
+  uint32_t phase = 1;                  // the ring starts empty
+  for (int kt = lo; kt < hi; ++kt) {
+    mbar_wait(empty + 8 * stage, phase);
+    const uint32_t bar = full + 8 * stage;
+    mbar_expect_tx(bar, 2 * L::kKVTile);
+#pragma unroll
+    for (int pn = 0; pn < L::kPanels; ++pn) {
+      const int off = stage * L::kKVTile + pn * BK * kRowBytes;
+      tma_load(base + L::kK + off, &tk, bar, pn * 64, kh, kt * BK, b);
+      tma_load(base + L::kV + off, &tv, bar, pn * 64, kh, kt * BK, b);
+    }
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// 3. dQ of 128 queries of one head: one CTA per (query block, head,
+// batch), laid out as dK/dV's; the query blocks with the most keys start
+// first (reversed under the causal mask, as K7's).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tg,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             __nv_bfloat16* __restrict__ dq, Bwd p, int sq_pad) {
+  using L = QSmem<D>;
+  constexpr int BK = L::kBK;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = base + L::kBar;
+  const uint32_t empty = full + 8 * kStages;
+  const uint32_t qbar = empty + 8 * kStages;
+  const int nq = gridDim.z;
+  const int q0 =
+      (p.causal ? nq - 1 - (int)blockIdx.z : (int)blockIdx.z) * kBlock;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  int lo, hi, ulo, uhi;
+  tile_runs(p, false, q0, BK, (p.Sk + BK - 1) / BK, lo, hi, ulo, uhi);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kProducer) {
+    if ((threadIdx.x & 31) == 0)
+      produce_q<D>(tq, tg, tk, tv, p, base, full, empty, qbar, q0, h, b, lo,
+                   hi);
+    return;
+  }
+  QConsumer<D> c;
+  const int tid = threadIdx.x & 127;
+  c.r.init(full, empty, wg);
+  c.t = c.r.lane & 3;
+  c.row_a = q0 + wg * kRows + (tid >> 5) * 16 + (c.r.lane >> 2);
+  c.base = base;
+  c.qs = base + L::kQ + wg * L::kQTile;
+  c.gs = base + L::kG + wg * L::kQTile;
+  const float* lv = p.delta + ((long long)b * p.H + h) * 2 * sq_pad;
+  c.lse_a = lv[c.row_a];                 // rows past Sq: the zero padding
+  c.lse_b = lv[c.row_a + 8];
+  c.del_a = lv[sq_pad + c.row_a];
+  c.del_b = lv[sq_pad + c.row_a + 8];
+#pragma unroll
+  for (int pn = 0; pn < L::kPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) c.dq[pn][i] = 0.f;
+
+  if (wg == 1) c.r.pass();
+  mbar_wait(qbar, 0);
+  if (hi > lo) {
+    c.first(p, lo * BK, lo < ulo || lo >= uhi);
+    for (int kt = lo + 1; kt < ulo; ++kt) c.template next<true>(p, kt * BK);
+    for (int kt = max(lo + 1, ulo); kt < uhi; ++kt)
+      c.template next<false>(p, kt * BK);
+    for (int kt = max(lo + 1, uhi); kt < hi; ++kt)
+      c.template next<true>(p, kt * BK);
+    c.last();
+  }
+  if (wg == 0) c.r.turn();
+
+  __nv_bfloat16* qb = dq + (long long)b * p.dq.b + (long long)h * p.dq.h;
+#pragma unroll
+  for (int pn = 0; pn < L::kPanels; ++pn)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = pn * 64 + n * 8 + 2 * c.t;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const long long row = c.row_a + 8 * i;
+        if (row < p.Sq)
+          *reinterpret_cast<uint32_t*>(qb + row * p.dq.s + col) =
+              pack_bf16(c.dq[pn][4 * n + 2 * i] * p.scale,
+                        c.dq[pn][4 * n + 2 * i + 1] * p.scale);
+      }
+    }
+}
+
+// 1. LSE in log2 units and D = sum_c dO_ic O_ic of every row, into (B, H,
+// 2, sq_pad) with the rows past Sq zero (the dK/dV ring copies whole
+// slices): D / 8 threads per row, one 16-byte load of O and of dO each.
+template <int D>
+__global__ void __launch_bounds__(128)
+bwd_rows_wgmma(const __nv_bfloat16* __restrict__ o,
+               const __nv_bfloat16* __restrict__ g, Bwd p, int sq_pad) {
+  constexpr int kLanes = D / 8;               // a power of two <= 32
+  const int row = blockIdx.x * (128 / kLanes) + threadIdx.x / kLanes;
+  const int c = (threadIdx.x % kLanes) * 8;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  float s = 0.f, l = 0.f;
+  if (row < p.Sq) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        o + b * p.o.b + row * p.o.s + (long long)h * p.o.h + c);
+    const uint4 gv = *reinterpret_cast<const uint4*>(
+        g + b * p.g.b + row * p.g.s + (long long)h * p.g.h + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]);
+      const float2 gf = __bfloat1622float2(g2[i]);
+      s = fmaf(of.x, gf.x, s);
+      s = fmaf(of.y, gf.y, s);
+    }
+    l = p.lse[row_base(b, h, p) + row] * kLog2e;
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (threadIdx.x % kLanes == 0) {
+    float* lv = p.delta + (b * p.H + h) * 2 * sq_pad;
+    lv[row] = l;
+    lv[sq_pad + row] = s;
+  }
+}
+
+}  // namespace hopper
+
 // Launch `kern` with `smem` bytes of dynamic shared memory (raising the
 // per-kernel cap above 48 KB first where needed).
 template <typename Kern, typename... Args>
@@ -641,24 +1406,29 @@ int launch_bwd(int dtype, const void* q, const void* k, const void* v,
   const dim3 rows((p.Sq + kThreads / 32 - 1) / (kThreads / 32), p.H, B);
   cudaError_t err;
   if (dtype == 1) {
-    using T = __nv_bfloat16;
-    err = launch(bwd_delta<T>, rows, 0, st, static_cast<const T*>(o),
-                 static_cast<const T*>(g), p, D);
-    if (err != cudaSuccess) return (int)err;
-    const size_t sm_kv =
-        (2 * kKeys + 2 * kQT) * (D + 8) * sizeof(T) + 2 * kQT * sizeof(float);
-    err = launch(bwd_dkdv_bf16<D>, dim3((p.Sk + kKeys - 1) / kKeys, K, B),
-                 sm_kv, st, static_cast<const T*>(q),
-                 static_cast<const T*>(k), static_cast<const T*>(v),
-                 static_cast<const T*>(g), static_cast<T*>(dk),
-                 static_cast<T*>(dv), p);
-    if (err != cudaSuccess) return (int)err;
-    const size_t sm_q = 2 * kKT * (D + 8) * sizeof(T);
-    err = launch(bwd_dq_bf16<D>, dim3((p.Sq + kQRows - 1) / kQRows, p.H, B),
-                 sm_q, st, static_cast<const T*>(q), static_cast<const T*>(k),
-                 static_cast<const T*>(v), static_cast<const T*>(g),
-                 static_cast<T*>(dq), p);
-    return (int)err;
+    if constexpr (D == 64 || D == 128) {
+      return (int)cudaErrorInvalidValue;   // flash_attention_bwd_wgmma's
+    } else {
+      using T = __nv_bfloat16;
+      err = launch(bwd_delta<T>, rows, 0, st, static_cast<const T*>(o),
+                   static_cast<const T*>(g), p, D);
+      if (err != cudaSuccess) return (int)err;
+      const size_t sm_kv = (2 * kKeys + 2 * kQT) * (D + 8) * sizeof(T) +
+                           2 * kQT * sizeof(float);
+      err = launch(bwd_dkdv_bf16<D>, dim3((p.Sk + kKeys - 1) / kKeys, K, B),
+                   sm_kv, st, static_cast<const T*>(q),
+                   static_cast<const T*>(k), static_cast<const T*>(v),
+                   static_cast<const T*>(g), static_cast<T*>(dk),
+                   static_cast<T*>(dv), p);
+      if (err != cudaSuccess) return (int)err;
+      const size_t sm_q = 2 * kKT * (D + 8) * sizeof(T);
+      err = launch(bwd_dq_bf16<D>,
+                   dim3((p.Sq + kQRows - 1) / kQRows, p.H, B), sm_q, st,
+                   static_cast<const T*>(q), static_cast<const T*>(k),
+                   static_cast<const T*>(v), static_cast<const T*>(g),
+                   static_cast<T*>(dq), p);
+      return (int)err;
+    }
   }
   err = launch(bwd_delta<float>, rows, 0, st, static_cast<const float*>(o),
                static_cast<const float*>(g), p, D);
@@ -679,6 +1449,69 @@ int launch_bwd(int dtype, const void* q, const void* k, const void* v,
   return (int)err;
 }
 
+template <int D>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* o, const void* g, void* dq, void* dk,
+                     void* dv, int B, int K, const Bwd& p, cudaStream_t st) {
+  using KL = hopper::KvSmem<D>;
+  using QL = hopper::QSmem<D>;
+  constexpr int BQ = KL::kBQ;
+  const int sq_pad = (p.Sq + hopper::kPad - 1) / hopper::kPad * hopper::kPad;
+  const int nkb = (p.Sk + hopper::kBlock - 1) / hopper::kBlock;
+  const int nqb = sq_pad / hopper::kBlock;
+  CUtensorMap mq, mg, mk, mv, mq64, mg64;
+  if (nkb > 65535 || nqb > 65535 || B > 65535 || K > 65535 ||
+      !encode_map(&mq, q, D, p.H, p.Sq, B, p.q, BQ) ||
+      !encode_map(&mg, g, D, p.H, p.Sq, B, p.g, BQ) ||
+      !encode_map(&mk, k, D, K, p.Sk, B, p.k, hopper::kRows) ||
+      !encode_map(&mv, v, D, K, p.Sk, B, p.v, hopper::kRows) ||
+      !encode_map(&mq64, q, D, p.H, p.Sq, B, p.q, hopper::kRows) ||
+      !encode_map(&mg64, g, D, p.H, p.Sq, B, p.g, hopper::kRows))
+    return (int)cudaErrorInvalidValue;
+  using T = __nv_bfloat16;
+  hopper::bwd_rows_wgmma<D><<<dim3(sq_pad / (128 / (D / 8)), p.H, B), 128,
+                              0, st>>>(
+      static_cast<const T*>(o), static_cast<const T*>(g), p, sq_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(hopper::bwd_dkdv_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             KL::kAlloc);
+  if (err != cudaSuccess) return (int)err;
+  hopper::bwd_dkdv_wgmma<D><<<dim3(K, B, nkb), hopper::kThreads, KL::kAlloc,
+                              st>>>(mq, mg, mk, mv, static_cast<T*>(dk),
+                                    static_cast<T*>(dv), p, sq_pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(hopper::bwd_dq_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             QL::kAlloc);
+  if (err != cudaSuccess) return (int)err;
+  hopper::bwd_dq_wgmma<D><<<dim3(p.H, B, nqb), hopper::kThreads, QL::kAlloc,
+                            st>>>(mq64, mg64, mk, mv, static_cast<T*>(dq), p,
+                                  sq_pad);
+  return (int)cudaGetLastError();
+}
+
+Bwd make_bwd(int Sq, int Sk, int H, int K, int d, int causal, int window,
+             const long long* st, const void* lse, void* delta) {
+  Bwd p;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.H = H;
+  p.rep = H / K;
+  p.causal = causal;
+  p.window = window;
+  p.scale = (float)(1.0 / sqrt((double)d));
+  p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+  Strides* all[8] = {&p.q, &p.k, &p.v, &p.o, &p.g, &p.dq, &p.dk, &p.dv};
+  for (int i = 0; i < 8; ++i)
+    *all[i] = {st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  return p;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for every tensor but lse and delta
@@ -687,7 +1520,8 @@ int launch_bwd(int dtype, const void* q, const void* k, const void* v,
 // scratch. Strides in elements, (batch, seq, head) for each of q, k, v,
 // o, dO, dq, dk, dv (the d stride is 1; in bf16 the q, k, v and dO row
 // strides multiples of 8 and their pointers 16-byte aligned, for the
-// cp.async staging). d in {16, 32, ..., 128}; H % K == 0.
+// cp.async staging). d in {16, 32, ..., 128}, but bfloat16 at d 64 and
+// 128 is refused: flash_attention_bwd_wgmma serves it. H % K == 0.
 extern "C" int flash_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -699,25 +1533,10 @@ extern "C" int flash_attention_bwd(
     long long dqsh, long long dksb, long long dkss, long long dksh,
     long long dvsb, long long dvss, long long dvsh, int causal, int window,
     void* stream) {
-  Bwd p;
-  p.Sq = Sq;
-  p.Sk = Sk;
-  p.H = H;
-  p.rep = H / K;
-  p.causal = causal;
-  p.window = window;
-  p.scale = (float)(1.0 / sqrt((double)d));
-  p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
-  p.q = {qsb, qss, qsh};
-  p.k = {ksb, kss, ksh};
-  p.v = {vsb, vss, vsh};
-  p.o = {osb, oss, osh};
-  p.g = {gsb, gss, gsh};
-  p.dq = {dqsb, dqss, dqsh};
-  p.dk = {dksb, dkss, dksh};
-  p.dv = {dvsb, dvss, dvsh};
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<float*>(delta);
+  const long long st3[24] = {qsb,  qss,  qsh,  ksb,  kss,  ksh,  vsb,  vss,
+                             vsh,  osb,  oss,  osh,  gsb,  gss,  gsh,  dqsb,
+                             dqss, dqsh, dksb, dkss, dksh, dvsb, dvss, dvsh};
+  const Bwd p = make_bwd(Sq, Sk, H, K, d, causal, window, st3, lse, delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   switch (d) {
@@ -731,4 +1550,33 @@ extern "C" int flash_attention_bwd(
     case 128: return launch_bwd<128>(dtype, q, k, v, o, dout, dq, dk, dv, B, K, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The Hopper design (TMA rings, wgmma, warp-specialised): bfloat16 (dtype
+// 1) at d 64 or 128 only; the same arguments as flash_attention_bwd, but
+// `delta` is (B, H, 2, Sq rounded up to 128) fp32 scratch: each row's LSE
+// in log2 units, then D, the rows past Sq zero. The q, k, v, o and dO
+// strides multiples of 8 elements and their pointers 16-byte aligned (TMA).
+extern "C" int flash_attention_bwd_wgmma(
+    int dtype, const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int B, int Sq, int Sk, int H, int K, int d, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh,
+    long long osb, long long oss, long long osh, long long gsb,
+    long long gss, long long gsh, long long dqsb, long long dqss,
+    long long dqsh, long long dksb, long long dkss, long long dksh,
+    long long dvsb, long long dvss, long long dvsh, int causal, int window,
+    void* stream) {
+  const long long st3[24] = {qsb,  qss,  qsh,  ksb,  kss,  ksh,  vsb,  vss,
+                             vsh,  osb,  oss,  osh,  gsb,  gss,  gsh,  dqsb,
+                             dqss, dqsh, dksb, dkss, dksh, dvsb, dvss, dvsh};
+  const Bwd p = make_bwd(Sq, Sk, H, K, d, causal, window, st3, lse, delta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (d == 64)
+    return launch_bwd_wgmma<64>(q, k, v, o, dout, dq, dk, dv, B, K, p, st);
+  if (d == 128)
+    return launch_bwd_wgmma<128>(q, k, v, o, dout, dq, dk, dv, B, K, p, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -26,10 +26,14 @@ Gradients: where q, k or v requires one on the card, ``flash_attention``
 runs ``_FlashFn``, whose forward is K7 writing the log-sum-exp as well and
 whose backward is K7b (``csrc/flash_bwd.cu``: D = rowsum(dO * O), then dK
 and dV per key tile and dQ per query tile, recomputing P from q, k and the
-log-sum-exp; no float atomics, so repeat launches are bit-identical). Each
-K7b call (three kernels in order) adds one to
-``LAUNCHES["flash_attention_bwd"]``. On the CPU autograd differentiates
-the twin; ``flash_attention_bwd_ref`` is that gradient, K7b's plain twin.
+log-sum-exp; no float atomics, so repeat launches are bit-identical),
+chosen as K7's design is: bf16 at d = 64 or 128 runs K7b's Hopper design
+(TMA rings, wgmma), every other case the sm_80-unit kernels. Each K7b call
+(three kernels in order) adds one to ``LAUNCHES["flash_attention_bwd"]``,
+and one through the Hopper design one more to
+``LAUNCHES["flash_attention_bwd_wgmma"]``. On the CPU autograd
+differentiates the twin; ``flash_attention_bwd_ref`` is that gradient,
+K7b's plain twin.
 The reference trains through its jnp core (``repro.models.attention.
 blockwise_attention``) and differentiates it with ``jax.grad``: K7b is
 the port's counterpart of that gradient, not of a Pallas kernel.
@@ -44,16 +48,21 @@ NEG_INF = -1e30
 HEAD_DIMS = tuple(range(16, 129, 16))    # the head sizes the kernel takes
 WGMMA_HEAD_DIMS = (64, 128)              # bf16 head sizes of the Hopper design
 
+# the per-row LSE / D scratch of K7b's Hopper design: rows padded to this
+PAD_ROWS = 128
+
 # kernel launches since the counter was last set to 0: every K7 launch, the
-# subset that ran the Hopper (wgmma) design, and every K7b call
+# subset that ran the Hopper (wgmma) design, every K7b call and the subset
+# of those that ran K7b's Hopper design
 LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0}
 
 
 def uses_wgmma(dtype: torch.dtype, d: int) -> bool:
     """True when a CUDA call of this dtype and head size runs the Hopper
-    design (``flash_wgmma``), False when it runs ``flash_bf16`` or
-    ``flash_f32``."""
+    designs (K7's ``flash_wgmma``, K7b's ``bwd_dkdv_wgmma`` and
+    ``bwd_dq_wgmma``), False when it runs the sm_80-unit kernels
+    (``flash_bf16`` or ``flash_f32``; ``bwd_*_bf16`` or ``bwd_*_f32``)."""
     return dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
 
 
@@ -226,13 +235,23 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _launch_forward(q, k, v, causal, window, True)
 
 
+def _bwd_rows_shape(B: int, H: int, Sq: int, wgmma: bool) -> tuple:
+    """K7b's fp32 per-row scratch: D of every row, (B, H, Sq); the Hopper
+    design's holds each row's LSE in log2 units, then D, (B, H, 2, Sq
+    padded to PAD_ROWS), zero past Sq, so that its ring copies whole
+    16-byte-aligned slices."""
+    if wgmma:
+        return (B, H, 2, -(-Sq // PAD_ROWS) * PAD_ROWS)
+    return (B, H, Sq)
+
+
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         window: int = 0):
     """(dq, dk, dv) of <dout, flash_attention(q, k, v)> given the forward's
     `out` and `lse`: one K7b call on the card (``dout`` copied to a
-    contiguous tensor where the kernel cannot read its layout), the twin's
-    autograd on the CPU (which recomputes the forward and ignores `out`
-    and `lse`)."""
+    contiguous tensor where the kernel cannot read its layout), through
+    the Hopper design where ``uses_wgmma`` says so; the twin's autograd on
+    the CPU (which recomputes the forward and ignores `out` and `lse`)."""
     _check(q, k, v, window)
     B, Sq, H, d = q.shape
     for name, t in (("out", out), ("dout", dout)):
@@ -255,8 +274,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    launch("flash_attention_bwd", DTYPES[q.dtype], q.data_ptr(),
+    wgmma = uses_wgmma(q.dtype, d)
+    delta = torch.empty(_bwd_rows_shape(B, H, Sq, wgmma),
+                        dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd_wgmma" if wgmma else "flash_attention_bwd",
+           DTYPES[q.dtype], q.data_ptr(),
            k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
            dv.data_ptr(), B, Sq, Sk, H, K, d,
@@ -264,4 +286,5 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
              for s in t.stride()[:3]),
            int(causal), int(window), stream())
     LAUNCHES["flash_attention_bwd"] += 1
+    LAUNCHES["flash_attention_bwd_wgmma"] += wgmma
     return dq, dk, dv

@@ -88,12 +88,29 @@ def test_refusals():
 
 @pytest.mark.parametrize("d", kf.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_design_follows_dtype_and_head_size(dtype, d):
-    """bf16 at d = 64 and 128 runs the Hopper (wgmma) design, every other
+def test_design_follows_dtype_and_head_size(dtype, d, monkeypatch):
+    """bf16 at d = 64 and 128 runs the Hopper (wgmma) designs, every other
     dtype and head size the sm_80-unit kernels; nothing else enters the
-    choice."""
-    assert kf.uses_wgmma(dtype, d) == (dtype == torch.bfloat16
-                                       and d in (64, 128))
+    choice. The backward takes the same choice: its Hopper entry point,
+    counted under flash_attention_bwd_wgmma too, with the padded per-row
+    scratch (the launch recorded, not run)."""
+    wgmma = dtype == torch.bfloat16 and d in (64, 128)
+    assert kf.uses_wgmma(dtype, d) == wgmma
+    calls = []
+    monkeypatch.setattr(kf, "on_cuda", lambda *ts: True)
+    monkeypatch.setattr(kf, "stream", lambda: None)
+    monkeypatch.setattr(kf, "launch", lambda name, *a: calls.append(name))
+    monkeypatch.setattr(kf, "LAUNCHES", dict.fromkeys(kf.LAUNCHES, 0))
+    q = torch.zeros((1, 130, 4, d), dtype=dtype)
+    k = torch.zeros((1, 130, 2, d), dtype=dtype)
+    kf.flash_attention_bwd(q, k, k, q, q, torch.zeros((1, 4, 130)))
+    assert calls == ["flash_attention_bwd_wgmma" if wgmma
+                     else "flash_attention_bwd"]
+    assert kf.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0,
+                           "flash_attention_bwd": 1,
+                           "flash_attention_bwd_wgmma": int(wgmma)}
+    assert kf._bwd_rows_shape(1, 4, 130, wgmma) == (
+        (1, 4, 2, 256) if wgmma else (1, 4, 130))
 
 
 def test_cpu_calls_count_no_launch_of_either_design():
@@ -105,4 +122,4 @@ def test_cpu_calls_count_no_launch_of_either_design():
     kf.flash_attention_bwd(q, q, q, q, q, None)
     assert kf.LAUNCHES == before
     assert set(before) == {"flash_attention", "flash_attention_wgmma",
-                           "flash_attention_bwd"}
+                           "flash_attention_bwd", "flash_attention_bwd_wgmma"}

@@ -325,7 +325,7 @@ def test_flash_wgmma_design_at_tile_edges(cuda, case):
     torch.cuda.synchronize()
     assert {k_: kf.LAUNCHES[k_] - before[k_] for k_ in before} == {
         "flash_attention": 2, "flash_attention_wgmma": 2,
-        "flash_attention_bwd": 0}
+        "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0}
     assert torch.equal(got, again)
     want = kf.flash_attention_ref(q, k, v, causal=causal, window=window)
     rows = _seen_rows(case[1], case[2], causal, window).to(cuda)
@@ -1223,12 +1223,14 @@ def test_flash_bwd_matches_twin(cuda, case, dtype):
     assert (lse - want_lse).abs().max() <= LSE_ATOL
     assert torch.equal(out, kf.flash_attention(q, k, v, causal=causal,
                                                window=window))
-    n0 = kf.LAUNCHES["flash_attention_bwd"]
+    n0 = dict(kf.LAUNCHES)
     got = kf.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                  window=window)
     again = kf.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                    window=window)
-    assert kf.LAUNCHES["flash_attention_bwd"] == n0 + 2
+    assert kf.LAUNCHES["flash_attention_bwd"] == n0["flash_attention_bwd"] + 2
+    assert kf.LAUNCHES["flash_attention_bwd_wgmma"] == \
+        n0["flash_attention_bwd_wgmma"] + 2 * kf.uses_wgmma(dtype, d)
     want = kf.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
                                       window=window, out=out)
     for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
@@ -1240,7 +1242,8 @@ def test_flash_bwd_matches_twin(cuda, case, dtype):
 
 def test_flash_autograd_runs_k7_and_k7b(cuda):
     """A gradient through flash_attention on the card: one K7 launch with
-    the log-sum-exp, one K7b call, and the gradients K7b gives alone."""
+    the log-sum-exp, one K7b call (both through their Hopper designs), and
+    the gradients K7b gives alone."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((2, 130, 8, 64), generator=g, device=cuda).bfloat16()
     k, v = (torch.randn((2, 130, 2, 64), generator=g, device=cuda).bfloat16()
@@ -1252,11 +1255,36 @@ def test_flash_autograd_runs_k7_and_k7b(cuda):
     grads = torch.autograd.grad(out, leaves, dout)
     assert {n: kf.LAUNCHES[n] - before[n] for n in before} == {
         "flash_attention": 1, "flash_attention_wgmma": 1,
-        "flash_attention_bwd": 1}
+        "flash_attention_bwd": 1, "flash_attention_bwd_wgmma": 1}
     o2, lse = kf.flash_attention_lse(q, k, v)
     assert torch.equal(out.detach(), o2)
     for a, b in zip(grads, kf.flash_attention_bwd(q, k, v, o2, dout, lse)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_wgmma_reads_strided_views(cuda, d):
+    """K7b's Hopper design through its TMA tensor maps: q, k and v as head
+    slices of one fused projection and dO as a transposed view of a
+    (B, H, S, d) tensor give the same bits as contiguous copies, and hold
+    the twin row by row."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    qkv = torch.randn((2, 257, 12, d), generator=g).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    dout = torch.randn((2, 8, 257, d), generator=g).to(
+        cuda, torch.bfloat16).transpose(1, 2)
+    out, lse = kf.flash_attention_lse(q, k, v)
+    n0 = kf.LAUNCHES["flash_attention_bwd_wgmma"]
+    got = kf.flash_attention_bwd(q, k, v, out, dout, lse)
+    flat = kf.flash_attention_bwd(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), out, dout.contiguous(),
+                                  lse)
+    assert kf.LAUNCHES["flash_attention_bwd_wgmma"] == n0 + 2
+    want = kf.flash_attention_bwd_ref(q, k, v, dout, out=out)
+    for name, a, b, w in zip(("dq", "dk", "dv"), got, flat, want):
+        assert torch.equal(a, b), name
+        err = _row_err(a, w)
+        assert err <= BWD_ROW_TOL[torch.bfloat16], f"{name}: {err}"
 
 
 def _lm_trainer(cuda, graphs):
@@ -1302,6 +1330,8 @@ def test_lm_trainer_graphed_fit_matches_eager(cuda):
         assert n_buckets == 2                        # bf16 and fp32 norms
         assert kf.LAUNCHES["flash_attention"] == 2 * 2 * 4 * 22
         assert kf.LAUNCHES["flash_attention_bwd"] == 2 * 4 * 22
+        assert kf.LAUNCHES["flash_attention_bwd_wgmma"] == \
+            kf.LAUNCHES["flash_attention_bwd"]
         assert kf.LAUNCHES["flash_attention_wgmma"] == \
             kf.LAUNCHES["flash_attention"]
         assert ka.LAUNCHES["gram_row"] == n_buckets * 12     # 3 windows

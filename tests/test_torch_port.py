@@ -258,6 +258,15 @@ ptxas info    : Used 40 registers, used 1 barriers, 512 bytes smem
     ("_ZN39_GLOBAL__N__13eb64e5_7_flat_cu_a4e5b7ab8row_partIfLi8ELb1EEEv",
      "row_part<float,8,vec=1>", 8),
     ("_Z11flash_wgmmaILi128EEvv", "flash_wgmma<128>", None),
+    ("_ZN47_GLOBAL__N__d29a3f0f_12_flash_bwd_cu_f0d3f5b46hopper14bwd_dkdv_"
+     "wgmmaILi64EEEv14CUtensorMap_stS2_S2_S2_P13__nv_bfloat16S4_NS_3BwdEi",
+     "bwd_dkdv_wgmma<64>", None),
+    ("_ZN47_GLOBAL__N__d29a3f0f_12_flash_bwd_cu_f0d3f5b46hopper12bwd_dq_"
+     "wgmmaILi128EEEv14CUtensorMap_stS2_S2_S2_P13__nv_bfloat16NS_3BwdEi",
+     "bwd_dq_wgmma<128>", None),
+    ("_ZN47_GLOBAL__N__d29a3f0f_12_flash_bwd_cu_f0d3f5b46hopper14bwd_rows_"
+     "wgmmaILi64EEEvPK13__nv_bfloat16S4_NS_3BwdEi", "bwd_rows_wgmma<64>",
+     None),
     ("_Z3fooPf", None, None),
 ])
 def test_chip_smoke_names_ptxas_kernels(mangled, name, mmax):
