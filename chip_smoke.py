@@ -259,6 +259,39 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    eagerly from the same init: at the first jump the carried Grams equal
    K3's recompute of the ring, and the losses and the params after 40
    steps equal the graphed run's bit for bit.
+16. The MoE family (``models/moe.py``). First K7 at one Qwen3 sequence's
+   attention, (1, 4096, 32, 4, 128), and K7b at one Qwen3 microbatch's,
+   (2, 4096, 32, 4, 128), bf16 causal, against their twins, timed beside
+   their bounds and SDPA (the ``moe_d128`` fields of their records).
+   (a) Qwen3-30B-A3B served at full width and depth through the
+   launcher's ``build`` (48 layers, 30,532,110,336 params, the weights
+   once on the card: the engine serves the drawn tensors): the launcher's
+   stream with K7 48 a prefill dispatch and nothing else, every request
+   complete; decode and prefill ms; every request's first-token logits
+   against the same padded prompt run by hand (prefill at its bucket, one
+   decode step at true_len - 1; capacity depends on the padding, so the
+   exact-length loop is not the yardstick) within ``SERVE_LOGIT_TOL``; a
+   4096-token ``forward`` (K7 48, all through the wgmma design). The hot
+   swap is not run: it stages a second copy. (b) One Qwen3 MoE layer on
+   64 tokens, forward and backward, twice on the card (bit-identical) and
+   on the CPU: the same routing but at near-ties (``MOE_NEAR``, counted),
+   out, aux and gradients within ``MOE_LAYER_TOL``. (c) Qwen3 trained
+   through the launcher's ``run`` at full width cut to ``MOE_LAYERS``
+   layers (48 and 3 layers' state is printed and must exceed 90% of the
+   card), the config's DMD on every param (m 8, s 40, bf16 ring), adamw,
+   grad_accum 4, remat, 8 x 4096 a step for ``MOE_STEPS`` steps graphed:
+   K7 2 x layers x 4 a step, K7b layers x 4 (all through the Hopper
+   designs), K1 per bucket per record, K2 per bucket per jump; loss
+   falling; ms/step, tokens/s, peak beside the reckoned state; K1 and K2
+   on the run's bf16 rings against their twins and bounds (the
+   ``moe_buckets`` fields; K1 within ``MOE_K1_SHARE`` of fp32's bound
+   for its order of sums); then eagerly through the first jump (the
+   carried Grams against K3, a profile of 3 record steps) and graphed =
+   eager bit for bit. Both runs' median ms a step by kind (a graph key's
+   warm-up, capture or replay; plain, record, jump) and the device time
+   by kernel family of the same 3 plain steps replayed and eager. (d) Llama4-Maverick's widths at one dense-MoE pair
+   (2 layers, top-1 routing and the shared expert): (a)'s serving checks
+   and 4096-token ``forward`` (K7 2).
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -1017,30 +1050,36 @@ def check_flash(dev):
 
     record = None
     for case in (LONG, SERVE_SHAPES[-1]):
-        err, (q, k, v) = _check_flash_case(case, torch.bfloat16, dev, 7)
-        B, Sq, Sk, H, K, d = case[:6]
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        k_ms, l_ms = in_turns(
-            lambda: kf.flash_attention(q, k, v),
-            lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-        p_ms = cuda_ms(lambda: kf.flash_attention_ref(q, k, v), iters=5)
-        flops = 4.0 * d * _flash_pairs(Sq, Sk, True, 0) * B * H
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
-        print(f"kernel flash_attention bf16 {case[:6]} causal: kernel_ms "
-              f"{k_ms} ref_ms {p_ms} sdpa_ms {l_ms} bound_ms {b_ms} ({b_by})"
-              f" max_abs_err {err} TFLOP/s {flops / k_ms / 1e9}")
-        print(f"K7 {case[:6]}: kernel / sdpa {k_ms / l_ms} (same call, in "
-              f"turns); {b_ms / k_ms} of the bound")
-        g_ms = graph_ms(lambda: kf.flash_attention(q, k, v))
-        print(f"K7 {case[:6]}: CUDA-graph replay {g_ms} ms, {b_ms / g_ms} "
-              "of the bound")
+        rec = time_flash(case, dev)
         if record is None:
-            record = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=l_ms, max_abs_err=err,
-                          graph_ms=g_ms)
+            record = rec
     return record
+
+
+def time_flash(case, dev, seed=7):
+    """K7 on one bf16 causal case against its twin, timed eager (in turns
+    with SDPA) and replayed beside its bound; returns its record."""
+    err, (q, k, v) = _check_flash_case(case, torch.bfloat16, dev, seed)
+    B, Sq, Sk, H, K, d = case[:6]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k_ms, l_ms = in_turns(
+        lambda: kf.flash_attention(q, k, v),
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    p_ms = cuda_ms(lambda: kf.flash_attention_ref(q, k, v), iters=5)
+    flops = 4.0 * d * _flash_pairs(Sq, Sk, True, 0) * B * H
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+    print(f"kernel flash_attention bf16 {case[:6]} causal: kernel_ms "
+          f"{k_ms} ref_ms {p_ms} sdpa_ms {l_ms} bound_ms {b_ms} ({b_by})"
+          f" max_abs_err {err} TFLOP/s {flops / k_ms / 1e9}")
+    print(f"K7 {case[:6]}: kernel / sdpa {k_ms / l_ms} (same call, in "
+          f"turns); {b_ms / k_ms} of the bound")
+    g_ms = graph_ms(lambda: kf.flash_attention(q, k, v))
+    print(f"K7 {case[:6]}: CUDA-graph replay {g_ms} ms, {b_ms / g_ms} "
+          "of the bound")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=l_ms, max_abs_err=err, graph_ms=g_ms)
 
 
 def _serve_counted(what, engine, prompts, swap_every=0, swap=None):
@@ -1085,35 +1124,10 @@ def run_serve(dev):
     prompts = launch_serve.request_stream(12, cfg.vocab_size)
     done, launches = _serve_counted("serve path", engine, prompts)
 
-    # the breakdown, on a second engine: host clock around each engine step,
-    # synchronised; a step that admitted requests ran their prefill
     del engine
-    eng = launch_serve.make_engine(model, params)
-    for p in prompts:
-        eng.submit(p)
-    pre_ms, dec_ms = [], []
-    while eng.queue_len or eng.active_slots:
-        n_pre = eng.stats["prefill_dispatches"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        kind = pre_ms if eng.stats["prefill_dispatches"] > n_pre else dec_ms
-        kind.append((time.perf_counter() - t0) * 1e3)
-    print(f"serve: decode-only step ms median {float(np.median(dec_ms))} "
-          f"(of {len(dec_ms)}); steps with prefill ms {pre_ms}")
-    # one prefill dispatch as the engine makes it, at the smallest and the
-    # largest (batch, prompt) bucket: fresh caches, then the prompt pass
-    s_max = max(launch_serve.PROMPT_BUCKETS) + 16
-    for shape in ((1, 16), (4, 64)):
-        toks = torch.ones(shape, dtype=torch.long, device=dev)
-        ms = cuda_ms(lambda: model.prefill(
-            params, {"tokens": toks}, model.init_cache(shape[0], s_max)),
-            iters=5, warmup=1)
-        print(f"serve: prefill dispatch {shape} ms {ms}")
+    serve_breakdown("serve", model, params, prompts, dev)
 
     # first-token logits against the exact-length prefill + decode loop
-    del eng
     eng = launch_serve.make_engine(model, params, new_tokens=1)
     firsts = {r.uid: r.last_logits for r in
               launch_serve.serve(eng, prompts)[0]}
@@ -1142,8 +1156,45 @@ def run_serve(dev):
     require(eng.stats["swaps"] >= 1 and any(
         r.version_end > r.version_start for r in done2), "no swap adopted")
     del swap, eng
+    forward_4096("forward 4096", model, params, dev)
+    return launches
 
-    # one 4096-token sequence through forward
+
+def serve_breakdown(what, model, params, prompts, dev):
+    """The engine's time by step kind, on a fresh engine: host clock around
+    each engine step, synchronised (a step that admitted requests ran
+    their prefill); then one prefill dispatch as the engine makes it, at
+    the smallest and the largest (batch, prompt) bucket: fresh caches,
+    then the prompt pass. Returns the decode-only steps' median ms."""
+    eng = launch_serve.make_engine(model, params)
+    for p in prompts:
+        eng.submit(p)
+    pre_ms, dec_ms = [], []
+    while eng.queue_len or eng.active_slots:
+        n_pre = eng.stats["prefill_dispatches"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        kind = pre_ms if eng.stats["prefill_dispatches"] > n_pre else dec_ms
+        kind.append((time.perf_counter() - t0) * 1e3)
+    del eng
+    print(f"{what}: decode-only step ms median {float(np.median(dec_ms))} "
+          f"(of {len(dec_ms)}); steps with prefill ms {pre_ms}")
+    s_max = max(launch_serve.PROMPT_BUCKETS) + 16
+    for shape in ((1, 16), (4, 64)):
+        toks = torch.ones(shape, dtype=torch.long, device=dev)
+        ms = cuda_ms(lambda: model.prefill(
+            params, {"tokens": toks}, model.init_cache(shape[0], s_max)),
+            iters=5, warmup=1)
+        print(f"{what}: prefill dispatch {shape} ms {ms}")
+    return float(np.median(dec_ms))
+
+
+def forward_4096(what, model, params, dev):
+    """One 4096-token sequence through ``loss``: K7 once per layer, all
+    through its Hopper design, and a finite loss."""
+    cfg = model.cfg
     g = torch.Generator(device=dev).manual_seed(5)
     toks = torch.randint(1, cfg.vocab_size, (1, 4096), generator=g,
                          device=dev)
@@ -1151,15 +1202,14 @@ def run_serve(dev):
     reset_counts()
     t0 = time.perf_counter()
     with torch.no_grad():
-        loss, _ = model.loss(params, {"tokens": toks})
+        loss, parts = model.loss(params, {"tokens": toks})
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    require_counts("forward 4096", {"flash_attention": cfg.n_layers})
-    require_wgmma("forward 4096")
-    require(bool(torch.isfinite(loss)), f"forward 4096: loss {loss}")
-    print(f"forward 4096: loss {float(loss)} in {ms} ms, {cfg.n_layers} K7 "
-          "launches")
-    return launches
+    require_counts(what, {"flash_attention": cfg.n_layers})
+    require_wgmma(what)
+    require(bool(torch.isfinite(loss)), f"{what}: loss {loss}")
+    print(f"{what}: loss {float(loss)} (aux {float(parts['aux'])}) in {ms} "
+          f"ms, {cfg.n_layers} K7 launches")
 
 
 # -- phase 10: the Trainer ---------------------------------------------------
@@ -2471,6 +2521,8 @@ LM_FAMILIES = (("K7b", ("bwd_dkdv", "bwd_dq", "bwd_delta", "bwd_rows")),
                ("K7", ("flash_wgmma", "flash_bf16", "flash_f32")),
                ("K1", ("arena_row",)),
                ("GEMM", ("nvjet", "gemm", "xmma", "cutlass", "sm90_")),
+               ("sort", ("sort",)),
+               ("gather/scatter", ("gather", "scatter")),
                ("elementwise", ("elementwise_kernel",)))
 FLASH_BWD_SRC = "src/repro_torch/kernels/csrc/flash_bwd.cu"
 # K7b against its twin (autograd through flash_attention_ref) on unit-normal
@@ -2630,11 +2682,18 @@ def check_flash_bwd(dev):
           f"{BWD_ROW_TOL} (largest row error {worst}); log-sum-exp within "
           f"{lse_worst} <= {LSE_ATOL}; repeat launches bit-identical; the "
           "log-sum-exp output leaves K7's output unchanged")
+    return time_flash_bwd(LM_ATTN, dev)
+
+
+def time_flash_bwd(case, dev, seed=7):
+    """K7b on one bf16 case against its twin (row by row), timed eager (in
+    turns with SDPA's backward) and replayed beside its bound; returns its
+    record."""
     errs, _, (q, k, v, dout), (out, lse) = _bwd_case(
-        LM_ATTN, torch.bfloat16, dev, seed=7)
+        case, torch.bfloat16, dev, seed=seed)
     err = max(errs[g] for g in ("dq", "dk", "dv"))
     torch.cuda.empty_cache()
-    B, S, H, K, d = LM_ATTN[:5]
+    B, S, H, K, d = case[:5]
     kern = lambda: kf.flash_attention_bwd(q, k, v, out, dout, lse)  # noqa
     leaves = [t.transpose(1, 2).detach().requires_grad_(True)
               for t in (q, k, v)]
@@ -2653,26 +2712,31 @@ def check_flash_bwd(dev):
     nbytes = 2 * (3 * q.numel() + 3 * k.numel() + 2 * q.numel()) \
         + 4 * lse.numel()                     # q,k,v,O,dO in; dq,dk,dv out
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
-    print(f"kernel flash_attention_bwd bf16 {LM_ATTN[:5]} causal: kernel_ms "
+    print(f"kernel flash_attention_bwd bf16 {case[:5]} causal: kernel_ms "
           f"{k_ms} graph_ms {g_ms} ref_ms {p_ms} sdpa_bwd_ms {l_ms} "
           f"bound_ms {b_ms} ({b_by}) row error {err} TFLOP/s "
           f"{flops / k_ms / 1e9}")
-    print(f"K7b {LM_ATTN[:5]}: kernel / sdpa backward {k_ms / l_ms} (same "
+    print(f"K7b {case[:5]}: kernel / sdpa backward {k_ms / l_ms} (same "
           f"call, in turns); {b_ms / k_ms} of the bound eager, "
           f"{b_ms / g_ms} replayed")
     del o_lib, leaves
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=l_ms, max_abs_err=errs["max_abs"],
-                row_err=err, control_row_err=errs["control"],
-                wrong_row_err=errs["wrong"], graph_ms=g_ms,
-                shape=list(LM_ATTN[:5]))
+    rec = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=l_ms, max_abs_err=errs["max_abs"], row_err=err,
+               graph_ms=g_ms, shape=list(case[:5]))
+    if "control" in errs:
+        rec.update(control_row_err=errs["control"],
+                   wrong_row_err=errs["wrong"])
+    return rec
 
 
-def _gram_row_f64(x, q, block_sys, n_sys, anchor, chunk=1 << 16):
+def _gram_row_f64(x, q, block_sys, n_sys, anchor, chunk=1 << 16,
+                  with_abs=False):
     """K1's float64 twin, a block range at a time: the anchor subtracted
-    from every row and from the query before the products, as K1 does."""
+    from every row and from the query before the products, as K1 does.
+    `with_abs` also returns each entry's sum of |products|."""
     out = torch.zeros((n_sys, x.shape[1]), dtype=torch.float64,
                       device=x.device)
+    absum = torch.zeros_like(out) if with_abs else None
     idx = block_sys.to(x.device, torch.long)
     for a in range(0, x.shape[0], chunk):
         xs, qs = x[a:a + chunk].double(), q[a:a + chunk].double()
@@ -2681,7 +2745,10 @@ def _gram_row_f64(x, q, block_sys, n_sys, anchor, chunk=1 << 16):
             xs = xs - xs[:, 0:1, :]
         out.index_add_(0, idx[a:a + chunk],
                        torch.bmm(xs, qs.unsqueeze(-1)).squeeze(-1))
-    return out
+        if with_abs:
+            absum.index_add_(0, idx[a:a + chunk], torch.bmm(
+                xs.abs(), qs.abs().unsqueeze(-1)).squeeze(-1))
+    return (out, absum) if with_abs else out
 
 
 def _combine_twin(x, c, block_sys, chunk=1 << 16):
@@ -2800,9 +2867,10 @@ def _live_cuda_tensors(n=8):
     return sorted(found, key=lambda t: t[0], reverse=True)[:n]
 
 
-def _lm_breakdown(prof, wall_s, steps):
+def _lm_breakdown(prof, wall_s, steps, what="tinyllama-train",
+                  label="eager record steps"):
     """Device ms per step by kernel family, the busy share over the traced
-    wall, and the top kernels."""
+    wall, and the top kernels; returns the ms per step by family."""
     fams, rows = {}, []
     for evt in prof.key_averages():
         us = _device_us(evt)
@@ -2815,18 +2883,19 @@ def _lm_breakdown(prof, wall_s, steps):
         fams[fam] = fams.get(fam, 0.0) + us
     busy = sum(fams.values())
     if busy <= 0:
-        print("tinyllama-train profile: no device time in the trace (busy "
-              "share not measured)")
-        return
+        print(f"{what} profile ({label}): no device time in the trace "
+              "(busy share not measured)")
+        return {}
     per_step = {f: us / steps / 1e3 for f, us in sorted(
         fams.items(), key=lambda kv: -kv[1])}
-    print(f"tinyllama-train profile ({steps} eager record steps): wall {wall_s / steps * 1e3} ms/step, device "
+    print(f"{what} profile ({steps} {label}): wall {wall_s / steps * 1e3} ms/step, device "
           f"{busy / steps / 1e3} ms/step, busy share {busy / 1e6 / wall_s}; "
           f"device ms/step by family {per_step}; shares "
           f"{ {f: us / busy for f, us in fams.items()} }")
     for us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {us / steps / 1e3:10.3f} ms/step {count // steps:6d} a step "
               f"{us / busy:7.3f}  {key[:100]}")
+    return per_step
 
 
 def run_lm_train(dev, records):
@@ -2996,6 +3065,625 @@ def run_lm_train(dev, records):
     return launches
 
 
+# -- phase 16: the MoE family ------------------------------------------------
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.attention import KVCache  # noqa: E402
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+PAIR_ARCH = "llama4-maverick-400b-a17b"
+# the configs' widths as the reference sets them: layers, d, query / kv
+# heads of head_dim, experts, top-k, expert d_ff, vocab, dtype
+MOE_WIDTHS = (48, 2048, 32, 4, 128, 128, 8, 768, 151936, "bfloat16")
+PAIR_WIDTHS = (2, 5120, 40, 8, 128, 128, 1, 8192, 202048, "bfloat16")
+# Qwen3-30B-A3B's bf16 weights, reckoned from its config (PERF.md §4)
+MOE_WEIGHT_BYTES = 2 * 30_532_110_336
+# training: depth cut to 2 (3 layers' state exceeds 90% of the card), 48
+# steps at 8 x 4096 (warm-up 12: jumps at 29 and 47), graphed; then eagerly
+# through the first jump
+MOE_LAYERS, MOE_STEPS = 2, 48
+# one MoE layer at full width, card against CPU, on this many tokens
+MOE_LAYER_TOKENS = 64
+# a token whose sorted router probabilities (its first k + 1) have two
+# within MOE_NEAR of each other is a near-tie: the card's and the CPU's
+# fp32 router products may order it differently (their probabilities must
+# agree to within MOE_NEAR / 4); an expert's row is a near-tie where its
+# kept gates have such a pair or it routes a near-tie token
+MOE_NEAR = 1e-6
+# the layer's bf16 output, aux loss and gradients, card against CPU: within
+# MOE_LAYER_TOL of the CPU tensor's largest magnitude (bf16 rounding of the
+# expert products and of the combine's running sum, 2^-8 relative a step,
+# in two summation orders)
+MOE_LAYER_TOL = 3e-2
+# the 4096-token attention of one Qwen3 microbatch: K7 at (1, 4096, 32, 4,
+# 128), K7b at (2, 4096, 32, 4, 128), bf16 causal
+MOE_K7 = (1, 4096, 4096, 32, 4, 128, True, 0)
+MOE_K7B = (2, 4096, 32, 4, 128, True, 0)
+# K1 on the MoE run's bf16 ring (608k blocks a system) against its float64
+# twin: within this share of fp32's worst-case bound for K1's order of
+# sums, (n_seq + parts + 16) 2^-24 sum|terms| (check_moe_buckets). K1 read
+# 0.019 of it on an H100: about 5x of room, where the bound alone leaves
+# 50x. Its error there is some 46x the chunked fp32 twin's, as each thread
+# adds its lanes' terms in one running sum (27,648 in a row); PERF.md §7.
+MOE_K1_SHARE = 0.1
+
+
+def _at_length(caches, n):
+    """`caches` (KVCaches, nested for moe_pair) at host length n."""
+    if isinstance(caches, dict):
+        return {k: _at_length(v, n) for k, v in caches.items()}
+    return KVCache(caches.k, caches.v, n)
+
+
+def _padded_first_logits(model, params, prompt, s_max):
+    """A request's first-token logits as the engine computes them, by hand:
+    the prompt padded with zeros to its bucket through ``prefill``, then
+    one ``decode_step`` of its last token at true_len - 1."""
+    pb = next(b for b in launch_serve.PROMPT_BUCKETS if len(prompt) <= b)
+    toks = torch.zeros((1, pb), dtype=torch.long, device=model.device)
+    toks[0, :len(prompt)] = torch.tensor(prompt, device=model.device)
+    last = torch.tensor([[prompt[-1]]], device=model.device)
+    with torch.no_grad():
+        _, caches = model.prefill(params, {"tokens": toks},
+                                  model.init_cache(1, s_max))
+        logits, _ = model.decode_step(params, {"tokens": last},
+                                      _at_length(caches, len(prompt) - 1))
+    return logits[0, -1].float().cpu().numpy()
+
+
+def serve_moe(dev, what, arch, widths, n_layers=0):
+    """Phase 16 (a) and (d): the launcher's model and engine at `arch`'s
+    widths (`n_layers` > 0 cuts the depth), serving its stream with the
+    launches counted; the time by step kind; every request's first-token
+    logits against the same padded prompt run by hand; one 4096-token
+    forward. Returns (model, params, launches)."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, params, engine = launch_serve.build(arch, device=dev,
+                                               n_layers=n_layers)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, m = model.cfg, model.cfg.moe
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, m.n_experts, m.top_k, m.expert_d_ff, cfg.vocab_size,
+           cfg.dtype)
+    require(got == widths, f"{what}: config {got}, expected {widths}")
+    leaves = leaves_with_paths(params)
+    served = dict(leaves_with_paths(engine.params))
+    require(all(served[p].data_ptr() == t.data_ptr() for p, t in leaves),
+            f"{what}: the engine holds a copy of the weights")
+    wbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    print(f"{what}: {arch} at {cfg.n_layers} layers, "
+          f"{model.param_count(params)} params, {wbytes} bytes of weights, "
+          f"built (drawn on the card) in {build_s} s; allocated "
+          f"{torch.cuda.memory_allocated(dev)} bytes, peak "
+          f"{torch.cuda.max_memory_allocated(dev)} ({torch.cuda.max_memory_allocated(dev) / total} "
+          "of the card); one copy: the engine serves the drawn tensors")
+    prompts = launch_serve.request_stream(12, cfg.vocab_size)
+    done, launches = _serve_counted(f"{what} path", engine, prompts)
+    del engine
+    dec_ms = serve_breakdown(what, model, params, prompts, dev)
+    eng = launch_serve.make_engine(model, params, new_tokens=1)
+    firsts = {r.uid: r.last_logits for r in
+              launch_serve.serve(eng, prompts)[0]}
+    del eng
+    s_max = max(launch_serve.PROMPT_BUCKETS) + 1
+    worst = 0.0
+    for uid, got in sorted(firsts.items()):
+        want = _padded_first_logits(model, params, prompts[uid], s_max)
+        err = float(np.abs(got - want).max())
+        scale = max(1.0, float(np.abs(want).max()))
+        require(err <= SERVE_LOGIT_TOL * scale, f"{what} request {uid}: "
+                f"first-token logits off the padded prompt by hand by {err}"
+                f" (scale {scale})")
+        worst = max(worst, err / scale)
+    print(f"{what}: first-token logits vs the padded prompt by hand "
+          f"(prefill at the bucket, one decode step at true_len - 1): worst "
+          f"|diff| / max(1, max|logits|) {worst} (limit {SERVE_LOGIT_TOL}) "
+          f"over {len(firsts)} requests; decode-only step median {dec_ms} ms")
+    forward_4096(f"{what} forward 4096", model, params, dev)
+    return model, params, launches
+
+
+def _moe_layer(p, x, dout, cfg):
+    """One MoE layer forward and backward: (out, aux, {name: gradient},
+    probs, top_i, sel_idx)."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in p.items()}
+    xr = x.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        out, aux = moe_mod.apply_moe(xr, leaves, cfg)
+        ((out.float() * dout).sum() + aux).backward()
+    with torch.no_grad():
+        probs, top_i, _, routing = moe_mod.route(x, p, cfg)
+    grads = {"x": xr.grad, **{k: v.grad for k, v in leaves.items()}}
+    return out.detach(), aux.detach(), grads, probs, top_i, routing.sel_idx
+
+
+def _near_ties(probs, top_i, k, cap):
+    """Per token, per expert row: (near-tie tokens (B, S), near-tie expert
+    rows (B, E)) of a run's routing (see MOE_NEAR)."""
+    top = torch.sort(probs, dim=-1, descending=True)[0][..., :k + 1]
+    tok = ((top[..., :-1] - top[..., 1:]) < MOE_NEAR).any(-1)
+    gate = torch.zeros_like(probs).scatter(-1, top_i,
+                                           probs.gather(-1, top_i))
+    g = torch.sort(gate.transpose(1, 2), dim=-1, descending=True)[0]
+    g = g[..., :cap + 1]
+    close = ((g[..., :-1] - g[..., 1:]) < MOE_NEAR) & (g[..., 1:] > 0)
+    routes = torch.zeros_like(probs, dtype=torch.bool).scatter(
+        -1, top_i, True)
+    row = close.any(-1) | (routes & tok[..., None]).any(1)
+    return tok, row
+
+
+def check_moe_layer(dev):
+    """Phase 16 (b): one Qwen3-30B-A3B MoE layer at full width on
+    MOE_LAYER_TOKENS tokens, forward and backward on the card twice (bit
+    for bit the same) and on the CPU from the same params and inputs: the
+    same token top-k and expert choice but at near-ties, and the output,
+    aux and every gradient within MOE_LAYER_TOL."""
+    cfg = get_config(MOE_ARCH).model
+    g = torch.Generator(device=dev).manual_seed(16)
+    p = moe_mod.moe_init(g, cfg, dev)
+    x = torch.randn((1, MOE_LAYER_TOKENS, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    dout = torch.randn(x.shape, generator=g, device=dev)
+    t0 = time.perf_counter()
+    card = _moe_layer(p, x, dout, cfg)
+    again = _moe_layer(p, x, dout, cfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    for name, a, b in zip(("out", "aux", "probs", "top_i", "sel_idx"),
+                          card[:2] + card[3:], again[:2] + again[3:]):
+        require(torch.equal(a, b), f"moe layer: repeat runs differ in {name}")
+    for name in card[2]:
+        require(torch.equal(card[2][name], again[2][name]),
+                f"moe layer: repeat runs differ in d{name}")
+    del again
+    host = lambda t: t.detach().to("cpu")  # noqa: E731
+    t0 = time.perf_counter()
+    cpu = _moe_layer({k: host(v) for k, v in p.items()}, host(x),
+                     host(dout), cfg)
+    cpu_s = time.perf_counter() - t0
+    out, aux, grads, probs, top_i, sel_idx = (
+        card[0].cpu(), card[1].cpu(), {k: host(v) for k, v in
+                                       card[2].items()},
+        card[3].cpu(), card[4].cpu(), card[5].cpu())
+    c_out, c_aux, c_grads, c_probs, c_top, c_sel = cpu
+    k, cap = cfg.moe.top_k, moe_mod.capacity(MOE_LAYER_TOKENS, cfg)
+    p_err = float((probs - c_probs).abs().max())
+    require(p_err <= MOE_NEAR / 4, f"moe layer: router probabilities off the"
+            f" CPU's by {p_err} > {MOE_NEAR / 4}")
+    tok, row = _near_ties(c_probs, c_top, k, cap)
+    tok2, row2 = _near_ties(probs, top_i, k, cap)
+    tok, row = tok | tok2, row | row2
+    bad_tok = (top_i != c_top).any(-1) & ~tok
+    bad_row = (sel_idx != c_sel).any(-1) & ~row
+    require(not bool(bad_tok.any()), f"moe layer: top_i differs from the "
+            f"CPU's at {int(bad_tok.sum())} tokens that are not near-ties")
+    require(not bool(bad_row.any()), f"moe layer: sel_idx differs from the "
+            f"CPU's in {int(bad_row.sum())} expert rows that are not "
+            "near-ties")
+    # tokens and experts a near-tie may route differently are left out of
+    # the comparison; the router's gradient sums over every token, so it is
+    # compared only without near-ties
+    clean = not bool(tok.any() or row.any())
+    keep_tok = ~tok[0]
+    for e in torch.nonzero(row[0]).flatten().tolist():
+        keep_tok &= ~(c_sel[0, e, :, None] ==
+                      torch.arange(MOE_LAYER_TOKENS)).any(0)
+        keep_tok &= ~(sel_idx[0, e, :, None] ==
+                      torch.arange(MOE_LAYER_TOKENS)).any(0)
+    keep_exp = ~row[0]
+    pairs = [("out", out[0, keep_tok], c_out[0, keep_tok]),
+             ("aux", aux, c_aux),
+             ("dx", grads["x"][0, keep_tok], c_grads["x"][0, keep_tok])]
+    for name in ("experts_in", "experts_gate", "experts_out"):
+        pairs.append((f"d{name}", grads[name][keep_exp],
+                      c_grads[name][keep_exp]))
+    if clean:
+        pairs.append(("drouter", grads["router"], c_grads["router"]))
+    errs = {}
+    for name, a, b in pairs:
+        a, b = a.float(), b.float()
+        require(bool(torch.isfinite(a).all()), f"moe layer: {name} not "
+                "finite")
+        scale = float(b.abs().max())
+        errs[name] = float((a - b).abs().max()) / max(scale, 1e-30)
+        require(errs[name] <= MOE_LAYER_TOL, f"moe layer: {name} off the "
+                f"CPU's by {errs[name]} of its largest magnitude > "
+                f"{MOE_LAYER_TOL}")
+    print(f"moe layer: Qwen3-30B-A3B's MoE layer (E 128, top-8, d 2048, "
+          f"expert d_ff 768, cap {cap}) on {MOE_LAYER_TOKENS} tokens, "
+          f"forward and backward: card twice bit-identical (out, aux, every "
+          f"gradient, top_i, sel_idx); against the CPU: router "
+          f"probabilities within {p_err}, near-tie tokens "
+          f"{int(tok.sum())}, near-tie expert rows {int(row.sum())} (both "
+          f"left out), top_i and sel_idx equal elsewhere; error / largest "
+          f"magnitude {errs} (limit {MOE_LAYER_TOL}); card {card_s} s for "
+          f"two runs, CPU {cpu_s} s")
+
+
+def _gram_row_twin(x, q, block_sys, n_sys, anchor, chunk=1 << 16):
+    """K1's plain twin (``ka.gram_row_ref``) a block range at a time: its
+    fp32 copy of a bf16 ring would not fit beside the training state."""
+    return sum(ka.gram_row_ref(x[a:a + chunk], q[a:a + chunk],
+                               block_sys[a:a + chunk], n_sys,
+                               anchor_first=anchor)
+               for a in range(0, x.shape[0], chunk))
+
+
+def check_moe_buckets(dev, table, bufs, anchor, records, chunk=1 << 16):
+    """K1 and K2 on the MoE run's own bf16 rings, every bucket: K1 against
+    its float64 twin (within ``MOE_K1_SHARE`` of fp32's bound for its
+    order of sums), K2 against its fp32 twin block range by block range
+    (rows of a block, RTOL), repeat launches bit-identical; timed eager in
+    turns (K1 with its chunked twin, K2 with ``einsum`` on the
+    block-gathered coefficients in the ring's dtype, held to the twin
+    within its bf16 rounding) and replayed, beside the bound. Recorded as
+    the ``moe_buckets`` fields of K1's and K2's records."""
+    for name in ("gram_row", "combine"):
+        records[name]["moe_buckets"] = []
+    for key, b in table.items():
+        x, seg = bufs[key], b.tables_on(dev)
+        nb, m, bn = x.shape
+        q = x[:, m - 1, :]
+        bs = seg.block_sys
+        xbytes = x.numel() * x.element_size()
+        # K1
+        kern = lambda: ka.gram_row(x, q, seg, anchor_first=anchor)  # noqa
+        twin = lambda: _gram_row_twin(x, q, bs, seg.n_sys,  # noqa: E731
+                                      anchor, chunk)
+        exact, absum = _gram_row_f64(x, q, bs, seg.n_sys, anchor,
+                                     with_abs=True)
+        got = kern().double()
+        err = max_err(got, exact)
+        # fp32's bound for K1's order of sums: each thread's running sum
+        # over its lanes of a CTA's block range (n_seq adds), the CTA's
+        # tree (8), the CTAs' partials of a system, and 3 roundings a term
+        # (the anchored differences and the product): |K1 - exact| <=
+        # (n_seq + parts + 16) u sum|terms|, u = 2^-24
+        lanes = 16 // x.element_size()
+        per = -(-nb // ka.grid_ctas(nb, m, kd.sm_count(dev)))
+        n_seq = -(-per * (bn // lanes) // 256) * lanes
+        parts = -(-torch.bincount(bs.to(dev, torch.long),
+                                  minlength=seg.n_sys).double() / per) + 1
+        limit = (n_seq + parts[:, None] + 16) * 2.0 ** -24 * absum
+        ratio = float(((got - exact).abs() / limit.clamp_min(1e-300)).max())
+        require(ratio <= MOE_K1_SHARE, f"gram_row MoE bucket {key}: K1 "
+                f"off its float64 twin by {ratio} of fp32's bound for its "
+                f"order of sums ({n_seq} sequential adds a thread) > "
+                f"{MOE_K1_SHARE}")
+        require(torch.equal(kern(), kern()), f"gram_row MoE bucket {key}: "
+                "repeat launches differ")
+        t_err = max_err(twin().double(), exact)
+        k_ms, p_ms = in_turns(kern, twin, iters=5)
+        r_ms = graph_ms(kern, iters=3)
+        b_ms, b_by = bound_ms(xbytes + seg.n_sys * m * 4, 2.0 * x.numel())
+        print(f"MoE bucket {key} {(nb, m, bn)} n_sys {seg.n_sys} {x.dtype}: "
+              f"gram_row kernel_ms {k_ms} graph_ms {r_ms} ref_ms {p_ms} "
+              f"library_ms None bound_ms {b_ms} ({b_by}), {b_ms / r_ms} of "
+              f"the bound replayed, max_abs_err {err} from the float64 "
+              f"twin (the fp32 twin's {t_err}, {err / max(t_err, 1e-300)}x; "
+              f"{ratio} of fp32's bound for K1's order of sums, {n_seq} "
+              f"sequential adds a thread)")
+        records["gram_row"]["moe_buckets"].append(dict(
+            bucket=key, shape=[nb, m, bn], n_sys=seg.n_sys, ms=k_ms,
+            graph_ms=r_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+            max_abs_err=err))
+        del exact, absum, got
+        # K2
+        c = torch.randn((seg.n_sys, m), generator=torch.Generator(
+            device=dev).manual_seed(9), device=dev)
+        cg = c[bs.to(dev, torch.long)]
+        kern = lambda: ka.combine(x, c, seg)  # noqa: E731
+        lib = lambda: torch.einsum("bmn,bm->bn", x,  # noqa: E731
+                                   cg.to(x.dtype))
+        got, again = kern(), kern()
+        require(torch.equal(got, again), f"combine MoE bucket {key}: repeat "
+                "launches differ")
+        del again
+        err = l_err = 0.0
+        for a in range(0, nb, chunk):
+            want = ka.combine_ref(x[a:a + chunk], c, bs[a:a + chunk])
+            rows = want.numel() // bn
+            err = max(err, check_close(f"combine MoE bucket {key}",
+                                       got[a * bn:a * bn + want.numel()],
+                                       want, rows))
+            l_part = torch.einsum("bmn,bm->bn", x[a:a + chunk],
+                                  cg[a:a + chunk].to(x.dtype))
+            l_err = max(l_err, check_close(
+                f"einsum MoE bucket {key}", l_part.reshape(-1).float(),
+                want, rows, rtol=2.0 ** -7))
+        del got, want, l_part
+        k_ms, l_ms = in_turns(kern, lib, iters=5)
+        p_ms = cuda_ms(lambda: [ka.combine_ref(x[a:a + chunk], c,
+                                               bs[a:a + chunk])
+                                for a in range(0, nb, chunk)],
+                       iters=1, warmup=1)
+        r_ms = graph_ms(kern, iters=3)
+        b_ms, b_by = bound_ms(xbytes + nb * bn * 4 + c.numel() * 4,
+                              2.0 * x.numel())
+        print(f"MoE bucket {key} {(nb, m, bn)} n_sys {seg.n_sys} {x.dtype}: "
+              f"combine kernel_ms {k_ms} graph_ms {r_ms} ref_ms {p_ms} "
+              f"library_ms {l_ms} bound_ms {b_ms} ({b_by}), {b_ms / r_ms} "
+              f"of the bound replayed, max_abs_err {err} (einsum in "
+              f"{x.dtype}: {l_err})")
+        records["combine"]["moe_buckets"].append(dict(
+            bucket=key, shape=[nb, m, bn], n_sys=seg.n_sys, ms=k_ms,
+            graph_ms=r_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+            max_abs_err=err))
+        del cg
+        torch.cuda.empty_cache()
+    _require_tickets("MoE bucket kernels", dev)
+
+
+def _step_kinds(acc, steps):
+    """What a graphed fit does at each step: a graph key's first step is
+    its "warm-up" (eager), its second its "capture" (captured, then
+    replayed), every later one a "replay"; then "plain" or "record", and
+    " jump" where the step jumps (eagerly, after the train step)."""
+    seen, kinds = {}, []
+    for t in range(steps):
+        key = train_loop.graph_key(acc.slots(t))
+        n = seen[key] = seen.get(key, 0) + 1
+        kinds.append(("warm-up", "capture", "replay")[min(n, 3) - 1] +
+                     (" plain" if key == train_loop.PLAIN else " record") +
+                     (" jump" if acc.apply_groups(t) else ""))
+    return kinds
+
+
+def _kind_ms(secs, kinds, jump):
+    """Median ms per step of each kind, before and after the step `jump`
+    (and how many steps), step 0 out."""
+    by = {}
+    for t in range(1, len(secs)):
+        k = kinds[t] + ("" if t == jump else
+                        " before" if t < jump else " after")
+        by.setdefault(k, []).append(secs[t] * 1e3)
+    return {k: (float(np.median(v)), len(v)) for k, v in sorted(by.items())}
+
+
+def _tracer(steps, witness, name):
+    """An on-step hook profiling the consecutive `steps`: started after the
+    step before the first, stopped after the last; witness[name] gets
+    (the profile, its wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def hook(t):
+        if t == steps[0] - 1:
+            torch.cuda.synchronize()
+            prof.start()
+            witness[name] = time.perf_counter()
+        if t == steps[-1]:
+            torch.cuda.synchronize()
+            witness[name] = (prof, time.perf_counter() - witness[name])
+            prof.stop()
+    return hook
+
+
+def train_moe(dev, records):
+    """Phase 16 (c): Qwen3-30B-A3B trained at full width, cut to
+    MOE_LAYERS layers, through the launcher's ``run``: graphed, then
+    eagerly through the first jump. Returns the graphed run's launches."""
+    what = "qwen3-moe-train"
+    total = torch.cuda.get_device_properties(dev).total_memory
+    reckon = {}
+    for n in (0, MOE_LAYERS + 1, MOE_LAYERS):
+        acfg = launch_train.configure(MOE_ARCH, steps=MOE_STEPS,
+                                      global_batch=LM_BATCH, seq=LM_SEQ,
+                                      n_layers=n)
+        n_p = launch_train.param_count(launch_train.make_model(acfg,
+                                                               device=dev))
+        reckon[acfg.model.n_layers] = (n_p, sum(launch_train.state_bytes(
+            acfg, n_p).values()))
+    print(f"{what}: training state by depth (layers: params, bytes, share "
+          f"of the card's {total}): "
+          f"{ {n: (p, b, b / total) for n, (p, b) in reckon.items()} }")
+    for n in (48, MOE_LAYERS + 1):
+        require(reckon[n][1] > launch_train.CARD_FRACTION * total,
+                f"{what}: {n} layers fit: the cut is not needed")
+    mc, dmd, opt = acfg.model, acfg.dmd, acfg.optimizer
+    require((dmd.m, dmd.s, dmd.snapshot_dtype, dmd.param_filter, dmd.arena,
+             dmd.streaming_gram, dmd.mode, dmd.scope, dmd.warmup_steps,
+             opt.name, opt.lr, opt.b2, opt.weight_decay, opt.grad_clip,
+             opt.schedule, acfg.parallel.grad_accum, acfg.parallel.remat,
+             mc.moe.n_experts, mc.moe.top_k) ==
+            (8, 40, "bfloat16", "all", True, True, "matpow", "leaf",
+             MOE_STEPS // 4, "adamw", 3e-4, 0.95, 0.1, 1.0, "cosine", 4,
+             "block", 128, 8), f"{what}: config {acfg}")
+    model = launch_train.make_model(acfg, device=dev)
+    need = launch_train.check_fits(acfg, reckon[MOE_LAYERS][0], total)
+    ga = acfg.parallel.grad_accum
+    want = {"flash_attention": 2 * MOE_LAYERS * ga * MOE_STEPS,
+            "flash_attention_bwd": MOE_LAYERS * ga * MOE_STEPS}
+    acc = launch_train.make_trainer(acfg, model).acc
+    jumps = [t for t in range(MOE_STEPS) if acc.apply_groups(t)]
+    require(len(jumps) >= 2, f"{what}: {len(jumps)} jumps")
+    witness = {}
+    kinds = _step_kinds(acc, MOE_STEPS)
+    # the eager run: through the first jump and the plain steps after it
+    eager_steps = next(t for t in range(jumps[0] + 1, MOE_STEPS)
+                       if kinds[t] != "replay plain")
+    # the same plain steps, before and after the first jump, profiled
+    # replayed and eager
+    plain = {}
+    for when, steps in (("before", range(jumps[0])),
+                        ("after", range(jumps[0] + 1, eager_steps))):
+        ts = [t for t in steps if kinds[t] == "replay plain"][-LM_PROFILED:]
+        require(ts == list(range(ts[0], ts[0] + LM_PROFILED)),
+                f"{what}: no {LM_PROFILED} consecutive replayed plain "
+                f"steps {when} the first jump")
+        plain[when] = ts
+    def plain_traces(how):
+        return [_tracer(ts, witness, f"{how} plain steps {when} the first "
+                        "jump") for when, ts in plain.items()]
+    replayed_traces = plain_traces("replayed")
+
+    def at_step(t, trainer, state):
+        for trace in replayed_traces:
+            trace(t)
+        if t == eager_steps - 1:
+            witness["graphed"] = _flat_params(state)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before_fit = torch.cuda.memory_allocated(dev)
+    trainer, state, losses, secs = _lm_fit(acfg, model, MOE_STEPS, at_step)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    table = trainer.acc.arena_for(state.params)
+    want["gram_row"] = sum(acc.slots(t)[b.group] >= 0
+                           for t in range(MOE_STEPS) for b in table.values())
+    want["combine"] = sum(b.group in acc.apply_groups(t)
+                          for t in jumps for b in table.values())
+    require_counts(f"{what} graphed", want)
+    require_wgmma(f"{what} graphed")
+    require_wgmma(f"{what} graphed", "flash_attention_bwd", "K7b")
+    reset_counts()
+    print(f"{what} graphed: launches {launches}; jumps at {jumps}; graphs "
+          f"{trainer.graph_stats}; buckets "
+          f"{[(k, b.n_blocks, b.m, b.block_n, b.n_sys) for k, b in table.items()]}")
+    require(np.isfinite(losses).all(), f"{what}: non-finite loss")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    require(last < first, f"{what}: loss {first} -> {last}")
+    tokens = LM_BATCH * LM_SEQ
+    g_ms = float(np.mean(secs[1:])) * 1e3
+    # a replayed plain step against an eager one: a median over the
+    # steps after the first jump would mix 10 replays with 8 captures
+    replays = [t for t in range(MOE_STEPS) if kinds[t] == "replay plain"]
+    g_med = float(np.median(secs[replays])) * 1e3
+    print(f"{what} losses {losses}")
+    print(f"{what} graphed: ms a step {[float(x) for x in secs * 1e3]}")
+    print(f"{what} graphed: median ms a step by kind, before and after the "
+          f"first jump (steps): {_kind_ms(secs, kinds, jumps[0])}")
+    print(f"{what} graphed: loss mean of the first 10 {first}, of the last "
+          f"10 {last}; ms/step {g_ms} (steps 1-{MOE_STEPS - 1}, host clock, "
+          f"synchronised per step; step 0 {secs[0] * 1e3}; median of the "
+          f"{len(replays)} plain replays {g_med}), {tokens / g_ms * 1e3} "
+          f"tokens/s; peak "
+          f"allocated {peak} bytes ({peak / 2 ** 30} GiB, {peak / total} of "
+          f"the card) beside the reckoned state {need} bytes")
+    bufs = state.dmd_buffers["__arena__"]
+    torch.cuda.empty_cache()
+    check_moe_buckets(dev, table, bufs, acfg.dmd.anchor == "first", records)
+    table_keys = sorted(table)
+    records["flash_attention"]["moe_train_launches"] = \
+        launches["flash_attention"]
+    del trainer, state, table, bufs
+    after_fit = torch.cuda.memory_allocated(dev)
+    print(f"{what}: {before_fit} bytes allocated before the graphed run, "
+          f"{after_fit} once its Trainer and state are dropped (no "
+          "gc.collect)")
+    require(after_fit - before_fit <= LM_LEFT_BYTES,
+            f"{what}: {after_fit - before_fit} bytes outlive the graphed run "
+            f"> {LM_LEFT_BYTES}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    traced = range(jumps[0] - LM_PROFILED, jumps[0])
+    require(all(acc.slots(t)[0] >= 0 for t in traced) and
+            not any(acc.apply_groups(t) for t in traced),
+            f"{what}: traced steps {list(traced)} are not plain record steps")
+    eager_traces = plain_traces("eager") + [
+        _tracer(traced, witness, "eager record steps")]
+
+    def at_step_eager(t, trainer, state):
+        for trace in eager_traces:
+            trace(t)
+        if t == eager_steps - 1:
+            witness["eager"] = _flat_params(state)
+            witness["eager_peak"] = torch.cuda.max_memory_allocated(dev)
+        if t == jumps[0]:
+            tab = trainer.acc.arena_for(state.params)
+            bufs = state.dmd_buffers["__arena__"]
+            grams = state.dmd_gram["__arena__"]
+            for key, b in tab.items():
+                full_g = ka.gram(bufs[key], b.tables_on(dev),
+                                 anchor_first=True)
+                _require_gram(f"{what} step {t} {key} carried vs K3",
+                              grams[key], full_g)
+            witness["gram"] = sorted(tab)
+
+    _, _, losses_e, secs_e = _lm_fit(acfg, model, eager_steps,
+                                     at_step_eager, cuda_graphs=False)
+    reset_counts()
+    e_ms = float(np.mean(secs_e[1:jumps[0]])) * 1e3
+    e_med = float(np.median(secs_e[[t for t in replays
+                                    if t < eager_steps]])) * 1e3
+    print(f"{what} eager: ms a step {[float(x) for x in secs_e * 1e3]}")
+    print(f"{what} eager: median ms a step by kind, before and after the "
+          f"first jump (steps): "
+          f"{_kind_ms(secs_e, [k.split(' ', 1)[1] for k in kinds], jumps[0])}")
+    fams = {}
+    for label in [f"{how} plain steps {when} the first jump"
+                  for how in ("replayed", "eager") for when in plain] + [
+                      "eager record steps"]:
+        prof, wall = witness.pop(label)
+        fams[label] = _lm_breakdown(prof, wall, LM_PROFILED, what, label)
+        del prof
+    for when, ts in plain.items():
+        a = fams[f"replayed plain steps {when} the first jump"]
+        b = fams[f"eager plain steps {when} the first jump"]
+        print(f"{what}: replayed minus eager device ms a step by family "
+              f"over the same plain steps {ts}: "
+              f"{ {f: a.get(f, 0.0) - b.get(f, 0.0) for f in sorted(set(a) | set(b))} }")
+    require(witness.get("gram") == table_keys,
+            f"{what}: the carried Grams were not checked")
+    require(losses[:eager_steps] == losses_e,
+            f"{what}: graphed losses differ from eager in the first "
+            f"{eager_steps} steps")
+    a, b = witness["graphed"], witness["eager"]
+    require(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+            f"{what}: params after {eager_steps} steps differ between the "
+            "graphed and the eager run")
+    print(f"{what}: graphed = eager bit for bit over the first "
+          f"{eager_steps} steps (losses and every param); ms/step graphed "
+          f"{g_ms}, eager {e_ms} ({tokens / e_ms * 1e3} tokens/s); plain "
+          f"step median replayed {g_med}, eager {e_med} (the same steps); "
+          f"eager peak allocated {witness['eager_peak']} bytes "
+          f"({witness['eager_peak'] / total} of the card)")
+    del witness
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_moe(dev, records):
+    """Phase 16. Returns the launches of its counted runs."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe: {torch.cuda.memory_allocated(dev)} bytes allocated before "
+          "the phase")
+    records["flash_attention"]["moe_d128"] = time_flash(MOE_K7, dev)
+    records["flash_attention_bwd"]["moe_d128"] = time_flash_bwd(MOE_K7B, dev)
+    torch.cuda.empty_cache()
+    model, params, serve_l = serve_moe(dev, "qwen3-moe serve", MOE_ARCH,
+                                       MOE_WIDTHS)
+    print(f"qwen3-moe serve: weights {sum(t.numel() * t.element_size() for _, t in leaves_with_paths(params))} "
+          f"bytes beside the reckoned {MOE_WEIGHT_BYTES}; the hot swap is "
+          "not run at 48 layers: ParamStore.stage copies the weights, and "
+          "two copies do not fit one card (phase 9 swaps TinyLlama)")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_moe_layer(dev)
+    torch.cuda.empty_cache()
+    train_l = train_moe(dev, records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, pair_l = serve_moe(dev, "llama4-pair serve", PAIR_ARCH,
+                                      PAIR_WIDTHS, n_layers=2)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe: phase 16 wall {time.perf_counter() - t_phase} s")
+    return {"serve": serve_l, "train": train_l, "pair": pair_l}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3045,6 +3733,13 @@ def main():
     run_benches(dev, records)
     torch.cuda.empty_cache()
     lm_launches = run_lm_train(dev, records)
+    moe_launches = run_moe(dev, records)
+    records["flash_attention"]["moe_launches"] = {
+        k: v["flash_attention"] for k, v in moe_launches.items()}
+    records["flash_attention_bwd"]["moe_launches"] = \
+        moe_launches["train"]["flash_attention_bwd"]
+    records["gram_row"]["moe_launches"] = moe_launches["train"]["gram_row"]
+    records["combine"]["moe_launches"] = moe_launches["train"]["combine"]
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",

@@ -14,6 +14,8 @@ from repro_torch.configs.base import (STANDARD_SHAPES, ArchConfig, DMDConfig,
 
 _ARCH_MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
     "pollutant-mlp": "repro_torch.configs.pollutant_mlp",
 }
 # the reference's other architectures, and the part of the port that
@@ -26,8 +28,6 @@ _LATER: Dict[str, str] = {
     "qwen2-vl-7b": "the M-RoPE slice",
     "zamba2-2.7b": "the SSM/hybrid slice",
     "mamba2-2.7b": "the SSM/hybrid slice",
-    "llama4-maverick-400b-a17b": "the MoE slice",
-    "qwen3-moe-30b-a3b": "the MoE slice",
 }
 
 

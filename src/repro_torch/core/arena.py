@@ -532,6 +532,30 @@ def relax_at(relax, gi: int):
     return relax if isinstance(relax, torch.Tensor) else float(relax)
 
 
+# blocks per pass of ``_finite_or_last``
+FINITE_BLOCKS = 1 << 16
+
+
+def _finite_or_last(flat: torch.Tensor, buf: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """K2's fp32 output with every non-finite entry replaced by the last
+    snapshot's, in `dtype`. A non-finite BUFFER poisons the combine even
+    under c = e_last (0 * inf = NaN): params are never left less finite
+    than the last snapshot. Done FINITE_BLOCKS blocks at a time, in place
+    for fp32, so that no temporary is params-sized (at an LM's width a
+    bf16 ring's last row in fp32, or the selection's output, is
+    gigabytes)."""
+    nb, _, bn = buf.shape
+    rows = flat.view(nb, bn)
+    out = rows if dtype == rows.dtype else torch.empty(
+        (nb, bn), dtype=dtype, device=rows.device)
+    for a in range(0, nb, FINITE_BLOCKS):
+        r = rows[a:a + FINITE_BLOCKS]
+        out[a:a + FINITE_BLOCKS] = torch.where(
+            torch.isfinite(r), r, buf[a:a + FINITE_BLOCKS, -1, :].float())
+    return out.reshape(-1)
+
+
 def jump(cfg, table: Dict[str, ArenaBucket], params,
          arenas: Dict[str, torch.Tensor],
          agrams: Optional[Dict[str, torch.Tensor]], relax,
@@ -593,14 +617,11 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
             rb = info["rank"][ofs:ofs + lead]
             ofs += lead
             buf = arenas[b.key]
-            flat = ka.combine(buf, cb, b.tables_on(buf.device, scope))
-            # a non-finite BUFFER poisons the combine even under
-            # c = e_last (0 * inf = NaN): never leave params less finite
-            # than the last snapshot (read in place: a copy of that row is
-            # params-sized, at an LM's width gigabytes)
-            rows = flat.view(b.n_blocks, b.block_n)
-            flat = torch.where(torch.isfinite(rows), rows,
-                               buf[:, -1, :].float()).reshape(-1)
+            dtype = (getattr(torch, b.segments[0].param_dtype) if resident
+                     else torch.float32)
+            flat = _finite_or_last(
+                ka.combine(buf, cb, b.tables_on(buf.device, scope)), buf,
+                dtype)
             if b.bucket_scoped(scope):
                 seg_ranks = [rb.float().mean()] * len(b.segments)
             else:
@@ -608,8 +629,7 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
                              .float().mean() for seg in b.segments]
             ranks.extend(seg_ranks)
             if resident:
-                updates[b.key] = flat.to(
-                    getattr(torch, b.segments[0].param_dtype))
+                updates[b.key] = flat
                 continue
             for seg, leaf in zip(b.segments, _unpack_row(b, flat)):
                 updates[seg.path] = leaf.to(leaves[seg.path].dtype)

@@ -2,18 +2,25 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         [--reduced] [--requests 12] [--new-tokens 16] [--slots 8] \\
-        [--sampling greedy|topk] [--swap-every N] [--device cuda]
+        [--sampling greedy|topk] [--swap-every N] [--layers N] \\
+        [--device cuda]
 
+Serves the dense family (``tinyllama-1.1b``) and the MoE family
+(``qwen3-moe-30b-a3b`` at its full 48 layers, 30.5B params;
+``llama4-maverick-400b-a17b``, whose 400B params need ``--layers``).
 Serves randomly initialised weights at the architecture's widths (drawn
 on the device from a generator seeded with 0) to the reference launcher's
 request stream: numpy ``default_rng(0)``, prompt lengths 4 to 64, prompt
 buckets (16, 64), batch buckets (1, 4). ``--swap-every N`` hot-swaps
-weights scaled by 1.001 every N engine steps. Runs on the card unless
-``--device cpu`` (and raises without one).
+weights scaled by 1.001 every N engine steps (a swap stages a second
+copy of the weights). The engine serves the drawn tensors themselves
+(one copy on the card). ``--layers N`` cuts the depth. Runs on
+the card unless ``--device cpu`` (and raises without one).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import List, Optional, Tuple
 
@@ -42,12 +49,16 @@ def request_stream(n_requests: int, vocab_size: int) -> List[List[int]]:
 
 
 def build(arch: str, *, use_reduced: bool = False, slots: int = 8,
-          new_tokens: int = 16, sampling: str = "greedy", device="cuda"
-          ) -> Tuple[LanguageModel, dict, ServeEngine]:
-    """The model, its seeded random params and an engine serving them."""
+          new_tokens: int = 16, sampling: str = "greedy", device="cuda",
+          n_layers: int = 0) -> Tuple[LanguageModel, dict, ServeEngine]:
+    """The model, its seeded random params and an engine serving those
+    very tensors (the weights exist once on the device).
+    `n_layers` > 0 cuts the depth."""
     device = resolve_device(device)
     acfg = get_config(arch)
     mc = reduce_cfg(acfg.model) if use_reduced else acfg.model
+    if n_layers:
+        mc = dataclasses.replace(mc, n_layers=n_layers)
     model = LanguageModel(mc, chunk_k=64, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     return model, params, make_engine(model, params, slots=slots,
@@ -58,8 +69,8 @@ def build(arch: str, *, use_reduced: bool = False, slots: int = 8,
 def make_engine(model: LanguageModel, params: dict, *, slots: int = 8,
                 new_tokens: int = 16, sampling: str = "greedy"
                 ) -> ServeEngine:
-    """An engine with the launcher's buckets over `params` (the engine's
-    store holds its own copy)."""
+    """An engine with the launcher's buckets serving `params` themselves
+    (the caller must not change them)."""
     cfg = ServeConfig(n_slots=slots, prompt_buckets=PROMPT_BUCKETS,
                       batch_buckets=BATCH_BUCKETS, sampling=sampling,
                       max_new_tokens=new_tokens, adopt="step")
@@ -115,13 +126,15 @@ def main(argv=None):
     ap.add_argument("--swap-every", type=int, default=0,
                     help="hot-swap perturbed weights every N engine steps "
                          "(0 = frozen server)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to N layers (0: the config's)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     model, params, engine = build(
         args.arch, use_reduced=args.reduced, slots=args.slots,
         new_tokens=args.new_tokens, sampling=args.sampling,
-        device=args.device)
+        device=args.device, n_layers=args.layers)
     prompts = request_stream(args.requests, model.cfg.vocab_size)
     swap = tree_map(lambda t: t * 1.001, params) if args.swap_every else None
     done, steps, wall = serve(engine, prompts, args.swap_every, swap)

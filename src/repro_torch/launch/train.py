@@ -1,8 +1,14 @@
-"""Training launcher for the dense LM, the reference's ``launch/train.py``.
+"""Training launcher for the LMs (the dense and MoE families), the
+reference's ``launch/train.py``.
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b [--steps 200]
         [--ckpt DIR] [--reduced] [--no-dmd] [--global-batch N] [--seq N]
         [--layers N] [--eager] [--device cuda]
+
+``--arch qwen3-moe-30b-a3b --layers 2 --global-batch 8`` trains
+Qwen3-30B-A3B at its full widths with the config's DMD on every param
+(bf16 ring of 8): 32 B a param of state, so 3 of its 48 layers already
+exceed 90% of an 80 GB card.
 
 The reference's flags and rules: ``--reduced`` trains the same-family
 shrunk config (``configs.reduced``) at batch 8 x 64 without remat; without

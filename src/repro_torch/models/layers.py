@@ -15,13 +15,31 @@ import torch
 import torch.nn.functional as F
 
 
+# the most fp32 elements ``dense_init`` draws at once (1 GiB): a larger
+# leaf is drawn in slices of whole rows, so that its fp32 temporary stays
+# this size (Qwen3-30B-A3B's stacked experts are 9.7e9 elements)
+DRAW_ELEMS = 1 << 28
+
+
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
                device) -> torch.Tensor:
     """Normal / sqrt(fan_in), drawn in fp32 and then cast; fan_in is the
     second-to-last axis, so a stacked (layers, d_in, d_out) leaf is drawn
-    as its layers would be."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w / math.sqrt(shape[-2])).to(dtype)
+    as its layers would be. The leaf is drawn in consecutive slices of at
+    most ``DRAW_ELEMS`` elements, whole rows each (one slice, the whole
+    leaf, up to that size)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
+    scale = math.sqrt(shape[-2])
+    rows = out.view(-1, shape[-1])
+    step = max(1, DRAW_ELEMS // shape[-1])
+    for i in range(0, rows.shape[0], step):
+        n = min(step, rows.shape[0] - i)
+        w = torch.randn((n, shape[-1]), generator=gen, dtype=torch.float32,
+                        device=device)
+        rows[i:i + n] = (w / scale).to(dtype)
+    return out
 
 
 def norm_init(cfg, device, stack: Tuple[int, ...] = ()) -> dict:
@@ -73,10 +91,11 @@ def _check_act(cfg) -> None:
 
 
 def mlp_init(gen: torch.Generator, cfg, device,
-             stack: Tuple[int, ...] = ()) -> dict:
+             stack: Tuple[int, ...] = (), d_ff: int = 0) -> dict:
+    """SwiGLU weights at width ``d_ff`` (default: the config's d_ff)."""
     _check_act(cfg)
     dtype = getattr(torch, cfg.dtype)
-    d, f = cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {"w_in": dense_init(gen, stack + (d, f), dtype, device),
             "w_out": dense_init(gen, stack + (f, d), dtype, device),
             "w_gate": dense_init(gen, stack + (d, f), dtype, device)}

@@ -1,4 +1,6 @@
-"""The dense decoder-only LM (TinyLlama and its kin).
+"""The decoder-only LM: the dense family (TinyLlama and its kin) and the
+MoE family (Qwen3-30B-A3B: every layer MoE; Llama4-Maverick: a dense layer
+then an MoE layer, 1:1).
 
 The param tree is the reference's: ``emb``, ``final_norm``, ``lm_head``
 (unless tied) and ``seg0``, whose leaves stack the layers on a leading
@@ -17,8 +19,15 @@ each layer's input and recomputes the layer in the backward
 (``torch.utils.checkpoint``, non-reentrant): the same values, bit for
 bit, and K7 runs twice per layer.
 
-Other families (MoE, SSM, hybrid, enc-dec, gemma's local/global plan)
-raise ``NotImplementedError``.
+The segment plan is the reference's: ``dense``, ``moe`` (attention, then
+the MoE feed-forward of ``models/moe.py``) and ``moe_pair`` (a dense layer
+then an MoE layer, one stacked pair per step, with the cache pair
+``{"dense", "moe"}``). Each MoE layer's fp32 load-balancing loss is summed
+over the layers in order; ``forward`` returns that sum as its aux loss
+(0 for the dense family) and ``loss`` is ce + aux, as the reference's.
+
+Other families (SSM, hybrid, enc-dec, gemma's local/global plan) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.attention import KVCache
 
 
@@ -39,20 +48,35 @@ class Segment(NamedTuple):
 
 
 def segment_plan(cfg) -> List[Segment]:
-    if cfg.family != "dense" or cfg.moe.n_experts > 0 or cfg.global_every:
+    if cfg.family not in ("dense", "moe") or cfg.global_every:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (moe experts "
-            f"{cfg.moe.n_experts}, global_every {cfg.global_every}) is not "
-            "ported yet; the port builds the dense family")
+            f"{cfg.name}: family {cfg.family!r} (global_every "
+            f"{cfg.global_every}) is not ported yet; the port builds the "
+            "dense and MoE families")
+    if cfg.moe.n_experts > 0:
+        if cfg.moe.moe_every == 1:
+            return [Segment("moe", cfg.n_layers)]
+        if cfg.moe.moe_every != 2:
+            raise ValueError(f"moe_every {cfg.moe.moe_every}: the "
+                             "reference's plans take 1 or 2")
+        n_pairs, rem = divmod(cfg.n_layers, 2)
+        plan = [Segment("moe_pair", n_pairs)]
+        if rem:
+            plan.append(Segment("dense", rem))
+        return plan
     return [Segment("dense", cfg.n_layers)]
 
 
-def _block_init(gen, cfg, count: int, device) -> dict:
+def _block_init(gen, cfg, kind: str, count: int, device) -> dict:
     stack = (count,)
+    if kind == "moe_pair":
+        return {"dense": _block_init(gen, cfg, "dense", count, device),
+                "moe": _block_init(gen, cfg, "moe", count, device)}
+    ffn = ({"moe": moe.moe_init(gen, cfg, device, stack)} if kind == "moe"
+           else {"mlp": layers.mlp_init(gen, cfg, device, stack)})
     return {"ln1": layers.norm_init(cfg, device, stack),
             "attn": attention.attn_init(gen, cfg, device, stack),
-            "ln2": layers.norm_init(cfg, device, stack),
-            "mlp": layers.mlp_init(gen, cfg, device, stack)}
+            "ln2": layers.norm_init(cfg, device, stack), **ffn}
 
 
 def init_params(cfg, gen: Optional[torch.Generator] = None,
@@ -75,7 +99,8 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, shape, dtype, device)
     for i, seg in enumerate(plan):
-        params[f"seg{i}"] = _block_init(gen, cfg, seg.count, device)
+        params[f"seg{i}"] = _block_init(gen, cfg, seg.kind, seg.count,
+                                        device)
     return params
 
 
@@ -115,18 +140,84 @@ def _apply_dense(x, p, cfg, *, positions, cache, chunk_k):
     return x + layers.apply_mlp(h, p["mlp"], cfg), new_cache
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross entropy of (B, S, V) fp32 logits."""
+def _apply_moe_block(x, p, cfg, *, positions, cache, chunk_k):
+    """Attention, then the MoE feed-forward: (x, new cache, fp32 aux)."""
+    h = layers.apply_norm(x, p["ln1"], cfg)
+    a, new_cache = attention.attend(h, p["attn"], cfg, positions=positions,
+                                    cache=cache, chunk_k=chunk_k)
+    x = x + a
+    h = layers.apply_norm(x, p["ln2"], cfg)
+    f, aux = moe.apply_moe(h, p["moe"], cfg)
+    return x + f, new_cache, aux
+
+
+def _layer_cache(c, j: int):
+    """Layer j's view of a stacked segment cache (a KVCache, or the
+    moe_pair's {"dense", "moe"} pair of them)."""
+    if c is None:
+        return None
+    if isinstance(c, dict):
+        return {k: _layer_cache(v, j) for k, v in c.items()}
+    return KVCache(c.k[j], c.v[j], c.length)
+
+
+def _advance(c, n: int):
+    """A stacked segment cache whose length moved on by n tokens."""
+    if isinstance(c, dict):
+        return {k: _advance(v, n) for k, v in c.items()}
+    return KVCache(c.k, c.v, c.length + n)
+
+
+def cache_length(caches: dict):
+    """The length of the first KVCache in `caches` (the reference's
+    ``_cache_length``): a host int, or a (B,) tensor of per-row lengths."""
+    node = caches
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node.length
+
+
+def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k):
+    """One super-block of the plan: (x, new cache, fp32 aux or None)."""
+    if kind == "dense":
+        x, nc = _apply_dense(x, p, cfg, positions=positions, cache=cache,
+                             chunk_k=chunk_k)
+        return x, nc, None
+    if kind == "moe":
+        return _apply_moe_block(x, p, cfg, positions=positions, cache=cache,
+                                chunk_k=chunk_k)
+    dc = None if cache is None else cache["dense"]
+    mc = None if cache is None else cache["moe"]
+    x, ndc = _apply_dense(x, p["dense"], cfg, positions=positions,
+                          cache=dc, chunk_k=chunk_k)
+    x, nmc, aux = _apply_moe_block(x, p["moe"], cfg, positions=positions,
+                                   cache=mc, chunk_k=chunk_k)
+    return x, (None if cache is None else {"dense": ndc, "moe": nmc}), aux
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (lse - picked).mean()
+    return lse - picked
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy of (B, S, V) fp32 logits."""
+    return _nll(logits, labels).mean()
+
+
+# tokens per pass of ``LanguageModel.loss``'s head: the fp32 logits of a
+# pass and their gradient are HEAD_ROWS x vocab each (at Qwen3's 151,936
+# classes 0.62 GB; a whole microbatch of 2 x 4096 tokens would be 5 GB,
+# three such buffers in the backward)
+HEAD_ROWS = 1024
 
 
 REMAT = ("none", "block", "full")
 
 
 class LanguageModel:
-    """Dense decoder-only LM with unrolled layers."""
+    """Decoder-only LM (dense and MoE families) with unrolled layers."""
 
     def __init__(self, cfg, *, chunk_k: int = 1024, remat: str = "none",
                  scan_layers: bool = False, device="cuda"):
@@ -178,32 +269,38 @@ class LanguageModel:
             logits[..., cfg.vocab_size:] = -1e30
         return logits
 
-    def _layer_fn(self, x, p, positions):
-        return _apply_dense(x, p, self.cfg, positions=positions, cache=None,
-                            chunk_k=self.chunk_k)[0]
+    def _layer_fn(self, kind, x, p, positions):
+        x, _, aux = _apply_block(kind, x, p, self.cfg, positions=positions,
+                                 cache=None, chunk_k=self.chunk_k)
+        return x if aux is None else (x, aux)
 
     def _layers(self, params, x, positions, caches):
-        """Every layer in order; returns x and the new caches (None without
-        caches), whose tensors every layer wrote in place. Without caches
-        and with ``remat`` on, each layer is checkpointed while autograd
-        records."""
+        """Every layer in order; returns x, the new caches (None without
+        caches), whose tensors every layer wrote in place, and the fp32 sum
+        of the MoE layers' aux losses (None without MoE layers). Without
+        caches and with ``remat`` on, each super-block is checkpointed
+        while autograd records."""
         new_caches = None if caches is None else {}
         remat = (self.remat != "none" and caches is None
                  and torch.is_grad_enabled())
+        aux_total = None
         for i, seg in enumerate(self.plan):
             key = f"seg{i}"
             c = None if caches is None else caches[key]
             for j, lp in enumerate(_unbind(params[key], seg.count)):
                 if remat:
-                    x = checkpoint(self._layer_fn, x, lp, positions,
-                                   use_reentrant=False)
-                    continue
-                lc = None if c is None else KVCache(c.k[j], c.v[j], c.length)
-                x, _ = _apply_dense(x, lp, self.cfg, positions=positions,
-                                    cache=lc, chunk_k=self.chunk_k)
+                    out = checkpoint(self._layer_fn, seg.kind, x, lp,
+                                     positions, use_reentrant=False)
+                    x, aux = out if isinstance(out, tuple) else (out, None)
+                else:
+                    x, _, aux = _apply_block(
+                        seg.kind, x, lp, self.cfg, positions=positions,
+                        cache=_layer_cache(c, j), chunk_k=self.chunk_k)
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
             if c is not None:
-                new_caches[key] = KVCache(c.k, c.v, c.length + x.shape[1])
-        return x, new_caches
+                new_caches[key] = _advance(c, x.shape[1])
+        return x, new_caches, aux_total
 
     @staticmethod
     def _arange_positions(tokens: torch.Tensor, start=0) -> torch.Tensor:
@@ -215,29 +312,69 @@ class LanguageModel:
 
     # -- forward (no cache) ------------------------------------------------
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (fp32 logits (B, S, V), aux loss 0)."""
+        """Returns (fp32 logits (B, S, V), the fp32 aux loss summed over
+        the MoE layers; 0 without them)."""
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
-        x, _ = self._layers(params, x, self._arange_positions(tokens), None)
-        return (self._head(params, x),
-                torch.zeros((), dtype=torch.float32, device=x.device))
+        x, _, aux = self._layers(params, x, self._arange_positions(tokens),
+                                 None)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._head(params, x), aux
 
     def loss(self, params, batch) -> Tuple[torch.Tensor,
                                            Dict[str, torch.Tensor]]:
-        logits, aux = self.forward(params, batch)
+        """(ce + aux, {"ce", "aux"}), the reference's ``loss``. The head
+        and the cross entropy run HEAD_ROWS tokens at a time (each pass
+        checkpointed while autograd records: its logits are recomputed in
+        the backward), so no microbatch-sized fp32 logits exist; the mean
+        is the sum of the passes' sums over the token count (one pass:
+        the mean itself)."""
+        tokens = batch["tokens"]
         labels = batch.get("labels")
         if labels is None:
-            labels = torch.nn.functional.pad(batch["tokens"][:, 1:], (0, 1))
-        ce = cross_entropy(logits, labels)
+            labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+        x = self._embed(params, tokens)
+        x, _, aux = self._layers(params, x, self._arange_positions(tokens),
+                                 None)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, labels = x.reshape(1, -1, x.shape[-1]), labels.reshape(1, -1)
+        n = labels.shape[1]
+        if n <= HEAD_ROWS:
+            ce = cross_entropy(self._head(params, x), labels)
+            return ce + aux, {"ce": ce, "aux": aux}
+        total = None
+        for a in range(0, n, HEAD_ROWS):
+            xs, ls = x[:, a:a + HEAD_ROWS], labels[:, a:a + HEAD_ROWS]
+            if torch.is_grad_enabled():
+                part = checkpoint(self._ce_sum, params, xs, ls,
+                                  use_reentrant=False)
+            else:
+                part = self._ce_sum(params, xs, ls)
+            total = part if total is None else total + part
+        ce = total / n
         return ce + aux, {"ce": ce, "aux": aux}
+
+    def _ce_sum(self, params, x, labels):
+        """The summed cross entropy of a pass of tokens through the
+        head."""
+        return _nll(self._head(params, x), labels).sum()
 
     # -- serving -----------------------------------------------------------
     def init_cache(self, batch_size: int, s_max: int) -> dict:
-        """Zeroed caches matching the segment plan, length 0."""
+        """Zeroed caches matching the segment plan, length 0: a stacked
+        KVCache per ``dense`` or ``moe`` segment, the pair
+        ``{"dense", "moe"}`` of them per ``moe_pair`` segment."""
         cfg = self.cfg
-        return {f"seg{i}": attention.init_kv_cache(
-                    batch_size, s_max, cfg.n_kv_heads, cfg.head_dim,
-                    getattr(torch, cfg.dtype), self.device, (seg.count,))
+
+        def full(count):
+            return attention.init_kv_cache(
+                batch_size, s_max, cfg.n_kv_heads, cfg.head_dim,
+                getattr(torch, cfg.dtype), self.device, (count,))
+        return {f"seg{i}": ({"dense": full(seg.count),
+                             "moe": full(seg.count)}
+                            if seg.kind == "moe_pair" else full(seg.count))
                 for i, seg in enumerate(self.plan)}
 
     def prefill(self, params, batch, caches) -> Tuple[torch.Tensor, dict]:
@@ -245,17 +382,17 @@ class LanguageModel:
         {"tokens": (B, S)}. Returns the last position's logits (B, 1, V)."""
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
-        x, caches = self._layers(params, x, self._arange_positions(tokens),
-                                 caches)
+        x, caches, _ = self._layers(params, x,
+                                    self._arange_positions(tokens), caches)
         return self._head(params, x[:, -1:]), caches
 
     def decode_step(self, params, batch, caches) -> Tuple[torch.Tensor, dict]:
         """One token per row at the caches' length (an int, or a (B,)
         tensor of per-row lengths). Returns (logits (B, 1, V), caches)."""
         tokens = batch["tokens"]
-        length = caches["seg0"].length
+        length = cache_length(caches)
         x = self._embed(params, tokens)
-        x, caches = self._layers(
+        x, caches, _ = self._layers(
             params, x, self._arange_positions(tokens, length), caches)
         return self._head(params, x), caches
 

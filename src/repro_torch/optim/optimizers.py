@@ -80,14 +80,42 @@ def _in_place(update):
     return update_
 
 
+def init_(opt: "Optimizer", state: PyTree, params: PyTree) -> None:
+    """``opt.init(params)`` written into `state` in place, CHUNK elements
+    of every leaf at a time, for an elementwise optimizer (one with
+    ``update_``: its init is elementwise too, so a chunk's init is that
+    chunk of the whole one). No params-sized fresh state is made: an LM's
+    moments are tens of GB."""
+    if opt.update_ is None:
+        raise ValueError("init_ needs an elementwise optimizer")
+    n = max(x.numel() for _, x in leaves_with_paths(params))
+    for a in range(0, n, CHUNK):
+        p, s = (map_with_paths(lambda _, x: x.view(-1)[a:a + CHUNK], t)
+                for t in (params, state))
+        fresh = by_path(opt.init(p))
+        for path, x in leaves_with_paths(s):
+            x.copy_(fresh[path])
+
+
 def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's fp32 sum of squares; a contiguous leaf of more than CHUNK
+    elements (a resident arena's params-sized gradient) a CHUNK at a time,
+    the parts summed in order, so that no leaf-sized square is made."""
+    if x.numel() <= CHUNK or not x.is_contiguous():
+        return torch.sum(torch.square(x.float()))
+    flat = x.view(-1)
+    return torch.sum(torch.stack(
+        [torch.sum(torch.square(flat[a:a + CHUNK].float()))
+         for a in range(0, flat.numel(), CHUNK)]))
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32."""
-    leaves = [torch.sum(torch.square(x.float())) for _, x in
-              by_path(tree).items()]
+    leaves = [_sum_sq(x) for _, x in by_path(tree).items()]
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(torch.sum(torch.stack(leaves)))

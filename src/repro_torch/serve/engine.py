@@ -15,6 +15,13 @@ The reference's engine, eager:
   * ``insert``: the prefilled cache rows land in free slots; filler rows
     carry the sentinel slot ``n_slots`` and are dropped.
 
+Segment kinds ``dense``, ``moe`` and ``moe_pair`` are served: their caches
+are plain KVCaches (the moe_pair's a ``{"dense", "moe"}`` pair of them),
+walked alike. An MoE prompt's routing depends on its padding: capacity is
+per padded row, so a bucketed prompt's logits differ from an exact-length
+run's (the reference's engine does the same); decode is drop-free (one
+token per row keeps capacity 1).
+
 Padded prompts keep their tokens: the insert sets the slot's cache length
 to ``true_len - 1`` and its cursor to the prompt's last token, so the first
 decode step recomputes the last prompt position's KV and logits at the
@@ -45,8 +52,16 @@ from repro_torch.models.attention import KVCache
 from repro_torch.serve.store import ParamStore
 
 # Segment kinds whose caches are plain KVCaches the slot table can hold
-# (the reference also serves "moe" and "moe_pair", not ported yet).
-SERVABLE_KINDS = ("dense",)
+SERVABLE_KINDS = ("dense", "moe", "moe_pair")
+
+
+def _kv_map(fn, caches, *others):
+    """`caches` with every KVCache replaced by fn(cache, *the same
+    KVCache of each tree in `others`)."""
+    if isinstance(caches, dict):
+        return {k: _kv_map(fn, v, *(o[k] for o in others))
+                for k, v in caches.items()}
+    return fn(caches, *others)
 
 
 @dataclass(frozen=True)
@@ -95,6 +110,8 @@ class ServeEngine:
     """Slot-based continuous batching over one model and one ParamStore."""
 
     def __init__(self, model, params, cfg: Optional[ServeConfig] = None):
+        """Serves `params` themselves, not a copy (``ParamStore``): the
+        caller must not change them afterwards."""
         cfg = cfg if cfg is not None else ServeConfig()
         kinds = {seg.kind for seg in model.plan}
         bad = sorted(kinds - set(SERVABLE_KINDS))
@@ -147,8 +164,8 @@ class ServeEngine:
 
     def _init_dstate(self) -> Dict[str, Any]:
         n = self.cfg.n_slots
-        caches = {key: KVCache(c.k, c.v, self._zeros(n))
-                  for key, c in self.model.init_cache(n, self._s_max).items()}
+        caches = _kv_map(lambda c: KVCache(c.k, c.v, self._zeros(n)),
+                         self.model.init_cache(n, self._s_max))
         return {
             "caches": caches,
             "cur_tok": self._zeros(n, 1),
@@ -158,6 +175,11 @@ class ServeEngine:
             "last_logits": self._zeros(n, self.model.cfg.padded_vocab,
                                        dtype=torch.float32),
         }
+
+    @property
+    def params(self):
+        """The weights being served (the store's active buffer)."""
+        return self._store.params
 
     @property
     def version(self) -> int:
@@ -217,13 +239,15 @@ class ServeEngine:
         as_dev = self._as_device
         src, dst = as_dev(np.flatnonzero(keep)), as_dev(slots[keep])
         d = self._dstate
-        for key, c in d["caches"].items():
-            pre = pre_caches[key]
+        lens = as_dev(true_lens[keep] - 1)
+
+        def land(c, pre):
             c.k[:, dst] = pre.k[:, src]
             c.v[:, dst] = pre.v[:, src]
             # length = true_len - 1: the first decode step recomputes the
             # last prompt token's KV and logits at its own position
-            c.length[dst] = as_dev(true_lens[keep] - 1)
+            c.length[dst] = lens
+        _kv_map(land, d["caches"], pre_caches)
         d["cur_tok"][dst, 0] = as_dev(first_toks[keep])
         d["out_buf"][dst] = 0
         d["out_pos"][dst] = 0

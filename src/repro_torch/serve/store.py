@@ -13,6 +13,12 @@
 
 Steady state holds one copy of the params; between ``stage`` and
 ``commit`` two. A version at or below the active one is refused as stale.
+The constructor takes the caller's tensors themselves as the first active
+buffer (as the reference's ``serve_fns(model, donate=True)`` donates
+them): a model whose weights fill most of the card exists once on it. The
+caller must not change them afterwards (pass a clone to keep changing
+its own); ``stage`` still copies, so a later swap needs room for a second
+copy.
 
 ``WeightsChannel`` is the trainer -> server bus over the checkpoint files
 (``checkpoint/``): the trainer ``publish``es a param tree as a version,
@@ -47,7 +53,7 @@ class ParamStore:
         self._version = 0
         self._staged: Optional[PyTree] = None
         self._staged_version: Optional[int] = None
-        self._active = self._land(params)
+        self._active = tree_map(lambda t: t.detach(), params)
 
     @staticmethod
     def _land(params: PyTree) -> PyTree:

@@ -129,7 +129,8 @@ class _GraphedSteps:
         self.graphs: Dict[tuple, tuple] = {}    # key -> (graph, outs, counts)
         self.warm: set = set()
         self.static_batch: Optional[PyTree] = None
-        self.stats = {"eager": 0, "captured": 0, "replayed": 0}
+        self.stats = {"eager": 0, "captured": 0, "replayed": 0,
+                      "emptied": 0}
 
     def _stage(self, batch: PyTree) -> PyTree:
         """Copy `batch` into the static input tensors (made on first use,
@@ -143,6 +144,20 @@ class _GraphedSteps:
             if src[path].data_ptr() != dst.data_ptr():
                 dst.copy_(src[path], non_blocking=True)
         return self.static_batch
+
+    def _make_room(self) -> None:
+        """Before a capture: a capture allocates from its private pool
+        alone, and the allocator cannot give cached blocks back to the
+        device while it captures. Where the device has less free than the
+        cache holds unused (the warm-up's temporaries: about what the
+        capture takes), the cache goes back first (``stats["emptied"]``);
+        a fit with room to spare keeps it."""
+        dev = self.side.device
+        free, _ = torch.cuda.mem_get_info(dev)
+        if free < (torch.cuda.memory_reserved(dev)
+                   - torch.cuda.memory_allocated(dev)):
+            torch.cuda.empty_cache()
+            self.stats["emptied"] += 1
 
     def __call__(self, state, batch, slots, key) -> dict:
         batch = self._stage(batch)
@@ -159,6 +174,7 @@ class _GraphedSteps:
                 self.stats["eager"] += 1
                 return metrics
             before = _counts()
+            self._make_room()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, stream=self.side, pool=self.pool):
                 _, outs = self.train_step(state, batch, slots)
@@ -291,13 +307,20 @@ class Trainer:
                 self.acc.plans_for(state.params)))
         return self.acc.state_arenaize(state)
 
-    def _install_preempt_handler(self):
+    def _install_preempt_handler(self) -> Callable[[], None]:
+        """SIGTERM sets the preemption flag; returns what puts the handler
+        it replaced back. The handler refers to this Trainer: left behind,
+        it would keep the Trainer (its step's persistent buffers) alive
+        after ``fit``."""
         def handler(signum, frame):
             self._preempted = True
         try:
-            signal.signal(signal.SIGTERM, handler)
+            previous = signal.signal(signal.SIGTERM, handler)
         except ValueError:
-            pass                          # not on the main thread (tests)
+            return lambda: None           # not on the main thread (tests)
+        return lambda: signal.signal(
+            signal.SIGTERM,
+            signal.SIG_DFL if previous is None else previous)
 
     def _gate_batch(self, eval_batch: Optional[PyTree]) -> PyTree:
         """The controller's gate batch: the validation split (preferred
@@ -334,8 +357,20 @@ class Trainer:
         given state's tensors are updated in place (its step counter,
         buffers and Grams, and its params and moments unless they are
         packed for residency): like the reference's donated state, do not
-        reuse it; use the returned one."""
-        self._install_preempt_handler()
+        reuse it; use the returned one. SIGTERM during the fit saves after
+        the current step and returns."""
+        restore_handler = self._install_preempt_handler()
+        try:
+            return self._fit(batches, steps, state, log_every, on_metrics,
+                             eval_batch)
+        finally:
+            restore_handler()
+            # the step's persistent gradient sums go with the fit (with
+            # its graphs, which hold their addresses)
+            self.train_step.release()
+
+    def _fit(self, batches, steps, state, log_every, on_metrics,
+             eval_batch) -> TrainState:
         resumed = self.restore(state)
         if resumed is not None:
             state = resumed

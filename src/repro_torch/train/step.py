@@ -47,7 +47,7 @@ are elementwise can be resident (``RESIDENT_OPTIMIZERS``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,7 +57,7 @@ from repro_torch.core import controller as ctrl_mod
 from repro_torch.core.accelerator import DMDAccelerator, jump_tree
 from repro_torch.core.paths import (by_path, leaves_with_paths,
                                     map_with_paths, tree_map)
-from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.optim.optimizers import init_, make_optimizer
 from repro_torch.train.state import TrainState
 
 PyTree = Any
@@ -196,40 +196,60 @@ def make_train_step(model, acfg, *, global_batch=None,
     acc = _accelerator_for(model, acfg, acc, device)
     dmd_on = acfg.dmd.enabled
     _loss = _loss_of(model, loss_fn)
+    # the fp32 gradient sums of grad accumulation, made once per param
+    # structure and zeroed in place each step: a params-sized buffer that
+    # neither a step's warm-up nor its CUDA graph's pool allocates anew
+    # (beside an LM's state on one card, the two would not both fit).
+    # ``train_step.release()`` frees them (``Trainer.fit`` does on return)
+    sums: Dict[str, torch.Tensor] = {}
+
+    def grad_sums(params: PyTree) -> PyTree:
+        leaves = leaves_with_paths(params)
+        if sorted(sums) != sorted(path for path, _ in leaves) or any(
+                sums[path].shape != p.shape or sums[path].device != p.device
+                for path, p in leaves):
+            sums.clear()
+            sums.update({path: torch.empty(p.shape, dtype=torch.float32,
+                                           device=p.device)
+                         for path, p in leaves})
+        return map_with_paths(lambda path, _: sums[path].zero_(), params)
 
     def train_step(state: TrainState, batch: PyTree, slots=None) -> tuple:
         params = state.params
         resident = arena_mod.is_arena_state(params)
         table = acc.arena_for(params) if resident else None
 
-        def one_loss(p, mb):
-            if resident:
-                p = arena_mod.tree_leafwise(table, p)
-            return _loss(p, mb)
-
-        if ga > 1:
-            mbs = tree_map(lambda x: x.reshape((ga, x.shape[0] // ga)
-                                               + tuple(x.shape[1:])), batch)
+        if ga > 1 or resident:
             # the fp32 sum and its mean are formed in place: a + b.float()
             # and g / ga in the same precision, without a second
-            # params-sized fp32 tree (the LM's state fills the card)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            g_of = by_path(grads)
+            # params-sized fp32 tree (the LM's state fills the card). A
+            # resident buffer's leaves are differentiated as the leaves
+            # themselves (views of the flat buffer, detached) and each
+            # gradient added into its view of the flat sum: autograd
+            # through the views would build every leaf's gradient into a
+            # buffer-sized one, several at once
+            grads = grad_sums(params)
+            view = arena_mod.tree_leafwise(table, params) if resident \
+                else params
+            g_of = by_path(arena_mod.tree_leafwise(table, grads)
+                           if resident else grads)
+            mbs = tree_map(lambda x: x.reshape((ga, x.shape[0] // ga)
+                                               + tuple(x.shape[1:])), batch)
             lsum = None
             for i in range(ga):
                 mb = tree_map(lambda x: x[i], mbs)
-                value, g = value_and_grad(one_loss, params, mb)
+                value, g = value_and_grad(_loss, view, mb)
                 for path, gi in leaves_with_paths(g):
                     g_of[path].add_(gi)
                 del g
                 lsum = value if lsum is None else lsum + value
-            for g in g_of.values():
-                g.div_(ga)
-            del g_of
+            if ga > 1:
+                for g in g_of.values():
+                    g.div_(ga)
+            del g_of, view
             loss = lsum / ga
         else:
-            loss, grads = value_and_grad(one_loss, params, batch)
+            loss, grads = value_and_grad(_loss, params, batch)
             grads = tree_map(lambda g: g.float(), grads)
 
         with torch.no_grad():
@@ -256,6 +276,7 @@ def make_train_step(model, acfg, *, global_batch=None,
             state.step.add_(1)
         return state, {"loss": loss, "grad_norm": gnorm}
 
+    train_step.release = sums.clear
     return train_step
 
 
@@ -345,6 +366,11 @@ def make_dmd_step(acfg, *, acc: Optional[DMDAccelerator] = None, model=None,
         reset = acc.reset_groups(groups)
         if reset:
             params = state.params
+            if len(frozenset(reset)) >= acc.n_groups and \
+                    opt.update_ is not None:
+                # every group: opt.init written in place, chunk by chunk
+                init_(opt, state.opt_state, params)
+                return
             assign_(state.opt_state, reset_opt_state_after_jump(
                 opt, state.opt_state, params, acc.plans_for(params), reset,
                 acc.n_groups, arena=acc.arena_for(params)))

@@ -507,3 +507,25 @@ def test_bucket_scope_unknown_scope_raises():
     (b,) = TAcc(TCfg(), device="cpu").arena_for(tp).values()
     with pytest.raises(ValueError, match="scope"):
         b.bucket_scoped("global")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jump_keeps_params_finite_block_range_by_block_range(dtype,
+                                                             monkeypatch):
+    """The jump's selection (K2's output where finite, else the last
+    snapshot), a few blocks at a time and cast to the params' dtype, is
+    the one-pass selection bit for bit; in fp32 it is written in place."""
+    gen = torch.Generator().manual_seed(0)
+    nb, m, bn = 5, 3, 8
+    buf = torch.randn((nb, m, bn), generator=gen).to(torch.bfloat16)
+    flat = torch.randn(nb * bn, generator=gen)
+    flat[3], flat[17], flat[39] = float("inf"), float("nan"), -float("inf")
+    want = torch.where(torch.isfinite(flat.view(nb, bn)), flat.view(nb, bn),
+                       buf[:, -1, :].float()).reshape(-1).to(dtype)
+    monkeypatch.setattr(tarena, "FINITE_BLOCKS", 2)
+    got = tarena._finite_or_last(flat.clone(), buf, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+    if dtype == torch.float32:
+        inplace = flat.clone()
+        assert tarena._finite_or_last(inplace, buf, dtype).data_ptr() \
+            == inplace.data_ptr()

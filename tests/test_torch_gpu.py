@@ -1009,6 +1009,7 @@ def test_host_eig_never_runs_inside_a_capture(cuda):
     n_jump = sum(tr.acc.should_apply(t) for t in range(30))
     assert tr.graph_stats["captured"] >= 2
     assert tr.graph_stats["replayed"] > 0
+    assert tr.graph_stats["emptied"] == 0         # room to spare: cache kept
     st = dmd.eig_stats()
     assert (st["calls"], st["systems"]) == (n_jump, n_jump)
 
@@ -1385,3 +1386,116 @@ def test_lm_trainer_fit_releases_its_graphs(cuda, monkeypatch):
     assert tr.graph_stats["captured"] > 0
     assert alive == [[False], [False, False]]
     assert left[1] == left[0] <= GRAPH_LEFT_BYTES, left
+
+
+# -- the MoE family ------------------------------------------------------------
+
+def _moe_layer_run(p, x, dout, cfg):
+    from repro_torch.core.paths import map_with_paths
+    from repro_torch.models import moe
+    req = {path: t.detach().clone().requires_grad_(True)
+           for path, t in leaves_with_paths(p)}
+    xr = x.detach().clone().requires_grad_(True)
+    out, aux = moe.apply_moe(xr, map_with_paths(lambda path, _: req[path],
+                                                p), cfg)
+    ((out.float() * dout).sum() + aux).backward()
+    _, top_i, _, routing = moe.route(x, p, cfg)
+    grads = {"x": xr.grad, **{path: t.grad for path, t in req.items()}}
+    return out.detach(), aux.detach(), grads, top_i, routing.sel_idx
+
+
+@pytest.mark.parametrize("top_k,shared", [(8, 0), (1, 1)])
+def test_moe_layer_on_card_matches_cpu_and_repeats(cuda, top_k, shared):
+    """One bf16 MoE layer (128 experts, Qwen3's top-8 and Llama4's top-1
+    with a shared expert, d 256) forward and backward on the card: two
+    runs bit-identical (the ordered scatter-add, no float atomics); the
+    same routing as the CPU from the same params (integer-valued router
+    inputs keep the fp32 logits exact in any order, so no near-ties
+    split the two), output, aux and gradients within 3e-2 of the CPU
+    tensor's largest magnitude (bf16 expert products in two summation
+    orders)."""
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.models import moe
+    cfg = ModelConfig(d_model=256, dtype="bfloat16", moe=MoEConfig(
+        n_experts=128, top_k=top_k, expert_d_ff=128,
+        n_shared_experts=shared, shared_d_ff=64 if shared else 0))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p = moe.moe_init(g, cfg, cuda)
+    p["router"] = torch.randint(-3, 4, p["router"].shape, generator=g,
+                                device=cuda).float() / 64
+    x = torch.randint(-4, 5, (2, 96, 256), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    dout = torch.randn(x.shape, generator=g, device=cuda)
+    a, b = _moe_layer_run(p, x, dout, cfg), _moe_layer_run(p, x, dout, cfg)
+    for u, v in zip(a[:2] + a[3:], b[:2] + b[3:]):
+        assert torch.equal(u, v)
+    for name in a[2]:
+        assert torch.equal(a[2][name], b[2][name]), name
+    from repro_torch.core.paths import tree_map
+    c = _moe_layer_run(tree_map(lambda t: t.cpu(), p), x.cpu(), dout.cpu(),
+                       cfg)
+    assert torch.equal(a[3].cpu(), c[3]) and torch.equal(a[4].cpu(), c[4])
+    pairs = [("out", a[0], c[0]), ("aux", a[1], c[1])] + [
+        (f"d{n}", a[2][n], c[2][n]) for n in c[2]]
+    for name, got, want in pairs:
+        got, want = got.cpu().float(), want.float()
+        err = float((got - want).abs().max())
+        assert err <= 3e-2 * float(want.abs().max()), (name, err)
+
+
+def _moe_trainer(cuda, graphs):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.models.transformer import LanguageModel
+    from repro_torch.train import Trainer
+    acfg = get_config("qwen3-moe-30b-a3b")
+    mc = reduced(acfg.model, n_layers=2, d_model=128, vocab_size=512,
+                 n_heads=4, n_kv_heads=2, head_dim=128)
+    acfg = dataclasses.replace(
+        acfg, model=mc,
+        dmd=dataclasses.replace(acfg.dmd, m=4, s=10, warmup_steps=4,
+                                cooldown_steps=2),
+        optimizer=dataclasses.replace(acfg.optimizer, warmup_steps=4,
+                                      total_steps=24),
+        train=TrainConfig(global_batch=4, seq_len=128))
+    assert acfg.parallel.grad_accum == 4 and acfg.parallel.remat == "block"
+    assert acfg.dmd.snapshot_dtype == "bfloat16"
+    model = LanguageModel(mc, chunk_k=128, remat="block", device=cuda)
+    return Trainer(model, acfg, device=cuda, cuda_graphs=graphs)
+
+
+def test_moe_trainer_graphed_fit_matches_eager(cuda):
+    """The reduced Qwen3 MoE LM (bf16, heads of 128: K7's and K7b's Hopper
+    designs; the config's bf16 ring with every param, grad_accum 4, remat,
+    adamw) through the Trainer: the graphed run's losses and final params
+    equal the eager run's bit for bit, with K7 twice and K7b once per
+    layer and microbatch, K1 per bucket per record, K2 per bucket per
+    jump."""
+    from repro_torch.data.tokens import synthetic_lm_batches
+    runs = {}
+    for graphs in (True, False):
+        tr = _moe_trainer(cuda, graphs)
+        losses = []
+        for c in (ka.LAUNCHES, kf.LAUNCHES):
+            for key in c:
+                c[key] = 0
+        st = tr.fit(synthetic_lm_batches(0, 4, 128, 512, device=cuda), 22,
+                    state=tr.init_state(key=torch.Generator(
+                        device=cuda).manual_seed(0)),
+                    on_metrics=lambda t, m: losses.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        n_buckets = len(tr.acc.arena_for(st.params))
+        assert n_buckets == 2                # bf16 and fp32 (router, norms)
+        assert kf.LAUNCHES["flash_attention"] == \
+            kf.LAUNCHES["flash_attention_wgmma"] == 2 * 2 * 4 * 22
+        assert kf.LAUNCHES["flash_attention_bwd"] == \
+            kf.LAUNCHES["flash_attention_bwd_wgmma"] == 2 * 4 * 22
+        assert ka.LAUNCHES["gram_row"] == n_buckets * 12     # 3 windows
+        assert ka.LAUNCHES["combine"] == n_buckets * 3       # 9, 15, 21
+        runs[graphs] = (losses, st, dict(tr.graph_stats))
+    (lg, sg, stats), (le, se, _) = runs[True], runs[False]
+    assert stats["replayed"] > 0
+    assert lg == le and np.isfinite(lg).all()
+    for (path, a), (_, b) in zip(leaves_with_paths(sg.params),
+                                 leaves_with_paths(se.params)):
+        assert torch.equal(a, b), path

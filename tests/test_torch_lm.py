@@ -228,8 +228,8 @@ def test_bf16_model_matches_reference():
 # -- what is not ported raises -----------------------------------------------
 
 def test_unported_configs_raise():
-    with pytest.raises(KeyError, match="MoE slice"):
-        get_config("qwen3-moe-30b-a3b")
+    with pytest.raises(KeyError, match="SSM/hybrid slice"):
+        get_config("mamba2-2.7b")
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
     for kw in (dict(family="ssm"), dict(family="hybrid"),

@@ -117,9 +117,9 @@ def test_attention_grads_match_jax_grad(S_, H, K, causal, window):
 # -- the model's training surface -------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _models(dtype="float32", remat="none"):
-    jm = j_reduced(j_get_config("tinyllama-1.1b").model, dtype=dtype, **SMALL)
-    tm = reduced(get_config("tinyllama-1.1b").model, dtype=dtype, **SMALL)
+def _models(dtype="float32", remat="none", arch="tinyllama-1.1b"):
+    jm = j_reduced(j_get_config(arch).model, dtype=dtype, **SMALL)
+    tm = reduced(get_config(arch).model, dtype=dtype, **SMALL)
     jlm = JLM(jm, head_tp=False, chunk_k=16, remat=remat)
     jp = jax.tree_util.tree_map(np.asarray, jlm.init(jax.random.PRNGKey(0)))
     return jlm, jp, LanguageModel(tm, chunk_k=16, remat=remat, device="cpu")
@@ -195,14 +195,15 @@ def test_bf16_training_forward_within_reference_rule():
 
 # -- the Trainer ---------------------------------------------------------------
 
-def _cfgs(dmd: dict, ga: int = 1, rules=(), dtype="float32"):
+def _cfgs(dmd: dict, ga: int = 1, rules=(), dtype="float32",
+          arch="tinyllama-1.1b"):
     """(reference ArchConfig, port ArchConfig) of the small LM, mirrored."""
     out = []
     for get, red, Cfg, Opt, Train, Rule in (
             (j_get_config, j_reduced, JDMD, JOpt, JTrain, JRule),
             (get_config, reduced, DMDConfig, OptimizerConfig, TrainConfig,
              DMDGroupRule)):
-        acfg = get("tinyllama-1.1b")
+        acfg = get(arch)
         mc = red(acfg.model, dtype=dtype, **SMALL)
         out.append(dataclasses.replace(
             acfg, model=mc,
@@ -218,11 +219,11 @@ DMD = dict(enabled=True, m=4, s=10, tol=1e-4, warmup_steps=4,
            cooldown_steps=2)
 
 
-def _run_both(steps, dmd=DMD, ga=1, rules=()):
+def _run_both(steps, dmd=DMD, ga=1, rules=(), arch="tinyllama-1.1b"):
     """Both Trainers from the reference's init on the same numpy batches.
     Returns {"ref"/"port": (trainer, state, losses, jump steps)}."""
-    jac, tac = _cfgs(dmd, ga, rules)
-    _, jp, _ = _models()
+    jac, tac = _cfgs(dmd, ga, rules, arch=arch)
+    _, jp, _ = _models(arch=arch)
     batches = _tokens(7, steps)
     out = {}
     for name in ("ref", "port"):
@@ -260,6 +261,61 @@ def test_lm_trainer_matches_reference(ga):
     # one bucket per dtype: the bf16-free fp32 LM packs every leaf in one
     (bucket,) = tr.acc.arena_for(st.params).values()
     assert bucket.n_sys == 2 * 9 + 3       # 9 stacked leaves x 2 layers + 3
+
+
+def test_moe_lm_trainer_matches_reference():
+    """The reduced Qwen3 MoE LM (every layer MoE: 8 experts, top-2) with
+    the config's DMD on every param in bf16 snapshots: the same jumps as
+    the reference's Trainer and the losses within the dense LM's rule
+    (the aux loss is part of each)."""
+    dmd = dict(DMD, snapshot_dtype="bfloat16", param_filter="all")
+    out = _run_both(22, dmd=dmd, arch="qwen3-moe-30b-a3b")
+    _, _, jl, jj = out["ref"]
+    tr, st, tl, tj = out["port"]
+    assert tj == jj == [9, 15, 21]
+    k = tj[0] + 1
+    np.testing.assert_allclose(tl[:k], jl[:k], rtol=1e-5)
+    np.testing.assert_allclose(tl, jl, rtol=2e-3)
+    assert tl[-1] < tl[0]
+    # one bf16 ring holds every leaf, experts and the fp32 router included
+    (bucket,) = tr.acc.arena_for(st.params).values()
+    assert bucket.m == 4 and tr.acfg.dmd.snapshot_dtype == "bfloat16"
+    assert bucket.n_sys == 2 * 10 + 3      # 10 stacked leaves x 2 layers + 3
+
+
+def test_loss_head_passes_match_one_pass(monkeypatch):
+    """``loss`` runs the head and the cross entropy HEAD_ROWS tokens at a
+    time, each pass checkpointed: the loss and every gradient equal the
+    one-pass loss's to fp32 rounding, and the ce of ``forward``'s
+    logits."""
+    from repro_torch.models import transformer
+    _, jp, tlm = _models()
+    params = params_from_jax(jp, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _tokens(5)[0].items()}
+    one_loss, one_grads = _loss_and_grads(tlm, params, batch)
+    monkeypatch.setattr(transformer, "HEAD_ROWS", 5)      # 13 passes
+    loss, grads = _loss_and_grads(tlm, params, batch)
+    _close(loss, one_loss.detach(), 1e-6)
+    for a, b in zip(grads, one_grads):
+        _close(a, b, 1e-6)
+    logits, _ = tlm.forward(params, batch)
+    _close(loss, transformer.cross_entropy(logits, batch["labels"]), 1e-6)
+
+
+def test_fit_puts_back_the_sigterm_handler_and_frees_its_sums():
+    """A fit's SIGTERM handler (it refers to the Trainer) is the one
+    before it again once fit returns, and the step's persistent fp32
+    gradient sums are released with the fit."""
+    import signal
+    tr = _port_trainer()
+    sums = tr.train_step.release.__self__        # the step's buffers
+    during = []
+    before = signal.getsignal(signal.SIGTERM)
+    tr.fit(iter(_tokens(3, 6)), 6,
+           on_metrics=lambda t, m: during.append(
+               (len(sums), signal.getsignal(signal.SIGTERM) is before)))
+    assert during == [(1, False)] * 6     # resident: the fp32 bucket's sum
+    assert signal.getsignal(signal.SIGTERM) is before and sums == {}
 
 
 def test_two_group_lm_trainer_staggers_jumps():
@@ -408,6 +464,42 @@ def test_launcher_reckons_the_state_before_the_card_run():
     cut = launch_train.configure("tinyllama-1.1b", steps=96, n_layers=16)
     n16 = launch_train.param_count(LanguageModel(cut.model, device="cpu"))
     assert launch_train.check_fits(cut, n16, card) == 72 * n16
+
+
+def test_launcher_reckons_the_moe_state_and_cuts_its_depth():
+    """Qwen3-30B-A3B's state is 32 B a param (bf16 param 2, adamw moments
+    8, gradients 4 + 2, the bf16 ring of 8: 16): 48 and 3 layers exceed
+    90% of an 80 GB card and raise with their bytes; 2 layers fit. The
+    launcher's run at 2 layers is the config's own: DMD on every param,
+    m 8, s 40, adamw 3e-4, grad_accum 4, remat."""
+    card = 80 * 2 ** 30
+    counts = {48: 30_532_110_336, 3: 2_491_693_056, 2: 1_868_572_672}
+    for n, want in counts.items():
+        acfg = launch_train.configure("qwen3-moe-30b-a3b", steps=48,
+                                      global_batch=8, seq=4096,
+                                      n_layers=0 if n == 48 else n)
+        assert acfg.model.n_layers == n
+        n_p = launch_train.param_count(LanguageModel(acfg.model,
+                                                     device="cpu"))
+        assert n_p == want
+        if n > 2:
+            with pytest.raises(RuntimeError, match=str(32 * n_p)):
+                launch_train.check_fits(acfg, n_p, card)
+        else:
+            assert launch_train.check_fits(acfg, n_p, card) == 32 * n_p
+    dmd, opt, par = acfg.dmd, acfg.optimizer, acfg.parallel
+    assert (dmd.m, dmd.s, dmd.snapshot_dtype, dmd.param_filter,
+            dmd.warmup_steps) == (8, 40, "bfloat16", "all", 12)
+    assert (opt.name, opt.lr, opt.b2, opt.weight_decay, opt.grad_clip,
+            opt.schedule) == ("adamw", 3e-4, 0.95, 0.1, 1.0, "cosine")
+    assert (par.grad_accum, par.remat) == (4, "block")
+    assert (acfg.train.global_batch, acfg.train.seq_len) == (8, 4096)
+
+
+def test_moe_launcher_reduced_trains_on_cpu(capsys):
+    launch_train.main(["--arch", "qwen3-moe-30b-a3b", "--reduced",
+                       "--device", "cpu", "--steps", "6"])
+    assert "6 steps in" in capsys.readouterr().out
 
 
 def test_quickstart_example_falls_with_dmd_on_cpu():

@@ -267,3 +267,43 @@ def test_in_place_update_is_the_update_bit_for_bit(name, clip, monkeypatch):
         for (path, a), (_, b) in zip(leaves_with_paths((pa, sa)),
                                      leaves_with_paths((pb, sb))):
             assert torch.equal(a, b), (t, path)
+
+
+@pytest.mark.parametrize("name", ["sgd", "momentum", "adam", "adamw"])
+def test_init_in_place_is_init(name, monkeypatch):
+    """``init_`` (the moments' reset after a jump, a chunk of every leaf at
+    a time) leaves a used state equal to a fresh ``init``, bit for bit;
+    a non-elementwise optimizer is refused."""
+    monkeypatch.setattr(topt, "CHUNK", 7)
+    opt = make_optimizer(OptimizerConfig(name=name, lr=0.05,
+                                         schedule="constant"))
+    gen = torch.Generator().manual_seed(0)
+    p = {"a": torch.randn(13, generator=gen),
+         "b": {"c": torch.randn((3, 5), generator=gen)}}
+    state = opt.init(p)
+    opt.update_({"a": torch.ones(13), "b": {"c": torch.ones((3, 5))}},
+                state, p, torch.tensor(0, dtype=torch.int32))
+    topt.init_(opt, state, p)
+    for (path, a), (_, b) in zip(leaves_with_paths(state),
+                                 leaves_with_paths(opt.init(p))):
+        assert torch.equal(a, b), path
+    with pytest.raises(ValueError, match="elementwise"):
+        topt.init_(make_optimizer(OptimizerConfig(name="adafactor")),
+                   (), p)
+
+
+def test_global_norm_sums_a_large_leaf_a_chunk_at_a_time(monkeypatch):
+    """A leaf above CHUNK elements is squared and summed a chunk at a
+    time (no leaf-sized square): the same norm to fp32 rounding; a leaf
+    within CHUNK is summed as before, bit for bit."""
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.normal(size=(5, 11)).astype(np.float32))
+    whole = global_norm({"x": x})
+    monkeypatch.setattr(topt, "CHUNK", 7)
+    assert float(global_norm({"x": x})) == pytest.approx(
+        float(torch.sqrt((x.double() ** 2).sum())), rel=1e-6)
+    assert float(whole) == pytest.approx(float(global_norm({"x": x})),
+                                         rel=1e-6)
+    small = torch.tensor([3.0, 4.0])
+    assert torch.equal(global_norm({"s": small}),
+                       torch.sqrt(torch.sum(torch.square(small))))

@@ -92,6 +92,21 @@ def test_tinyllama_config_and_reduced_mirror_reference():
             (j.padded_vocab, j.q_dim, j.kv_dim)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_configs_and_reduced_mirror_reference(arch):
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config as t_get_config
+    jc, tc = j_get_config(arch), t_get_config(arch)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    for kw in ({}, dict(n_layers=3, d_model=32, n_kv_heads=1),
+               dict(dtype="float32")):
+        assert dataclasses.asdict(tbase.reduced(tc.model, **kw)) == \
+            dataclasses.asdict(jbase.reduced(jc.model, **kw))
+    assert (tc.model.padded_vocab, tc.model.q_dim, tc.model.kv_dim) == \
+        (jc.model.padded_vocab, jc.model.q_dim, jc.model.kv_dim)
+
+
 def test_group_rule_mirrors_reference():
     assert _fields(tsched.DMDGroupRule) == _fields(jsched.DMDGroupRule)
     assert [f.name for f in dataclasses.fields(tsched.GroupSchedule)] == \

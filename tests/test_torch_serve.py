@@ -10,6 +10,10 @@
   * Hot-swap: a swapped-in version serves what a cold start on it serves;
     ``adopt="step"`` and ``"drain"``; stale versions are refused.
   * Submit validation, and what the engine does not serve raises.
+  * The MoE family: the greedy tokens equal the reference ``ServeEngine``'s
+    on reduced Qwen3 and Llama4 (the moe_pair's cache pair); the served
+    weights exist once (the store takes the caller's tensors); the
+    launcher on the CPU.
 """
 import functools
 
@@ -23,7 +27,7 @@ from repro.models.transformer import LanguageModel as JLM
 from repro.serve import ServeConfig as JServeConfig, ServeEngine as JEngine
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
-from repro_torch.core.paths import tree_map
+from repro_torch.core.paths import leaves_with_paths, tree_map
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.transformer import LanguageModel, Segment
 from repro_torch.serve import ParamStore, ServeConfig, ServeEngine
@@ -192,12 +196,15 @@ def test_drain_adopt_holds_until_table_empties():
 
 def test_param_store_versions_and_copies():
     params = {"a": torch.ones(3), "b": {"c": torch.zeros(2)}}
-    store = ParamStore(params)
+    # the store serves the tensors it is given: a caller that goes on
+    # changing its own passes a clone
+    store = ParamStore(tree_map(torch.clone, params))
     assert store.version == 0
     params["a"].add_(1)                           # the caller's tensors
-    assert float(store.params["a"][0]) == 1.0     # the store landed a copy
+    assert float(store.params["a"][0]) == 1.0     # not the store's
     assert store.stage(params) == 1 and store.version == 0
     assert store.staged_version == 1
+    params["a"].add_(1)                           # stage landed a copy
     assert store.commit() == 1 and float(store.params["a"][0]) == 2.0
     with pytest.raises(ValueError, match="stale"):
         store.stage(params, version=1)
@@ -269,3 +276,88 @@ def test_launcher_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             launch_serve.main(["--arch", "tinyllama-1.1b", "--reduced"])
+
+
+# -- the MoE family ------------------------------------------------------------
+
+MOE_LAYERS = {"qwen3-moe-30b-a3b": 2, "llama4-maverick-400b-a17b": 3}
+# PROMPTS with [7] * 8 replaced by eight distinct tokens: eight equal tokens
+# reach the MoE layers as rows equal up to the attention's rounding, so
+# which of them an expert's capacity keeps (2 of 8 at the 8-token bucket)
+# is decided by ulps the two frameworks round differently: a near-tie, not
+# a rule (the exact-tie rule is pinned in test_torch_moe.py)
+MOE_PROMPTS = [p if p != [7] * 8 else [7, 1, 8, 2, 6, 1, 9, 3]
+               for p in PROMPTS]
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_pair(arch):
+    """The reference's and the port's reduced MoE model on the reference's
+    weights: Qwen3 (every layer MoE) and Llama4 at 3 layers (a dense-MoE
+    pair, whose caches are the {"dense", "moe"} pair, and a dense
+    remainder)."""
+    shrink = dict(SHRINK, n_layers=MOE_LAYERS[arch])
+    jm = JLM(j_reduced(j_get_config(arch).model, **shrink), head_tp=False,
+             chunk_k=16, scan_layers=False)
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tm = LanguageModel(reduced(get_config(arch).model, **shrink), chunk_k=16,
+                       device="cpu")
+    return jm, jp, tm, params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                               jp),
+                                       device="cpu")
+
+
+@pytest.mark.parametrize("arch", list(MOE_LAYERS))
+def test_moe_engine_tokens_equal_the_reference_engine(arch):
+    """Padded prompts route by their padded rows in both engines (capacity
+    is per padded row), and decode is drop-free: the greedy tokens and the
+    dispatch counts are the reference engine's."""
+    jm, jp, tm, tp = _moe_pair(arch)
+    jeng = JEngine(jm, jp, JServeConfig(**_cfg()))
+    eng = ServeEngine(tm, tp, ServeConfig(**_cfg()))
+    for p in MOE_PROMPTS:
+        jeng.submit(p)
+        eng.submit(p)
+    want = {r.uid: r.tokens for r in jeng.run_until_drained()}
+    got = {r.uid: r.tokens for r in eng.run_until_drained()}
+    assert got == want
+    assert eng.stats["decode_dispatches"] == jeng.stats["decode_dispatches"]
+    assert eng.stats["prefill_dispatches"] == \
+        jeng.stats["prefill_dispatches"]
+    if arch.startswith("llama4"):
+        caches = eng._dstate["caches"]
+        assert sorted(caches["seg0"]) == ["dense", "moe"]
+        assert caches["seg1"].length.shape == (4,)
+
+
+def test_donated_weights_exist_once():
+    """The store and the engine serve the caller's very tensors (as the
+    reference's ``serve_fns(model, donate=True)``; the launcher's
+    ``build`` relies on it); a swap still stages a copy."""
+    params = {"a": torch.ones(3), "b": {"c": torch.zeros(2)}}
+    store = ParamStore(params)
+    assert store.params["a"].data_ptr() == params["a"].data_ptr()
+    assert store.params["b"]["c"].data_ptr() == params["b"]["c"].data_ptr()
+    store.publish(params)
+    assert store.params["a"].data_ptr() != params["a"].data_ptr()
+    model, params, eng = launch_serve.build("qwen3-moe-30b-a3b",
+                                            use_reduced=True, device="cpu",
+                                            new_tokens=2)
+    for (path, a), (_, b) in zip(leaves_with_paths(params),
+                                 leaves_with_paths(eng.params)):
+        assert a.data_ptr() == b.data_ptr(), path
+    eng.submit([1, 2, 3])
+    (res,) = eng.run_until_drained()
+    assert len(res.tokens) == 2
+
+
+def test_moe_launcher_on_the_cpu(capsys):
+    done = launch_serve.main(["--arch", "qwen3-moe-30b-a3b", "--reduced",
+                              "--requests", "3", "--new-tokens", "2",
+                              "--device", "cpu"])
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert "3 requests, 6 tokens" in capsys.readouterr().out
+    launch_serve.main(["--arch", "llama4-maverick-400b-a17b", "--reduced",
+                       "--layers", "3", "--requests", "2", "--new-tokens",
+                       "2", "--swap-every", "1", "--device", "cpu"])
+    assert "2 requests, 4 tokens" in capsys.readouterr().out
