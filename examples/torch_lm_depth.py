@@ -1,15 +1,20 @@
-"""How deep TinyLlama-1.1B trains on one card: the launcher's ``run`` at
-the config's full widths (bf16, the config's DMD and optimizer,
-grad_accum 4, remat, CUDA graphs, 8 x 4096 tokens a step) for the steps
-that reach the first DMD jump, at each depth given; prints the peak
-allocated and reserved bytes, or the out-of-memory error.
+"""How deep an LM trains on one card: the launcher's ``run`` at the
+config's full widths (bf16, the config's DMD and optimizer, grad_accum,
+remat, CUDA graphs, 8 x 4096 tokens a step) for the steps that reach the
+first DMD jump, at each depth given; prints the peak allocated and
+reserved bytes, or the out-of-memory error.
 
     PYTHONPATH=src python examples/torch_lm_depth.py 16 15 14 [--steps 49]
+        [--arch tinyllama-1.1b] [--warmup N]
+
+``--warmup N`` sets the DMD warm-up (default: the launcher's, a quarter of
+96 steps), so that a shorter run reaches the first jump.
 
 Needs a CUDA card. `chip_smoke.py` phase 15 trains at the deepest of
 these that stays under ~90% of the card (PERF.md §4).
 """
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -17,10 +22,13 @@ import torch
 from repro_torch.launch import train as launch_train
 
 
-def probe(n_layers: int, steps: int, dev) -> dict:
+def probe(arch: str, n_layers: int, steps: int, warmup, dev) -> dict:
     """One run at `n_layers`: its peak bytes and seconds, or the OOM."""
-    acfg = launch_train.configure("tinyllama-1.1b", steps=96, global_batch=8,
+    acfg = launch_train.configure(arch, steps=96, global_batch=8,
                                   seq=4096, n_layers=n_layers)
+    if warmup is not None:
+        acfg = dataclasses.replace(acfg, dmd=dataclasses.replace(
+            acfg.dmd, warmup_steps=warmup))
     model = launch_train.make_model(acfg, device=dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -44,11 +52,13 @@ def main(argv=None):
     ap.add_argument("layers", type=int, nargs="+")
     ap.add_argument("--steps", type=int, default=49,
                     help="steps to run (49: through the first jump at 47)")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--warmup", type=int, default=None)
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
     total = torch.cuda.get_device_properties(dev).total_memory
     for n in args.layers:
-        res = probe(n, args.steps, dev)
+        res = probe(args.arch, n, args.steps, args.warmup, dev)
         share = res["peak"] / total if "peak" in res else None
         print(f"depth {n}: {res}, card {total} bytes, peak share {share}",
               flush=True)

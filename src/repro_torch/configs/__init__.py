@@ -16,6 +16,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
     "pollutant-mlp": "repro_torch.configs.pollutant_mlp",
 }
 # the reference's other architectures, and the part of the port that
@@ -26,8 +28,6 @@ _LATER: Dict[str, str] = {
     "gemma3-27b": "the ring-cache serving slice",
     "whisper-base": "the enc-dec slice",
     "qwen2-vl-7b": "the M-RoPE slice",
-    "zamba2-2.7b": "the SSM/hybrid slice",
-    "mamba2-2.7b": "the SSM/hybrid slice",
 }
 
 

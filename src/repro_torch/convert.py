@@ -12,9 +12,11 @@ from repro_torch.kernels.device import resolve_device
 def params_from_jax(tree: Any, device="cuda") -> Any:
     """A reference param tree whose leaves are numpy arrays (e.g.
     ``jax.tree_util.tree_map(np.asarray, init_mlp(key, sizes))``) -> the
-    same nested dicts of torch tensors on `device`, values and dtypes
-    unchanged. This package never imports JAX: the caller converts to
-    numpy first."""
+    same nested dicts of torch tensors on `device`, values, dtypes and
+    shapes unchanged: every family's tree carries over as it is (a
+    zamba segment's (groups, 6, ...) Mamba stacks, its ``shared_block``,
+    the SSM's fp32 scalars beside bf16 matrices). This package never
+    imports JAX: the caller converts to numpy first."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}

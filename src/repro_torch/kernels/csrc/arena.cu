@@ -56,29 +56,37 @@ namespace {
 
 constexpr int kMaxM = 32;
 constexpr int kRowThreads = 256;                     // K1
+constexpr int kRun = 32;                             // K1: units a run
 constexpr int kCombineThreads = 128;
 
 // K1: out[s, j] = sum over the blocks i of system s of <q_i - x_i0,
 // x_ij - x_i0> (x_i0 := 0 without the anchor), one launch. The query of
 // block i is row `qslot` of block i when qslot >= 0, else row i of q (row
 // stride qs). A unit is Lanes::kPer lanes of one row; a block row holds
-// upb = bn / kPer units. MMAX >= m keeps the m running sums in registers;
-// rows j >= m are never read or written.
+// upb = bn / kPer units. MMAX >= m sizes the m running sums; rows j >= m
+// are never read or written.
 //
 // CTA c walks the systems its block range touches. For each piece (the
 // blocks of system s in its range) every thread sums its units in order
 // (thread t takes unit t of the piece, then t + kRowThreads, ...; unit k is
-// lane unit k % upb of block p0 + k / upb) and the CTA reduces in a fixed
-// tree. A system that lies wholly in the range is then written to out at
-// once. Only the first and the last system of a range can span several
-// CTAs: their sums go to part[c + s] (distinct for every (CTA, system)
-// pair: the systems of CTA c + 1 start at or after the last of CTA c), and
-// after its last piece the CTA takes one integer ticket for each. The last
-// of the cnt CTAs that touch such a system sums part[c + s] over them in
-// CTA order: thread t = r * m + j owns column j of CTAs r, r + stripes,
-// ...; the stripes are then summed in order. A system with no block gets
-// zeros from the CTA whose range it falls in (the last CTA for systems
-// past the last block).
+// lane unit k % upb of block p0 + k / upb) in two levels: the products of
+// kRun units in a register run, the runs in the thread's column of shared
+// memory (acc). One running sum over a thread's whole range (27,648
+// products on an LM's ring) lost ~u n / 2 of the row where the terms share
+// a sign; the longest chain is now kRun P + n / (kRun P). A step loads its
+// rows in groups of at most 8 (kLoads) and the query's own term is qa . qa:
+// with all 16 rows of m = 14 in flight beside the runs, bf16 and fp32 at
+// MMAX 16 spilled at the 128 registers two CTAs per SM allow. Then the CTA
+// reduces in a fixed tree. A system that lies wholly in the range is then
+// written to out at once. Only the first and the last system of a range
+// can span several CTAs: their sums go to part[c + s] (distinct for every
+// (CTA, system) pair: the systems of CTA c + 1 start at or after the last
+// of CTA c), and after its last piece the CTA takes one integer ticket for
+// each. The last of the cnt CTAs that touch such a system sums part[c + s]
+// over them in CTA order: thread t = r * m + j owns column j of CTAs r,
+// r + stripes, ...; the stripes are then summed in order. A system with no
+// block gets zeros from the CTA whose range it falls in (the last CTA for
+// systems past the last block).
 template <typename T, int MMAX, bool VEC>
 __global__ void __launch_bounds__(kRowThreads, MMAX <= 16 ? 2 : 1)
 arena_row(const T* __restrict__ x, const T* __restrict__ q, long long qs,
@@ -105,6 +113,7 @@ arena_row(const T* __restrict__ x, const T* __restrict__ q, long long qs,
   const int warp = threadIdx.x >> 5;
   __shared__ float red[kRowThreads / 32][MMAX];
   __shared__ float stripe[kRowThreads];
+  __shared__ float acc[MMAX][kRowThreads];     // each thread's column
   __shared__ int last[2];
 
   const int s_a = block_sys[b_lo];            // may begin before the range
@@ -120,34 +129,56 @@ arena_row(const T* __restrict__ x, const T* __restrict__ q, long long qs,
     }
     const int p0 = max(b_lo, o0);
     const int p1 = min(b_hi, o1);
-    float acc[MMAX];
+    float run[MMAX];
 #pragma unroll
-    for (int j = 0; j < MMAX; ++j) acc[j] = 0.f;
+    for (int j = 0; j < MMAX; ++j) acc[j][threadIdx.x] = run[j] = 0.f;
     int blk = p0 + threadIdx.x / upb;
     int w = threadIdx.x - (threadIdx.x / upb) * upb;
+    int n_run = 0;
     while (blk < p1) {
-      // every load of the step first: the anchor, the query, the other rows
+      // the anchor and the query first, then the other rows kLoads at a time
       const T* xb = x + blk * bs;
       const T* qq = qslot >= 0 ? xb + qslot * bn : q + blk * qs;
-      typename Ln::Raw r0{}, rq, rows[MMAX];
+      typename Ln::Raw r0{}, rq;
       if (anchor_first) r0 = Ln::load(xb, w);
       rq = (anchor_first && qslot == 0) ? r0 : Ln::load(qq, w);
-#pragma unroll
-      for (int j = 0; j < MMAX; ++j)
-        if (j < m && j != skip && j != qslot) rows[j] = Ln::load(xb + j * bn, w);
       float x0[P], qa[P];
       Ln::unpack(r0, x0);
       Ln::unpack(rq, qa);
 #pragma unroll
       for (int e = 0; e < P; ++e) qa[e] -= x0[e];
+      constexpr int kLoads = MMAX < 8 ? MMAX : 8;   // rows in flight
 #pragma unroll
-      for (int j = 0; j < MMAX; ++j) {
-        if (j < m && j != skip) {
-          float xj[P];
-          Ln::unpack(j == qslot ? rq : rows[j], xj);
+      for (int h = 0; h < MMAX; h += kLoads) {
+        typename Ln::Raw rows[kLoads];
 #pragma unroll
-          for (int e = 0; e < P; ++e) acc[j] = fmaf(qa[e], xj[e] - x0[e], acc[j]);
+        for (int i = 0; i < kLoads; ++i) {
+          const int j = h + i;
+          if (j < m && j != skip && j != qslot) rows[i] = Ln::load(xb + j * bn, w);
         }
+#pragma unroll
+        for (int i = 0; i < kLoads; ++i) {
+          const int j = h + i;
+          if (j < m && j != skip) {
+            if (j == qslot) {                   // x_q - x_0 is qa
+#pragma unroll
+              for (int e = 0; e < P; ++e) run[j] = fmaf(qa[e], qa[e], run[j]);
+            } else {
+              float xj[P];
+              Ln::unpack(rows[i], xj);
+#pragma unroll
+              for (int e = 0; e < P; ++e) run[j] = fmaf(qa[e], xj[e] - x0[e], run[j]);
+            }
+          }
+        }
+      }
+      if (++n_run == kRun) {
+#pragma unroll
+        for (int j = 0; j < MMAX; ++j) {
+          acc[j][threadIdx.x] += run[j];
+          run[j] = 0.f;
+        }
+        n_run = 0;
       }
       blk += step_b;
       w += step_w;
@@ -158,7 +189,7 @@ arena_row(const T* __restrict__ x, const T* __restrict__ q, long long qs,
     }
 #pragma unroll
     for (int j = 0; j < MMAX; ++j) {
-      float v = acc[j];
+      float v = acc[j][threadIdx.x] + run[j];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
       if (lane == 0) red[warp][j] = v;

@@ -1,5 +1,5 @@
-"""Training launcher for the LMs (the dense and MoE families), the
-reference's ``launch/train.py``.
+"""Training launcher for the LMs (the dense, MoE, SSM and hybrid
+families), the reference's ``launch/train.py``.
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b [--steps 200]
         [--ckpt DIR] [--reduced] [--no-dmd] [--global-batch N] [--seq N]
@@ -8,7 +8,13 @@ reference's ``launch/train.py``.
 ``--arch qwen3-moe-30b-a3b --layers 2 --global-batch 8`` trains
 Qwen3-30B-A3B at its full widths with the config's DMD on every param
 (bf16 ring of 8): 32 B a param of state, so 3 of its 48 layers already
-exceed 90% of an 80 GB card.
+exceed 90% of an 80 GB card. ``--arch mamba2-2.7b --layers 34`` and
+``--arch zamba2-2.7b --layers 29`` (4 groups of 6 Mamba layers and the
+shared block, then a 5-layer Mamba remainder) train Mamba2 and Zamba2 at
+their full widths with DMD on every param (bf16 ring of 14), peaking at
+0.85 and 0.78 of an 80 GB H100: 44 B a param of state, so their full
+depths (118.9 and 103.0 GB) do not fit, and zamba2's 30 layers (5 groups)
+pass ``check_fits`` but run out of memory.
 
 The reference's flags and rules: ``--reduced`` trains the same-family
 shrunk config (``configs.reduced``) at batch 8 x 64 without remat; without

@@ -22,23 +22,26 @@ DRAW_ELEMS = 1 << 28
 
 
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
-               device) -> torch.Tensor:
-    """Normal / sqrt(fan_in), drawn in fp32 and then cast; fan_in is the
+               device, scale: float = 1.0) -> torch.Tensor:
+    """Normal * scale / sqrt(fan_in) (the reference's std), drawn in fp32
+    and then cast; scale 0 gives zeros and draws nothing. fan_in is the
     second-to-last axis, so a stacked (layers, d_in, d_out) leaf is drawn
     as its layers would be. The leaf is drawn in consecutive slices of at
     most ``DRAW_ELEMS`` elements, whole rows each (one slice, the whole
     leaf, up to that size)."""
+    if scale == 0.0:
+        return torch.zeros(shape, dtype=dtype, device=device)
     out = torch.empty(shape, dtype=dtype, device=device)
     if out.is_meta:
         return out
-    scale = math.sqrt(shape[-2])
+    div = math.sqrt(shape[-2]) / scale
     rows = out.view(-1, shape[-1])
     step = max(1, DRAW_ELEMS // shape[-1])
     for i in range(0, rows.shape[0], step):
         n = min(step, rows.shape[0] - i)
         w = torch.randn((n, shape[-1]), generator=gen, dtype=torch.float32,
                         device=device)
-        rows[i:i + n] = (w / scale).to(dtype)
+        rows[i:i + n] = (w / div).to(dtype)
     return out
 
 

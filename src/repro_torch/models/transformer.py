@@ -1,33 +1,43 @@
-"""The decoder-only LM: the dense family (TinyLlama and its kin) and the
+"""The decoder-only LM: the dense family (TinyLlama and its kin), the
 MoE family (Qwen3-30B-A3B: every layer MoE; Llama4-Maverick: a dense layer
-then an MoE layer, 1:1).
+then an MoE layer, 1:1), the SSM family (Mamba2: Mamba-2 blocks) and the
+hybrid family (Zamba2: groups of Mamba-2 blocks, each group followed by
+ONE shared attention + MLP block).
 
 The param tree is the reference's: ``emb``, ``final_norm``, ``lm_head``
-(unless tied) and ``seg0``, whose leaves stack the layers on a leading
-axis (``param_stack_dims``: one stack axis under ``seg<i>``, none
-elsewhere; the DMD accelerator treats each layer as its own system). The
-layers run in a Python loop over that axis, the reference's unrolled build
-(``scan_layers=False``): each stacked leaf is unbound once per call, so
-its gradient is one stack of the layers' gradients, not one full-stack
-write per layer. A stacked layer cache is indexed the same way, so a
-layer's cache update writes into the stack in place.
+(unless tied), ``shared_block`` (hybrid: a dense block stored once, outside
+the segments) and ``seg0``, ``seg1``, ..., whose leaves stack the layers on
+leading axes (``param_stack_dims``: one stack axis under ``seg<i>``, two
+under a ``zamba`` super-block's ``mamba`` sub-stack, none elsewhere; the
+DMD accelerator treats each layer as its own system). The layers run in a
+Python loop over those axes, the reference's unrolled build
+(``scan_layers=False``): each stacked leaf is unbound once per call (a
+zamba leaf over both of its axes at once), so its gradient is one stack of
+the layers' gradients, not one full-stack write per layer. A stacked layer
+cache is indexed the same way, so a layer's cache update writes into the
+stack in place.
 
 Training: ``loss`` is differentiable end to end; attention's backward is
 K7b on the card (``kernels/flash_attention.py``). ``remat="block"`` or
-``"full"`` (the reference's ``jax.checkpoint`` of each layer) keeps only
-each layer's input and recomputes the layer in the backward
+``"full"`` (the reference's ``jax.checkpoint`` of each super-block) keeps
+only each super-block's input and recomputes it in the backward
 (``torch.utils.checkpoint``, non-reentrant): the same values, bit for
-bit, and K7 runs twice per layer.
+bit, and K7 runs twice per attention layer.
 
 The segment plan is the reference's: ``dense``, ``moe`` (attention, then
-the MoE feed-forward of ``models/moe.py``) and ``moe_pair`` (a dense layer
+the MoE feed-forward of ``models/moe.py``), ``moe_pair`` (a dense layer
 then an MoE layer, one stacked pair per step, with the cache pair
-``{"dense", "moe"}``). Each MoE layer's fp32 load-balancing loss is summed
-over the layers in order; ``forward`` returns that sum as its aux loss
-(0 for the dense family) and ``loss`` is ce + aux, as the reference's.
+``{"dense", "moe"}``), ``mamba`` (one Mamba-2 block of ``models/ssm.py``,
+its cache an ``SSMState``) and ``zamba`` (``shared_attn_every`` Mamba-2
+blocks then the shared block, with the cache ``{"mamba": stacked
+SSMStates, "shared": the invocation's own KVCache}``; a depth that is not
+a multiple of the group adds a ``mamba`` remainder segment). Each MoE
+layer's fp32 load-balancing loss is summed over the layers in order;
+``forward`` returns that sum as its aux loss (0 without MoE layers) and
+``loss`` is ce + aux, as the reference's.
 
-Other families (SSM, hybrid, enc-dec, gemma's local/global plan) raise
-``NotImplementedError``.
+Other families (enc-dec, gemma's local/global plan) and learned position
+embeddings raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,9 +47,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.paths import tree_map
 from repro_torch.kernels.device import resolve_device
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMState
 
 
 class Segment(NamedTuple):
@@ -48,11 +60,19 @@ class Segment(NamedTuple):
 
 
 def segment_plan(cfg) -> List[Segment]:
+    if cfg.family == "ssm":
+        return [Segment("mamba", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        n_groups, rem = divmod(cfg.n_layers, cfg.shared_attn_every)
+        plan = [Segment("zamba", n_groups)]
+        if rem:
+            plan.append(Segment("mamba", rem))
+        return plan
     if cfg.family not in ("dense", "moe") or cfg.global_every:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (global_every "
             f"{cfg.global_every}) is not ported yet; the port builds the "
-            "dense and MoE families")
+            "dense, MoE, SSM and hybrid families")
     if cfg.moe.n_experts > 0:
         if cfg.moe.moe_every == 1:
             return [Segment("moe", cfg.n_layers)]
@@ -67,11 +87,18 @@ def segment_plan(cfg) -> List[Segment]:
     return [Segment("dense", cfg.n_layers)]
 
 
-def _block_init(gen, cfg, kind: str, count: int, device) -> dict:
-    stack = (count,)
+def _block_init(gen, cfg, kind: str, stack: Tuple[int, ...], device
+                ) -> dict:
     if kind == "moe_pair":
-        return {"dense": _block_init(gen, cfg, "dense", count, device),
-                "moe": _block_init(gen, cfg, "moe", count, device)}
+        return {"dense": _block_init(gen, cfg, "dense", stack, device),
+                "moe": _block_init(gen, cfg, "moe", stack, device)}
+    if kind == "mamba":
+        return {"ln": layers.norm_init(cfg, device, stack),
+                "ssm": ssm.ssm_init(gen, cfg, device, stack)}
+    if kind == "zamba":
+        return {"mamba": _block_init(gen, cfg, "mamba",
+                                     stack + (cfg.shared_attn_every,),
+                                     device)}
     ffn = ({"moe": moe.moe_init(gen, cfg, device, stack)} if kind == "moe"
            else {"mlp": layers.mlp_init(gen, cfg, device, stack)})
     return {"ln1": layers.norm_init(cfg, device, stack),
@@ -98,8 +125,10 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
               "final_norm": layers.norm_init(cfg, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, shape, dtype, device)
+    if cfg.family == "hybrid":
+        params["shared_block"] = _block_init(gen, cfg, "dense", (), device)
     for i, seg in enumerate(plan):
-        params[f"seg{i}"] = _block_init(gen, cfg, seg.kind, seg.count,
+        params[f"seg{i}"] = _block_init(gen, cfg, seg.kind, (seg.count,),
                                         device)
     return params
 
@@ -107,19 +136,27 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
 def param_stack_dims(cfg, params: Optional[dict] = None) -> dict:
     """How many leading stack axes each leaf of ``init_params`` carries,
     as the reference's ``param_stack_dims`` derives it from the segment
-    plan: 1 under every ``seg<i>`` (one system per layer), 0 elsewhere."""
+    plan: 1 under every ``seg<i>`` (one system per layer), 2 under a
+    ``zamba`` segment's ``mamba`` sub-stack (one system per Mamba layer),
+    0 elsewhere (``shared_block`` is one system)."""
     if params is None:
         params = init_params(cfg, device="meta")
-    segment_plan(cfg)
+    plan = segment_plan(cfg)
 
     def const(tree, n):
         if isinstance(tree, dict):
             return {k: const(v, n) for k, v in tree.items()}
         return n
 
-    return {key: const(sub, 1 if key.startswith("seg") and key[3:].isdigit()
-                       else 0)
-            for key, sub in params.items()}
+    out = {}
+    for key, sub in params.items():
+        if key.startswith("seg") and key[3:].isdigit():
+            zamba = plan[int(key[3:])].kind == "zamba"
+            out[key] = ({k: const(v, 2) for k, v in sub.items()} if zamba
+                        else const(sub, 1))
+        else:
+            out[key] = const(sub, 0)
+    return out
 
 
 def _unbind(tree, count: int) -> List[dict]:
@@ -152,33 +189,51 @@ def _apply_moe_block(x, p, cfg, *, positions, cache, chunk_k):
 
 
 def _layer_cache(c, j: int):
-    """Layer j's view of a stacked segment cache (a KVCache, or the
-    moe_pair's {"dense", "moe"} pair of them)."""
+    """Layer j's view of a stacked segment cache (a KVCache, an SSMState,
+    or a dict of them: the moe_pair's {"dense", "moe"}, the zamba
+    super-block's {"mamba", "shared"})."""
     if c is None:
         return None
     if isinstance(c, dict):
         return {k: _layer_cache(v, j) for k, v in c.items()}
+    if isinstance(c, SSMState):
+        return SSMState(*(t[j] for t in c))
     return KVCache(c.k[j], c.v[j], c.length)
 
 
 def _advance(c, n: int):
-    """A stacked segment cache whose length moved on by n tokens."""
+    """A stacked segment cache whose KV length moved on by n tokens (an
+    SSMState has no length: its tensors were written in place)."""
     if isinstance(c, dict):
         return {k: _advance(v, n) for k, v in c.items()}
+    if isinstance(c, SSMState):
+        return c
     return KVCache(c.k, c.v, c.length + n)
+
+
+def _first_kv(node) -> Optional[KVCache]:
+    if isinstance(node, KVCache):
+        return node
+    if isinstance(node, dict):
+        for v in node.values():
+            kv = _first_kv(v)
+            if kv is not None:
+                return kv
+    return None
 
 
 def cache_length(caches: dict):
     """The length of the first KVCache in `caches` (the reference's
-    ``_cache_length``): a host int, or a (B,) tensor of per-row lengths."""
-    node = caches
-    while isinstance(node, dict):
-        node = next(iter(node.values()))
-    return node.length
+    ``_cache_length``): a host int, or a (B,) tensor of per-row lengths;
+    0 where there is none (the SSM family)."""
+    kv = _first_kv(caches)
+    return 0 if kv is None else kv.length
 
 
-def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k):
-    """One super-block of the plan: (x, new cache, fp32 aux or None)."""
+def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k,
+                 shared=None):
+    """One super-block of the plan: (x, new cache, fp32 aux or None).
+    `shared` is the hybrid family's shared block."""
     if kind == "dense":
         x, nc = _apply_dense(x, p, cfg, positions=positions, cache=cache,
                              chunk_k=chunk_k)
@@ -186,6 +241,21 @@ def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k):
     if kind == "moe":
         return _apply_moe_block(x, p, cfg, positions=positions, cache=cache,
                                 chunk_k=chunk_k)
+    if kind == "mamba":
+        y, ns = ssm.apply_ssm(layers.apply_norm(x, p["ln"], cfg), p["ssm"],
+                              cfg, state=cache)
+        return x + y, ns, None
+    if kind == "zamba":
+        mc = None if cache is None else cache["mamba"]
+        for i, lp in enumerate(p["mamba"]):
+            x, _, _ = _apply_block("mamba", x, lp, cfg, positions=positions,
+                                   cache=_layer_cache(mc, i),
+                                   chunk_k=chunk_k)
+        x, nsc = _apply_dense(x, shared, cfg, positions=positions,
+                              cache=None if cache is None
+                              else cache["shared"], chunk_k=chunk_k)
+        return x, (None if cache is None
+                   else {"mamba": mc, "shared": nsc}), None
     dc = None if cache is None else cache["dense"]
     mc = None if cache is None else cache["moe"]
     x, ndc = _apply_dense(x, p["dense"], cfg, positions=positions,
@@ -217,7 +287,8 @@ REMAT = ("none", "block", "full")
 
 
 class LanguageModel:
-    """Decoder-only LM (dense and MoE families) with unrolled layers."""
+    """Decoder-only LM (dense, MoE, SSM and hybrid families) with unrolled
+    layers."""
 
     def __init__(self, cfg, *, chunk_k: int = 1024, remat: str = "none",
                  scan_layers: bool = False, device="cuda"):
@@ -269,10 +340,23 @@ class LanguageModel:
             logits[..., cfg.vocab_size:] = -1e30
         return logits
 
-    def _layer_fn(self, kind, x, p, positions):
+    def _layer_fn(self, kind, x, p, positions, shared):
         x, _, aux = _apply_block(kind, x, p, self.cfg, positions=positions,
-                                 cache=None, chunk_k=self.chunk_k)
+                                 cache=None, chunk_k=self.chunk_k,
+                                 shared=shared)
         return x if aux is None else (x, aux)
+
+    def _blocks(self, params, i: int, seg) -> list:
+        """Segment i's super-blocks, unbound. A zamba block is {"mamba":
+        its k Mamba layers}: the (groups, k, ...) leaves are unbound once
+        over both axes, as (groups * k, ...) views."""
+        sub = params[f"seg{i}"]
+        if seg.kind != "zamba":
+            return _unbind(sub, seg.count)
+        k = self.cfg.shared_attn_every
+        flat = _unbind(tree_map(lambda t: t.flatten(0, 1), sub["mamba"]),
+                       seg.count * k)
+        return [{"mamba": flat[g * k:(g + 1) * k]} for g in range(seg.count)]
 
     def _layers(self, params, x, positions, caches):
         """Every layer in order; returns x, the new caches (None without
@@ -283,19 +367,21 @@ class LanguageModel:
         new_caches = None if caches is None else {}
         remat = (self.remat != "none" and caches is None
                  and torch.is_grad_enabled())
+        shared = params.get("shared_block")
         aux_total = None
         for i, seg in enumerate(self.plan):
             key = f"seg{i}"
             c = None if caches is None else caches[key]
-            for j, lp in enumerate(_unbind(params[key], seg.count)):
+            for j, lp in enumerate(self._blocks(params, i, seg)):
                 if remat:
                     out = checkpoint(self._layer_fn, seg.kind, x, lp,
-                                     positions, use_reentrant=False)
+                                     positions, shared, use_reentrant=False)
                     x, aux = out if isinstance(out, tuple) else (out, None)
                 else:
                     x, _, aux = _apply_block(
                         seg.kind, x, lp, self.cfg, positions=positions,
-                        cache=_layer_cache(c, j), chunk_k=self.chunk_k)
+                        cache=_layer_cache(c, j), chunk_k=self.chunk_k,
+                        shared=shared)
                 if aux is not None:
                     aux_total = aux if aux_total is None else aux_total + aux
             if c is not None:
@@ -364,18 +450,36 @@ class LanguageModel:
     # -- serving -----------------------------------------------------------
     def init_cache(self, batch_size: int, s_max: int) -> dict:
         """Zeroed caches matching the segment plan, length 0: a stacked
-        KVCache per ``dense`` or ``moe`` segment, the pair
-        ``{"dense", "moe"}`` of them per ``moe_pair`` segment."""
+        KVCache per ``dense`` or ``moe`` segment, the pair ``{"dense",
+        "moe"}`` of them per ``moe_pair`` segment, a stacked SSMState per
+        ``mamba`` segment, and ``{"mamba": SSMStates stacked (groups,
+        shared_attn_every), "shared": a KVCache per group}`` per ``zamba``
+        segment."""
         cfg = self.cfg
+        dtype = getattr(torch, cfg.dtype)
 
-        def full(count):
+        def full(stack):
             return attention.init_kv_cache(
-                batch_size, s_max, cfg.n_kv_heads, cfg.head_dim,
-                getattr(torch, cfg.dtype), self.device, (count,))
-        return {f"seg{i}": ({"dense": full(seg.count),
-                             "moe": full(seg.count)}
-                            if seg.kind == "moe_pair" else full(seg.count))
-                for i, seg in enumerate(self.plan)}
+                batch_size, s_max, cfg.n_kv_heads, cfg.head_dim, dtype,
+                self.device, stack)
+
+        def state(stack):
+            return ssm.init_ssm_state(batch_size, cfg, dtype, self.device,
+                                      stack)
+        caches = {}
+        for i, seg in enumerate(self.plan):
+            n = (seg.count,)
+            if seg.kind == "moe_pair":
+                caches[f"seg{i}"] = {"dense": full(n), "moe": full(n)}
+            elif seg.kind == "mamba":
+                caches[f"seg{i}"] = state(n)
+            elif seg.kind == "zamba":
+                caches[f"seg{i}"] = {
+                    "mamba": state(n + (cfg.shared_attn_every,)),
+                    "shared": full(n)}
+            else:
+                caches[f"seg{i}"] = full(n)
+        return caches
 
     def prefill(self, params, batch, caches) -> Tuple[torch.Tensor, dict]:
         """Prompt pass into fresh caches (filled in place). batch:

@@ -1499,3 +1499,189 @@ def test_moe_trainer_graphed_fit_matches_eager(cuda):
     for (path, a), (_, b) in zip(leaves_with_paths(sg.params),
                                  leaves_with_paths(se.params)):
         assert torch.equal(a, b), path
+
+
+# -- the SSM and hybrid families -------------------------------------------
+
+def _ssm_block_run(kind, p, shared, x, dout, cfg, n_pre):
+    """One super-block forward and backward, then the first `n_pre`
+    tokens' prefill into a fresh state and the next token's decode:
+    (out, {path: gradient}, prefill out, decode out)."""
+    from repro_torch.core.paths import map_with_paths
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.attention import init_kv_cache
+    tree = {"p": p, "shared": shared}
+    req = {path: t.detach().clone().requires_grad_(True)
+           for path, t in leaves_with_paths(tree)}
+    live = map_with_paths(lambda path, _: req[path], tree)
+    xr = x.detach().clone().requires_grad_(True)
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    out, _, _ = transformer._apply_block(
+        kind, xr, live["p"], cfg, positions=pos, cache=None, chunk_k=64,
+        shared=live["shared"])
+    (out.float() * dout).sum().backward()
+    grads = {"x": xr.grad, **{path: t.grad for path, t in req.items()}}
+    state = ssm.init_ssm_state(B, cfg, x.dtype, x.device,
+                               () if kind == "mamba"
+                               else (cfg.shared_attn_every,))
+    cache = state if kind == "mamba" else {
+        "mamba": state, "shared": init_kv_cache(
+            B, S, cfg.n_kv_heads, cfg.head_dim, x.dtype, x.device)}
+    with torch.no_grad():
+        pre, cache, _ = transformer._apply_block(
+            kind, x[:, :n_pre], p, cfg, positions=pos[:, :n_pre],
+            cache=cache, chunk_k=64, shared=shared)
+        dec, _, _ = transformer._apply_block(
+            kind, x[:, n_pre:n_pre + 1], p, cfg,
+            positions=pos[:, n_pre:n_pre + 1], cache=cache, chunk_k=64,
+            shared=shared)
+    return out.detach(), grads, pre, dec
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_block_on_card_matches_cpu_and_repeats(cuda, arch):
+    """One fp32 Mamba-2 block (and a zamba super-block: 6 of them and the
+    shared attention + MLP, heads of 80 on K7's and K7b's fp32 kernels) at
+    d 512 on 256 tokens (4 SSD chunks of 64): forward, backward, a
+    128-token prefill and one decode step twice on the card (bit-identical:
+    no float atomics on this path) and on the CPU from the same params,
+    within 1e-3 of the CPU tensor's largest magnitude (IEEE fp32 products
+    summed in other orders; the fp32 scalars' gradients sum over every
+    token with cancellation, which bf16 rounding would swamp)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.paths import tree_map
+    from repro_torch.models import ssm, transformer
+    base = get_config(arch).model
+    cfg = reduced(base, d_model=512, n_heads=8, n_kv_heads=8, head_dim=80,
+                  d_ff=1024, ssm=dataclasses.replace(base.ssm, chunk=64),
+                  dtype="float32")
+    kind = "mamba" if cfg.family == "ssm" else "zamba"
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def mamba():
+        p = {"ln": {"scale": 0.1 * torch.randn((cfg.d_model,), generator=g,
+                                               device=cuda)},
+             "ssm": ssm.ssm_init(g, cfg, cuda)}
+        for k in ("A_log", "dt_bias", "skip_d", "norm_scale"):
+            p["ssm"][k] = 0.5 * torch.randn(p["ssm"][k].shape, generator=g,
+                                            device=cuda)
+        return p
+    p, shared = ((mamba(), None) if kind == "mamba" else
+                 ({"mamba": [mamba() for _ in range(6)]},
+                  transformer._block_init(g, cfg, "dense", (), cuda)))
+    x = torch.randn((2, 256, cfg.d_model), generator=g, device=cuda)
+    dout = torch.randn(x.shape, generator=g, device=cuda)
+    kf.LAUNCHES["flash_attention"] = kf.LAUNCHES["flash_attention_bwd"] = 0
+    a = _ssm_block_run(kind, p, shared, x, dout, cfg, 128)
+    if kind == "zamba":                   # forward, prefill; one backward
+        assert kf.LAUNCHES["flash_attention"] == 2
+        assert kf.LAUNCHES["flash_attention_bwd"] == 1
+    b = _ssm_block_run(kind, p, shared, x, dout, cfg, 128)
+    for i in (0, 2, 3):
+        assert torch.equal(a[i], b[i])
+    for name in a[1]:
+        assert torch.equal(a[1][name], b[1][name]), name
+    host = lambda t: t.cpu()  # noqa: E731
+    c = _ssm_block_run(kind, tree_map(host, p),
+                       None if shared is None else tree_map(host, shared),
+                       x.cpu(), dout.cpu(), cfg, 128)
+    pairs = [("out", a[0], c[0]), ("prefill", a[2], c[2]),
+             ("decode", a[3], c[3]), ("decode vs forward", a[3],
+                                      a[0][:, 128:129])]
+    pairs += [(f"d{n}", a[1][n], c[1][n]) for n in c[1]]
+    for name, got, want in pairs:
+        got, want = got.cpu(), want.cpu()
+        err = float((got - want).abs().max())
+        assert err <= 1e-3 * float(want.abs().max()), (name, err)
+
+
+def test_k1_on_a_long_bf16_ring_within_twice_the_chunked_twin(cuda):
+    """K1 on a bf16 ring of 2^20 blocks x 14 x 512 in 4 systems (262k
+    blocks each) of snapshot-like rows (x_j = w + j d: the anchored
+    products share a sign, as on a training ring): its distance from a
+    float64 twin is at most twice the chunked fp32 twin's (one running
+    sum a thread over its whole block range read 14-46x the twin's on
+    such rings)."""
+    nb, m, n_sys, chunk = 1 << 20, 14, 4, 1 << 16
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.empty((nb, m, 512), dtype=torch.bfloat16, device=cuda)
+    j = torch.arange(m, device=cuda, dtype=torch.float32)[:, None]
+    for a in range(0, nb, chunk):
+        w = 0.02 * torch.randn((chunk, 1, 512), generator=g, device=cuda)
+        d = 1e-3 * torch.randn((chunk, 1, 512), generator=g, device=cuda)
+        x[a:a + chunk] = (w + j * d).to(torch.bfloat16)
+    seg = ka.Segments.from_block_sys(np.repeat(np.arange(n_sys), nb // n_sys),
+                                     n_sys, cuda)
+    q = x[:, m - 1, :]
+    exact = torch.zeros((n_sys, m), dtype=torch.float64, device=cuda)
+    twin = torch.zeros((n_sys, m), dtype=torch.float32, device=cuda)
+    idx = seg.block_sys.long()
+    for a in range(0, nb, chunk):
+        xs, qs = x[a:a + chunk].double(), q[a:a + chunk].double()
+        qs, xs = qs - xs[:, 0, :], xs - xs[:, 0:1, :]
+        exact.index_add_(0, idx[a:a + chunk],
+                         torch.bmm(xs, qs.unsqueeze(-1)).squeeze(-1))
+        twin += ka.gram_row_ref(x[a:a + chunk], q[a:a + chunk],
+                                seg.block_sys[a:a + chunk], n_sys,
+                                anchor_first=True)
+    got = ka.gram_row(x, q, seg, anchor_first=True)
+    assert torch.equal(got, ka.gram_row(x, q, seg, anchor_first=True))
+    err = float((got.double() - exact).abs().max())
+    t_err = float((twin.double() - exact).abs().max())
+    assert err <= 2.0 * t_err, (err, t_err)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_trainer_graphed_fit_matches_eager(cuda, arch):
+    """Reduced Mamba2 (3 layers) and Zamba2 (8: a group of 6 and a
+    2-layer remainder; the shared attention's heads of 16 on K7's and
+    K7b's sm_80-unit designs) with the config's bf16 ring on every param,
+    grad_accum 8 and remat through the Trainer: the graphed run's losses
+    and final params equal the eager run's bit for bit, with K1 per bucket
+    per record, K2 per bucket per jump, and for zamba K7 twice and K7b
+    once per group and microbatch."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.models.transformer import LanguageModel
+    from repro_torch.train import Trainer
+    acfg = get_config(arch)
+    mc = reduced(acfg.model, n_layers=3 if arch.startswith("mamba") else 8)
+    acfg = dataclasses.replace(
+        acfg, model=mc,
+        dmd=dataclasses.replace(acfg.dmd, m=4, s=10, warmup_steps=4,
+                                cooldown_steps=2),
+        optimizer=dataclasses.replace(acfg.optimizer, warmup_steps=4,
+                                      total_steps=24),
+        train=TrainConfig(global_batch=8, seq_len=64))
+    assert acfg.parallel.grad_accum == 8 and acfg.parallel.remat == "block"
+    groups = mc.n_layers // 6 if arch.startswith("zamba") else 0
+    runs = {}
+    for graphs in (True, False):
+        tr = Trainer(LanguageModel(mc, chunk_k=64, remat="block",
+                                   device=cuda), acfg, device=cuda,
+                     cuda_graphs=graphs)
+        losses = []
+        for c in (ka.LAUNCHES, kf.LAUNCHES):
+            for key in c:
+                c[key] = 0
+        st = tr.fit(synthetic_lm_batches(0, 8, 64, mc.vocab_size,
+                                         device=cuda), 22,
+                    state=tr.init_state(key=torch.Generator(
+                        device=cuda).manual_seed(0)),
+                    on_metrics=lambda t, m: losses.append(float(m["loss"])))
+        torch.cuda.synchronize()
+        n_buckets = len(tr.acc.arena_for(st.params))
+        assert n_buckets == 2                # bf16 and the fp32 scalars
+        assert kf.LAUNCHES["flash_attention"] == 2 * groups * 8 * 22
+        assert kf.LAUNCHES["flash_attention_bwd"] == groups * 8 * 22
+        assert ka.LAUNCHES["gram_row"] == n_buckets * 12     # 3 windows
+        assert ka.LAUNCHES["combine"] == n_buckets * 3       # 9, 15, 21
+        runs[graphs] = (losses, st, dict(tr.graph_stats))
+    (lg, sg, stats), (le, se, _) = runs[True], runs[False]
+    assert stats["replayed"] > 0
+    assert lg == le and np.isfinite(lg).all()
+    for (path, a), (_, b) in zip(leaves_with_paths(sg.params),
+                                 leaves_with_paths(se.params)):
+        assert torch.equal(a, b), path

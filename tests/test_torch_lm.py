@@ -228,12 +228,12 @@ def test_bf16_model_matches_reference():
 # -- what is not ported raises -----------------------------------------------
 
 def test_unported_configs_raise():
-    with pytest.raises(KeyError, match="SSM/hybrid slice"):
-        get_config("mamba2-2.7b")
+    with pytest.raises(KeyError, match="ring-cache serving slice"):
+        get_config("gemma3-27b")
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
-    for kw in (dict(family="ssm"), dict(family="hybrid"),
-               dict(family="encdec"), dict(global_every=6)):
+    for kw in (dict(family="encdec"), dict(family="vlm"),
+               dict(global_every=6)):
         with pytest.raises(NotImplementedError, match="not ported"):
             segment_plan(ModelConfig(**kw))
     with pytest.raises(NotImplementedError, match="eager"):

@@ -258,8 +258,16 @@ def test_unsupported_families_fail_loudly():
         cfg = reduced(model.cfg, mrope_sections=(2, 3, 3))
     with pytest.raises(NotImplementedError, match="mrope"):
         ServeEngine(MRope(), params, ServeConfig())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        LanguageModel(reduced(model.cfg, family="ssm"), device="cpu")
+    # the SSM and hybrid families build, and the engine refuses them as
+    # the reference's does: a padded prompt would run through the state
+    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
+        ssm_model = LanguageModel(reduced(get_config(arch).model),
+                                  device="cpu")
+        with pytest.raises(NotImplementedError, match="segment kinds"):
+            ServeEngine(ssm_model, ssm_model.init(), ServeConfig())
+        ref = JLM(j_reduced(j_get_config(arch).model), head_tp=False)
+        with pytest.raises(NotImplementedError, match="segment kinds"):
+            JEngine(ref, None, JServeConfig())
 
 
 def test_launcher_on_the_cpu(capsys):
