@@ -317,8 +317,8 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    s 55, bf16 ring, warm-up cut to 0 and cool-down to 5: the jump at
    step 18), adamw 3e-4,
    remat, the config's microbatch of 1 x 4096 tokens but ``SSM_ACCUM`` = 2
-   of them a step (the config's grad_accum is 8), ``SSM_STEPS`` steps
-   graphed and then eagerly: K1 per bucket per record, K2 per bucket per
+   of them a step (the config's grad_accum is 8), 19 steps
+   graphed and then eagerly (``train_cell``): K1 per bucket per record, K2 per bucket per
    jump, K7 twice and K7b once per shared-block invocation and
    microbatch; graphed = eager bit for bit (losses and every param); ms a
    step by kind, peak beside the reckoned state; K1 and K2 on the run's
@@ -327,6 +327,42 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    float64 twin); the device time by kernel family (the SSD's fp32
    products apart) of 3 eager plain steps. (f) K1's error
    and time on the MoE ring and both SSM rings, side by side.
+18. The remaining dense decoders, phase 18 "dense": K7 and K7b at
+   granite's MQA attention, (1, 4096, 48, 1, 128) causal (one KV head for
+   48 query heads), and at gemma's local attention, (1, 4096, 32, 16,
+   128) causal with window 1024, bf16, through their Hopper designs,
+   against their twins, timed beside their bounds (the pairs the window
+   lets through) and SDPA (its forward and backward with the same mask).
+   (a) MiniCPM-2B at full width and depth through the launcher's
+   ``build`` (40 layers, 36 MHA heads of 64, 2,724,915,456 params): the
+   launcher's stream (K7 40 a prefill dispatch, all through the wgmma
+   design, nothing else), decode ms, every request's first-token logits
+   against the exact-length loop within SERVE_LOGIT_TOL, a hot swap every
+   8 steps, a 4096-token ``forward``. (b) Granite-20B (52 layers, MQA,
+   the plain GELU MLP, 20,315,756,544 params, the weights once on the
+   card): the same without the hot swap (two copies need 81 GB). (c)
+   Gemma3-27B (62 layers: 10 super-blocks of 5 window layers and a global
+   one, then 2 window layers; 27,008,319,744 params) generating through
+   ``prefill`` / ``decode_step``, which the engine refuses for ring
+   caches as the reference's does: 8 prompts of 64 tokens and one of
+   ``GEMMA_LONG`` tokens (every ring wraps), 16 new tokens each, twice
+   bit for bit; K7 62 a prefill; the bf16 decode logits against
+   ``forward``'s printed; a 4096-token ``forward``; then in fp32 at
+   ``GEMMA_FP32_LAYERS`` (two super-blocks and the 2-layer tail) the
+   decode logits held to ``forward``'s within SERVE_LOGIT_TOL, also
+   through wrapped rings; one super-block at full width in fp32 (window
+   cut to ``GEMMA_BLOCK_WINDOW`` so that ``GEMMA_BLOCK_TOKENS`` tokens
+   wrap the rings), forward, backward, prefill and a decode step, card
+   twice bit for bit and against the CPU within SSM_BLOCK_TOL. (d)
+   minicpm-train, granite-train and gemma3-train through ``train_cell``
+   at full width cut to ``DENSE_TRAIN_LAYERS`` (the full depth's reckoned
+   state must exceed 90% of the card), the config's DMD on every param
+   (bf16 rings: m 14 for minicpm, 8 for the others), warm-up 0 and
+   cool-down ``DENSE_COOLDOWN``, ``DENSE_ACCUM`` microbatches of 1 x 4096
+   a step; K7 and K7b all through their Hopper designs; graphed = eager
+   bit for bit. gemma3-train's cut keeps only window layers: the global
+   layer is trained on the CPU against the reference
+   (tests/test_torch_dense_archs.py).
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -1091,26 +1127,40 @@ def check_flash(dev):
     return record
 
 
+def _sdpa_mask(Sq, Sk, causal, window, dev):
+    """SDPA's (is_causal, attn_mask) for K7's mask: is_causal alone where
+    there is no window, else the boolean mask itself."""
+    if not window:
+        return causal, None
+    return False, kf._mask(Sq, Sk, causal, window, dev)
+
+
 def time_flash(case, dev, seed=7):
-    """K7 on one bf16 causal case against its twin, timed eager (in turns
-    with SDPA) and replayed beside its bound; returns its record."""
+    """K7 on one bf16 case against its twin, timed eager (in turns with
+    SDPA under the same mask) and replayed beside its bound (the pairs
+    the mask lets through); returns its record."""
     err, (q, k, v) = _check_flash_case(case, torch.bfloat16, dev, seed)
-    B, Sq, Sk, H, K, d = case[:6]
+    B, Sq, Sk, H, K, d, causal, window = case
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    is_causal, mask = _sdpa_mask(Sq, Sk, causal, window, dev)
+    kern = lambda: kf.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                      window=window)
     k_ms, l_ms = in_turns(
-        lambda: kf.flash_attention(q, k, v),
-        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    p_ms = cuda_ms(lambda: kf.flash_attention_ref(q, k, v), iters=5)
-    flops = 4.0 * d * _flash_pairs(Sq, Sk, True, 0) * B * H
+        kern, lambda: sdpa(qt, kt, vt, is_causal=is_causal, attn_mask=mask,
+                           enable_gqa=True))
+    p_ms = cuda_ms(lambda: kf.flash_attention_ref(q, k, v, causal=causal,
+                                                  window=window), iters=5)
+    flops = 4.0 * d * _flash_pairs(Sq, Sk, causal, window) * B * H
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
-    print(f"kernel flash_attention bf16 {case[:6]} causal: kernel_ms "
+    mask_s = "causal" + (f" window {window}" if window else "")
+    print(f"kernel flash_attention bf16 {case[:6]} {mask_s}: kernel_ms "
           f"{k_ms} ref_ms {p_ms} sdpa_ms {l_ms} bound_ms {b_ms} ({b_by})"
           f" max_abs_err {err} TFLOP/s {flops / k_ms / 1e9}")
     print(f"K7 {case[:6]}: kernel / sdpa {k_ms / l_ms} (same call, in "
           f"turns); {b_ms / k_ms} of the bound")
-    g_ms = graph_ms(lambda: kf.flash_attention(q, k, v))
+    g_ms = graph_ms(kern)
     print(f"K7 {case[:6]}: CUDA-graph replay {g_ms} ms, {b_ms / g_ms} "
           "of the bound")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
@@ -2733,26 +2783,29 @@ def time_flash_bwd(case, dev, seed=7):
         case, torch.bfloat16, dev, seed=seed)
     err = max(errs[g] for g in ("dq", "dk", "dv"))
     torch.cuda.empty_cache()
-    B, S, H, K, d = case[:5]
-    kern = lambda: kf.flash_attention_bwd(q, k, v, out, dout, lse)  # noqa
+    B, S, H, K, d, causal, window = case
+    kern = lambda: kf.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, dout, lse, causal=causal, window=window)
     leaves = [t.transpose(1, 2).detach().requires_grad_(True)
               for t in (q, k, v)]
+    is_causal, mask = _sdpa_mask(S, S, causal, window, dev)
     with torch.enable_grad():
         o_lib = torch.nn.functional.scaled_dot_product_attention(
-            *leaves, is_causal=True, enable_gqa=True)
+            *leaves, is_causal=is_causal, attn_mask=mask, enable_gqa=True)
     d_lib = dout.transpose(1, 2)
     lib = lambda: torch.autograd.grad(o_lib, leaves, d_lib,  # noqa: E731
                                       retain_graph=True)
     k_ms, l_ms = in_turns(kern, lib, iters=20)
-    p_ms = cuda_ms(lambda: kf.flash_attention_bwd_ref(q, k, v, dout),
-                   iters=3, warmup=1)
+    p_ms = cuda_ms(lambda: kf.flash_attention_bwd_ref(
+        q, k, v, dout, causal=causal, window=window), iters=3, warmup=1)
     g_ms = graph_ms(kern)
-    pairs = _flash_pairs(S, S, True, 0)
+    pairs = _flash_pairs(S, S, causal, window)
     flops = 10.0 * d * pairs * B * H          # S, dP, dV, dK, dQ
     nbytes = 2 * (3 * q.numel() + 3 * k.numel() + 2 * q.numel()) \
         + 4 * lse.numel()                     # q,k,v,O,dO in; dq,dk,dv out
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
-    print(f"kernel flash_attention_bwd bf16 {case[:5]} causal: kernel_ms "
+    mask_s = "causal" + (f" window {window}" if window else "")
+    print(f"kernel flash_attention_bwd bf16 {case[:5]} {mask_s}: kernel_ms "
           f"{k_ms} graph_ms {g_ms} ref_ms {p_ms} sdpa_bwd_ms {l_ms} "
           f"bound_ms {b_ms} ({b_by}) row error {err} TFLOP/s "
           f"{flops / k_ms / 1e9}")
@@ -3753,16 +3806,21 @@ SSM_GEN_BATCHES = {"mamba2-2.7b": (8, 128), "zamba2-2.7b": (8,)}
 # reference reads 0.11 there
 SSM_BF16_LAYERS = {"mamba2-2.7b": 4, "zamba2-2.7b": 6}
 SSM_BF16_HELD = ("mamba2-2.7b",)
-# training at full width, depth cut to fit the card: mamba2 at 34 layers
-# (peak 0.85 of the card graphed and eager; 36 ran out of memory in
-# examples/torch_lm_depth.py), zamba2 at 29 (4 groups of 6 and a 5-layer
-# remainder; peak 0.78; 30, 33 and 36 ran out of memory; PERF.md §4);
+# training at full width, depth cut: the deepest that fit the card are
+# mamba2's 34 layers (peak 0.85 of the card graphed and eager; 36 ran out
+# of memory in examples/torch_lm_depth.py) and zamba2's 29 (4 groups of 6
+# and a 5-layer remainder; peak 0.78; 30, 33 and 36 ran out of memory;
+# PERF.md §4), but their steps are host-bound (~40k launches a step at
+# 34 layers, 2.0-3.4 s eager on an H100) and 15 of a graphed run's 19
+# steps run eagerly (each record slot is its own graph): at those depths
+# phase 17 took 213-307 s, and with phase 18 the script reached 1,120 s
+# of its 1,200. So mamba2 trains at 16 layers and zamba2 at 14 (2 groups
+# of 6 and a 2-layer remainder), about half the time;
 # the DMD warm-up cut to 0 and the cool-down from 10 to SSM_COOLDOWN (the
 # least that leaves 3 replayed plain steps to profile; phase 17's time on
 # a slow host), m 14: records at 5-18, the jump at 18
-SSM_TRAIN_LAYERS = {"mamba2-2.7b": 34, "zamba2-2.7b": 29}
+SSM_TRAIN_LAYERS = {"mamba2-2.7b": 16, "zamba2-2.7b": 14}
 SSM_COOLDOWN = 5
-SSM_STEPS = SSM_COOLDOWN + 14
 # the step cut to SSM_ACCUM microbatches of 1 x 4096 tokens (the config's
 # grad_accum is 8): the microbatch, and so the peak, is the config's, but
 # a step at 8 takes 4x the time (5.2 s replayed, 8.8 s eager on an H100):
@@ -4070,16 +4128,38 @@ def check_ssm_blocks(dev):
 
 def train_ssm(dev, arch, records):
     """Phase 17 (d) and (e): `arch` at full width, cut to
-    SSM_TRAIN_LAYERS, through the launcher's ``run`` for SSM_STEPS steps
-    graphed and then eagerly, bit for bit the same; K1 and K2 on the run's
-    own rings (check_ring_buckets); the time by step kind; a profile of 3
-    eager plain steps. Returns the graphed run's launches."""
-    what = f"{arch.split('-')[0]}-train"
+    SSM_TRAIN_LAYERS, through ``train_cell``. Returns the graphed run's
+    launches."""
     n_layers = SSM_TRAIN_LAYERS[arch]
+    mc = get_config(arch).model
+    n_attn = n_layers // mc.shared_attn_every if mc.shared_attn_every else 0
+    return train_cell(
+        dev, arch, n_layers, SSM_COOLDOWN, SSM_ACCUM,
+        (14, 55, "bfloat16", "all", True, True, "matpow", "leaf", 10,
+         "adamw", 3e-4, 0.95, 0.1, 1.0, "cosine", 8, "block", 2560,
+         n_layers), n_attn, SSM_FAMILIES, records, "ssm")
+
+
+def train_cell(dev, arch, n_layers, cooldown, accum, expect, n_attn,
+               families, records, group, wgmma=False):
+    """`arch` at full width, cut to `n_layers`, through the launcher's
+    ``run`` graphed and then eagerly, bit for bit the same: the config
+    (DMD, optimizer, grad_accum, remat, d_model, depth) held to `expect`,
+    then the DMD warm-up cut to 0, the cool-down to `cooldown` (one
+    window of records, the jump at its last step) and the step to
+    `accum` microbatches of 1 x LM_SEQ tokens; K7 twice and K7b once per
+    attention layer (`n_attn`) and microbatch, all through their Hopper
+    designs where `wgmma`; K1 and K2 on the run's own rings
+    (check_ring_buckets); the time by step kind; a profile of 3 eager
+    plain steps by `families`. Recorded under records[`group`]. Returns
+    the graphed run's launches."""
+    what = f"{arch.split('-')[0]}-train"
     total = torch.cuda.get_device_properties(dev).total_memory
+    m = get_config(arch).dmd.m
+    steps = cooldown + m
     reckon = {}
     for n in (0, n_layers):
-        acfg = launch_train.configure(arch, steps=SSM_STEPS,
+        acfg = launch_train.configure(arch, steps=steps,
                                       global_batch=LM_BATCH, seq=LM_SEQ,
                                       n_layers=n)
         n_p = launch_train.param_count(launch_train.make_model(acfg,
@@ -4097,26 +4177,22 @@ def train_ssm(dev, arch, records):
              dmd.streaming_gram, dmd.mode, dmd.scope, dmd.cooldown_steps,
              opt.name, opt.lr, opt.b2, opt.weight_decay, opt.grad_clip,
              opt.schedule, acfg.parallel.grad_accum, acfg.parallel.remat,
-             mc.d_model, mc.n_layers) ==
-            (14, 55, "bfloat16", "all", True, True, "matpow", "leaf", 10,
-             "adamw", 3e-4, 0.95, 0.1, 1.0, "cosine", 8, "block", 2560,
-             n_layers), f"{what}: config {acfg}")
+             mc.d_model, mc.n_layers) == expect, f"{what}: config {acfg}")
     acfg = dataclasses.replace(
         acfg, dmd=dataclasses.replace(dmd, warmup_steps=0,
-                                      cooldown_steps=SSM_COOLDOWN),
-        parallel=dataclasses.replace(acfg.parallel, grad_accum=SSM_ACCUM),
-        train=dataclasses.replace(acfg.train, global_batch=SSM_ACCUM))
+                                      cooldown_steps=cooldown),
+        parallel=dataclasses.replace(acfg.parallel, grad_accum=accum),
+        train=dataclasses.replace(acfg.train, global_batch=accum))
     model = launch_train.make_model(acfg, device=dev)
     need = launch_train.check_fits(acfg, reckon[n_layers][0], total)
-    n_attn = n_layers // mc.shared_attn_every if mc.shared_attn_every else 0
     ga = acfg.parallel.grad_accum
-    want = {"flash_attention": 2 * n_attn * ga * SSM_STEPS,
-            "flash_attention_bwd": n_attn * ga * SSM_STEPS}
+    want = {"flash_attention": 2 * n_attn * ga * steps,
+            "flash_attention_bwd": n_attn * ga * steps}
     acc = launch_train.make_trainer(acfg, model).acc
-    jumps = [t for t in range(SSM_STEPS) if acc.apply_groups(t)]
-    require(jumps == [SSM_STEPS - 1], f"{what}: jumps at {jumps}")
-    kinds = _step_kinds(acc, SSM_STEPS)
-    traced = [t for t in range(SSM_STEPS) if kinds[t] == "replay plain"][
+    jumps = [t for t in range(steps) if acc.apply_groups(t)]
+    require(jumps == [steps - 1], f"{what}: jumps at {jumps}")
+    kinds = _step_kinds(acc, steps)
+    traced = [t for t in range(steps) if kinds[t] == "replay plain"][
         -LM_PROFILED:]
     witness = {}
 
@@ -4126,20 +4202,23 @@ def train_ssm(dev, arch, records):
     before_fit = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     trainer, state, losses, secs = _lm_fit(
-        acfg, model, SSM_STEPS, lambda t, tr, st: None)
+        acfg, model, steps, lambda t, tr, st: None)
     g_wall = time.perf_counter() - t0
     launches = counts()
     peak = torch.cuda.max_memory_allocated(dev)
     table = trainer.acc.arena_for(state.params)
     want["gram_row"] = sum(acc.slots(t)[b.group] >= 0
-                           for t in range(SSM_STEPS) for b in table.values())
+                           for t in range(steps) for b in table.values())
     want["combine"] = sum(b.group in acc.apply_groups(t)
                           for t in jumps for b in table.values())
     require_counts(f"{what} graphed", want)
+    if wgmma:
+        require_wgmma(f"{what} graphed")
+        require_wgmma(f"{what} graphed", "flash_attention_bwd", "K7b")
     reset_counts()
     require(np.isfinite(losses).all(), f"{what}: non-finite loss")
     graphed = _flat_params(state)
-    tokens = SSM_ACCUM * LM_SEQ
+    tokens = accum * LM_SEQ
     print(f"{what} graphed: launches {launches}; jumps at {jumps}; graphs "
           f"{trainer.graph_stats}; buckets "
           f"{[(k, b.n_blocks, b.m, b.block_n, b.n_sys) for k, b in table.items()]}")
@@ -4165,7 +4244,7 @@ def train_ssm(dev, arch, records):
     trace_e = _tracer(traced, witness, "eager plain steps")
     t0 = time.perf_counter()
     _, state_e, losses_e, secs_e = _lm_fit(
-        acfg, model, SSM_STEPS, lambda t, tr, st: trace_e(t),
+        acfg, model, steps, lambda t, tr, st: trace_e(t),
         cuda_graphs=False)
     e_wall = time.perf_counter() - t0
     reset_counts()
@@ -4175,24 +4254,24 @@ def train_ssm(dev, arch, records):
     t0 = time.perf_counter()
     prof, wall = witness.pop("eager plain steps")
     fams = _lm_breakdown(prof, wall, LM_PROFILED, what, "eager plain steps",
-                         SSM_FAMILIES)
+                         families)
     del prof
     print(f"{what}: walls: graphed run {g_wall} s, eager run {e_wall} s, "
           f"reading the profile {time.perf_counter() - t0} s")
     require(losses == losses_e, f"{what}: graphed losses differ from eager")
     require(graphed.keys() == eager.keys() and
             all(torch.equal(graphed[k], eager[k]) for k in graphed),
-            f"{what}: params after {SSM_STEPS} steps differ between the "
+            f"{what}: params after {steps} steps differ between the "
             "graphed and the eager run")
     print(f"{what} eager: ms a step {[float(x) for x in secs_e * 1e3]}; "
           f"median by kind (steps): "
           f"{_kind_ms(secs_e, [k.split(' ', 1)[1] for k in kinds], jumps[0])}")
-    print(f"{what}: graphed = eager bit for bit over {SSM_STEPS} steps "
+    print(f"{what}: graphed = eager bit for bit over {steps} steps "
           f"(losses and every param, through the jump at {jumps[0]}); plain "
           f"step median replayed {float(np.median(secs[traced])) * 1e3} ms, "
           f"eager {float(np.median(secs_e[traced])) * 1e3} ms; eager peak "
           f"{e_peak} bytes ({e_peak / total} of the card)")
-    records.setdefault("ssm", {})[what] = dict(
+    records.setdefault(group, {})[what] = dict(
         layers=n_layers, params=reckon[n_layers][0], state_bytes=need,
         peak=peak, eager_peak=e_peak,
         replay_plain_ms=float(np.median(secs[traced])) * 1e3,
@@ -4237,6 +4316,414 @@ def run_ssm(dev, records):
     print(f"ssm: phase 17 wall {time.perf_counter() - t_phase} s; by part "
           f"{walls}")
     return {"generate": gen, "train": train}
+
+
+# -- phase 18: the remaining dense decoders ----------------------------------
+
+DENSE_ARCHS = ("minicpm-2b", "granite-20b", "gemma3-27b")
+# the reference's configs: layers, d, heads, kv heads, head_dim, d_ff,
+# vocab, MLP activation, window, global_every, dtype
+DENSE_WIDTHS = {
+    "minicpm-2b": (40, 2304, 36, 36, 64, 5760, 122753, "silu", 0, 0,
+                   "bfloat16"),
+    "granite-20b": (52, 6144, 48, 1, 128, 24576, 49152, "gelu_mlp", 0, 0,
+                    "bfloat16"),
+    "gemma3-27b": (62, 5376, 32, 16, 128, 21504, 262144, "gelu", 1024, 6,
+                   "bfloat16")}
+# the reference's abstract init's counts (tests/test_torch_dense_archs.py)
+DENSE_PARAMS = {"minicpm-2b": 2_724_915_456, "granite-20b": 20_315_756_544,
+                "gemma3-27b": 27_008_319_744}
+# K7 and K7b on the two attention shapes no earlier phase meets: granite's
+# MQA (48 query heads on one KV head) and gemma's local layer (window
+# 1024, rep 2), one 4096-token microbatch each, bf16 causal
+GRANITE_K7 = (1, 4096, 4096, 48, 1, 128, True, 0)
+GEMMA_K7 = (1, 4096, 4096, 32, 16, 128, True, 1024)
+GRANITE_K7B = (1, 4096, 48, 1, 128, True, 0)
+GEMMA_K7B = (1, 4096, 32, 16, 128, True, 1024)
+# gemma's generation: the long prompt's tokens (past the window: every
+# ring wraps, and wraps again while decoding); fp32 decode against forward
+# at two super-blocks and the 2-layer local tail (7.2B params, 29 GB)
+GEMMA_LONG = 1100
+GEMMA_FP32_LAYERS = 14
+# one gemma super-block at full width in fp32, card against CPU: the
+# window cut to GEMMA_BLOCK_WINDOW so that GEMMA_BLOCK_TOKENS tokens wrap
+# the rings (the CPU's fp32 products at full width take ~10 s a pass);
+# prefill of GEMMA_BLOCK_PRE tokens, then one decode step
+GEMMA_BLOCK_WINDOW = 128
+GEMMA_BLOCK_TOKENS = 256
+GEMMA_BLOCK_PRE = 192
+# training at full width, depth cut to fit the card (check_fits admits 23,
+# 4 and 2 layers of an H100's 80 GB: 44 B a param for minicpm's bf16 ring
+# of 14, 32 B for the others' rings of 8; gemma's tied 262144 x 5376
+# embedding alone is 45 GB of state). In examples/torch_lm_depth.py on an
+# H100 80GB HBM3 (700 W) minicpm ran at 21 layers (peak 0.888 of the card,
+# 0.989 of it reserved) and 20 (0.854), 22 and 23 ran out of memory;
+# granite ran at 3 (0.742), 4 ran out of memory in this phase's jump;
+# gemma ran at 1 (0.777), 2 ran out of memory. minicpm trains at 20, one
+# layer under the deepest, for the margin a long script's allocator
+# needs; gemma's one layer is a window layer: gemma3-train trains no
+# global layer (tests/test_torch_dense_archs.py trains one on the CPU
+# against the reference); warm-up
+# 0, the cool-down from 10 to DENSE_COOLDOWN (the least that leaves 3
+# replayed plain steps to profile; then one window of records, the jump
+# at its last step); DENSE_ACCUM microbatches of 1 x 4096 a step
+# (the configs' grad_accum is 8 and 16: phase 17's cut, for the script's
+# time)
+DENSE_TRAIN_LAYERS = {"minicpm-2b": 20, "granite-20b": 3, "gemma3-27b": 1}
+DENSE_COOLDOWN = 5
+DENSE_ACCUM = 2
+
+
+def _dense_widths(cfg):
+    return (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.act,
+            cfg.sliding_window, cfg.global_every, cfg.dtype)
+
+
+def serve_dense(dev, arch, records, swap):
+    """Phase 18 (a) and (b): `arch` at full width and depth through the
+    launcher's ``build`` (the engine serves the drawn tensors: one copy),
+    the launcher's stream counted (K7 once per layer per prefill dispatch,
+    all through the wgmma design), the time by step kind, every request's
+    first-token logits and first token against the exact-length loop, a hot
+    swap every 8 steps where `swap`, a 4096-token forward."""
+    what = f"{arch.split('-')[0]}-serve"
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, params, engine = launch_serve.build(arch, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = model.cfg
+    require(_dense_widths(cfg) == DENSE_WIDTHS[arch], f"{what}: config "
+            f"{_dense_widths(cfg)}, expected {DENSE_WIDTHS[arch]}")
+    n_p = model.param_count(params)
+    require(n_p == DENSE_PARAMS[arch], f"{what}: {n_p} params")
+    leaves = leaves_with_paths(params)
+    served = dict(leaves_with_paths(engine.params))
+    require(all(served[p].data_ptr() == t.data_ptr() for p, t in leaves),
+            f"{what}: the engine holds a copy of the weights")
+    wbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    print(f"{what}: {arch} at {cfg.n_layers} layers, {n_p} params, {wbytes} "
+          f"bytes of weights drawn on the card in {build_s} s (one copy: the "
+          f"engine serves the drawn tensors); peak "
+          f"{torch.cuda.max_memory_allocated(dev) / total} of the card")
+    prompts = launch_serve.request_stream(12, cfg.vocab_size)
+    done, launches = _serve_counted(f"{what} path", engine, prompts)
+    del engine
+    dec_ms = serve_breakdown(what, model, params, prompts, dev)
+    eng = launch_serve.make_engine(model, params, new_tokens=1)
+    firsts = {r.uid: r.last_logits for r in
+              launch_serve.serve(eng, prompts)[0]}
+    del eng
+    equal, worst = 0, 0.0
+    for r in done:
+        # the exact-length loop's prefill and first token (its 16 tokens
+        # a request would add ~25 s of host-bound decode steps a cell)
+        toks, first = launch_serve.exact_greedy(model, params,
+                                                prompts[r.uid], 1)
+        first = first.cpu().numpy()
+        err = float(np.abs(firsts[r.uid] - first).max())
+        scale = max(1.0, float(np.abs(first).max()))
+        require(err <= SERVE_LOGIT_TOL * scale, f"{what} request {r.uid}: "
+                f"first-token logits off by {err} (scale {scale})")
+        worst = max(worst, err / scale)
+        equal += r.tokens[0] == toks[0]
+    print(f"{what}: first-token logits vs the exact-length loop: worst "
+          f"|diff| / max(1, max|logits|) {worst} (limit {SERVE_LOGIT_TOL}); "
+          f"equal first tokens {equal} of {len(done)}; decode-only step "
+          f"median {dec_ms} ms")
+    if swap:
+        eng = launch_serve.make_engine(model, params)
+        bumped = tree_map(lambda t: t * 1.001, params)
+        done2, _ = _serve_counted(f"{what} path, swap every 8", eng,
+                                  prompts, 8, bumped)
+        require(eng.stats["swaps"] >= 1 and any(
+            r.version_end > r.version_start for r in done2),
+            f"{what}: no swap adopted")
+        del bumped, eng
+    forward_4096(f"{what} forward 4096", model, params, dev)
+    records.setdefault("dense", {})[what] = dict(
+        params=n_p, weight_bytes=wbytes, decode_ms=dec_ms,
+        first_token_worst=worst, equal_tokens=equal)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ring_positions_ok(caches, length, window):
+    """Every ring of `caches` (the gemma segments' local stacks and the
+    dense_local tail) holds the last `window` positions before `length`,
+    each at its slot position % window."""
+    rings = []
+    for c in caches.values():
+        rings.append(c["local"] if isinstance(c, dict) else c)
+    want = torch.arange(length - window, length, device=rings[0].pos.device)
+    for ring in rings:
+        pos = ring.pos.reshape(-1, window).long()
+        if ring.length != length or not bool(
+                (pos.sort(dim=1).values == want).all()) or not bool(
+                (pos % window == torch.arange(window, device=pos.device)).all()):
+            return False
+    return True
+
+
+def generate_gemma(dev, records):
+    """Phase 18 (c): Gemma3-27B at full width and depth (seeded random
+    weights drawn on the card) generating through ``prefill`` /
+    ``decode_step``: 8 prompts of 64 tokens and one of GEMMA_LONG, 16 new
+    each, twice bit for bit; the rings' slots after the long one; a
+    4096-token forward; then fp32 decode against forward at
+    GEMMA_FP32_LAYERS layers, held; then one super-block card against
+    CPU. K7: 62 launches a prefill and a forward, all through the wgmma
+    design."""
+    what = "gemma3-generate"
+    arch = "gemma3-27b"
+    cfg = get_config(arch).model
+    require(_dense_widths(cfg) == DENSE_WIDTHS[arch], f"{what}: config "
+            f"{_dense_widths(cfg)}, expected {DENSE_WIDTHS[arch]}")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    model = tfm.LanguageModel(cfg, device=dev)
+    require([tuple(sg) for sg in model.plan] ==
+            [("gemma", 10), ("dense_local", 2)], f"{what}: {model.plan}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(17))
+    torch.cuda.synchronize()
+    n_p = model.param_count(params)
+    require(n_p == DENSE_PARAMS[arch], f"{what}: {n_p} params")
+    wbytes = sum(t.numel() * t.element_size()
+                 for _, t in leaves_with_paths(params))
+    print(f"{what}: {arch} at {cfg.n_layers} layers, {n_p} params, {wbytes} "
+          f"bytes of weights drawn on the card in "
+          f"{time.perf_counter() - t0} s")
+    V, W = cfg.vocab_size, cfg.sliding_window
+    out = {}
+    for B, S in ((8, SSM_PROMPT), (1, GEMMA_LONG)):
+        prompts = torch.randint(1, V, (B, S), generator=torch.Generator(
+            device=dev).manual_seed(B), device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        toks, logits, pre_ms, dec = _generate(model, params, prompts,
+                                              SSM_NEW)
+        require_counts(f"{what} {B} x {S}", {"flash_attention": cfg.n_layers})
+        require_wgmma(f"{what} {B} x {S}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        toks2, logits2, _, dec2 = _generate(model, params, prompts, SSM_NEW)
+        reset_counts()
+        require(torch.equal(toks, toks2) and torch.equal(logits, logits2),
+                f"{what} {B} x {S}: repeat generations differ")
+        require(bool(torch.isfinite(logits[..., :V]).all()),
+                f"{what} {B} x {S}: non-finite logits")
+        del toks2, logits2
+        err, scale = _decode_vs_forward(model, params, prompts, toks, logits)
+        d_ms = float(np.median(dec + dec2))
+        tok_s = B * SSM_NEW / ((pre_ms + sum(dec)) / 1e3)
+        print(f"{what} batch {B} x {S} tokens, {SSM_NEW} new: prefill "
+              f"{pre_ms} ms, decode step median {d_ms} ms (steps {dec}), "
+              f"{tok_s} tokens/s; peak allocated {peak} bytes ({peak / total}"
+              f" of the card); repeat bit-identical; bf16 decode vs forward "
+              f"|diff| / max(1, max|logits|) {err / scale} (printed; held in "
+              f"fp32 below)")
+        out[f"{B}x{S}"] = dict(prefill_ms=pre_ms, decode_ms=d_ms,
+                               tokens_per_s=tok_s, peak=peak,
+                               bf16_drift=err / scale)
+        del logits
+    # the rings after a prompt past the window and 15 decode steps
+    caches = model.init_cache(1, GEMMA_LONG + SSM_NEW)
+    with torch.no_grad():
+        _, caches = model.prefill(params, {"tokens": prompts}, caches)
+        require(_ring_positions_ok(caches, GEMMA_LONG, W), f"{what}: the "
+                f"rings after a {GEMMA_LONG}-token prefill")
+        for t in range(3):
+            _, caches = model.decode_step(params, {"tokens": toks[:, t:t + 1]},
+                                          caches)
+    require(_ring_positions_ok(caches, GEMMA_LONG + 3, W), f"{what}: the "
+            "rings after decoding")
+    reset_counts()
+    del caches
+    print(f"{what}: every ring holds the last {W} positions at slot = "
+          f"position % {W}, after the {GEMMA_LONG}-token prefill and after 3 "
+          "decode steps")
+    forward_4096(f"{what} forward 4096", model, params, dev)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # fp32 decode against forward through wrapped rings, held
+    fcfg = dataclasses.replace(cfg, dtype="float32",
+                               n_layers=GEMMA_FP32_LAYERS)
+    model = tfm.LanguageModel(fcfg, device=dev)
+    require([tuple(sg) for sg in model.plan] ==
+            [("gemma", 2), ("dense_local", 2)], f"{what} fp32: {model.plan}")
+    params = model.init(torch.Generator(device=dev).manual_seed(17))
+    for B, S in ((8, SSM_PROMPT), (1, GEMMA_LONG)):
+        prompts = torch.randint(1, V, (B, S), generator=torch.Generator(
+            device=dev).manual_seed(B), device=dev)
+        toks, logits, _, _ = _generate(model, params, prompts, SSM_NEW)
+        err, scale = _decode_vs_forward(model, params, prompts, toks, logits)
+        reset_counts()
+        print(f"{what} float32 at {GEMMA_FP32_LAYERS} layers batch {B} x {S}:"
+              f" decode vs forward worst |diff| / max(1, max|logits|) "
+              f"{err / scale} over {SSM_NEW} positions (limit "
+              f"{SERVE_LOGIT_TOL})")
+        require(err / scale <= SERVE_LOGIT_TOL, f"{what} float32 {B} x {S}: "
+                f"decode logits off forward's by {err / scale}")
+        out[f"float32_{B}x{S}_drift"] = err / scale
+        del logits
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["block"] = check_gemma_block(dev, cfg)
+    records.setdefault("dense", {})[what] = out
+
+
+def _gemma_block_run(p, x, dout, cfg, n_pre):
+    """One gemma super-block forward and backward, then a prefill of the
+    first `n_pre` tokens into fresh caches (rings of the window, a full
+    cache for the global layer) and the next token's decode step: (out,
+    {name: gradient}, prefill out, decode out)."""
+    dev = x.device
+    req = {path: t.detach().clone().requires_grad_(True)
+           for path, t in leaves_with_paths(p)}
+    live = map_with_paths(lambda path, _: req[path], p)
+    xr = x.detach().clone().requires_grad_(True)
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    with torch.enable_grad():
+        out, _, _ = tfm._apply_block("gemma", xr, live, cfg, positions=pos,
+                                     cache=None, chunk_k=1024)
+        (out.float() * dout).sum().backward()
+    grads = {"x": xr.grad, **{path: t.grad for path, t in req.items()}}
+    lm = tfm.LanguageModel(dataclasses.replace(cfg, n_layers=6), device=dev)
+    fresh = {k: tfm._layer_cache(v, 0)
+             for k, v in lm.init_cache(B, S)["seg0"].items()}
+    with torch.no_grad():
+        pre, _, _ = tfm._apply_block("gemma", x[:, :n_pre], p, cfg,
+                                     positions=pos[:, :n_pre], cache=fresh,
+                                     chunk_k=1024)
+        # the caches were written in place; their lengths move on as
+        # LanguageModel._layers moves them
+        cache = tfm._advance(fresh, n_pre)
+        dec, _, _ = tfm._apply_block("gemma", x[:, n_pre:n_pre + 1], p, cfg,
+                                     positions=pos[:, n_pre:n_pre + 1],
+                                     cache=cache, chunk_k=1024)
+    return out.detach(), grads, pre, dec
+
+
+def check_gemma_block(dev, cfg):
+    """Phase 18 (c), last: one gemma super-block (5 window layers and the
+    global one) at full width in fp32, the window cut to
+    GEMMA_BLOCK_WINDOW, on GEMMA_BLOCK_TOKENS tokens: forward, backward,
+    prefill and one decode step, on the card twice (bit for bit) and on
+    the CPU from the same params and inputs, within SSM_BLOCK_TOL of the
+    CPU tensor's largest magnitude. Returns the worst distance."""
+    cfg = dataclasses.replace(cfg, dtype="float32",
+                              sliding_window=GEMMA_BLOCK_WINDOW)
+    g = torch.Generator(device=dev).manual_seed(18)
+    blk = tfm._block_init(g, cfg, "gemma", (), dev)
+    p = {"local": tfm._unbind(blk["local"], cfg.global_every - 1),
+         "global": blk["global"]}
+    for lp in p["local"] + [p["global"]]:
+        for k in ("ln1", "ln2"):
+            lp[k]["scale"] = 0.1 * torch.randn(lp[k]["scale"].shape,
+                                               generator=g, device=dev)
+    x = torch.randn((1, GEMMA_BLOCK_TOKENS, cfg.d_model), generator=g,
+                    device=dev)
+    dout = torch.randn(x.shape, generator=g, device=dev)
+    n_pre = GEMMA_BLOCK_PRE
+    t0 = time.perf_counter()
+    card = _gemma_block_run(p, x, dout, cfg, n_pre)
+    again = _gemma_block_run(p, x, dout, cfg, n_pre)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    for i, name in ((0, "out"), (2, "prefill"), (3, "decode")):
+        require(torch.equal(card[i], again[i]), f"gemma block: repeat runs "
+                f"differ in {name}")
+    for name in card[1]:
+        require(torch.equal(card[1][name], again[1][name]),
+                f"gemma block: repeat runs differ in d{name}")
+    del again
+    host = lambda t: t.detach().to("cpu")  # noqa: E731
+    t0 = time.perf_counter()
+    cpu = _gemma_block_run(tree_map(host, p), host(x), host(dout), cfg,
+                           n_pre)
+    cpu_s = time.perf_counter() - t0
+    pairs = [("out", card[0], cpu[0]), ("prefill", card[2], cpu[2]),
+             ("decode", card[3], cpu[3]),
+             ("decode vs forward", card[3], card[0][:, n_pre:n_pre + 1])]
+    pairs += [(f"d{n}", card[1][n], cpu[1][n]) for n in cpu[1]]
+    errs = {}
+    for name, a, b in pairs:
+        a, b = a.detach().cpu().float(), b.detach().cpu().float()
+        require(bool(torch.isfinite(a).all()), f"gemma block: {name} not "
+                "finite")
+        errs[name] = float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+        require(errs[name] <= SSM_BLOCK_TOL, f"gemma block: {name} off by "
+                f"{errs[name]} of its largest magnitude > {SSM_BLOCK_TOL}")
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    print(f"gemma3 block (5 window layers + 1 global, window "
+          f"{GEMMA_BLOCK_WINDOW}, {GEMMA_BLOCK_TOKENS} tokens, fp32): "
+          f"forward, backward, prefill of {n_pre} (the rings wrap) and one "
+          f"decode step; card twice bit-identical; against the CPU worst "
+          f"{worst[0]} {worst[1]} of the largest magnitude (limit "
+          f"{SSM_BLOCK_TOL}; out {errs['out']}, prefill {errs['prefill']}, "
+          f"decode {errs['decode']}, decode vs forward "
+          f"{errs['decode vs forward']}, dx {errs['dx']}); card {card_s} s "
+          f"for two runs, CPU {cpu_s} s")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return worst[1]
+
+
+def train_dense(dev, arch, records):
+    """Phase 18 (d): `arch` at full width cut to DENSE_TRAIN_LAYERS
+    through ``train_cell``, K7 and K7b through their Hopper designs.
+    Returns the graphed run's launches."""
+    n_layers = DENSE_TRAIN_LAYERS[arch]
+    acfg = get_config(arch)
+    dmd, opt = acfg.dmd, acfg.optimizer
+    expect = (dmd.m, 55 if dmd.m == 14 else 40, "bfloat16", "all", True,
+              True, "matpow", "leaf", 10, "adamw", opt.lr, 0.95, 0.1, 1.0,
+              "wsd" if arch.startswith("minicpm") else "cosine",
+              8 if arch.startswith("minicpm") else 16, "block",
+              acfg.model.d_model, n_layers)
+    return train_cell(dev, arch, n_layers, DENSE_COOLDOWN, DENSE_ACCUM,
+                      expect, n_layers, LM_FAMILIES, records, "dense",
+                      wgmma=True)
+
+
+def run_dense(dev, records):
+    """Phase 18. Returns the launches of its counted runs."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, k7, k7b in (("granite_mqa", GRANITE_K7, GRANITE_K7B),
+                         ("gemma_window", GEMMA_K7, GEMMA_K7B)):
+        records["flash_attention"][tag] = time_flash(k7, dev)
+        w0 = kf.LAUNCHES["flash_attention_bwd_wgmma"]
+        records["flash_attention_bwd"][tag] = time_flash_bwd(k7b, dev)
+        require(kf.LAUNCHES["flash_attention_bwd_wgmma"] > w0,
+                f"K7b {k7b}: not through the Hopper design")
+        torch.cuda.empty_cache()
+    reset_counts()
+    walls = {"K7/K7b": time.perf_counter() - t_phase}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+    serve = {arch: timed(f"{arch} serve", serve_dense, dev, arch, records,
+                         arch.startswith("minicpm"))
+             for arch in DENSE_ARCHS[:2]}
+    timed("gemma3 generate", generate_gemma, dev, records)
+    train = {arch: timed(f"{arch} train", train_dense, dev, arch, records)
+             for arch in DENSE_ARCHS}
+    print(f"dense: phase 18 wall {time.perf_counter() - t_phase} s; by part "
+          f"{walls}")
+    return {"serve": serve, "train": train}
 
 
 def main():
@@ -4303,6 +4790,15 @@ def main():
     records["flash_attention"]["ssm_generate_launches"] = \
         ssm_launches["generate"]
     print(f"ssm summary {json.dumps(records.pop('ssm'))}")
+    dense_launches = run_dense(dev, records)
+    for name in ("flash_attention", "flash_attention_bwd", "gram_row",
+                 "combine"):
+        records[name]["dense_launches"] = {
+            arch: run[name] for arch, run in dense_launches["train"].items()}
+    records["flash_attention"]["dense_serve_launches"] = {
+        arch: run["flash_attention"]
+        for arch, run in dense_launches["serve"].items()}
+    print(f"dense summary {json.dumps(records.pop('dense'))}")
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",

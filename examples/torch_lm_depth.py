@@ -8,7 +8,11 @@ reserved bytes, or the out-of-memory error.
         [--arch tinyllama-1.1b] [--warmup N]
 
 ``--warmup N`` sets the DMD warm-up (default: the launcher's, a quarter of
-96 steps), so that a shorter run reaches the first jump.
+96 steps), so that a shorter run reaches the first jump. ``--arch`` takes
+every config the launcher trains: ``tinyllama-1.1b``, ``qwen3-moe-30b-a3b``,
+``mamba2-2.7b``, ``zamba2-2.7b``, ``minicpm-2b``, ``granite-20b`` and
+``gemma3-27b`` (the steps through the first jump follow the config's m:
+14, or 8 for qwen3, granite and gemma).
 
 Needs a CUDA card. `chip_smoke.py` phase 15 trains at the deepest of
 these that stays under ~90% of the card (PERF.md §4).

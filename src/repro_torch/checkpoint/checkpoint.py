@@ -25,7 +25,7 @@ manifest lacks keeps the template's value (state grown after the
 checkpoint was written, e.g. the controller's). Trainers save the
 leaf-wise state (``DMDAccelerator.state_leafwise``), so the format does
 not depend on ``dmd.arena`` or residency. No mesh yet (ROADMAP Queue 1
-item 7).
+item 4).
 """
 from __future__ import annotations
 

@@ -13,6 +13,9 @@ from repro_torch.configs.base import (STANDARD_SHAPES, ArchConfig, DMDConfig,
                                       TrainConfig, reduced)
 
 _ARCH_MODULES: Dict[str, str] = {
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
+    "granite-20b": "repro_torch.configs.granite_20b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
@@ -23,9 +26,6 @@ _ARCH_MODULES: Dict[str, str] = {
 # the reference's other architectures, and the part of the port that
 # brings each (ROADMAP Queue 1)
 _LATER: Dict[str, str] = {
-    "minicpm-2b": "the dense LM slice with its schedule",
-    "granite-20b": "the mesh (head-TP) serving slice",
-    "gemma3-27b": "the ring-cache serving slice",
     "whisper-base": "the enc-dec slice",
     "qwen2-vl-7b": "the M-RoPE slice",
 }

@@ -15,7 +15,9 @@ def params_from_jax(tree: Any, device="cuda") -> Any:
     same nested dicts of torch tensors on `device`, values, dtypes and
     shapes unchanged: every family's tree carries over as it is (a
     zamba segment's (groups, 6, ...) Mamba stacks, its ``shared_block``,
-    the SSM's fp32 scalars beside bf16 matrices). This package never
+    the SSM's fp32 scalars beside bf16 matrices, a gemma segment's
+    (groups, 5, ...) local stacks beside its (groups, ...) global layer,
+    Granite's gate-less MLP). This package never
     imports JAX: the caller converts to numpy first."""
     device = resolve_device(device)
     if isinstance(tree, dict):

@@ -5,9 +5,13 @@
         [--sampling greedy|topk] [--swap-every N] [--layers N] \\
         [--device cuda]
 
-Serves the dense family (``tinyllama-1.1b``) and the MoE family
-(``qwen3-moe-30b-a3b`` at its full 48 layers, 30.5B params;
-``llama4-maverick-400b-a17b``, whose 400B params need ``--layers``).
+Serves the dense family (``tinyllama-1.1b``, ``minicpm-2b``,
+``granite-20b`` at its full 52 layers, 20.3B params, 40.6 GB in bf16)
+and the MoE family (``qwen3-moe-30b-a3b`` at its full 48 layers, 30.5B
+params; ``llama4-maverick-400b-a17b``, whose 400B params need
+``--layers``). ``gemma3-27b``'s ring caches are refused by the engine, as
+the reference's refuses them: it generates through
+``LanguageModel.prefill`` / ``decode_step``.
 Serves randomly initialised weights at the architecture's widths (drawn
 on the device from a generator seeded with 0) to the reference launcher's
 request stream: numpy ``default_rng(0)``, prompt lengths 4 to 64, prompt

@@ -14,7 +14,13 @@ shared block, then a 5-layer Mamba remainder) train Mamba2 and Zamba2 at
 their full widths with DMD on every param (bf16 ring of 14), peaking at
 0.85 and 0.78 of an 80 GB H100: 44 B a param of state, so their full
 depths (118.9 and 103.0 GB) do not fit, and zamba2's 30 layers (5 groups)
-pass ``check_fits`` but run out of memory.
+pass ``check_fits`` but run out of memory. The dense decoders at their
+full widths: ``minicpm-2b`` (44 B a param: its bf16 ring of 14; its full
+40 layers need 120 GB), ``granite-20b`` and ``gemma3-27b`` (32 B a param,
+rings of 8; gemma's tied 262144 x 5376 embedding alone is 45 GB of
+state). ``check_fits`` admits 23, 4 and 2 layers; on an 80 GB H100 21, 3
+and 1 train (``--layers 20``, ``3``, ``1`` in ``chip_smoke.py``; gemma's
+first layers are window layers, of 1024 tokens).
 
 The reference's flags and rules: ``--reduced`` trains the same-family
 shrunk config (``configs.reduced``) at batch 8 x 64 without remat; without

@@ -17,6 +17,14 @@ grid: keys past the cache length are masked to -1e30 and add exact zeros
 on the same chunk boundaries whatever the cache's size, which is what
 keeps a padded prompt's tokens equal to an exact-length run's.
 
+A sliding-window layer (gemma's local layers) decodes from a
+``RingKVCache``: the window's W slots, slot s holding the token at the
+position = s (mod W), each slot's absolute position in ``pos`` (-1:
+empty). Its prefill attends the prompt in context through K7 with the
+window mask, then fills the ring from the prompt's last W tokens; its
+decode writes slot ``length % W`` and attends the ring masked by the
+slots' positions (``blockwise_attention``'s ``k_positions``).
+
 Caches are updated in place (the reference donates them; here the write
 lands in the caller's tensors and the returned cache shares them).
 """
@@ -60,17 +68,41 @@ def init_kv_cache(batch: int, s_max: int, n_kv: int, head_dim: int, dtype,
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
+class RingKVCache(NamedTuple):
+    """A sliding-window layer's decode cache: k, v (..., B, W, K, hd), the
+    window's W slots; ``pos`` (..., W) int32, each slot's absolute
+    position (-1: empty); ``length`` the tokens seen, a host int shared by
+    every row."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    length: int
+
+
+def init_ring_cache(batch: int, window: int, n_kv: int, head_dim: int,
+                    dtype, device, stack: Tuple[int, ...] = ()
+                    ) -> RingKVCache:
+    shape = stack + (batch, window, n_kv, head_dim)
+    return RingKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device),
+                       torch.full(stack + (window,), -1, dtype=torch.int32,
+                                  device=device), 0)
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window: int = 0,
                         q_offset: Length = 0,
                         kv_len: Optional[Length] = None,
+                        k_positions: Optional[torch.Tensor] = None,
                         chunk_k: int = 1024) -> torch.Tensor:
     """Online-softmax attention over kv chunks of ``chunk_k`` keys.
 
     q (B, Sq, H, hd); k/v (B, Sk, K, hd), H % K == 0. ``q_offset`` is the
     absolute position of q[:, 0] and ``kv_len`` masks keys at and past it;
-    each is an int or a (B,) tensor (one per row). The last chunk is padded
-    with masked zero keys, so every chunk has ``chunk_k`` keys.
+    each is an int or a (B,) tensor (one per row). ``k_positions`` (Sk,)
+    gives each key's absolute position (a ring's slots; negative: empty),
+    default its index. The last chunk is padded with masked zero keys, so
+    every chunk has ``chunk_k`` keys.
     """
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -81,9 +113,11 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     n_chunks = max(-(-Sk // chunk_k), 1)
     pad = n_chunks * chunk_k - Sk
-    k_pos = torch.arange(n_chunks * chunk_k, device=dev)
+    k_pos = torch.full((n_chunks * chunk_k,), -1, dtype=torch.long,
+                       device=dev)
+    k_pos[:Sk] = (torch.arange(Sk, device=dev) if k_positions is None
+                  else k_positions)
     if pad:
-        k_pos[Sk:] = -1
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     if isinstance(q_offset, torch.Tensor):
@@ -119,15 +153,55 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _ring_prefill(cache: RingKVCache, k: torch.Tensor, v: torch.Tensor
+                  ) -> RingKVCache:
+    """A fresh ring filled from the prompt's k/v (B, S, K, hd) in place:
+    for S >= W its last W tokens, rolled so that slot s holds the token
+    at the position = s (mod W); for S < W the S tokens, then empty slots
+    (zeros, position -1)."""
+    if cache.length != 0:
+        raise ValueError(f"a ring prefill takes a fresh cache, not one of "
+                         f"length {cache.length}")
+    S, W = k.shape[1], cache.k.shape[1]
+    if S >= W:
+        shift = S % W
+        cache.k.copy_(torch.roll(k[:, S - W:], shift, dims=1))
+        cache.v.copy_(torch.roll(v[:, S - W:], shift, dims=1))
+        slots = torch.arange(W, device=k.device)
+        cache.pos.copy_(S - W + (slots - S) % W)
+    else:
+        cache.k[:, :S] = k
+        cache.v[:, :S] = v
+        cache.k[:, S:] = 0
+        cache.v[:, S:] = 0
+        cache.pos.copy_(torch.cat([
+            torch.arange(S, device=k.device),
+            torch.full((W - S,), -1, device=k.device)]))
+    return RingKVCache(cache.k, cache.v, cache.pos, S)
+
+
+def _ring_decode(cache: RingKVCache, k: torch.Tensor, v: torch.Tensor
+                 ) -> RingKVCache:
+    """One token per row written at slot ``length % W``, in place."""
+    slot = cache.length % cache.k.shape[1]
+    cache.k[:, slot] = k[:, 0]
+    cache.v[:, slot] = v[:, 0]
+    cache.pos[slot] = cache.length
+    return RingKVCache(cache.k, cache.v, cache.pos, cache.length + 1)
+
+
 def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
            causal: bool = True, window: int = 0,
-           cache: Optional[KVCache] = None, chunk_k: int = 1024
-           ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+           cache: Optional[Union[KVCache, RingKVCache]] = None,
+           chunk_k: int = 1024
+           ) -> Tuple[torch.Tensor, Optional[Union[KVCache, RingKVCache]]]:
     """Projections, RoPE, the attention core and the output projection.
 
-    With a cache, the new k/v land at ``cache.length`` (per row when it is
-    a tensor, then one token per row; a write past the end lands on the
-    last slot, as the reference's clamped update does)."""
+    With a KVCache, the new k/v land at ``cache.length`` (per row when it
+    is a tensor, then one token per row; a write past the end lands on the
+    last slot, as the reference's clamped update does). With a
+    RingKVCache, S > 1 is a prefill into the fresh ring (attention over
+    the prompt in context) and S == 1 a decode step against the ring."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = layers.apply_rope((x @ p["wq"]).reshape(B, S, H, hd), positions,
@@ -138,7 +212,19 @@ def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
 
     new_cache = None
     in_context = cache is None
-    if cache is not None:
+    if isinstance(cache, RingKVCache):
+        kc, vc = k.to(cache.k.dtype), v.to(cache.v.dtype)
+        if S > 1:
+            new_cache = _ring_prefill(cache, kc, vc)
+            in_context = True
+        else:
+            new_cache = _ring_decode(cache, kc, vc)
+            out = blockwise_attention(
+                q, cache.k, cache.v, causal=causal, window=window,
+                q_offset=cache.length, kv_len=cache.length + 1,
+                k_positions=cache.pos, chunk_k=chunk_k)
+            return out.reshape(B, S, H * hd) @ p["wo"], new_cache
+    elif cache is not None:
         start, s_max = cache.length, cache.k.shape[1]
         k, v = k.to(cache.k.dtype), v.to(cache.v.dtype)
         if isinstance(start, torch.Tensor):

@@ -1,5 +1,5 @@
 """Layer primitives of the dense LM: init, RMS norm, rotary embeddings,
-the SwiGLU MLP and logit soft-capping.
+the MLPs (SwiGLU, GeGLU and the plain GELU MLP) and logit soft-capping.
 
 Plain functions over explicit param dicts, computing what the reference's
 ``repro.models.layers`` computes (not Hugging Face's Llama): the norm
@@ -87,27 +87,49 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return out.to(x.dtype)
 
 
+# the MLPs the port builds: SwiGLU ("silu") and GeGLU ("gelu") gated,
+# GPT-BigCode's plain GELU MLP ("gelu_mlp") without a gate
+GATED_ACTS = ("silu", "gelu")
+ACTS = GATED_ACTS + ("gelu_mlp",)
+
+
 def _check_act(cfg) -> None:
-    if cfg.act != "silu":
+    if cfg.act not in ACTS:
         raise NotImplementedError(f"activation {cfg.act!r}: the port builds "
-                                  "the SwiGLU MLP only")
+                                  f"the MLPs {ACTS}")
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU's tanh approximation, what ``jax.nn.gelu`` computes by default
+    (the exact erf form differs from it by up to ~1e-3)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp_init(gen: torch.Generator, cfg, device,
              stack: Tuple[int, ...] = (), d_ff: int = 0) -> dict:
-    """SwiGLU weights at width ``d_ff`` (default: the config's d_ff)."""
+    """The MLP's weights at width ``d_ff`` (default: the config's d_ff):
+    ``w_in`` and ``w_out``, and ``w_gate`` for the gated activations."""
     _check_act(cfg)
     dtype = getattr(torch, cfg.dtype)
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {"w_in": dense_init(gen, stack + (d, f), dtype, device),
-            "w_out": dense_init(gen, stack + (f, d), dtype, device),
-            "w_gate": dense_init(gen, stack + (d, f), dtype, device)}
+    p = {"w_in": dense_init(gen, stack + (d, f), dtype, device),
+         "w_out": dense_init(gen, stack + (f, d), dtype, device)}
+    if cfg.act in GATED_ACTS:
+        p["w_gate"] = dense_init(gen, stack + (d, f), dtype, device)
+    return p
 
 
 def apply_mlp(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
-    """SwiGLU: (silu(x W_gate) * x W_in) W_out."""
+    """Gated: (act(x W_gate) * x W_in) W_out, act silu or gelu; plain:
+    gelu(x W_in) W_out."""
     _check_act(cfg)
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
+    h = x @ p["w_in"]
+    if "w_gate" in p:
+        g = x @ p["w_gate"]
+        h = (F.silu(g) if cfg.act == "silu" else gelu(g)) * h
+    else:
+        h = gelu(h)
+    return h @ p["w_out"]
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

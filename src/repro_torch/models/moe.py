@@ -37,12 +37,18 @@ import torch.nn.functional as F
 from repro_torch.models import layers
 
 
+def _check_act(cfg) -> None:
+    if cfg.act != "silu":
+        raise NotImplementedError(f"activation {cfg.act!r}: the port's "
+                                  "experts are SwiGLU")
+
+
 def moe_init(gen: torch.Generator, cfg, device,
              stack: Tuple[int, ...] = ()) -> dict:
     """The router in fp32, the experts in ``cfg.dtype``, and the shared
     expert's MLP where the config has one."""
     m = cfg.moe
-    layers._check_act(cfg)
+    _check_act(cfg)
     dtype = getattr(torch, cfg.dtype)
     d, e, f = cfg.d_model, m.n_experts, m.expert_d_ff
     p = {"router": layers.dense_init(gen, stack + (d, e), torch.float32,
@@ -210,7 +216,7 @@ def apply_moe(x: torch.Tensor, p: dict, cfg,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D) in x's dtype, fp32 aux loss)."""
     m = cfg.moe
-    layers._check_act(cfg)
+    _check_act(cfg)
     probs, top_i, sel_gate, routing = route(x, p, cfg, gen)
     aux = aux_load_balance_loss(probs, top_i, m.n_experts) * \
         m.aux_loss_weight

@@ -12,6 +12,19 @@ the same), the intra-chunk part (scores * L) (x dt), the inter-chunk part
 exp(cum) C h^T and the carried h. All of it in fp32, at IEEE precision
 (``repro_torch`` turns TF32 off).
 
+The decay mask L_ij = exp(cum_i - cum_j) is masked BEFORE the ``exp``
+(-inf above the diagonal, ``_masked_scores``), where the reference masks
+after it (``where(causal, exp(diff), 0)``). The values are the same; the
+gradients are not. Above the diagonal diff = cum_i - cum_j with j > i is
+positive (cum falls along a chunk) and grows with the chunk: past ~88 its
+``exp`` overflows to inf in fp32, and the masked zero's cotangent times
+that inf is NaN. At the configs' chunk of 256, with the reference's init
+(A_log 0), the reference's dt and A gradients are NaN; masking first
+keeps every gradient finite, and equal to the reference's at a chunk
+short enough for its own to stay finite (chunking is exact;
+``tests/test_torch_ssm.py`` pins the port's chunk-256 gradient to the
+reference's at chunk 64).
+
 Decode (one token, with a state) is the O(1) update h <- exp(dt A) h +
 dt B x, y = C h. The state (``SSMState``: the three conv tails in the
 model's dtype, h in fp32) is written in place, as the KV caches are

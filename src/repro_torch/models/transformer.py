@@ -1,5 +1,6 @@
-"""The decoder-only LM: the dense family (TinyLlama and its kin), the
-MoE family (Qwen3-30B-A3B: every layer MoE; Llama4-Maverick: a dense layer
+"""The decoder-only LM: the dense family (TinyLlama, MiniCPM, Granite's
+plain GELU MLP and one KV head, Gemma3's local/global plan), the MoE
+family (Qwen3-30B-A3B: every layer MoE; Llama4-Maverick: a dense layer
 then an MoE layer, 1:1), the SSM family (Mamba2: Mamba-2 blocks) and the
 hybrid family (Zamba2: groups of Mamba-2 blocks, each group followed by
 ONE shared attention + MLP block).
@@ -8,14 +9,15 @@ The param tree is the reference's: ``emb``, ``final_norm``, ``lm_head``
 (unless tied), ``shared_block`` (hybrid: a dense block stored once, outside
 the segments) and ``seg0``, ``seg1``, ..., whose leaves stack the layers on
 leading axes (``param_stack_dims``: one stack axis under ``seg<i>``, two
-under a ``zamba`` super-block's ``mamba`` sub-stack, none elsewhere; the
-DMD accelerator treats each layer as its own system). The layers run in a
-Python loop over those axes, the reference's unrolled build
-(``scan_layers=False``): each stacked leaf is unbound once per call (a
-zamba leaf over both of its axes at once), so its gradient is one stack of
-the layers' gradients, not one full-stack write per layer. A stacked layer
-cache is indexed the same way, so a layer's cache update writes into the
-stack in place.
+under a ``zamba`` super-block's ``mamba`` sub-stack and a ``gemma``
+super-block's ``local`` sub-stack, none elsewhere; the DMD accelerator
+treats each layer as its own system). The layers run in a Python loop
+over those axes, the reference's unrolled build (``scan_layers=False``):
+each stacked leaf is unbound once per call (a two-axis leaf over both of
+its axes at once), so its gradient is one stack of the layers'
+gradients, not one full-stack write per layer. A stacked layer cache is
+indexed the same way, so a layer's cache update writes into the stack in
+place.
 
 Training: ``loss`` is differentiable end to end; attention's backward is
 K7b on the card (``kernels/flash_attention.py``). ``remat="block"`` or
@@ -28,20 +30,23 @@ The segment plan is the reference's: ``dense``, ``moe`` (attention, then
 the MoE feed-forward of ``models/moe.py``), ``moe_pair`` (a dense layer
 then an MoE layer, one stacked pair per step, with the cache pair
 ``{"dense", "moe"}``), ``mamba`` (one Mamba-2 block of ``models/ssm.py``,
-its cache an ``SSMState``) and ``zamba`` (``shared_attn_every`` Mamba-2
+its cache an ``SSMState``), ``zamba`` (``shared_attn_every`` Mamba-2
 blocks then the shared block, with the cache ``{"mamba": stacked
 SSMStates, "shared": the invocation's own KVCache}``; a depth that is not
-a multiple of the group adds a ``mamba`` remainder segment). Each MoE
-layer's fp32 load-balancing loss is summed over the layers in order;
+a multiple of the group adds a ``mamba`` remainder segment), ``gemma``
+(``global_every - 1`` sliding-window layers then one global layer, with
+the cache ``{"local": stacked RingKVCaches, "global": a KVCache}``) and
+``dense_local`` (gemma's remainder of window layers, ring caches). Each
+MoE layer's fp32 load-balancing loss is summed over the layers in order;
 ``forward`` returns that sum as its aux loss (0 without MoE layers) and
 ``loss`` is ce + aux, as the reference's.
 
-Other families (enc-dec, gemma's local/global plan) and learned position
-embeddings raise ``NotImplementedError``.
+The enc-dec and VLM families and learned position embeddings raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -50,7 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.paths import tree_map
 from repro_torch.kernels.device import resolve_device
 from repro_torch.models import attention, layers, moe, ssm
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, RingKVCache
 from repro_torch.models.ssm import SSMState
 
 
@@ -68,11 +73,10 @@ def segment_plan(cfg) -> List[Segment]:
         if rem:
             plan.append(Segment("mamba", rem))
         return plan
-    if cfg.family not in ("dense", "moe") or cfg.global_every:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (global_every "
-            f"{cfg.global_every}) is not ported yet; the port builds the "
-            "dense, MoE, SSM and hybrid families")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
+            "builds the dense, MoE, SSM and hybrid families")
     if cfg.moe.n_experts > 0:
         if cfg.moe.moe_every == 1:
             return [Segment("moe", cfg.n_layers)]
@@ -83,6 +87,12 @@ def segment_plan(cfg) -> List[Segment]:
         plan = [Segment("moe_pair", n_pairs)]
         if rem:
             plan.append(Segment("dense", rem))
+        return plan
+    if cfg.global_every > 0:
+        n_groups, rem = divmod(cfg.n_layers, cfg.global_every)
+        plan = [Segment("gemma", n_groups)]
+        if rem:
+            plan.append(Segment("dense_local", rem))
         return plan
     return [Segment("dense", cfg.n_layers)]
 
@@ -99,6 +109,11 @@ def _block_init(gen, cfg, kind: str, stack: Tuple[int, ...], device
         return {"mamba": _block_init(gen, cfg, "mamba",
                                      stack + (cfg.shared_attn_every,),
                                      device)}
+    if kind == "gemma":
+        return {"local": _block_init(gen, cfg, "dense_local",
+                                     stack + (cfg.global_every - 1,),
+                                     device),
+                "global": _block_init(gen, cfg, "dense", stack, device)}
     ffn = ({"moe": moe.moe_init(gen, cfg, device, stack)} if kind == "moe"
            else {"mlp": layers.mlp_init(gen, cfg, device, stack)})
     return {"ln1": layers.norm_init(cfg, device, stack),
@@ -137,7 +152,8 @@ def param_stack_dims(cfg, params: Optional[dict] = None) -> dict:
     """How many leading stack axes each leaf of ``init_params`` carries,
     as the reference's ``param_stack_dims`` derives it from the segment
     plan: 1 under every ``seg<i>`` (one system per layer), 2 under a
-    ``zamba`` segment's ``mamba`` sub-stack (one system per Mamba layer),
+    ``zamba`` segment's ``mamba`` sub-stack (one system per Mamba layer)
+    and a ``gemma`` segment's ``local`` sub-stack (one per local layer),
     0 elsewhere (``shared_block`` is one system)."""
     if params is None:
         params = init_params(cfg, device="meta")
@@ -151,9 +167,14 @@ def param_stack_dims(cfg, params: Optional[dict] = None) -> dict:
     out = {}
     for key, sub in params.items():
         if key.startswith("seg") and key[3:].isdigit():
-            zamba = plan[int(key[3:])].kind == "zamba"
-            out[key] = ({k: const(v, 2) for k, v in sub.items()} if zamba
-                        else const(sub, 1))
+            kind = plan[int(key[3:])].kind
+            if kind == "zamba":
+                out[key] = {"mamba": const(sub["mamba"], 2)}
+            elif kind == "gemma":
+                out[key] = {"local": const(sub["local"], 2),
+                            "global": const(sub["global"], 1)}
+            else:
+                out[key] = const(sub, 1)
         else:
             out[key] = const(sub, 0)
     return out
@@ -168,10 +189,11 @@ def _unbind(tree, count: int) -> List[dict]:
     return list(torch.unbind(tree, 0))
 
 
-def _apply_dense(x, p, cfg, *, positions, cache, chunk_k):
+def _apply_dense(x, p, cfg, *, positions, cache, chunk_k, window=0):
     h = layers.apply_norm(x, p["ln1"], cfg)
     a, new_cache = attention.attend(h, p["attn"], cfg, positions=positions,
-                                    cache=cache, chunk_k=chunk_k)
+                                    window=window, cache=cache,
+                                    chunk_k=chunk_k)
     x = x + a
     h = layers.apply_norm(x, p["ln2"], cfg)
     return x + layers.apply_mlp(h, p["mlp"], cfg), new_cache
@@ -189,15 +211,18 @@ def _apply_moe_block(x, p, cfg, *, positions, cache, chunk_k):
 
 
 def _layer_cache(c, j: int):
-    """Layer j's view of a stacked segment cache (a KVCache, an SSMState,
-    or a dict of them: the moe_pair's {"dense", "moe"}, the zamba
-    super-block's {"mamba", "shared"})."""
+    """Layer j's view of a stacked segment cache (a KVCache, a
+    RingKVCache, an SSMState, or a dict of them: the moe_pair's {"dense",
+    "moe"}, the zamba super-block's {"mamba", "shared"}, the gemma
+    super-block's {"local", "global"})."""
     if c is None:
         return None
     if isinstance(c, dict):
         return {k: _layer_cache(v, j) for k, v in c.items()}
     if isinstance(c, SSMState):
         return SSMState(*(t[j] for t in c))
+    if isinstance(c, RingKVCache):
+        return RingKVCache(c.k[j], c.v[j], c.pos[j], c.length)
     return KVCache(c.k[j], c.v[j], c.length)
 
 
@@ -208,11 +233,13 @@ def _advance(c, n: int):
         return {k: _advance(v, n) for k, v in c.items()}
     if isinstance(c, SSMState):
         return c
+    if isinstance(c, RingKVCache):
+        return RingKVCache(c.k, c.v, c.pos, c.length + n)
     return KVCache(c.k, c.v, c.length + n)
 
 
-def _first_kv(node) -> Optional[KVCache]:
-    if isinstance(node, KVCache):
+def _first_kv(node) -> Optional[Union[KVCache, RingKVCache]]:
+    if isinstance(node, (KVCache, RingKVCache)):
         return node
     if isinstance(node, dict):
         for v in node.values():
@@ -223,9 +250,9 @@ def _first_kv(node) -> Optional[KVCache]:
 
 
 def cache_length(caches: dict):
-    """The length of the first KVCache in `caches` (the reference's
-    ``_cache_length``): a host int, or a (B,) tensor of per-row lengths;
-    0 where there is none (the SSM family)."""
+    """The length of the first KVCache or RingKVCache in `caches` (the
+    reference's ``_cache_length``): a host int, or a (B,) tensor of
+    per-row lengths; 0 where there is none (the SSM family)."""
     kv = _first_kv(caches)
     return 0 if kv is None else kv.length
 
@@ -234,10 +261,22 @@ def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k,
                  shared=None):
     """One super-block of the plan: (x, new cache, fp32 aux or None).
     `shared` is the hybrid family's shared block."""
-    if kind == "dense":
+    if kind in ("dense", "dense_local"):
+        window = cfg.sliding_window if kind == "dense_local" else 0
         x, nc = _apply_dense(x, p, cfg, positions=positions, cache=cache,
-                             chunk_k=chunk_k)
+                             chunk_k=chunk_k, window=window)
         return x, nc, None
+    if kind == "gemma":
+        lc = None if cache is None else cache["local"]
+        for i, lp in enumerate(p["local"]):
+            x, _ = _apply_dense(x, lp, cfg, positions=positions,
+                                cache=_layer_cache(lc, i), chunk_k=chunk_k,
+                                window=cfg.sliding_window)
+        x, ngc = _apply_dense(x, p["global"], cfg, positions=positions,
+                              cache=None if cache is None
+                              else cache["global"], chunk_k=chunk_k)
+        return x, (None if cache is None
+                   else {"local": lc, "global": ngc}), None
     if kind == "moe":
         return _apply_moe_block(x, p, cfg, positions=positions, cache=cache,
                                 chunk_k=chunk_k)
@@ -348,15 +387,22 @@ class LanguageModel:
 
     def _blocks(self, params, i: int, seg) -> list:
         """Segment i's super-blocks, unbound. A zamba block is {"mamba":
-        its k Mamba layers}: the (groups, k, ...) leaves are unbound once
-        over both axes, as (groups * k, ...) views."""
+        its k Mamba layers}, a gemma block {"local": its k local layers,
+        "global": its global layer}: the (groups, k, ...) leaves are
+        unbound once over both axes, as (groups * k, ...) views."""
         sub = params[f"seg{i}"]
-        if seg.kind != "zamba":
+        if seg.kind not in ("zamba", "gemma"):
             return _unbind(sub, seg.count)
-        k = self.cfg.shared_attn_every
-        flat = _unbind(tree_map(lambda t: t.flatten(0, 1), sub["mamba"]),
+        name = "mamba" if seg.kind == "zamba" else "local"
+        k = (self.cfg.shared_attn_every if seg.kind == "zamba"
+             else self.cfg.global_every - 1)
+        flat = _unbind(tree_map(lambda t: t.flatten(0, 1), sub[name]),
                        seg.count * k)
-        return [{"mamba": flat[g * k:(g + 1) * k]} for g in range(seg.count)]
+        blocks = [{name: flat[g * k:(g + 1) * k]} for g in range(seg.count)]
+        if seg.kind == "gemma":
+            for b, glob in zip(blocks, _unbind(sub["global"], seg.count)):
+                b["global"] = glob
+        return blocks
 
     def _layers(self, params, x, positions, caches):
         """Every layer in order; returns x, the new caches (None without
@@ -452,9 +498,11 @@ class LanguageModel:
         """Zeroed caches matching the segment plan, length 0: a stacked
         KVCache per ``dense`` or ``moe`` segment, the pair ``{"dense",
         "moe"}`` of them per ``moe_pair`` segment, a stacked SSMState per
-        ``mamba`` segment, and ``{"mamba": SSMStates stacked (groups,
+        ``mamba`` segment, ``{"mamba": SSMStates stacked (groups,
         shared_attn_every), "shared": a KVCache per group}`` per ``zamba``
-        segment."""
+        segment, ``{"local": RingKVCaches of the window stacked (groups,
+        global_every - 1), "global": a KVCache per group}`` per ``gemma``
+        segment and a stacked RingKVCache per ``dense_local`` segment."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
 
@@ -462,6 +510,11 @@ class LanguageModel:
             return attention.init_kv_cache(
                 batch_size, s_max, cfg.n_kv_heads, cfg.head_dim, dtype,
                 self.device, stack)
+
+        def ring(stack):
+            return attention.init_ring_cache(
+                batch_size, cfg.sliding_window, cfg.n_kv_heads, cfg.head_dim,
+                dtype, self.device, stack)
 
         def state(stack):
             return ssm.init_ssm_state(batch_size, cfg, dtype, self.device,
@@ -477,6 +530,12 @@ class LanguageModel:
                 caches[f"seg{i}"] = {
                     "mamba": state(n + (cfg.shared_attn_every,)),
                     "shared": full(n)}
+            elif seg.kind == "gemma":
+                caches[f"seg{i}"] = {
+                    "local": ring(n + (cfg.global_every - 1,)),
+                    "global": full(n)}
+            elif seg.kind == "dense_local":
+                caches[f"seg{i}"] = ring(n)
             else:
                 caches[f"seg{i}"] = full(n)
         return caches

@@ -17,7 +17,10 @@ The reference's engine, eager:
 
 Segment kinds ``dense``, ``moe`` and ``moe_pair`` are served: their caches
 are plain KVCaches (the moe_pair's a ``{"dense", "moe"}`` pair of them),
-walked alike. An MoE prompt's routing depends on its padding: capacity is
+walked alike (MiniCPM's and Granite's too). Gemma's ``gemma`` and
+``dense_local`` kinds are refused, as the reference's engine refuses
+them: a window layer's ring cache holds the last W positions of ONE
+length, which the per-slot table cannot share. An MoE prompt's routing depends on its padding: capacity is
 per padded row, so a bucketed prompt's logits differ from an exact-length
 run's (the reference's engine does the same); decode is drop-free (one
 token per row keeps capacity 1).

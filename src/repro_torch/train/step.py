@@ -68,13 +68,16 @@ PyTree = Any
 # shape structure that flattening destroys.
 RESIDENT_OPTIMIZERS = ("sgd", "momentum", "adam", "adamw")
 
+# the most elements one ``torch.vdot`` takes (BLAS's int32 length)
+VDOT_ELEMS = 2 ** 31 - 1
+
 
 def resolve_grad_accum(acfg, mesh, global_batch: int) -> int:
     """Largest accumulation factor <= the config's that keeps >= 1 row per
-    microbatch. No mesh yet (ROADMAP Queue 1 item 7)."""
+    microbatch. No mesh yet (ROADMAP Queue 1 item 4)."""
     if mesh is not None:
         raise NotImplementedError("a mesh is not ported yet (ROADMAP Queue "
-                                  "1 item 7)")
+                                  "1 item 4)")
     ga = max(acfg.parallel.grad_accum, 1)
     return max(min(ga, global_batch), 1)
 
@@ -255,8 +258,13 @@ def make_train_step(model, acfg, *, global_batch=None,
         with torch.no_grad():
             gnorm = None
             for _, g in leaves_with_paths(grads):
-                sq = torch.vdot(g.reshape(-1), g.reshape(-1))
-                gnorm = sq if gnorm is None else gnorm + sq
+                # BLAS's dot takes at most 2^31 - 1 elements a call (the
+                # flat gradient sum of a resident bucket passes it at 2.2B
+                # params: gemma3's tied embedding and two layers), so a
+                # larger buffer is summed a piece at a time
+                for part in g.reshape(-1).split(VDOT_ELEMS):
+                    sq = torch.vdot(part, part)
+                    gnorm = sq if gnorm is None else gnorm + sq
             gnorm = torch.sqrt(gnorm)
             if opt.update_ is not None:
                 # the same arithmetic, in place, a chunk at a time

@@ -228,12 +228,13 @@ def test_bf16_model_matches_reference():
 # -- what is not ported raises -----------------------------------------------
 
 def test_unported_configs_raise():
-    with pytest.raises(KeyError, match="ring-cache serving slice"):
-        get_config("gemma3-27b")
+    with pytest.raises(KeyError, match="M-RoPE slice"):
+        get_config("qwen2-vl-7b")
+    with pytest.raises(KeyError, match="enc-dec slice"):
+        get_config("whisper-base")
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
-    for kw in (dict(family="encdec"), dict(family="vlm"),
-               dict(global_every=6)):
+    for kw in (dict(family="encdec"), dict(family="vlm")):
         with pytest.raises(NotImplementedError, match="not ported"):
             segment_plan(ModelConfig(**kw))
     with pytest.raises(NotImplementedError, match="eager"):

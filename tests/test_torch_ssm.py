@@ -169,6 +169,43 @@ def test_intra_chunk_backward_gradcheck_in_float64():
                                     (cum, scores, xdt))
 
 
+def test_ssd_gradient_at_the_configs_chunk_is_finite_and_pinned():
+    """At the configs' chunk of 256, with the reference's init (A_log 0,
+    so A = -1) and dt a softplus of normal draws, the reference's SSD
+    gradient is NaN (it masks the decay after its exp, which overflows
+    above the diagonal); the port's is finite and equals the reference's
+    at chunk 64, where the reference's own stays finite (chunking is
+    exact). fp32: within 1e-4 * max(1, the gradient's largest magnitude)
+    (the chunks' products summed in other orders; dA reaches ~91)."""
+    rng = np.random.default_rng(11)
+    B, S, H, P, G, N = 1, 256, 2, 4, 1, 8
+    x = rng.standard_normal((B, S, H, P), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    A = -np.exp(np.zeros((H,), np.float32))
+    Bm = rng.standard_normal((B, S, G, N), np.float32)
+    Cm = rng.standard_normal((B, S, G, N), np.float32)
+    gy = rng.standard_normal((B, S, H, P), np.float32)
+    gh = rng.standard_normal((B, H, P, N), np.float32)
+
+    def ref_grads(chunk):
+        def f(x, dt, A, Bm, Cm):
+            y, h = jssm.ssd_chunked(x, dt, A, Bm, Cm, chunk)
+            return jnp.sum(y * gy) + jnp.sum(h * gh)
+        return jax.grad(f, argnums=(0, 1, 2, 3, 4))(
+            *map(jnp.asarray, (x, dt, A, Bm, Cm)))
+
+    assert not np.isfinite(np.asarray(ref_grads(256)[1])).all()
+    want = ref_grads(64)
+    args = [_t(a).requires_grad_(True) for a in (x, dt, A, Bm, Cm)]
+    y, h = ssm.ssd_chunked(*args, 256)
+    ((y * _t(gy)).sum() + (h * _t(gh)).sum()).backward()
+    for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), args, want):
+        g = a.grad.numpy()
+        assert np.isfinite(g).all(), name
+        scale = max(1.0, float(np.abs(np.asarray(w)).max()))
+        assert np.abs(g - np.asarray(w)).max() <= 1e-4 * scale, name
+
+
 def test_ssd_chunked_refuses_a_length_that_is_not_a_chunk_multiple():
     args, _ = _ssd_inputs(1, 40, 2, 4, 1, 4, seed=0)
     with pytest.raises(ValueError, match="not divisible by chunk 16"):
