@@ -56,8 +56,10 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    steps printed.
 8. The flash-attention kernel K7 against its plain twin: every prefill
    shape the serve phase launches, (1, 4096, 32, 4, 64) bf16 causal, and
-   windowed, non-causal, ragged, Sq != Sk, d 16 and 128, GQA rep 1 and 8
-   cases in fp32 and bf16; the Hopper design's tile edges (Sq, Sk of 127,
+   windowed, non-causal, ragged, Sq != Sk, d 16 and 128, GQA rep 1, 7 and
+   8 cases in fp32 and bf16 (Whisper's encoder, 1500 x 1500 non-causal,
+   and its cross-attention, 64 and 1000 queries over 1500 keys, among
+   them); the Hopper design's tile edges (Sq, Sk of 127,
    128, 129, 257 at d 64 and 128, every mask, GQA rep 1 and 8, q/k/v as
    slices of one fused tensor); repeat launches bit-identical; timings at
    the 4096 shape and the largest serve prefill shape beside the bound and
@@ -363,6 +365,37 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    bit for bit. gemma3-train's cut keeps only window layers: the global
    layer is trained on the CPU against the reference
    (tests/test_torch_dense_archs.py).
+19. The last two architectures, phase 19 "vlm-encdec": K7 at Qwen2-VL's
+   GQA, (1, 4096, 28, 4, 128) causal (rep 7), and at Whisper's encoder
+   (8, 1500, 1500, 8, 8, 64), cross-attention (8, 4096 queries over 1500
+   keys) and prefill (64 over 1500), non-causal; K7b at (2, 4096, 28, 4,
+   128) and at both of Whisper's non-causal shapes; bf16 through their
+   Hopper designs, against their twins, timed beside their bounds and
+   SDPA (phase 15's K7b cases carry Sq and Sk apart since this phase,
+   with Sq != Sk at the tile edges both ways at d 64 and 128). (a)
+   Qwen2-VL-7B at full width and depth (28 layers, 7,615,487,488 params,
+   the serve launcher's draw; the engine refuses M-RoPE batches, as the
+   reference's) generating through ``prefill`` / ``decode_step``: 8
+   prompts of a 4 x 4 stub image block and text, the M-RoPE streams
+   (``data/tokens.py::image_positions``) continuing from the grid's
+   maximum, 16 new tokens, twice bit for bit; K7 28 a prefill and none in
+   decode; the bf16 decode logits against ``forward``'s printed; a
+   4096-token ``forward``; the fp32 decode path held to ``forward``'s at
+   full depth (30.5 GB); one block at full width in fp32 under streams
+   that differ, card twice bit for bit and against the CPU within
+   SSM_BLOCK_TOL. (b) Whisper-base (6 + 6 layers, 88,175,616 params) the
+   same for 8 stub frame sequences (8, 1500, 512) fp32: K7 18 a prefill
+   (6 encoder, 6 self, 6 cross), none in decode; cross_k and cross_v in
+   their own storage. (c) qwen2-vl-train through ``train_cell`` at full
+   width cut to ``VLM_TRAIN_LAYERS`` (the full depth's reckoned state,
+   274 GB, must exceed 90% of the card) under the M-RoPE streams of a
+   ``VLM_TRAIN_GRID`` image block opening each sequence, the config's DMD (m 10, s 40, bf16 ring), remat; (d) whisper-train at
+   full width and depth (6.35 GB of state) on the stream's frames,
+   ``WHISPER_TRAIN_ROWS`` sequences a microbatch, the config's DMD (m 14,
+   s 55, fp32 ring), no remat (K7 and K7b 18 a microbatch); both
+   ``DENSE_ACCUM`` microbatches a step, warm-up 0, cool-down
+   ``DENSE_COOLDOWN``, graphed = eager bit for bit, K1 and K2 on their
+   own rings.
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -399,6 +432,8 @@ from repro_torch.core.paths import (by_path, keystr_leaves,  # noqa: E402
                                     tree_map)
 from repro_torch.data import pollutant  # noqa: E402
 from repro_torch.data.synthetic import synthetic_regression  # noqa: E402
+from repro_torch.data.tokens import (image_positions,  # noqa: E402
+                                     stream_kwargs, synthetic_lm_batches)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import arena as ka  # noqa: E402
 from repro_torch.kernels import combine as kc  # noqa: E402
@@ -1040,6 +1075,10 @@ FLASH_EDGES = [
     (1, 64, 192, 32, 4, 64, True, 0),         # Sq < Sk
     (1, 192, 64, 8, 1, 32, True, 0),          # Sq > Sk, rep 8
     (2, 333, 333, 16, 2, 128, False, 100),    # non-causal window
+    (1, 512, 512, 28, 4, 128, True, 0),       # Qwen2-VL's GQA, rep 7
+    (2, 1500, 1500, 8, 8, 64, False, 0),      # Whisper's encoder
+    (2, 64, 1500, 8, 8, 64, False, 0),        # its prefill's cross-attention
+    (1, 1000, 1500, 8, 8, 64, False, 0),      # its cross-attention, Sq < Sk
 ]
 # the Hopper design's tile edges (128 queries per CTA; 128 keys per tile at
 # d 64, 64 at d 128): lengths 127 ... 257 under every mask, GQA rep 1 and
@@ -1154,7 +1193,8 @@ def time_flash(case, dev, seed=7):
     flops = 4.0 * d * _flash_pairs(Sq, Sk, causal, window) * B * H
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
-    mask_s = "causal" + (f" window {window}" if window else "")
+    mask_s = ("causal" if causal else "non-causal") + (
+        f" window {window}" if window else "")
     print(f"kernel flash_attention bf16 {case[:6]} {mask_s}: kernel_ms "
           f"{k_ms} ref_ms {p_ms} sdpa_ms {l_ms} bound_ms {b_ms} ({b_by})"
           f" max_abs_err {err} TFLOP/s {flops / k_ms / 1e9}")
@@ -1276,10 +1316,13 @@ def serve_breakdown(what, model, params, prompts, dev):
     return float(np.median(dec_ms))
 
 
-def forward_4096(what, model, params, dev):
-    """One 4096-token sequence through ``loss``: K7 once per layer, all
-    through its Hopper design, and a finite loss."""
+def forward_4096(what, model, params, dev, extra=None, n_k7=0):
+    """One 4096-token sequence through ``loss`` (with `extra`'s entries in
+    its batch: an enc-dec model's frames): K7 once per layer (`n_k7` where
+    given), all through its Hopper design, and a finite loss. Returns the
+    ms."""
     cfg = model.cfg
+    n_k7 = n_k7 or cfg.n_layers
     g = torch.Generator(device=dev).manual_seed(5)
     toks = torch.randint(1, cfg.vocab_size, (1, 4096), generator=g,
                          device=dev)
@@ -1287,14 +1330,15 @@ def forward_4096(what, model, params, dev):
     reset_counts()
     t0 = time.perf_counter()
     with torch.no_grad():
-        loss, parts = model.loss(params, {"tokens": toks})
+        loss, parts = model.loss(params, {"tokens": toks, **(extra or {})})
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    require_counts(what, {"flash_attention": cfg.n_layers})
+    require_counts(what, {"flash_attention": n_k7})
     require_wgmma(what)
     require(bool(torch.isfinite(loss)), f"{what}: loss {loss}")
     print(f"{what}: loss {float(loss)} (aux {float(parts['aux'])}) in {ms} "
-          f"ms, {cfg.n_layers} K7 launches")
+          f"ms, {n_k7} K7 launches")
+    return ms
 
 
 # -- phase 10: the Trainer ---------------------------------------------------
@@ -2634,17 +2678,24 @@ LSE_ATOL = 1e-4
 # a row whose twin's norm is under ROW_FLOOR times the gradient's
 # root-mean-square row norm (the first query's dq is 0) is held to that
 ROW_FLOOR = 1e-1
-# (B, S, H, K, d, causal, window), Sq = Sk: one microbatch's attention in
-# the LM phase first, then GQA rep 1 and 8, windows, non-causal, d 16-128
-# and the tile edges (64 keys per dK/dV CTA, 64 queries per dQ CTA, inner
-# tiles of 32 / 16)
-LM_ATTN = (2, LM_SEQ, 32, 4, 64, True, 0)
+# (B, Sq, Sk, H, K, d, causal, window), as K7's cases: one microbatch's
+# attention in the LM phase first, then GQA rep 1 and 8, windows,
+# non-causal, d 16-128 and the tile edges (64 keys per dK/dV CTA, 64
+# queries per dQ CTA, inner tiles of 32 / 16; the Hopper design's 128 keys
+# per dK/dV CTA, 64 queries per dQ tile), then Sq != Sk at those edges in
+# both directions, at d 64 and 128 (cross-attention's shapes: phase 19)
+LM_ATTN = (2, LM_SEQ, LM_SEQ, 32, 4, 64, True, 0)
 BWD_CASES = (
-    [LM_ATTN, (2, 256, 8, 2, 64, True, 0), (1, 200, 8, 8, 128, True, 0),
-     (1, 160, 8, 1, 64, False, 0), (1, 256, 4, 2, 64, True, 48),
-     (2, 100, 4, 2, 16, False, 30), (1, 96, 4, 4, 48, True, 0)]
-    + [(1, s, 8, 1, d, True, 0) for d in (64, 128)
-       for s in (127, 128, 129, 257)])
+    [LM_ATTN, (2, 256, 256, 8, 2, 64, True, 0),
+     (1, 200, 200, 8, 8, 128, True, 0), (1, 160, 160, 8, 1, 64, False, 0),
+     (1, 256, 256, 4, 2, 64, True, 48), (2, 100, 100, 4, 2, 16, False, 30),
+     (1, 96, 96, 4, 4, 48, True, 0)]
+    + [(1, s, s, 8, 1, d, True, 0) for d in (64, 128)
+       for s in (127, 128, 129, 257)]
+    + [case for d in (64, 128) for case in
+       [(1, 129, 257, 8, 1, d, False, 0), (2, 257, 127, 4, 4, d, False, 0),
+        (1, 64, 1500, 8, 8, d, False, 0), (1, 1500, 129, 8, 2, d, False, 0),
+        (1, 127, 257, 8, 8, d, True, 0), (1, 257, 128, 4, 1, d, True, 0)]])
 
 
 def row_err(got, want):
@@ -2696,11 +2747,11 @@ def _bwd_case(case, dtype, dev, seed):
     """K7 with its log-sum-exp and K7b on one case against the twins;
     returns ({gradient: row error, "max_abs": largest |kernel - twin|},
     the log-sum-exp's error, inputs, forward outputs)."""
-    B, S, H, K, d, causal, window = case
+    B, Sq, Sk, H, K, d, causal, window = case
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dtype)
-                     for shape in ((B, S, H, d), (B, S, K, d), (B, S, K, d),
-                                   (B, S, H, d)))
+                     for shape in ((B, Sq, H, d), (B, Sk, K, d),
+                                   (B, Sk, K, d), (B, Sq, H, d)))
     out, lse = kf.flash_attention_lse(q, k, v, causal=causal, window=window)
     require(torch.equal(out, kf.flash_attention(q, k, v, causal=causal,
                                                 window=window)),
@@ -2783,12 +2834,12 @@ def time_flash_bwd(case, dev, seed=7):
         case, torch.bfloat16, dev, seed=seed)
     err = max(errs[g] for g in ("dq", "dk", "dv"))
     torch.cuda.empty_cache()
-    B, S, H, K, d, causal, window = case
+    B, Sq, Sk, H, K, d, causal, window = case
     kern = lambda: kf.flash_attention_bwd(  # noqa: E731
         q, k, v, out, dout, lse, causal=causal, window=window)
     leaves = [t.transpose(1, 2).detach().requires_grad_(True)
               for t in (q, k, v)]
-    is_causal, mask = _sdpa_mask(S, S, causal, window, dev)
+    is_causal, mask = _sdpa_mask(Sq, Sk, causal, window, dev)
     with torch.enable_grad():
         o_lib = torch.nn.functional.scaled_dot_product_attention(
             *leaves, is_causal=is_causal, attn_mask=mask, enable_gqa=True)
@@ -2799,23 +2850,24 @@ def time_flash_bwd(case, dev, seed=7):
     p_ms = cuda_ms(lambda: kf.flash_attention_bwd_ref(
         q, k, v, dout, causal=causal, window=window), iters=3, warmup=1)
     g_ms = graph_ms(kern)
-    pairs = _flash_pairs(S, S, causal, window)
+    pairs = _flash_pairs(Sq, Sk, causal, window)
     flops = 10.0 * d * pairs * B * H          # S, dP, dV, dK, dQ
-    nbytes = 2 * (3 * q.numel() + 3 * k.numel() + 2 * q.numel()) \
-        + 4 * lse.numel()                     # q,k,v,O,dO in; dq,dk,dv out
+    # q, O, dO in and dq out; k, v in and dk, dv out; the log-sum-exp in
+    nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
-    mask_s = "causal" + (f" window {window}" if window else "")
-    print(f"kernel flash_attention_bwd bf16 {case[:5]} {mask_s}: kernel_ms "
+    mask_s = ("causal" if causal else "non-causal") + (
+        f" window {window}" if window else "")
+    print(f"kernel flash_attention_bwd bf16 {case[:6]} {mask_s}: kernel_ms "
           f"{k_ms} graph_ms {g_ms} ref_ms {p_ms} sdpa_bwd_ms {l_ms} "
           f"bound_ms {b_ms} ({b_by}) row error {err} TFLOP/s "
           f"{flops / k_ms / 1e9}")
-    print(f"K7b {case[:5]}: kernel / sdpa backward {k_ms / l_ms} (same "
+    print(f"K7b {case[:6]}: kernel / sdpa backward {k_ms / l_ms} (same "
           f"call, in turns); {b_ms / k_ms} of the bound eager, "
           f"{b_ms / g_ms} replayed")
     del o_lib, leaves
     rec = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=l_ms, max_abs_err=errs["max_abs"], row_err=err,
-               graph_ms=g_ms, shape=list(case[:5]))
+               graph_ms=g_ms, shape=list(case[:6]))
     if "control" in errs:
         rec.update(control_row_err=errs["control"],
                    wrong_row_err=errs["wrong"])
@@ -2921,11 +2973,15 @@ def _flat_params(state):
             for path, x in leaves_with_paths(state.params) if x is not None}
 
 
-def _lm_fit(acfg, model, steps, on_step, cuda_graphs=True):
+def _lm_fit(acfg, model, steps, on_step, cuda_graphs=True, grid=None):
     """One run of the launcher's ``run`` from fresh params, the counts set
     to 0 just before (read them just after); ``on_step(t, trainer,
     state)`` after every step, on the resident state the loop updates in
-    place. Returns (trainer, state, losses, per-step seconds)."""
+    place. With `grid`, the Trainer's ``fit`` takes the launcher's stream
+    with each batch's M-RoPE positions those of a sequence that opens with
+    a stub image block of grid[0] x grid[1] patches (``image_positions``:
+    the three streams differ there). Returns (trainer, state, losses,
+    per-step seconds)."""
     trainer = launch_train.make_trainer(acfg, model, cuda_graphs=cuda_graphs)
     state = launch_train.fresh_state(trainer)
     losses, stamps = [], [time.perf_counter()]
@@ -2934,9 +2990,20 @@ def _lm_fit(acfg, model, steps, on_step, cuda_graphs=True):
         losses.append(float(m["loss"]))        # synchronises
         stamps.append(time.perf_counter())
         on_step(t, trainer, state)
-    reset_counts()
-    launch_train.run(acfg, model, steps=steps, trainer=trainer, state=state,
-                     log_every=0, on_metrics=on_metrics)
+    if grid is None:
+        reset_counts()
+        launch_train.run(acfg, model, steps=steps, trainer=trainer,
+                         state=state, log_every=0, on_metrics=on_metrics)
+    else:
+        tc = acfg.train
+        pos = image_positions(tc.global_batch, tc.seq_len, grid,
+                              device=model.device)
+        batches = (dict(b, positions=pos) for b in synthetic_lm_batches(
+            tc.seed, tc.global_batch, tc.seq_len, acfg.model.vocab_size,
+            device=model.device, **stream_kwargs(acfg.model)))
+        reset_counts()
+        trainer.fit(batches, steps, state=state, log_every=0,
+                    on_metrics=on_metrics)
     torch.cuda.synchronize()
     return trainer, state, losses, np.diff(stamps)
 
@@ -3183,7 +3250,7 @@ MOE_LAYER_TOL = 3e-2
 # the 4096-token attention of one Qwen3 microbatch: K7 at (1, 4096, 32, 4,
 # 128), K7b at (2, 4096, 32, 4, 128), bf16 causal
 MOE_K7 = (1, 4096, 4096, 32, 4, 128, True, 0)
-MOE_K7B = (2, 4096, 32, 4, 128, True, 0)
+MOE_K7B = (2, 4096, 4096, 32, 4, 128, True, 0)
 # K1 on an LM's bf16 ring (phase 16's MoE ring, phase 17's SSM rings:
 # 190k-608k blocks a system) against its float64 twin: at most
 # K1_TWIN_FACTOR times the chunked fp32 twin's own distance from it, in the
@@ -3814,12 +3881,16 @@ SSM_BF16_HELD = ("mamba2-2.7b",)
 # 34 layers, 2.0-3.4 s eager on an H100) and 15 of a graphed run's 19
 # steps run eagerly (each record slot is its own graph): at those depths
 # phase 17 took 213-307 s, and with phase 18 the script reached 1,120 s
-# of its 1,200. So mamba2 trains at 16 layers and zamba2 at 14 (2 groups
-# of 6 and a 2-layer remainder), about half the time;
+# of its 1,200. So mamba2 trained at 16 layers and zamba2 at 14, and
+# with phase 19 the script took 1,132 s on an H100 80GB HBM3 (700 W;
+# phase 17 177 s, its two trains 65 and 67 s): mamba2 trains at 8
+# layers, about half its time (8 identical mamba layers: no code path of
+# the 16 is dropped); zamba2 stays at 14 (two groups of 6 and a 2-layer
+# remainder: the shared block's gradient sums its two invocations);
 # the DMD warm-up cut to 0 and the cool-down from 10 to SSM_COOLDOWN (the
 # least that leaves 3 replayed plain steps to profile; phase 17's time on
 # a slow host), m 14: records at 5-18, the jump at 18
-SSM_TRAIN_LAYERS = {"mamba2-2.7b": 16, "zamba2-2.7b": 14}
+SSM_TRAIN_LAYERS = {"mamba2-2.7b": 8, "zamba2-2.7b": 14}
 SSM_COOLDOWN = 5
 # the step cut to SSM_ACCUM microbatches of 1 x 4096 tokens (the config's
 # grad_accum is 8): the microbatch, and so the peak, is the config's, but
@@ -3838,7 +3909,7 @@ SSM_BLOCK_TOL = 1e-3
 # zamba2's shared attention: 32 heads of 80 (MHA) at 4096 tokens, K7 and
 # K7b on the sm_80-unit designs (80 is not a wgmma head size)
 SSM_K7 = (1, 4096, 4096, 32, 32, 80, True, 0)
-SSM_K7B = (1, 4096, 32, 32, 80, True, 0)
+SSM_K7B = (1, 4096, 4096, 32, 32, 80, True, 0)
 # profile families of an SSM training step: the SSD's fp32 products first
 # (cuBLAS's fp32 kernels without TF32), then the rest as LM_FAMILIES
 SSM_FAMILIES = (("SSD fp32 GEMM", ("sgemm", "f32f32", "gemm_f32", "simt")),
@@ -3852,17 +3923,21 @@ def _ssm_widths(cfg):
             cfg.vocab_size, cfg.dtype)
 
 
-def _generate(model, params, prompts, new):
-    """Greedy generation: prefill, then new - 1 decode steps. Returns the
-    tokens (B, new), the logits they were chosen from (B, new, V), the
-    prefill ms and the decode steps' ms (host clock, synchronised)."""
+def _generate(model, params, prompts, new, extra=None, step_extra=None):
+    """Greedy generation: prefill, then new - 1 decode steps. `extra`'s
+    entries join the prompt's batch (a VLM's positions, an enc-dec
+    model's frames), ``step_extra(i)``'s decode step i's (a VLM's
+    positions). Returns the tokens (B, new), the logits they were chosen
+    from (B, new, V), the prefill ms and the decode steps' ms (host clock,
+    synchronised)."""
     B, S = prompts.shape
     caches = model.init_cache(B, S + new)
     toks, outs, dec = [], [], []
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches = model.prefill(params, {"tokens": prompts}, caches)
+        logits, caches = model.prefill(
+            params, {"tokens": prompts, **(extra or {})}, caches)
         torch.cuda.synchronize()
         pre_ms = (time.perf_counter() - t0) * 1e3
         for i in range(new):
@@ -3872,20 +3947,23 @@ def _generate(model, params, prompts, new):
                 break
             t0 = time.perf_counter()
             logits, caches = model.decode_step(
-                params, {"tokens": toks[-1][:, None]}, caches)
+                params, {"tokens": toks[-1][:, None],
+                         **(step_extra(i) if step_extra else {})}, caches)
             torch.cuda.synchronize()
             dec.append((time.perf_counter() - t0) * 1e3)
     return torch.stack(toks, 1), torch.stack(outs, 1), pre_ms, dec
 
 
-def _decode_vs_forward(model, params, prompts, toks, logits):
+def _decode_vs_forward(model, params, prompts, toks, logits, extra=None):
     """The generation's logits against ``forward``'s over the prompt and
     the first new - 1 tokens, at positions S - 1 ... S + new - 2: (worst
-    |diff|, max(1, max |forward's logits|)), the padded vocab left out."""
+    |diff|, max(1, max |forward's logits|)), the padded vocab left out.
+    `extra`'s entries join the forward's batch (the whole sequence's
+    positions, the frames)."""
     V = model.cfg.vocab_size
     with torch.no_grad():
         full, _ = model.forward(params, {"tokens": torch.cat(
-            [prompts, toks[:, :-1]], 1)})
+            [prompts, toks[:, :-1]], 1), **(extra or {})})
     want = full[:, prompts.shape[1] - 1:, :V]
     return (float((logits[..., :V] - want).abs().max()),
             max(1.0, float(want.abs().max())))
@@ -4066,6 +4144,32 @@ def _ssm_block_run(kind, p, shared, x, dout, cfg, n_pre):
     return out.detach(), grads, pre, dec
 
 
+def _held_card_vs_cpu(what, card, again, cpu, n_pre):
+    """A block's (out, gradients, prefill, decode) on the card twice, bit
+    for bit, and against the CPU within SSM_BLOCK_TOL of the CPU tensor's
+    largest magnitude (and the decode step against the forward's row).
+    Returns {name: distance}."""
+    for i, name in ((0, "out"), (2, "prefill"), (3, "decode")):
+        require(torch.equal(card[i], again[i]), f"{what}: repeat runs "
+                f"differ in {name}")
+    for name in card[1]:
+        require(torch.equal(card[1][name], again[1][name]),
+                f"{what}: repeat runs differ in d{name}")
+    pairs = [("out", card[0], cpu[0]), ("prefill", card[2], cpu[2]),
+             ("decode", card[3], cpu[3]),
+             ("decode vs forward", card[3], card[0][:, n_pre:n_pre + 1])]
+    pairs += [(f"d{n}", card[1][n], cpu[1][n]) for n in cpu[1]]
+    errs = {}
+    for name, a, b in pairs:
+        a, b = a.detach().cpu().float(), b.detach().cpu().float()
+        require(bool(torch.isfinite(a).all()), f"{what}: {name} not finite")
+        errs[name] = float((a - b).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+        require(errs[name] <= SSM_BLOCK_TOL, f"{what}: {name} off by "
+                f"{errs[name]} of its largest magnitude > {SSM_BLOCK_TOL}")
+    return errs
+
+
 def check_ssm_blocks(dev):
     """Phase 17 (c): one Mamba-2 block (mamba2's widths) and one zamba
     super-block (6 Mamba-2 blocks and the shared attention + MLP, zamba2's
@@ -4086,33 +4190,14 @@ def check_ssm_blocks(dev):
         again = _ssm_block_run(kind, p, shared, x, dout, cfg, n_pre)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
-        for i, name in ((0, "out"), (2, "prefill"), (3, "decode")):
-            require(torch.equal(card[i], again[i]), f"{arch} block: repeat "
-                    f"runs differ in {name}")
-        for name in card[1]:
-            require(torch.equal(card[1][name], again[1][name]),
-                    f"{arch} block: repeat runs differ in d{name}")
-        del again
         host = lambda t: None if t is None else t.detach().to("cpu")  # noqa
         t0 = time.perf_counter()
         cpu = _ssm_block_run(
             kind, tree_map(host, p), None if shared is None else
             tree_map(host, shared), host(x), host(dout), cfg, n_pre)
         cpu_s = time.perf_counter() - t0
-        pairs = [("out", card[0], cpu[0]), ("prefill", card[2], cpu[2]),
-                 ("decode", card[3], cpu[3]),
-                 ("decode vs forward", card[3], card[0][:, n_pre:n_pre + 1])]
-        pairs += [(f"d{n}", card[1][n], cpu[1][n]) for n in cpu[1]]
-        errs = {}
-        for name, a, b in pairs:
-            a, b = a.detach().cpu().float(), b.detach().cpu().float()
-            require(bool(torch.isfinite(a).all()), f"{arch} block: {name} "
-                    "not finite")
-            errs[name] = float((a - b).abs().max()) / max(
-                float(b.abs().max()), 1e-30)
-            require(errs[name] <= SSM_BLOCK_TOL, f"{arch} block: {name} off "
-                    f"by {errs[name]} of its largest magnitude > "
-                    f"{SSM_BLOCK_TOL}")
+        errs = _held_card_vs_cpu(f"{arch} block", card, again, cpu, n_pre)
+        del again
         worst = max(errs.items(), key=lambda kv: kv[1])
         print(f"{arch} block ({kind}, {S} tokens, fp32): forward, backward, "
               f"prefill of {n_pre} and one decode step; card twice "
@@ -4141,19 +4226,21 @@ def train_ssm(dev, arch, records):
 
 
 def train_cell(dev, arch, n_layers, cooldown, accum, expect, n_attn,
-               families, records, group, wgmma=False):
+               families, records, group, wgmma=False, rows=1, grid=None):
     """`arch` at full width, cut to `n_layers`, through the launcher's
     ``run`` graphed and then eagerly, bit for bit the same: the config
     (DMD, optimizer, grad_accum, remat, d_model, depth) held to `expect`,
     then the DMD warm-up cut to 0, the cool-down to `cooldown` (one
     window of records, the jump at its last step) and the step to
-    `accum` microbatches of 1 x LM_SEQ tokens; K7 twice and K7b once per
-    attention layer (`n_attn`) and microbatch, all through their Hopper
-    designs where `wgmma`; K1 and K2 on the run's own rings
+    `accum` microbatches of `rows` x LM_SEQ tokens (with the stream's
+    frames, and its M-RoPE positions or, with `grid`, those of an image
+    block of grid patches: ``_lm_fit``); K7 twice (once without remat) and K7b
+    once per attention (`n_attn`) and microbatch, all through their
+    Hopper designs where `wgmma`; K1 and K2 on the run's own rings
     (check_ring_buckets); the time by step kind; a profile of 3 eager
     plain steps by `families`. Recorded under records[`group`]. Returns
     the graphed run's launches."""
-    what = f"{arch.split('-')[0]}-train"
+    what = f"{arch.rsplit('-', 1)[0]}-train"
     total = torch.cuda.get_device_properties(dev).total_memory
     m = get_config(arch).dmd.m
     steps = cooldown + m
@@ -4170,7 +4257,8 @@ def train_cell(dev, arch, n_layers, cooldown, accum, expect, n_attn,
     print(f"{what}: training state by depth (layers: params, bytes, share "
           f"of the card's {total}): "
           f"{ {n: (p, b, b / total) for n, (p, b) in reckon.items()} }")
-    require(reckon[full][1] > launch_train.CARD_FRACTION * total,
+    require(n_layers == full or
+            reckon[full][1] > launch_train.CARD_FRACTION * total,
             f"{what}: {full} layers fit: the cut is not needed")
     mc, dmd, opt = acfg.model, acfg.dmd, acfg.optimizer
     require((dmd.m, dmd.s, dmd.snapshot_dtype, dmd.param_filter, dmd.arena,
@@ -4182,11 +4270,12 @@ def train_cell(dev, arch, n_layers, cooldown, accum, expect, n_attn,
         acfg, dmd=dataclasses.replace(dmd, warmup_steps=0,
                                       cooldown_steps=cooldown),
         parallel=dataclasses.replace(acfg.parallel, grad_accum=accum),
-        train=dataclasses.replace(acfg.train, global_batch=accum))
+        train=dataclasses.replace(acfg.train, global_batch=accum * rows))
     model = launch_train.make_model(acfg, device=dev)
     need = launch_train.check_fits(acfg, reckon[n_layers][0], total)
     ga = acfg.parallel.grad_accum
-    want = {"flash_attention": 2 * n_attn * ga * steps,
+    fwd = 1 if acfg.parallel.remat == "none" else 2
+    want = {"flash_attention": fwd * n_attn * ga * steps,
             "flash_attention_bwd": n_attn * ga * steps}
     acc = launch_train.make_trainer(acfg, model).acc
     jumps = [t for t in range(steps) if acc.apply_groups(t)]
@@ -4202,7 +4291,7 @@ def train_cell(dev, arch, n_layers, cooldown, accum, expect, n_attn,
     before_fit = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     trainer, state, losses, secs = _lm_fit(
-        acfg, model, steps, lambda t, tr, st: None)
+        acfg, model, steps, lambda t, tr, st: None, grid=grid)
     g_wall = time.perf_counter() - t0
     launches = counts()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -4218,7 +4307,7 @@ def train_cell(dev, arch, n_layers, cooldown, accum, expect, n_attn,
     reset_counts()
     require(np.isfinite(losses).all(), f"{what}: non-finite loss")
     graphed = _flat_params(state)
-    tokens = accum * LM_SEQ
+    tokens = accum * rows * LM_SEQ
     print(f"{what} graphed: launches {launches}; jumps at {jumps}; graphs "
           f"{trainer.graph_stats}; buckets "
           f"{[(k, b.n_blocks, b.m, b.block_n, b.n_sys) for k, b in table.items()]}")
@@ -4245,7 +4334,7 @@ def train_cell(dev, arch, n_layers, cooldown, accum, expect, n_attn,
     t0 = time.perf_counter()
     _, state_e, losses_e, secs_e = _lm_fit(
         acfg, model, steps, lambda t, tr, st: trace_e(t),
-        cuda_graphs=False)
+        cuda_graphs=False, grid=grid)
     e_wall = time.perf_counter() - t0
     reset_counts()
     e_peak = torch.cuda.max_memory_allocated(dev)
@@ -4272,7 +4361,8 @@ def train_cell(dev, arch, n_layers, cooldown, accum, expect, n_attn,
           f"eager {float(np.median(secs_e[traced])) * 1e3} ms; eager peak "
           f"{e_peak} bytes ({e_peak / total} of the card)")
     records.setdefault(group, {})[what] = dict(
-        layers=n_layers, params=reckon[n_layers][0], state_bytes=need,
+        layers=n_layers, rows=rows, grid=grid, params=reckon[n_layers][0],
+        state_bytes=need,
         peak=peak, eager_peak=e_peak,
         replay_plain_ms=float(np.median(secs[traced])) * 1e3,
         eager_plain_ms=float(np.median(secs_e[traced])) * 1e3,
@@ -4338,8 +4428,8 @@ DENSE_PARAMS = {"minicpm-2b": 2_724_915_456, "granite-20b": 20_315_756_544,
 # 1024, rep 2), one 4096-token microbatch each, bf16 causal
 GRANITE_K7 = (1, 4096, 4096, 48, 1, 128, True, 0)
 GEMMA_K7 = (1, 4096, 4096, 32, 16, 128, True, 1024)
-GRANITE_K7B = (1, 4096, 48, 1, 128, True, 0)
-GEMMA_K7B = (1, 4096, 32, 16, 128, True, 1024)
+GRANITE_K7B = (1, 4096, 4096, 48, 1, 128, True, 0)
+GEMMA_K7B = (1, 4096, 4096, 32, 16, 128, True, 1024)
 # gemma's generation: the long prompt's tokens (past the window: every
 # ring wraps, and wraps again while decoding); fp32 decode against forward
 # at two super-blocks and the 2-layer local tail (7.2B params, 29 GB)
@@ -4359,9 +4449,10 @@ GEMMA_BLOCK_PRE = 192
 # H100 80GB HBM3 (700 W) minicpm ran at 21 layers (peak 0.888 of the card,
 # 0.989 of it reserved) and 20 (0.854), 22 and 23 ran out of memory;
 # granite ran at 3 (0.742), 4 ran out of memory in this phase's jump;
-# gemma ran at 1 (0.777), 2 ran out of memory. minicpm trains at 20, one
-# layer under the deepest, for the margin a long script's allocator
-# needs; gemma's one layer is a window layer: gemma3-train trains no
+# gemma ran at 1 (0.777), 2 ran out of memory. minicpm trained at 20, one
+# layer under the deepest, until phase 19 brought the script to 1,132 s
+# (minicpm-train 41 s of it); it trains at 10, about half the time;
+# gemma's one layer is a window layer: gemma3-train trains no
 # global layer (tests/test_torch_dense_archs.py trains one on the CPU
 # against the reference); warm-up
 # 0, the cool-down from 10 to DENSE_COOLDOWN (the least that leaves 3
@@ -4369,7 +4460,7 @@ GEMMA_BLOCK_PRE = 192
 # at its last step); DENSE_ACCUM microbatches of 1 x 4096 a step
 # (the configs' grad_accum is 8 and 16: phase 17's cut, for the script's
 # time)
-DENSE_TRAIN_LAYERS = {"minicpm-2b": 20, "granite-20b": 3, "gemma3-27b": 1}
+DENSE_TRAIN_LAYERS = {"minicpm-2b": 10, "granite-20b": 3, "gemma3-27b": 1}
 DENSE_COOLDOWN = 5
 DENSE_ACCUM = 2
 
@@ -4637,31 +4728,13 @@ def check_gemma_block(dev, cfg):
     again = _gemma_block_run(p, x, dout, cfg, n_pre)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    for i, name in ((0, "out"), (2, "prefill"), (3, "decode")):
-        require(torch.equal(card[i], again[i]), f"gemma block: repeat runs "
-                f"differ in {name}")
-    for name in card[1]:
-        require(torch.equal(card[1][name], again[1][name]),
-                f"gemma block: repeat runs differ in d{name}")
-    del again
     host = lambda t: t.detach().to("cpu")  # noqa: E731
     t0 = time.perf_counter()
     cpu = _gemma_block_run(tree_map(host, p), host(x), host(dout), cfg,
                            n_pre)
     cpu_s = time.perf_counter() - t0
-    pairs = [("out", card[0], cpu[0]), ("prefill", card[2], cpu[2]),
-             ("decode", card[3], cpu[3]),
-             ("decode vs forward", card[3], card[0][:, n_pre:n_pre + 1])]
-    pairs += [(f"d{n}", card[1][n], cpu[1][n]) for n in cpu[1]]
-    errs = {}
-    for name, a, b in pairs:
-        a, b = a.detach().cpu().float(), b.detach().cpu().float()
-        require(bool(torch.isfinite(a).all()), f"gemma block: {name} not "
-                "finite")
-        errs[name] = float((a - b).abs().max()) / max(
-            float(b.abs().max()), 1e-30)
-        require(errs[name] <= SSM_BLOCK_TOL, f"gemma block: {name} off by "
-                f"{errs[name]} of its largest magnitude > {SSM_BLOCK_TOL}")
+    errs = _held_card_vs_cpu("gemma block", card, again, cpu, n_pre)
+    del again
     worst = max(errs.items(), key=lambda kv: kv[1])
     print(f"gemma3 block (5 window layers + 1 global, window "
           f"{GEMMA_BLOCK_WINDOW}, {GEMMA_BLOCK_TOKENS} tokens, fp32): "
@@ -4724,6 +4797,379 @@ def run_dense(dev, records):
     print(f"dense: phase 18 wall {time.perf_counter() - t_phase} s; by part "
           f"{walls}")
     return {"serve": serve, "train": train}
+
+
+# -- phase 19: Qwen2-VL-7B (M-RoPE) and Whisper-base (enc-dec) ---------------
+VLM_ARCH, ENCDEC_ARCH = "qwen2-vl-7b", "whisper-base"
+# the reference's configs: layers, d, heads, kv heads, head_dim, d_ff,
+# vocab, M-RoPE sections, dtype
+VLM_WIDTHS = (28, 3584, 28, 4, 128, 18944, 152064, (16, 24, 24),
+              "bfloat16")
+# decoder layers, encoder layers, d, heads, kv heads, head_dim, d_ff,
+# vocab, frames, norm, MLP, dtype
+WHISPER_WIDTHS = (6, 6, 512, 8, 8, 64, 2048, 51865, 1500, "ln", "gelu_mlp",
+                  "bfloat16")
+# the reference's abstract init's counts (tests/test_torch_vlm_encdec.py)
+VLM_PARAMS, WHISPER_PARAMS = 7_615_487_488, 88_175_616
+# Qwen2-VL's prompts open with a stub image block of VLM_GRID patch tokens
+# (t fixed, h and w the grid), then text whose positions continue from the
+# grid's maximum + 1 (``data/tokens.py::image_positions``); decode
+# positions continue from the prompt's last
+VLM_GRID = (4, 4)
+# Whisper generates for 8 stub frame sequences (B, 1500, 512) fp32
+WHISPER_GEN_BATCH = 8
+# one Qwen2-VL block at full width in fp32, card against CPU, under an
+# image block of VLM_BLOCK_GRID patches (the three streams differ on its
+# 96 tokens); prefill of VLM_BLOCK_PRE tokens, then one decode step
+VLM_BLOCK_TOKENS, VLM_BLOCK_PRE, VLM_BLOCK_GRID = 256, 192, (8, 12)
+# training at full width: qwen2-vl's depth cut to VLM_TRAIN_LAYERS (36 B a
+# param: 28 layers' state is 274 GB; PERF.md §4), whisper at full depth
+# (6.35 GB of state) with WHISPER_TRAIN_ROWS sequences of 4096 tokens and
+# 1500 frames a microbatch (PERF.md §4: the config's 256 in one
+# microbatch cannot fit without remat); both DENSE_ACCUM microbatches a
+# step, warm-up 0, cool-down DENSE_COOLDOWN
+VLM_TRAIN_LAYERS = 2
+WHISPER_TRAIN_ROWS = 16
+# qwen2-vl-train's sequences open with a stub image block of 32 x 32
+# patches (a 896 x 896 image at 28 pixels a merged patch): the (t, h, w)
+# streams differ on its 1024 tokens, so the cell trains M-RoPE, not RoPE
+VLM_TRAIN_GRID = (32, 32)
+# K7 and K7b at the shapes no earlier phase meets, bf16: Qwen2-VL's GQA at
+# rep 7 (28 / 4 heads of 128) on a 4096-token microbatch (K7b at two);
+# Whisper's encoder (1500 x 1500, non-causal), its cross-attention (4096
+# queries over 1500 keys, non-causal) and its prefill's (64 over 1500), at
+# the generation batch
+VLM_K7 = (1, 4096, 4096, 28, 4, 128, True, 0)
+VLM_K7B = (2, 4096, 4096, 28, 4, 128, True, 0)
+WHISPER_ENC = (8, 1500, 1500, 8, 8, 64, False, 0)
+WHISPER_CROSS = (8, 4096, 1500, 8, 8, 64, False, 0)
+WHISPER_PREFILL = (8, 64, 1500, 8, 8, 64, False, 0)
+
+
+def _vlm_widths(cfg):
+    return (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+            tuple(cfg.mrope_sections), cfg.dtype)
+
+
+def _whisper_widths(cfg):
+    return (cfg.n_layers, cfg.n_encoder_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.encoder_seq_len, cfg.norm, cfg.act, cfg.dtype)
+
+
+def _drawn(what, arch, dev, widths, want_widths, want_params):
+    """The serve launcher's model and seeded random params (the engine
+    refuses both families: they generate through ``prefill`` /
+    ``decode_step``), widths and count held."""
+    t0 = time.perf_counter()
+    model, params = launch_serve.model_and_params(arch, device=dev)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    require(widths(cfg) == want_widths, f"{what}: config {widths(cfg)}, "
+            f"expected {want_widths}")
+    n_p = model.param_count(params)
+    require(n_p == want_params, f"{what}: {n_p} params")
+    wbytes = sum(t.numel() * t.element_size()
+                 for _, t in leaves_with_paths(params))
+    print(f"{what}: {arch} at {cfg.n_layers} layers, {n_p} params, {wbytes} "
+          f"bytes of weights drawn on the card in "
+          f"{time.perf_counter() - t0} s")
+    return model, params, wbytes
+
+
+def _generated(what, model, params, prompts, extra, step_extra, n_k7,
+               out):
+    """Phase 19's generation checks: two greedy generations bit for bit,
+    K7 `n_k7` times a prefill (all through its Hopper design) and never in
+    a decode step, finite logits; prints and records (into `out`) prefill
+    ms, decode ms, tokens/s and the peak. Returns (tokens, logits)."""
+    dev = prompts.device
+    total = torch.cuda.get_device_properties(dev).total_memory
+    B = prompts.shape[0]
+    V = model.cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    toks, logits, pre_ms, dec = _generate(model, params, prompts, SSM_NEW,
+                                          extra, step_extra)
+    require_counts(f"{what} batch {B}", {"flash_attention": n_k7})
+    require_wgmma(f"{what} batch {B}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    toks2, logits2, _, dec2 = _generate(model, params, prompts, SSM_NEW,
+                                        extra, step_extra)
+    reset_counts()
+    require(torch.equal(toks, toks2) and torch.equal(logits, logits2),
+            f"{what}: repeat generations differ")
+    require(bool(torch.isfinite(logits[..., :V]).all()),
+            f"{what}: non-finite logits")
+    d_ms = float(np.median(dec + dec2))
+    tok_s = B * SSM_NEW / ((pre_ms + sum(dec)) / 1e3)
+    print(f"{what} batch {B} x {prompts.shape[1]} tokens, {SSM_NEW} new: "
+          f"prefill {pre_ms} ms, decode step median {d_ms} ms (steps {dec}),"
+          f" {tok_s} tokens/s; peak allocated {peak} bytes ({peak / total} "
+          f"of the card); repeat bit-identical; K7 {n_k7} a prefill, 0 in "
+          "decode")
+    out.update(prefill_ms=pre_ms, decode_ms=d_ms, tokens_per_s=tok_s,
+               peak=peak)
+    return toks, logits
+
+
+def _fp32_drift(what, cfg, dev, prompts, extra, step_extra, full_extra):
+    """The decode path against ``forward``'s in fp32 at `cfg`'s depth
+    (seeded random weights drawn on the card), held to SERVE_LOGIT_TOL."""
+    model = tfm.LanguageModel(dataclasses.replace(cfg, dtype="float32"),
+                              device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    toks, logits, _, _ = _generate(model, params, prompts, SSM_NEW, extra,
+                                   step_extra)
+    err, scale = _decode_vs_forward(model, params, prompts, toks, logits,
+                                    full_extra)
+    reset_counts()
+    print(f"{what} float32 at {cfg.n_layers} layers batch "
+          f"{prompts.shape[0]}: decode vs forward worst |diff| / max(1, "
+          f"max|logits|) {err / scale} over {SSM_NEW} positions (limit "
+          f"{SERVE_LOGIT_TOL})")
+    require(err / scale <= SERVE_LOGIT_TOL, f"{what} float32: decode "
+            f"logits off forward's by {err / scale}")
+    del model, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err / scale
+
+
+def generate_vlm(dev, records):
+    """Phase 19 (a): Qwen2-VL-7B at full width and depth generating
+    through ``prefill`` / ``decode_step`` under M-RoPE: 8 prompts of an
+    image block and text, 16 new tokens, twice bit for bit (K7 28 a
+    prefill, none in decode); the bf16 decode logits against
+    ``forward``'s at the same streams printed; a 4096-token forward; the
+    fp32 decode path held to ``forward``'s at full depth; one block card
+    against CPU."""
+    what = "qwen2-vl-generate"
+    model, params, wbytes = _drawn(what, VLM_ARCH, dev, _vlm_widths,
+                                   VLM_WIDTHS, VLM_PARAMS)
+    cfg = model.cfg
+    B, S = 8, SSM_PROMPT
+    g = torch.Generator(device=dev).manual_seed(B)
+    prompts = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+                            device=dev)
+    pos = image_positions(B, S, VLM_GRID, device=dev)
+    nxt = int(pos.max()) + 1
+
+    def step(i):
+        return {"positions": torch.full((B, 3, 1), nxt + i,
+                                        dtype=torch.int32, device=dev)}
+    extra = {"positions": pos}
+    full_extra = {"positions": torch.cat(
+        [pos, (nxt + torch.arange(SSM_NEW - 1, dtype=torch.int32,
+                                  device=dev)).expand(B, 3, SSM_NEW - 1)],
+        2)}
+    out = dict(weight_bytes=wbytes)
+    toks, logits = _generated(what, model, params, prompts, extra, step,
+                              cfg.n_layers, out)
+    err, scale = _decode_vs_forward(model, params, prompts, toks, logits,
+                                    full_extra)
+    out["bf16_drift"] = err / scale
+    n_img = VLM_GRID[0] * VLM_GRID[1]
+    print(f"{what}: image block {VLM_GRID}, text positions "
+          f"{int(pos[0, 0, n_img])} ... {nxt - 1}, decode from {nxt}; bf16 "
+          f"decode vs forward |diff| / max(1, max|logits|) {err / scale} "
+          "(printed; held in fp32 below)")
+    del logits
+    out["forward_4096_ms"] = forward_4096(f"{what} forward 4096", model,
+                                          params, dev)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["float32_drift"] = _fp32_drift(what, cfg, dev, prompts, extra, step,
+                                       full_extra)
+    out["block"] = check_vlm_block(dev, cfg)
+    records.setdefault("vlm_encdec", {})[what] = out
+
+
+def _vlm_block_run(p, x, dout, cfg, pos, n_pre):
+    """One Qwen2-VL block forward and backward under the streams `pos`,
+    then a prefill of the first `n_pre` tokens into a fresh cache and the
+    next token's decode step: (out, {name: gradient}, prefill out, decode
+    out)."""
+    req = {path: t.detach().clone().requires_grad_(True)
+           for path, t in leaves_with_paths(p)}
+    live = map_with_paths(lambda path, _: req[path], p)
+    xr = x.detach().clone().requires_grad_(True)
+    B, S, _ = x.shape
+    with torch.enable_grad():
+        out, _, _ = tfm._apply_block("dense", xr, live, cfg, positions=pos,
+                                     cache=None, chunk_k=1024)
+        (out.float() * dout).sum().backward()
+    grads = {"x": xr.grad, **{path: t.grad for path, t in req.items()}}
+    cache = init_kv_cache(B, S, cfg.n_kv_heads, cfg.head_dim, x.dtype,
+                          x.device)
+    with torch.no_grad():
+        pre, _, _ = tfm._apply_block("dense", x[:, :n_pre], p, cfg,
+                                     positions=pos[..., :n_pre], cache=cache,
+                                     chunk_k=1024)
+        dec, _, _ = tfm._apply_block(
+            "dense", x[:, n_pre:n_pre + 1], p, cfg,
+            positions=pos[..., n_pre:n_pre + 1],
+            cache=KVCache(cache.k, cache.v, n_pre), chunk_k=1024)
+    return out.detach(), grads, pre, dec
+
+
+def check_vlm_block(dev, cfg):
+    """Phase 19 (a), last: one Qwen2-VL dense block at full width in fp32
+    (28 / 4 heads of 128, M-RoPE) on VLM_BLOCK_TOKENS tokens under an image
+    block's streams, which differ: forward, backward, prefill and one
+    decode step, on the card twice (bit for bit) and on the CPU from the
+    same params and inputs, within SSM_BLOCK_TOL. Returns the worst
+    distance."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(18)
+    p = tfm._block_init(g, cfg, "dense", (), dev)
+    for k in ("ln1", "ln2"):
+        p[k]["scale"] = 0.1 * torch.randn(p[k]["scale"].shape, generator=g,
+                                          device=dev)
+    x = torch.randn((1, VLM_BLOCK_TOKENS, cfg.d_model), generator=g,
+                    device=dev)
+    dout = torch.randn(x.shape, generator=g, device=dev)
+    pos = image_positions(1, VLM_BLOCK_TOKENS, VLM_BLOCK_GRID, start=2,
+                          device=dev)
+    n_pre = VLM_BLOCK_PRE
+    t0 = time.perf_counter()
+    card = _vlm_block_run(p, x, dout, cfg, pos, n_pre)
+    again = _vlm_block_run(p, x, dout, cfg, pos, n_pre)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host = lambda t: t.detach().to("cpu")  # noqa: E731
+    t0 = time.perf_counter()
+    cpu = _vlm_block_run(tree_map(host, p), host(x), host(dout), cfg,
+                         host(pos), n_pre)
+    cpu_s = time.perf_counter() - t0
+    errs = _held_card_vs_cpu("qwen2-vl block", card, again, cpu, n_pre)
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    print(f"qwen2-vl block (28 / 4 heads of 128, M-RoPE {cfg.mrope_sections}"
+          f", image block {VLM_BLOCK_GRID}, {VLM_BLOCK_TOKENS} tokens, fp32):"
+          f" forward, backward, prefill of {n_pre} and one decode step; card "
+          f"twice bit-identical; against the CPU worst {worst[0]} {worst[1]}"
+          f" of the largest magnitude (limit {SSM_BLOCK_TOL}; out "
+          f"{errs['out']}, prefill {errs['prefill']}, decode "
+          f"{errs['decode']}, decode vs forward {errs['decode vs forward']}"
+          f", dx {errs['dx']}); card {card_s} s for two runs, CPU {cpu_s} s")
+    del card, again, cpu
+    torch.cuda.empty_cache()
+    return worst[1]
+
+
+def generate_whisper(dev, records):
+    """Phase 19 (b): Whisper-base at full width and depth (6 + 6 layers)
+    generating through ``prefill`` / ``decode_step`` for WHISPER_GEN_BATCH
+    stub frame sequences: 64-token prompts, 16 new tokens, twice bit for
+    bit (K7 18 a prefill: 6 encoder, 6 causal self, 6 cross of 64 queries
+    over 1500 keys; none in decode); the cross caches' two tensors; a
+    4096-token forward; the fp32 decode path held to ``forward``'s."""
+    what = "whisper-generate"
+    model, params, wbytes = _drawn(what, ENCDEC_ARCH, dev, _whisper_widths,
+                                   WHISPER_WIDTHS, WHISPER_PARAMS)
+    cfg = model.cfg
+    n_k7 = cfg.n_encoder_layers + 2 * cfg.n_layers
+    B, S = WHISPER_GEN_BATCH, SSM_PROMPT
+    g = torch.Generator(device=dev).manual_seed(B)
+    frames = torch.randn((B, cfg.encoder_seq_len, cfg.d_model), generator=g,
+                         device=dev)
+    prompts = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+                            device=dev)
+    extra = {"frames": frames}
+    out = dict(weight_bytes=wbytes)
+    toks, logits = _generated(what, model, params, prompts, extra, None,
+                              n_k7, out)
+    err, scale = _decode_vs_forward(model, params, prompts, toks, logits,
+                                    extra)
+    out["bf16_drift"] = err / scale
+    print(f"{what}: bf16 decode vs forward |diff| / max(1, max|logits|) "
+          f"{err / scale} (printed; held in fp32 below)")
+    del logits
+    caches = model.init_cache(B, S)
+    with torch.no_grad():
+        model.prefill(params, {"tokens": prompts, **extra}, caches)
+    ck, cv = caches["seg1"]["cross_k"], caches["seg1"]["cross_v"]
+    require(ck.untyped_storage().data_ptr() != cv.untyped_storage()
+            .data_ptr() and not torch.equal(ck, cv) and
+            bool(ck.abs().amax() > 0), f"{what}: the cross caches share "
+            "storage or were not written")
+    print(f"{what}: cross_k and cross_v {tuple(ck.shape)} keep their own "
+          "storage, each written by the prefill")
+    del caches, ck, cv
+    reset_counts()
+    out["forward_4096_ms"] = forward_4096(
+        f"{what} forward 4096", model, params, dev,
+        extra={"frames": frames[:1]}, n_k7=n_k7)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["float32_drift"] = _fp32_drift(what, cfg, dev, prompts, extra, None,
+                                       extra)
+    records.setdefault("vlm_encdec", {})[what] = out
+
+
+def train_vlm_encdec(dev, arch, records):
+    """Phase 19 (c) and (d) through ``train_cell``: Qwen2-VL at full width
+    cut to VLM_TRAIN_LAYERS, under a VLM_TRAIN_GRID image block's M-RoPE
+    streams (K7 twice
+    under remat, K7b once per layer and microbatch); Whisper at full
+    width and depth on the stream's frames, WHISPER_TRAIN_ROWS sequences a
+    microbatch (no remat: K7 and K7b once per attention, 18). Returns the
+    graphed run's launches."""
+    mc = get_config(arch).model
+    grid = None
+    if arch == VLM_ARCH:
+        n_layers, rows, n_attn = VLM_TRAIN_LAYERS, 1, VLM_TRAIN_LAYERS
+        grid = VLM_TRAIN_GRID
+        expect = (10, 40, "bfloat16", "all", True, True, "matpow", "leaf",
+                  10, "adamw", 2e-4, 0.95, 0.1, 1.0, "cosine", 8, "block",
+                  mc.d_model, n_layers)
+    else:
+        n_layers, rows = mc.n_layers, WHISPER_TRAIN_ROWS
+        n_attn = mc.n_encoder_layers + 2 * mc.n_layers
+        expect = (14, 55, "float32", "all", True, True, "matpow", "leaf",
+                  10, "adamw", 1e-3, 0.999, 0.0, 1.0, "cosine", 1, "none",
+                  mc.d_model, n_layers)
+    return train_cell(dev, arch, n_layers, DENSE_COOLDOWN, DENSE_ACCUM,
+                      expect, n_attn, LM_FAMILIES, records, "vlm_encdec",
+                      wgmma=True, rows=rows, grid=grid)
+
+
+def run_vlm_encdec(dev, records):
+    """Phase 19. Returns the launches of its counted runs."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, k7 in (("qwen2_vl_rep7", VLM_K7), ("whisper_enc", WHISPER_ENC),
+                    ("whisper_cross", WHISPER_CROSS),
+                    ("whisper_prefill", WHISPER_PREFILL)):
+        records["flash_attention"][tag] = time_flash(k7, dev)
+    for tag, k7b in (("qwen2_vl_rep7", VLM_K7B),
+                     ("whisper_enc", WHISPER_ENC),
+                     ("whisper_cross", WHISPER_CROSS)):
+        w0 = kf.LAUNCHES["flash_attention_bwd_wgmma"]
+        records["flash_attention_bwd"][tag] = time_flash_bwd(k7b, dev)
+        require(kf.LAUNCHES["flash_attention_bwd_wgmma"] > w0,
+                f"K7b {k7b}: not through the Hopper design")
+        torch.cuda.empty_cache()
+    reset_counts()
+    walls = {"K7/K7b": time.perf_counter() - t_phase}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+    timed("qwen2-vl generate", generate_vlm, dev, records)
+    timed("whisper generate", generate_whisper, dev, records)
+    train = {arch: timed(f"{arch} train", train_vlm_encdec, dev, arch,
+                         records)
+             for arch in (VLM_ARCH, ENCDEC_ARCH)}
+    print(f"vlm-encdec: phase 19 wall {time.perf_counter() - t_phase} s; by "
+          f"part {walls}")
+    return {"train": train}
 
 
 def main():
@@ -4799,6 +5245,12 @@ def main():
         arch: run["flash_attention"]
         for arch, run in dense_launches["serve"].items()}
     print(f"dense summary {json.dumps(records.pop('dense'))}")
+    vlm_launches = run_vlm_encdec(dev, records)
+    for name in ("flash_attention", "flash_attention_bwd", "gram_row",
+                 "combine"):
+        records[name]["vlm_encdec_launches"] = {
+            arch: run[name] for arch, run in vlm_launches["train"].items()}
+    print(f"vlm-encdec summary {json.dumps(records.pop('vlm_encdec'))}")
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",

@@ -1,6 +1,6 @@
-"""Config registry: ``get_config("<arch-id>")`` for the architectures the
-port builds so far; ``list_archs`` and ``shape_by_name`` as the reference
-has them."""
+"""Config registry: ``get_config("<arch-id>")`` for every architecture of
+the reference; ``list_archs`` and ``shape_by_name`` as the reference has
+them."""
 from __future__ import annotations
 
 import importlib
@@ -17,20 +17,14 @@ _ARCH_MODULES: Dict[str, str] = {
     "granite-20b": "repro_torch.configs.granite_20b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "whisper-base": "repro_torch.configs.whisper_base",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
     "pollutant-mlp": "repro_torch.configs.pollutant_mlp",
 }
-# the reference's other architectures, and the part of the port that
-# brings each (ROADMAP Queue 1)
-_LATER: Dict[str, str] = {
-    "whisper-base": "the enc-dec slice",
-    "qwen2-vl-7b": "the M-RoPE slice",
-}
-
-
 # every architecture of the reference's registry, in its order
 ARCHS = ("minicpm-2b", "granite-20b", "gemma3-27b", "tinyllama-1.1b",
          "whisper-base", "qwen2-vl-7b", "zamba2-2.7b", "mamba2-2.7b",
@@ -38,8 +32,7 @@ ARCHS = ("minicpm-2b", "granite-20b", "gemma3-27b", "tinyllama-1.1b",
 
 
 def list_archs() -> List[str]:
-    """The reference's architecture ids (``get_config`` builds the ported
-    ones and names the slice that brings each other one)."""
+    """The reference's architecture ids, in its order."""
     return list(ARCHS)
 
 
@@ -51,11 +44,8 @@ def shape_by_name(name: str) -> ShapeConfig:
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in _LATER:
-        raise KeyError(f"arch {name!r} is not ported yet: it comes with "
-                       f"{_LATER[name]}; ported: {sorted(_ARCH_MODULES)}")
     if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; ported: "
+        raise KeyError(f"unknown arch {name!r}; known: "
                        f"{sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[name]).get_config()
 

@@ -40,11 +40,10 @@ class SSMConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture's shapes, field for field the reference's. The
-    port builds the dense (gemma's local/global windows included), MoE,
-    SSM and hybrid families; the enc-dec and VLM fields (M-RoPE, learned
-    positions, the encoder) are carried so a config reads the same in both
-    packages."""
+    """One architecture's shapes, field for field the reference's: the
+    dense (gemma's local/global windows included), MoE, SSM, hybrid,
+    enc-dec (the encoder, learned positions, LayerNorm) and VLM (M-RoPE)
+    families."""
     name: str = "model"
     family: str = "dense"           # dense|moe|ssm|hybrid|encdec|vlm
     n_layers: int = 2

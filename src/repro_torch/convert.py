@@ -17,7 +17,8 @@ def params_from_jax(tree: Any, device="cuda") -> Any:
     zamba segment's (groups, 6, ...) Mamba stacks, its ``shared_block``,
     the SSM's fp32 scalars beside bf16 matrices, a gemma segment's
     (groups, 5, ...) local stacks beside its (groups, ...) global layer,
-    Granite's gate-less MLP). This package never
+    Granite's gate-less MLP, Whisper's LayerNorm ``b``, ``pos_emb``,
+    ``enc_pos_emb`` and enc / dec stacks). This package never
     imports JAX: the caller converts to numpy first."""
     device = resolve_device(device)
     if isinstance(tree, dict):

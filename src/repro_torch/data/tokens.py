@@ -10,7 +10,7 @@ values.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +45,38 @@ def batch_for_step(seed: int, step: int, global_batch: int, seq_len: int,
             seq_len, dtype=torch.int32, device=dev)[None, None, :].expand(
                 global_batch, 3, seq_len)
     return batch
+
+
+def stream_kwargs(mc) -> Dict[str, object]:
+    """The batch stream's model keywords for a model config, as the
+    reference's launcher and Trainer pass them: ``mrope`` (M-RoPE models
+    take (B, 3, S) positions) and ``frames`` (the enc-dec family's
+    (encoder_seq_len, d_model) stub frames)."""
+    return {"mrope": bool(mc.mrope_sections),
+            "frames": ((mc.encoder_seq_len, mc.d_model)
+                       if mc.family == "encdec" else None)}
+
+
+def image_positions(batch: int, seq_len: int, grid: Tuple[int, int],
+                    start: int = 0, device="cuda") -> torch.Tensor:
+    """(batch, 3, seq_len) int32 M-RoPE streams of a prompt that opens with
+    an image block of grid[0] x grid[1] patch tokens from the stub
+    frontend (t fixed at `start`, h and w the patch's row and column, each
+    offset by `start`), then text whose three streams continue together
+    from the grid's maximum + 1 (Qwen2-VL's rule)."""
+    gh, gw = grid
+    n = gh * gw
+    if n > seq_len:
+        raise ValueError(f"an image block of {n} tokens in {seq_len}")
+    dev = resolve_device(device)
+    patch = torch.arange(n, device=dev)
+    pos = torch.empty((batch, 3, seq_len), dtype=torch.int32, device=dev)
+    pos[:, 0, :n] = start
+    pos[:, 1, :n] = start + patch // gw
+    pos[:, 2, :n] = start + patch % gw
+    pos[:, :, n:] = start + max(gh, gw) + torch.arange(seq_len - n,
+                                                       device=dev)
+    return pos
 
 
 # Reserved stream offset for the validation split. The training stream

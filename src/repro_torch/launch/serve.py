@@ -58,16 +58,26 @@ def build(arch: str, *, use_reduced: bool = False, slots: int = 8,
     """The model, its seeded random params and an engine serving those
     very tensors (the weights exist once on the device).
     `n_layers` > 0 cuts the depth."""
+    model, params = model_and_params(arch, use_reduced=use_reduced,
+                                     device=device, n_layers=n_layers)
+    return model, params, make_engine(model, params, slots=slots,
+                                      new_tokens=new_tokens,
+                                      sampling=sampling)
+
+
+def model_and_params(arch: str, *, use_reduced: bool = False, device="cuda",
+                     n_layers: int = 0) -> Tuple[LanguageModel, dict]:
+    """``build``'s model and seeded random params, without the engine: how
+    the models the engine refuses (ring caches, SSM states, M-RoPE
+    streams, the enc-dec family) generate through ``prefill`` /
+    ``decode_step``."""
     device = resolve_device(device)
     acfg = get_config(arch)
     mc = reduce_cfg(acfg.model) if use_reduced else acfg.model
     if n_layers:
         mc = dataclasses.replace(mc, n_layers=n_layers)
     model = LanguageModel(mc, chunk_k=64, device=device)
-    params = model.init(torch.Generator(device=device).manual_seed(0))
-    return model, params, make_engine(model, params, slots=slots,
-                                      new_tokens=new_tokens,
-                                      sampling=sampling)
+    return model, model.init(torch.Generator(device=device).manual_seed(0))
 
 
 def make_engine(model: LanguageModel, params: dict, *, slots: int = 8,

@@ -1,5 +1,5 @@
-"""Training launcher for the LMs (the dense, MoE, SSM and hybrid
-families), the reference's ``launch/train.py``.
+"""Training launcher for the LMs (the dense, VLM, MoE, SSM, hybrid and
+enc-dec families), the reference's ``launch/train.py``.
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b [--steps 200]
         [--ckpt DIR] [--reduced] [--no-dmd] [--global-batch N] [--seq N]
@@ -19,8 +19,14 @@ full widths: ``minicpm-2b`` (44 B a param: its bf16 ring of 14; its full
 40 layers need 120 GB), ``granite-20b`` and ``gemma3-27b`` (32 B a param,
 rings of 8; gemma's tied 262144 x 5376 embedding alone is 45 GB of
 state). ``check_fits`` admits 23, 4 and 2 layers; on an 80 GB H100 21, 3
-and 1 train (``--layers 20``, ``3``, ``1`` in ``chip_smoke.py``; gemma's
-first layers are window layers, of 1024 tokens).
+and 1 train (``chip_smoke.py`` trains 10, 3 and 1; gemma's
+first layers are window layers, of 1024 tokens). ``qwen2-vl-7b`` (36 B a
+param: its bf16 ring of 10; the full depth's state is 274 GB) trains on
+the stream's M-RoPE positions, three equal arange streams as the
+reference's stream gives them (RoPE in effect; ``chip_smoke.py`` trains it
+under an image block's streams, which differ); ``whisper-base`` (72 B a
+param: an fp32 ring of 14; 6.35 GB at full depth) on the stream's stub
+frames.
 
 The reference's flags and rules: ``--reduced`` trains the same-family
 shrunk config (``configs.reduced``) at batch 8 x 64 without remat; without
@@ -29,7 +35,9 @@ and its remat. The DMD warm-up is ``min(dmd.warmup_steps, steps // 4)``;
 ``--ckpt DIR`` checkpoints every 50 steps and resumes from the newest
 checkpoint there, bit-exactly; SIGTERM saves after the current step and
 exits. The data is ``data/tokens.py``'s synthetic stream, a function of
-the step, so a resumed run sees the same batches.
+the step, so a resumed run sees the same batches; with the model's
+``mrope`` and ``frames`` keywords (``stream_kwargs``), as the reference's
+launcher passes them.
 
 The reference places the full config on its production mesh. The port
 runs on one card: without ``--reduced`` it first reckons the state's
@@ -53,7 +61,7 @@ import torch
 from repro_torch.checkpoint import latest_step
 from repro_torch.configs import get_config, reduced as reduce_model
 from repro_torch.configs import shape_by_name
-from repro_torch.data.tokens import synthetic_lm_batches
+from repro_torch.data.tokens import stream_kwargs, synthetic_lm_batches
 from repro_torch.kernels.device import resolve_device
 from repro_torch.models.transformer import LanguageModel, init_params
 from repro_torch.train import Trainer
@@ -168,7 +176,8 @@ def run(acfg, model: LanguageModel, *, steps: int, ckpt: str = "",
     tc = acfg.train
     batches = synthetic_lm_batches(tc.seed, tc.global_batch, tc.seq_len,
                                    acfg.model.vocab_size, start_step=start,
-                                   device=model.device)
+                                   device=model.device,
+                                   **stream_kwargs(acfg.model))
     return trainer, trainer.fit(batches, steps, state=state,
                                 log_every=log_every, on_metrics=on_metrics)
 

@@ -1,4 +1,5 @@
-"""Attention of the dense LM: GQA with RoPE and a KV cache.
+"""Attention of the LMs: GQA with RoPE or M-RoPE and a KV cache, and
+Whisper's cross-attention.
 
 Two cores, chosen by what the call attends:
 
@@ -24,6 +25,13 @@ empty). Its prefill attends the prompt in context through K7 with the
 window mask, then fills the ring from the prompt's last W tokens; its
 decode writes slot ``length % W`` and attends the ring masked by the
 slots' positions (``blockwise_attention``'s ``k_positions``).
+
+Cross-attention (``kv_override``: Whisper's decoder over the encoder's
+per-layer k, v) takes the given (k, v) as they are: no rope on k, no
+cache write, non-causal. Like a ring's, the call's length picks the core:
+several queries (``forward``, the prefill) go to K7 (Sq != Sk), one query
+(a decode step) to ``blockwise_attention`` over the cached keys, as
+self-attention's decode does.
 
 Caches are updated in place (the reference donates them; here the write
 lands in the caller's tensors and the returned cache shares them).
@@ -193,21 +201,37 @@ def _ring_decode(cache: RingKVCache, k: torch.Tensor, v: torch.Tensor
 def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
            causal: bool = True, window: int = 0,
            cache: Optional[Union[KVCache, RingKVCache]] = None,
-           chunk_k: int = 1024
+           chunk_k: int = 1024, use_rope: bool = True,
+           kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
            ) -> Tuple[torch.Tensor, Optional[Union[KVCache, RingKVCache]]]:
-    """Projections, RoPE, the attention core and the output projection.
+    """Projections, RoPE (unless ``use_rope`` is off), the attention core
+    and the output projection.
 
     With a KVCache, the new k/v land at ``cache.length`` (per row when it
     is a tensor, then one token per row; a write past the end lands on the
     last slot, as the reference's clamped update does). With a
     RingKVCache, S > 1 is a prefill into the fresh ring (attention over
-    the prompt in context) and S == 1 a decode step against the ring."""
+    the prompt in context) and S == 1 a decode step against the ring.
+    With ``kv_override`` = (k, v), (B, Sk, K, hd) each, the call is
+    cross-attention over them (``cache`` is ignored): S > 1 through K7,
+    S == 1 (a decode step) through the plain core."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = layers.apply_rope((x @ p["wq"]).reshape(B, S, H, hd), positions,
-                          cfg.rope_theta, cfg.mrope_sections)
-    k = layers.apply_rope((x @ p["wk"]).reshape(B, S, K, hd), positions,
-                          cfg.rope_theta, cfg.mrope_sections)
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    if use_rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta,
+                              cfg.mrope_sections)
+    if kv_override is not None:
+        k, v = kv_override
+        if S == 1:
+            out = blockwise_attention(q, k, v, causal=False, chunk_k=chunk_k)
+        else:
+            out = ops.flash_attention(q, k, v, causal=False)
+        return out.reshape(B, S, H * hd) @ p["wo"], None
+    k = (x @ p["wk"]).reshape(B, S, K, hd)
+    if use_rope:
+        k = layers.apply_rope(k, positions, cfg.rope_theta,
+                              cfg.mrope_sections)
     v = (x @ p["wv"]).reshape(B, S, K, hd)
 
     new_cache = None

@@ -1,10 +1,12 @@
-"""Layer primitives of the dense LM: init, RMS norm, rotary embeddings,
-the MLPs (SwiGLU, GeGLU and the plain GELU MLP) and logit soft-capping.
+"""Layer primitives of the LMs: init, the norms (RMS; LayerNorm for the
+enc-dec family), rotary embeddings (RoPE; Qwen2-VL's M-RoPE), the MLPs
+(SwiGLU, GeGLU and the plain GELU MLP) and logit soft-capping.
 
 Plain functions over explicit param dicts, computing what the reference's
-``repro.models.layers`` computes (not Hugging Face's Llama): the norm
-scales by ``1 + scale`` in fp32, rotary embeddings rotate split halves at
-fp32 angles. Initialisers draw from a ``torch.Generator``.
+``repro.models.layers`` computes (not Hugging Face's Llama): the RMS norm
+scales by ``1 + scale`` in fp32, LayerNorm by ``scale`` and adds ``b`` in
+fp32, rotary embeddings rotate split halves at fp32 angles.
+Initialisers draw from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -45,12 +47,21 @@ def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
     return out
 
 
+NORMS = ("rms", "ln")
+
+
 def norm_init(cfg, device, stack: Tuple[int, ...] = ()) -> dict:
-    if cfg.norm != "rms":
+    """RMS: ``scale`` zeros (the norm scales by 1 + scale); LayerNorm:
+    ``scale`` ones and ``b`` zeros. All fp32."""
+    if cfg.norm not in NORMS:
         raise NotImplementedError(f"norm {cfg.norm!r}: the port builds the "
-                                  "rms norm only")
-    return {"scale": torch.zeros(stack + (cfg.d_model,), dtype=torch.float32,
-                                 device=device)}
+                                  f"norms {NORMS}")
+    shape = stack + (cfg.d_model,)
+    if cfg.norm == "rms":
+        return {"scale": torch.zeros(shape, dtype=torch.float32,
+                                     device=device)}
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=device),
+            "b": torch.zeros(shape, dtype=torch.float32, device=device)}
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -61,11 +72,22 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
 def apply_norm(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r}: the port builds the "
-                                  "rms norm only")
-    return rms_norm(x, p["scale"])
+    if cfg.norm == "rms":
+        return rms_norm(x, p["scale"])
+    if cfg.norm == "ln":
+        return layer_norm(x, p["scale"], p["b"])
+    raise NotImplementedError(f"norm {cfg.norm!r}: the port builds the "
+                              f"norms {NORMS}")
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -75,12 +97,31 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
-    """x (B, S, H, hd), positions (B, S): rotate the two halves of each
-    head by fp32 angles position * freq."""
+    """x (B, S, H, hd), positions (B, S), or (B, 3, S) streams: rotate the
+    two halves of each head by fp32 angles position * freq.
+
+    M-RoPE (Qwen2-VL, ``mrope_sections``): the hd/2 frequency slots are
+    split into (t, h, w) sections, each rotated by its own position
+    stream; where the three streams are equal it is RoPE. Without
+    sections a (B, 3, S) input rotates by stream 0."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
     if mrope_sections:
-        raise NotImplementedError("M-RoPE is not ported yet")
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = (positions.float()[..., None] * freqs)[:, :, None, :]
+        if positions.dim() != 3 or positions.shape[1] != 3:
+            raise ValueError(f"M-RoPE needs (B, 3, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        if sum(mrope_sections) != hd // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} must cover "
+                             f"hd/2 = {hd // 2}")
+        stream = torch.cat([torch.full((n,), i, dtype=torch.long,
+                                       device=x.device)
+                            for i, n in enumerate(mrope_sections)])
+        pos = positions.float()[:, stream, :]            # (B, hd/2, S)
+        angles = (pos.transpose(1, 2) * freqs)[:, :, None, :]
+    else:
+        if positions.dim() == 3:
+            positions = positions[:, 0]
+        angles = (positions.float()[..., None] * freqs)[:, :, None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -1,17 +1,21 @@
-"""The decoder-only LM: the dense family (TinyLlama, MiniCPM, Granite's
-plain GELU MLP and one KV head, Gemma3's local/global plan), the MoE
-family (Qwen3-30B-A3B: every layer MoE; Llama4-Maverick: a dense layer
-then an MoE layer, 1:1), the SSM family (Mamba2: Mamba-2 blocks) and the
-hybrid family (Zamba2: groups of Mamba-2 blocks, each group followed by
-ONE shared attention + MLP block).
+"""The LMs: the dense family (TinyLlama, MiniCPM, Granite's plain GELU
+MLP and one KV head, Gemma3's local/global plan), the VLM family
+(Qwen2-VL: dense blocks under M-RoPE), the MoE family (Qwen3-30B-A3B:
+every layer MoE; Llama4-Maverick: a dense layer then an MoE layer, 1:1),
+the SSM family (Mamba2: Mamba-2 blocks), the hybrid family (Zamba2:
+groups of Mamba-2 blocks, each group followed by ONE shared attention +
+MLP block) and the enc-dec family (Whisper: a bidirectional encoder over
+the stub frontend's frames, then decoder blocks with cross-attention).
 
 The param tree is the reference's: ``emb``, ``final_norm``, ``lm_head``
-(unless tied), ``shared_block`` (hybrid: a dense block stored once, outside
-the segments) and ``seg0``, ``seg1``, ..., whose leaves stack the layers on
-leading axes (``param_stack_dims``: one stack axis under ``seg<i>``, two
-under a ``zamba`` super-block's ``mamba`` sub-stack and a ``gemma``
-super-block's ``local`` sub-stack, none elsewhere; the DMD accelerator
-treats each layer as its own system). The layers run in a Python loop
+(unless tied), ``pos_emb`` (max_seq_len, d) and ``enc_pos_emb``
+(encoder_seq_len, d) (learned positions: enc-dec), ``shared_block``
+(hybrid: a dense block stored once, outside the segments) and ``seg0``,
+``seg1``, ..., whose leaves stack the layers on leading axes
+(``param_stack_dims``: one stack axis under ``seg<i>``, two under a
+``zamba`` super-block's ``mamba`` sub-stack and a ``gemma`` super-block's
+``local`` sub-stack, none elsewhere; the DMD accelerator treats each layer
+as its own system). The layers run in a Python loop
 over those axes, the reference's unrolled build (``scan_layers=False``):
 each stacked leaf is unbound once per call (a two-axis leaf over both of
 its axes at once), so its gradient is one stack of the layers'
@@ -35,14 +39,21 @@ blocks then the shared block, with the cache ``{"mamba": stacked
 SSMStates, "shared": the invocation's own KVCache}``; a depth that is not
 a multiple of the group adds a ``mamba`` remainder segment), ``gemma``
 (``global_every - 1`` sliding-window layers then one global layer, with
-the cache ``{"local": stacked RingKVCaches, "global": a KVCache}``) and
-``dense_local`` (gemma's remainder of window layers, ring caches). Each
-MoE layer's fp32 load-balancing loss is summed over the layers in order;
-``forward`` returns that sum as its aux loss (0 without MoE layers) and
-``loss`` is ce + aux, as the reference's.
+the cache ``{"local": stacked RingKVCaches, "global": a KVCache}``),
+``dense_local`` (gemma's remainder of window layers, ring caches), ``enc``
+(a dense block, non-causal, without rope) and ``dec`` (causal
+self-attention without rope, cross-attention over per-layer k, v of the
+encoder's output, the MLP; its cache ``{"self": a KVCache, "cross_k",
+"cross_v"}``, two tensors). Each MoE layer's fp32 load-balancing loss is
+summed over the layers in order; ``forward`` returns that sum as its aux
+loss (0 without MoE layers) and ``loss`` is ce + aux, as the reference's.
 
-The enc-dec and VLM families and learned position embeddings raise
-``NotImplementedError``.
+Batches are the reference's: ``tokens`` (or the stub frontend's
+``embeds``), ``positions`` where given ((B, S), or (B, 3, S) streams under
+M-RoPE; else 0 ... S - 1, and in a decode step the cache length on; a
+VLM's decode takes its positions from the batch) and ``frames`` (B,
+encoder_seq_len, d) for the encoder. The encoder's output is not normed:
+the reference applies no final norm there, and the port keeps that.
 """
 from __future__ import annotations
 
@@ -64,7 +75,17 @@ class Segment(NamedTuple):
     count: int
 
 
+# the reference's families
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+
 def segment_plan(cfg) -> List[Segment]:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"reference's families are {FAMILIES}")
+    if cfg.family == "encdec":
+        return [Segment("enc", cfg.n_encoder_layers),
+                Segment("dec", cfg.n_layers)]
     if cfg.family == "ssm":
         return [Segment("mamba", cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -73,10 +94,6 @@ def segment_plan(cfg) -> List[Segment]:
         if rem:
             plan.append(Segment("mamba", rem))
         return plan
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "builds the dense, MoE, SSM and hybrid families")
     if cfg.moe.n_experts > 0:
         if cfg.moe.moe_every == 1:
             return [Segment("moe", cfg.n_layers)]
@@ -114,6 +131,13 @@ def _block_init(gen, cfg, kind: str, stack: Tuple[int, ...], device
                                      stack + (cfg.global_every - 1,),
                                      device),
                 "global": _block_init(gen, cfg, "dense", stack, device)}
+    if kind == "dec":
+        return {"ln1": layers.norm_init(cfg, device, stack),
+                "self_attn": attention.attn_init(gen, cfg, device, stack),
+                "ln_x": layers.norm_init(cfg, device, stack),
+                "cross_attn": attention.attn_init(gen, cfg, device, stack),
+                "ln2": layers.norm_init(cfg, device, stack),
+                "mlp": layers.mlp_init(gen, cfg, device, stack)}
     ffn = ({"moe": moe.moe_init(gen, cfg, device, stack)} if kind == "moe"
            else {"mlp": layers.mlp_init(gen, cfg, device, stack)})
     return {"ln1": layers.norm_init(cfg, device, stack),
@@ -128,9 +152,6 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
     the shapes and dtypes are made."""
     device = torch.device("meta") if str(device) == "meta" \
         else resolve_device(device)
-    if cfg.learned_pos_emb:
-        raise NotImplementedError("learned position embeddings are not "
-                                  "ported yet")
     plan = segment_plan(cfg)
     if gen is None and device.type != "meta":
         gen = torch.Generator(device=device).manual_seed(0)
@@ -140,6 +161,12 @@ def init_params(cfg, gen: Optional[torch.Generator] = None,
               "final_norm": layers.norm_init(cfg, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, shape, dtype, device)
+    if cfg.learned_pos_emb:
+        params["pos_emb"] = layers.dense_init(
+            gen, (cfg.max_seq_len, cfg.d_model), dtype, device)
+        if cfg.family == "encdec":
+            params["enc_pos_emb"] = layers.dense_init(
+                gen, (cfg.encoder_seq_len, cfg.d_model), dtype, device)
     if cfg.family == "hybrid":
         params["shared_block"] = _block_init(gen, cfg, "dense", (), device)
     for i, seg in enumerate(plan):
@@ -154,7 +181,8 @@ def param_stack_dims(cfg, params: Optional[dict] = None) -> dict:
     plan: 1 under every ``seg<i>`` (one system per layer), 2 under a
     ``zamba`` segment's ``mamba`` sub-stack (one system per Mamba layer)
     and a ``gemma`` segment's ``local`` sub-stack (one per local layer),
-    0 elsewhere (``shared_block`` is one system)."""
+    0 elsewhere (``shared_block`` and the position tables are one system
+    each)."""
     if params is None:
         params = init_params(cfg, device="meta")
     plan = segment_plan(cfg)
@@ -189,11 +217,13 @@ def _unbind(tree, count: int) -> List[dict]:
     return list(torch.unbind(tree, 0))
 
 
-def _apply_dense(x, p, cfg, *, positions, cache, chunk_k, window=0):
+def _apply_dense(x, p, cfg, *, positions, cache, chunk_k, window=0,
+                 causal=True, use_rope=True):
     h = layers.apply_norm(x, p["ln1"], cfg)
     a, new_cache = attention.attend(h, p["attn"], cfg, positions=positions,
-                                    window=window, cache=cache,
-                                    chunk_k=chunk_k)
+                                    causal=causal, window=window,
+                                    cache=cache, chunk_k=chunk_k,
+                                    use_rope=use_rope)
     x = x + a
     h = layers.apply_norm(x, p["ln2"], cfg)
     return x + layers.apply_mlp(h, p["mlp"], cfg), new_cache
@@ -214,11 +244,14 @@ def _layer_cache(c, j: int):
     """Layer j's view of a stacked segment cache (a KVCache, a
     RingKVCache, an SSMState, or a dict of them: the moe_pair's {"dense",
     "moe"}, the zamba super-block's {"mamba", "shared"}, the gemma
-    super-block's {"local", "global"})."""
+    super-block's {"local", "global"}, the dec block's {"self", "cross_k",
+    "cross_v"})."""
     if c is None:
         return None
     if isinstance(c, dict):
         return {k: _layer_cache(v, j) for k, v in c.items()}
+    if isinstance(c, torch.Tensor):                 # a dec's cross k, v
+        return c[j]
     if isinstance(c, SSMState):
         return SSMState(*(t[j] for t in c))
     if isinstance(c, RingKVCache):
@@ -228,10 +261,11 @@ def _layer_cache(c, j: int):
 
 def _advance(c, n: int):
     """A stacked segment cache whose KV length moved on by n tokens (an
-    SSMState has no length: its tensors were written in place)."""
+    SSMState and a dec's cross k, v have no length: they were written in
+    place)."""
     if isinstance(c, dict):
         return {k: _advance(v, n) for k, v in c.items()}
-    if isinstance(c, SSMState):
+    if isinstance(c, (SSMState, torch.Tensor)):
         return c
     if isinstance(c, RingKVCache):
         return RingKVCache(c.k, c.v, c.pos, c.length + n)
@@ -257,10 +291,49 @@ def cache_length(caches: dict):
     return 0 if kv is None else kv.length
 
 
+def _apply_dec(x, p, cfg, *, positions, cache, chunk_k, enc):
+    """Whisper's decoder block: causal self-attention without rope, then
+    cross-attention over this layer's k, v of the encoder's output `enc`
+    (written into the cache's ``cross_k`` / ``cross_v`` in a prefill), or,
+    in a decode step (a cache and no `enc`), over the cached ones; then
+    the MLP."""
+    h = layers.apply_norm(x, p["ln1"], cfg)
+    a, nsc = attention.attend(h, p["self_attn"], cfg, positions=positions,
+                              cache=None if cache is None else cache["self"],
+                              chunk_k=chunk_k, use_rope=False)
+    x = x + a
+    h = layers.apply_norm(x, p["ln_x"], cfg)
+    if enc is None:
+        kv = (cache["cross_k"], cache["cross_v"])
+    else:
+        B, Se, _ = enc.shape
+        K, hd = cfg.n_kv_heads, cfg.head_dim
+        kv = ((enc @ p["cross_attn"]["wk"]).reshape(B, Se, K, hd),
+              (enc @ p["cross_attn"]["wv"]).reshape(B, Se, K, hd))
+        if cache is not None:
+            cache["cross_k"].copy_(kv[0])
+            cache["cross_v"].copy_(kv[1])
+    a, _ = attention.attend(h, p["cross_attn"], cfg, positions=positions,
+                            chunk_k=chunk_k, use_rope=False, kv_override=kv)
+    x = x + a
+    h = layers.apply_norm(x, p["ln2"], cfg)
+    x = x + layers.apply_mlp(h, p["mlp"], cfg)
+    return x, (None if cache is None else dict(cache, self=nsc))
+
+
 def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k,
-                 shared=None):
+                 shared=None, enc=None):
     """One super-block of the plan: (x, new cache, fp32 aux or None).
-    `shared` is the hybrid family's shared block."""
+    `shared` is the hybrid family's shared block, `enc` the encoder's
+    output a dec block attends."""
+    if kind == "enc":
+        x, _ = _apply_dense(x, p, cfg, positions=positions, cache=None,
+                            chunk_k=chunk_k, causal=False, use_rope=False)
+        return x, None, None
+    if kind == "dec":
+        x, nc = _apply_dec(x, p, cfg, positions=positions, cache=cache,
+                           chunk_k=chunk_k, enc=enc)
+        return x, nc, None
     if kind in ("dense", "dense_local"):
         window = cfg.sliding_window if kind == "dense_local" else 0
         x, nc = _apply_dense(x, p, cfg, positions=positions, cache=cache,
@@ -326,8 +399,8 @@ REMAT = ("none", "block", "full")
 
 
 class LanguageModel:
-    """Decoder-only LM (dense, MoE, SSM and hybrid families) with unrolled
-    layers."""
+    """The LM of every family (dense, VLM, MoE, SSM, hybrid, enc-dec) with
+    unrolled layers."""
 
     def __init__(self, cfg, *, chunk_k: int = 1024, remat: str = "none",
                  scan_layers: bool = False, device="cuda"):
@@ -360,15 +433,37 @@ class LanguageModel:
         return count(params)
 
     # -- embedding / head ----------------------------------------------------
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        # F.embedding: its backward on the card sums the rows of repeated
-        # tokens in a fixed order (no float atomics), so a graphed step
-        # equals the eager one bit for bit
-        x = F.embedding(tokens.long(), params["emb"])
-        # sqrt(d) in fp32, rounded to x's dtype, as the reference scales;
-        # a host scalar, so a CUDA graph capture copies nothing to the card
-        root = torch.sqrt(torch.tensor(float(self.cfg.d_model)))
-        return x * root.to(x.dtype)
+    def _embed(self, params, batch, length=None) -> torch.Tensor:
+        """The batch's ``embeds`` (the stub frontend's) in the model's
+        dtype, else its tokens' rows scaled by sqrt(d); with learned
+        positions plus their rows: the batch's ``positions`` (stream 0 of
+        (B, 3, S)) or 0 ... S - 1, and in a decode step (`length`, the
+        cache's) the rows at (length + i) % max_seq_len, as the
+        reference's ``_embed_decode``."""
+        cfg = self.cfg
+        if "embeds" in batch:
+            x = batch["embeds"].to(getattr(torch, cfg.dtype))
+        else:
+            # F.embedding: its backward on the card sums the rows of
+            # repeated tokens in a fixed order (no float atomics), so a
+            # graphed step equals the eager one bit for bit
+            x = F.embedding(batch["tokens"].long(), params["emb"])
+            # sqrt(d) in fp32, rounded to x's dtype, as the reference
+            # scales; a host scalar, so a CUDA graph capture copies
+            # nothing to the card
+            root = torch.sqrt(torch.tensor(float(cfg.d_model)))
+            x = x * root.to(x.dtype)
+        if not cfg.learned_pos_emb:
+            return x
+        if length is not None:
+            pos = self._arange_positions(x, length) % cfg.max_seq_len
+        else:
+            pos = batch.get("positions")
+            if pos is None:
+                pos = torch.arange(x.shape[1], device=x.device)[None]
+            elif pos.dim() == 3:
+                pos = pos[:, 0]
+        return x + F.embedding(pos.long(), params["pos_emb"]).to(x.dtype)
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -379,10 +474,10 @@ class LanguageModel:
             logits[..., cfg.vocab_size:] = -1e30
         return logits
 
-    def _layer_fn(self, kind, x, p, positions, shared):
+    def _layer_fn(self, kind, x, p, positions, shared, enc):
         x, _, aux = _apply_block(kind, x, p, self.cfg, positions=positions,
                                  cache=None, chunk_k=self.chunk_k,
-                                 shared=shared)
+                                 shared=shared, enc=enc)
         return x if aux is None else (x, aux)
 
     def _blocks(self, params, i: int, seg) -> list:
@@ -404,30 +499,38 @@ class LanguageModel:
                 b["global"] = glob
         return blocks
 
-    def _layers(self, params, x, positions, caches):
-        """Every layer in order; returns x, the new caches (None without
-        caches), whose tensors every layer wrote in place, and the fp32 sum
-        of the MoE layers' aux losses (None without MoE layers). Without
-        caches and with ``remat`` on, each super-block is checkpointed
-        while autograd records."""
+    def _remat(self, caches) -> bool:
+        return (self.remat != "none" and caches is None
+                and torch.is_grad_enabled())
+
+    def _layers(self, params, x, positions, caches, enc=None):
+        """Every layer in order (the ``enc`` segment apart: ``_encode``
+        runs it); returns x, the new caches (None without caches), whose
+        tensors every layer wrote in place, and the fp32 sum of the MoE
+        layers' aux losses (None without MoE layers). `enc` is the
+        encoder's output the dec blocks attend (None in a decode step).
+        Without caches and with ``remat`` on, each super-block is
+        checkpointed while autograd records."""
         new_caches = None if caches is None else {}
-        remat = (self.remat != "none" and caches is None
-                 and torch.is_grad_enabled())
+        remat = self._remat(caches)
         shared = params.get("shared_block")
         aux_total = None
         for i, seg in enumerate(self.plan):
+            if seg.kind == "enc":
+                continue
             key = f"seg{i}"
             c = None if caches is None else caches[key]
             for j, lp in enumerate(self._blocks(params, i, seg)):
                 if remat:
                     out = checkpoint(self._layer_fn, seg.kind, x, lp,
-                                     positions, shared, use_reentrant=False)
+                                     positions, shared, enc,
+                                     use_reentrant=False)
                     x, aux = out if isinstance(out, tuple) else (out, None)
                 else:
                     x, _, aux = _apply_block(
                         seg.kind, x, lp, self.cfg, positions=positions,
                         cache=_layer_cache(c, j), chunk_k=self.chunk_k,
-                        shared=shared)
+                        shared=shared, enc=enc)
                 if aux is not None:
                     aux_total = aux if aux_total is None else aux_total + aux
             if c is not None:
@@ -435,21 +538,56 @@ class LanguageModel:
         return x, new_caches, aux_total
 
     @staticmethod
-    def _arange_positions(tokens: torch.Tensor, start=0) -> torch.Tensor:
-        B, S = tokens.shape
-        pos = torch.arange(S, device=tokens.device)
+    def _arange_positions(x: torch.Tensor, start=0) -> torch.Tensor:
+        """(B, S) positions start ... start + S - 1 of the (B, S, ...)
+        `x`; `start` an int or a (B,) tensor of per-row starts."""
+        B, S = x.shape[:2]
+        pos = torch.arange(S, device=x.device)
         if isinstance(start, torch.Tensor):
             return start.reshape(B, 1) + pos
         return (pos + start).expand(B, S)
+
+    def _positions(self, batch, x, length=0) -> torch.Tensor:
+        """The batch's ``positions``, else `length` ... `length` + S - 1
+        per row, broadcast to the (B, 3, S) streams under M-RoPE (the
+        reference's ``_positions``)."""
+        if "positions" in batch:
+            return batch["positions"]
+        pos = self._arange_positions(x, length)
+        if self.cfg.mrope_sections:
+            pos = pos[:, None, :].expand(x.shape[0], 3, x.shape[1])
+        return pos
+
+    def _encode(self, params, batch) -> Optional[torch.Tensor]:
+        """The enc-dec family's encoder over ``batch["frames"]`` (B, Se,
+        d), in the model's dtype plus ``enc_pos_emb``'s first Se rows:
+        the ``enc`` blocks, non-causal and without rope, each
+        checkpointed under remat as the decoder's are. Its output is not
+        normed (the reference's ``_encode`` applies no final norm). None
+        for the other families."""
+        if self.cfg.family != "encdec":
+            return None
+        x = batch["frames"].to(getattr(torch, self.cfg.dtype))
+        x = x + params["enc_pos_emb"][None, :x.shape[1]].to(x.dtype)
+        pos = self._arange_positions(x)
+        remat = self._remat(None)
+        for lp in self._blocks(params, 0, self.plan[0]):
+            if remat:
+                x = checkpoint(self._layer_fn, "enc", x, lp, pos, None, None,
+                               use_reentrant=False)
+            else:
+                x, _, _ = _apply_block("enc", x, lp, self.cfg, positions=pos,
+                                       cache=None, chunk_k=self.chunk_k)
+        return x
 
     # -- forward (no cache) ------------------------------------------------
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (fp32 logits (B, S, V), the fp32 aux loss summed over
         the MoE layers; 0 without them)."""
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        x, _, aux = self._layers(params, x, self._arange_positions(tokens),
-                                 None)
+        enc = self._encode(params, batch)
+        x = self._embed(params, batch)
+        x, _, aux = self._layers(params, x, self._positions(batch, x), None,
+                                 enc)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._head(params, x), aux
@@ -462,13 +600,13 @@ class LanguageModel:
         the backward), so no microbatch-sized fp32 logits exist; the mean
         is the sum of the passes' sums over the token count (one pass:
         the mean itself)."""
-        tokens = batch["tokens"]
         labels = batch.get("labels")
         if labels is None:
-            labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
-        x = self._embed(params, tokens)
-        x, _, aux = self._layers(params, x, self._arange_positions(tokens),
-                                 None)
+            labels = torch.nn.functional.pad(batch["tokens"][:, 1:], (0, 1))
+        enc = self._encode(params, batch)
+        x = self._embed(params, batch)
+        x, _, aux = self._layers(params, x, self._positions(batch, x), None,
+                                 enc)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x, labels = x.reshape(1, -1, x.shape[-1]), labels.reshape(1, -1)
@@ -502,7 +640,11 @@ class LanguageModel:
         shared_attn_every), "shared": a KVCache per group}`` per ``zamba``
         segment, ``{"local": RingKVCaches of the window stacked (groups,
         global_every - 1), "global": a KVCache per group}`` per ``gemma``
-        segment and a stacked RingKVCache per ``dense_local`` segment."""
+        segment, a stacked RingKVCache per ``dense_local`` segment and
+        ``{"self": a KVCache, "cross_k", "cross_v": (layers, B,
+        encoder_seq_len, K, hd) each}`` per ``dec`` segment (two tensors:
+        the reference hands one zeros array to both, which the port's
+        in-place writes cannot share); none for the ``enc`` segment."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
 
@@ -519,10 +661,19 @@ class LanguageModel:
         def state(stack):
             return ssm.init_ssm_state(batch_size, cfg, dtype, self.device,
                                       stack)
+        def cross(stack):
+            return torch.zeros(stack + (batch_size, cfg.encoder_seq_len,
+                                        cfg.n_kv_heads, cfg.head_dim),
+                               dtype=dtype, device=self.device)
         caches = {}
         for i, seg in enumerate(self.plan):
             n = (seg.count,)
-            if seg.kind == "moe_pair":
+            if seg.kind == "enc":
+                continue
+            if seg.kind == "dec":
+                caches[f"seg{i}"] = {"self": full(n), "cross_k": cross(n),
+                                     "cross_v": cross(n)}
+            elif seg.kind == "moe_pair":
                 caches[f"seg{i}"] = {"dense": full(n), "moe": full(n)}
             elif seg.kind == "mamba":
                 caches[f"seg{i}"] = state(n)
@@ -542,21 +693,25 @@ class LanguageModel:
 
     def prefill(self, params, batch, caches) -> Tuple[torch.Tensor, dict]:
         """Prompt pass into fresh caches (filled in place). batch:
-        {"tokens": (B, S)}. Returns the last position's logits (B, 1, V)."""
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        x, caches, _ = self._layers(params, x,
-                                    self._arange_positions(tokens), caches)
+        {"tokens": (B, S)}, with ``positions`` (a VLM's streams) and
+        ``frames`` (enc-dec: the encoder runs here, and each dec layer's
+        cross k, v land in its cache). Returns the last position's logits
+        (B, 1, V)."""
+        enc = self._encode(params, batch)
+        x = self._embed(params, batch)
+        x, caches, _ = self._layers(params, x, self._positions(batch, x),
+                                    caches, enc)
         return self._head(params, x[:, -1:]), caches
 
     def decode_step(self, params, batch, caches) -> Tuple[torch.Tensor, dict]:
         """One token per row at the caches' length (an int, or a (B,)
-        tensor of per-row lengths). Returns (logits (B, 1, V), caches)."""
-        tokens = batch["tokens"]
+        tensor of per-row lengths); at the batch's ``positions`` where
+        given (a VLM's streams continue from its image grid, not from the
+        cache's length). Returns (logits (B, 1, V), caches)."""
         length = cache_length(caches)
-        x = self._embed(params, tokens)
-        x, caches, _ = self._layers(
-            params, x, self._arange_positions(tokens, length), caches)
+        x = self._embed(params, batch, length)
+        x, caches, _ = self._layers(params, x,
+                                    self._positions(batch, x, length), caches)
         return self._head(params, x), caches
 
 

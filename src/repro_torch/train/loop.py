@@ -57,7 +57,7 @@ from repro_torch.core.accelerator import DMDAccelerator
 from repro_torch.core import controller as ctrl_mod
 from repro_torch.core import snapshots as snap
 from repro_torch.core.paths import leaves_with_paths, map_with_paths
-from repro_torch.data.tokens import validation_batch
+from repro_torch.data.tokens import stream_kwargs, validation_batch
 from repro_torch.kernels import arena as _ka
 from repro_torch.kernels import combine as _kc
 from repro_torch.kernels import flash_attention as _kf
@@ -247,14 +247,16 @@ class Trainer:
     def _carve_val_batch(self) -> Optional[PyTree]:
         """The default validation split for vocab models: one batch at the
         token stream's reserved ``VAL_FOLD`` offset, shaped like a training
-        batch. Models without a vocab (the MLP) have none and pass
+        batch (with a VLM's M-RoPE positions and an enc-dec model's
+        frames). Models without a vocab (the MLP) have none and pass
         ``val_batch`` or ``fit(eval_batch=...)``."""
-        vocab = getattr(getattr(self.model, "cfg", None), "vocab_size", None)
+        mc = getattr(self.model, "cfg", None)
+        vocab = getattr(mc, "vocab_size", None)
         if not vocab:
             return None
         tc = self.acfg.train
         return validation_batch(tc.seed, tc.global_batch, tc.seq_len, vocab,
-                                device=self.device)
+                                device=self.device, **stream_kwargs(mc))
 
     # -- state ---------------------------------------------------------------
     def init_state(self, key: Optional[torch.Generator] = None,

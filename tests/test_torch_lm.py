@@ -83,7 +83,13 @@ def test_rms_norm_rope_mlp_softcap_match_reference():
     _close(tlayers.softcap(_t(h * 40), 30.0),
            jlayers.softcap(jnp.asarray(h * 40), 30.0))
     assert tlayers.softcap(_t(h), 0.0) is not None
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
+    # M-RoPE at the reduced sections: three streams that differ, against
+    # the reference; (B, S) positions are refused
+    streams = np.stack([pos, pos // 2, pos % 5], axis=1).astype(np.int32)
+    _close(tlayers.apply_rope(_t(x), _t(streams), 1e4, (2, 3, 3)),
+           jlayers.apply_rope(jnp.asarray(x), jnp.asarray(streams), 1e4,
+                              (2, 3, 3)))
+    with pytest.raises(ValueError, match="M-RoPE"):
         tlayers.apply_rope(_t(x), _t(pos), 1e4, (2, 3, 3))
 
 
@@ -228,14 +234,16 @@ def test_bf16_model_matches_reference():
 # -- what is not ported raises -----------------------------------------------
 
 def test_unported_configs_raise():
-    with pytest.raises(KeyError, match="M-RoPE slice"):
-        get_config("qwen2-vl-7b")
-    with pytest.raises(KeyError, match="enc-dec slice"):
-        get_config("whisper-base")
+    # every architecture of the reference builds: the last two came with
+    # the VLM and enc-dec families
+    assert [tuple(s) for s in segment_plan(get_config(
+        "qwen2-vl-7b").model)] == [("dense", 28)]
+    assert [tuple(s) for s in segment_plan(get_config(
+        "whisper-base").model)] == [("enc", 6), ("dec", 6)]
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
-    for kw in (dict(family="encdec"), dict(family="vlm")):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for kw in (dict(family="rnn"), dict(family="")):
+        with pytest.raises(ValueError, match="unknown family"):
             segment_plan(ModelConfig(**kw))
     with pytest.raises(NotImplementedError, match="eager"):
         LanguageModel(ModelConfig(), scan_layers=True, device="cpu")

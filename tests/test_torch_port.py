@@ -57,6 +57,10 @@ def test_shapes_and_arch_list_mirror_reference():
     assert [dataclasses.asdict(s) for s in tbase.STANDARD_SHAPES] == \
         [dataclasses.asdict(s) for s in jbase.STANDARD_SHAPES]
     assert tconfigs.list_archs() == jconfigs.list_archs()
+    # every architecture of the reference builds, field for field its own
+    for arch in jconfigs.list_archs() + ["pollutant-mlp"]:
+        assert dataclasses.asdict(tconfigs.get_config(arch)) == \
+            dataclasses.asdict(jconfigs.get_config(arch)), arch
     for s in jbase.STANDARD_SHAPES:
         assert dataclasses.asdict(tconfigs.shape_by_name(s.name)) == \
             dataclasses.asdict(jconfigs.shape_by_name(s.name))
