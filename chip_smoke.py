@@ -396,6 +396,21 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    ``DENSE_ACCUM`` microbatches a step, warm-up 0, cool-down
    ``DENSE_COOLDOWN``, graphed = eager bit for bit, K1 and K2 on their
    own rings.
+20. The audit layer (``repro_torch.audit``), phase 20 "audit": (a) the
+   paper MLP's audit at full width (2,882,150 params, the config's eig-mode
+   DMD) on the card: all ten passes green, each audited step's op count
+   equal to the same build's on the CPU (kernel calls are single opaque
+   ops on either device), train_step and record_update launching K1 once,
+   both jumps K2 once. (b) The plain train step, a record step and
+   record_update under ``torch.cuda.set_sync_debug_mode("error")``: no
+   host sync. (c) Each of the six mutations at ``pollutant-mlp
+   --reduced`` fails exactly its pass. (d) The serve audit (``serve/
+   audit.py``'s config and waves) at TinyLlama-1.1B's full width and
+   depth, phase 9's seeded weights: no program built after the warm-up,
+   the registry within its ceiling, nothing dropped, no cache-shaped
+   tensor made in decode, every slot-table cache tensor kept over the
+   run, K7 22 a prefill dispatch; then ``force-recompile`` bites. No
+   kernel is added; the phase's wall time is printed.
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -2111,8 +2126,10 @@ def run_bucket_path(dev, X, Y, phase4_grams):
     _require_tickets("bucket path", dev)
     table = TABLES["bucket path"].splitlines()
     print("bucket path plan_table:\n" + "\n".join(table))
-    head = table[0].split()
-    rows = [dict(zip(head, ln.split())) for ln in table[1:]]
+    # scope and n_solve are the last two columns (the spec column's
+    # values hold spaces)
+    head = table[0].split()[-2:]
+    rows = [dict(zip(head, ln.split()[-2:])) for ln in table[1:]]
     require(all(r["scope"] == "bucket" and r["n_solve"] == "1"
                 for r in rows), "bucket path: plan_table rows not at "
             "scope bucket, n_solve 1")
@@ -5172,6 +5189,164 @@ def run_vlm_encdec(dev, records):
     return {"train": train}
 
 
+# phase 20: the audit layer (repro_torch.audit) on the card
+AUDIT_TARGETS = ("train_step", "dmd_step", "dmd_step_gated", "record_update")
+# each audited step's kernel calls, launched on the card as counted by the
+# wrappers (the paper MLP: one arena bucket)
+AUDIT_LAUNCHES = {"train_step": {"gram_row": 1}, "dmd_step": {"combine": 1},
+                  "dmd_step_gated": {"combine": 1},
+                  "record_update": {"gram_row": 1}}
+
+
+def _audit_full_width(dev):
+    """Phase 20(a): ``build_context("pollutant-mlp")`` at the paper MLP's
+    full width on the card: every pass green, each target's op count equal
+    to the same build's on the CPU, its K1 / K2 launches as counted."""
+    from repro_torch.audit.registry import run_passes
+    from repro_torch.audit.targets import build_context
+
+    ctx = build_context("pollutant-mlp", device=dev)
+    n_params = sum(p.numel() for _, p in leaves_with_paths(
+        ctx.acc.params_leafwise(ctx.state.params)))
+    require(n_params == 2_882_150, f"audit (a): {n_params} params")
+    report = run_passes(ctx)
+    print(report.render())
+    require(report.ok and len(report.results) == 10,
+            "audit (a): the paper MLP's audit is not clean over ten passes")
+    cpu = build_context("pollutant-mlp", device="cpu")
+    for name in AUDIT_TARGETS:
+        card, host = ctx.targets[name].recording, cpu.targets[name].recording
+        require(card.count == host.count, f"audit (a) {name}: {card.count} "
+                f"ops on the card, {host.count} on the CPU")
+        require([o.name for o in card.kernel_calls]
+                == [o.name for o in host.kernel_calls],
+                f"audit (a) {name}: kernel calls differ from the CPU's")
+        launches = {k: v for k, v in card.launches.items()
+                    if k not in DESIGNS}
+        require(launches == AUDIT_LAUNCHES[name], f"audit (a) {name}: "
+                f"launches {launches}, expected {AUDIT_LAUNCHES[name]}")
+        print(f"audit (a) {name}: {card.count} ops on the card = "
+              f"{host.count} on the CPU; kernel calls "
+              f"{[o.name for o in card.kernel_calls]}; launches {launches}; "
+              f"host syncs {len(card.syncs)}")
+
+
+def _audit_sync_free(dev):
+    """Phase 20(b): the plain train step, a record step and record_update
+    at full width under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.audit import targets as audit_targets
+    from repro_torch.train.step import audit_step_fns
+
+    model, acfg, batch = audit_targets._build_model_and_config(
+        "pollutant-mlp", False, dev)
+    acc, fns = audit_step_fns(model, acfg, device=dev)
+    state = audit_targets._init_state(model, acfg, acc, dev)
+    plain = np.full((acc.n_groups,), -1, np.int64)
+    slots = audit_targets.audit_slots(acc)
+    calls = (("plain train step", lambda: fns["train_step"](state, batch,
+                                                           plain)),
+             ("record train step", lambda: fns["train_step"](state, batch,
+                                                            slots)),
+             ("record_update", lambda: fns["record_update"](
+                 state.dmd_buffers, state.dmd_gram, state.params, slots)))
+    for _, call in calls:                     # warm-up: caches, tickets
+        call()
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _, call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    require_counts("audit (b)", {"gram_row": 2})
+    print(f"audit (b): {', '.join(n for n, _ in calls)} ran under "
+          "set_sync_debug_mode('error') without a host sync (K1 2)")
+
+
+def _audit_mutations(dev):
+    """Phase 20(c): each mutation fails exactly its pass on the card, at
+    pollutant-mlp --reduced (its clean build green)."""
+    from repro_torch.audit import run_audit
+    from repro_torch.audit.mutations import get, list_mutations
+
+    for name in (None,) + tuple(list_mutations()):
+        report = run_audit("pollutant-mlp", reduced=True, mutate=name,
+                           device=dev)
+        failed = sorted(r.name for r in report.results if not r.ok)
+        want = [] if name is None else [get(name).expect_fail]
+        require(failed == want, f"audit (c) {name}: failed {failed}, "
+                f"expected {want}\n{report.render()}")
+        print(f"audit (c) {name or 'clean'}: failed {failed}")
+
+
+def _audit_serve(dev):
+    """Phase 20(d): the serve audit at TinyLlama-1.1B's full width and
+    depth (phase 9's seeded weights), through attach_serve's config and
+    waves; then force-recompile must bite."""
+    from repro_torch.audit.mutations import get
+    from repro_torch.audit.passes import serve_compile
+    from repro_torch.audit.targets import adhoc_context
+    from repro_torch.configs import get_config
+    from repro_torch.serve.audit import serve_audit
+
+    model, params = launch_serve.model_and_params("tinyllama-1.1b",
+                                                  device=dev)
+    require(model.cfg.n_layers == 22 and model.cfg.d_model == 2048,
+            f"audit (d): config {model.cfg}")
+    acfg = get_config("tinyllama-1.1b")
+    for mode in (None, "force-recompile"):
+        what = f"audit (d) {mode or 'clean'}"
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        info, targets, engine = serve_audit(
+            model, params, mutate=get(mode).serve_cfg if mode else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = require_counts(what, {
+            "flash_attention": model.cfg.n_layers
+            * engine.stats["prefill_dispatches"]})
+        require_wgmma(what)
+        ctx = adhoc_context("tinyllama-1.1b", acfg, targets, device="cuda")
+        ctx.serve = info
+        vs, sinfo = serve_compile(ctx)
+        st = engine.stats
+        print(f"{what}: {json.dumps(sinfo)}; {st['prefill_dispatches']} "
+              f"prefills, {st['decode_dispatches']} decodes in {wall} s; "
+              f"launches {launches}")
+        if mode is None:
+            require(not vs, f"{what}: {[v.detail for v in vs]}")
+            require(sinfo["steady_compiles"] == 0 and sinfo["dropped"] == 0
+                    and sinfo["n_programs"] <= sinfo["max_programs"]
+                    and sinfo["decode_cache_copies"] == 0
+                    and sinfo["table_kept"] == sinfo["table_leaves"]
+                    and sinfo["decode_alias_count"]
+                    == targets["serve_decode"].n_dmd_leaves,
+                    f"{what}: {sinfo}")
+        else:
+            require(vs and sinfo["steady_compiles"] > 0, f"{what}: the "
+                    f"mutation did not bite: {sinfo}")
+        del engine, targets
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_audit_phase(dev):
+    """Phase 20: the audit layer on the card."""
+    t_phase = time.perf_counter()
+    walls = {}
+    for part, fn in (("(a)", _audit_full_width), ("(b)", _audit_sync_free),
+                     ("(c)", _audit_mutations), ("(d)", _audit_serve)):
+        t0 = time.perf_counter()
+        fn(dev)
+        walls[part] = time.perf_counter() - t0
+    print(f"audit: phase 20 wall {time.perf_counter() - t_phase} s; by part "
+          f"{walls}")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5251,6 +5426,9 @@ def main():
         records[name]["vlm_encdec_launches"] = {
             arch: run[name] for arch, run in vlm_launches["train"].items()}
     print(f"vlm-encdec summary {json.dumps(records.pop('vlm_encdec'))}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_audit_phase(dev)
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",

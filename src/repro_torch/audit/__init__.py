@@ -1,0 +1,42 @@
+"""repro_torch.audit: the port's invariant auditor (the reference's
+``repro.audit``).
+
+The DMD speed-up holds only while a few fragile choices hold: the state
+written in place (no hidden copy of the O(m·n) rings; the addresses a
+CUDA graph captures stay valid), O(buckets) kernel calls per step (the
+packed arena), fp32 Grams with no silent casts, no host sync in the hot
+loop, 128-lane arena segments, a collision-free group schedule, and a
+serve engine that never builds past its buckets. This package checks
+them: a registry of passes over (a) the recorded ops of the fused train
+step, both jump variants and record_update (``audit/ops.py`` records an
+eager call op by op, each hand kernel as one opaque op), and (b) the
+static LeafPlan / GroupSchedule / ArenaBucket tables, for any config.
+
+    PYTHONPATH=src python -m repro_torch.audit --arch pollutant-mlp \\
+        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.audit.lint src/repro_torch
+
+The CLI prints a text report, writes ``AUDIT_torch_<config_key>.json``
+and exits nonzero on a violation; ``--mutate <name>`` seeds a known
+violation (``audit/mutations.py``) to prove each pass bites.
+"""
+from repro_torch.audit.registry import (AuditReport, PassResult, Violation,
+                                        get_pass, list_passes, register_pass)
+
+__all__ = ["AuditReport", "PassResult", "Violation", "get_pass",
+           "list_passes", "register_pass", "run_audit"]
+
+
+def run_audit(arch: str, *, reduced: bool = False, mutate=None,
+               passes=None, serve: bool = False, device="cuda"
+               ) -> AuditReport:
+    """Build the audit targets for ``arch`` on `device` and run every
+    registered pass (or the named subset): ``targets.build_context`` and
+    ``registry.run_passes``. The CLI adds the report file and the exit
+    code."""
+    from repro_torch.audit.registry import run_passes
+    from repro_torch.audit.targets import build_context
+
+    ctx = build_context(arch, reduced=reduced, mutate=mutate, serve=serve,
+                        device=device)
+    return run_passes(ctx, only=passes)

@@ -240,33 +240,45 @@ class DMDAccelerator:
         return self._arena
 
     def plan_table(self, params: Optional[PyTree] = None) -> str:
-        """Human-readable dispatch table: route, schedule group, m, s,
-        phase, shape, each leaf's bucket and lane offset, its DMD `scope`
-        ("bucket" when its bucket fits one shared operator) and `n_solve`,
-        the systems its bucket (or the leaf alone) adds to the jump's
-        solve."""
+        """Human-readable dispatch table, the reference's columns: route,
+        schedule group, m, s, phase, the group's energy target ("-" while
+        it is unset), stack dims, shape, flat size, block_n, each leaf's
+        bucket and lane offset, `resident` ("y" for packed leaves with
+        ``dmd.arena_native``, "n" packed without, "-" per leaf), the
+        PartitionSpec and psum axes of an unsharded leaf, its DMD `scope`
+        ("bucket" when its bucket fits one shared operator); then
+        `n_solve`, the systems its bucket (or the leaf alone) adds to the
+        jump's solve."""
         if params is None:
             if self._plans is None:
                 raise ValueError("no plans built yet: pass params")
         else:
-            self.plans_for(params)
+            self.arena_for(params)
+        if self._arena is None and self.cfg.enabled:
+            self._arena = arena_mod.build_arenas(self._plans, self.cfg)
+        native = bool(self.cfg.arena_native)
         seg_of = {}
         for b in (self._arena or {}).values():
             sc = "bucket" if b.bucket_scoped(self.scope) else "leaf"
             for s in b.segments:
                 seg_of[s.path] = (b.key, str(s.lane_start), sc,
                                   str(b.gram_lead(self.scope)))
-        rows = [("path", "route", "group", "m", "s", "phase", "stack",
-                 "shape", "flat_n", "arena", "off", "scope", "n_solve")]
+        rows = [("path", "route", "group", "m", "s", "phase", "energy",
+                 "stack", "shape", "flat_n", "block_n", "arena", "off",
+                 "resident", "spec", "psum", "scope", "n_solve")]
         for p in leafplan.plan_entries(self._plans):
             n_leaf = str(int(np.prod(p.shape[:p.stack_dims],
                                      dtype=np.int64)))
             akey, aoff, asc, nsol = seg_of.get(p.path,
                                                ("-", "-", "leaf", n_leaf))
+            energy = (f"{p.sched.energy:.3f}" if p.sched.energy > 0
+                      else "-")
+            res = "-" if akey == "-" else ("y" if native else "n")
             rows.append((p.path, p.route, p.sched.name, str(p.m),
-                         str(p.sched.s), str(p.sched.phase),
+                         str(p.sched.s), str(p.sched.phase), energy,
                          str(p.stack_dims), "x".join(map(str, p.shape)),
-                         str(p.flat_size), akey, aoff, asc, nsol))
+                         str(p.flat_size), str(p.block_n), akey, aoff, res,
+                         leafplan.param_spec(p), "-", asc, nsol))
         widths = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
         return "\n".join("  ".join(c.ljust(w) for c, w in zip(r, widths))
                          .rstrip() for r in rows)
@@ -299,7 +311,8 @@ class DMDAccelerator:
                 g = ka.gram(buf, b.tables_on(buf.device, self.scope),
                             anchor_first=self.cfg.anchor == "first",
                             anchor_mean=self.cfg.anchor == "mean")
-            g = g.detach().cpu().numpy().astype(np.float64)
+            g = g.detach().cpu().numpy()  # lint: allow-host-sync (diagnostic)
+            g = g.astype(np.float64)
             if not b.bucket_scoped(self.scope):
                 g = g.sum(axis=0, keepdims=True)
             lam = dmd.dmd_eigenvalues_from_gram(g[0], tol=self.cfg.tol)

@@ -165,7 +165,8 @@ def meta_update(state: ControllerState, jumped: Tuple[int, ...],
 def summary(state: ControllerState,
             groups: Sequence[sched_mod.GroupSchedule]) -> str:
     """Host-side table of the per-group state (logging)."""
-    host = ControllerState(*(t.cpu() for t in state))
+    host = ControllerState(*(t.cpu()  # lint: allow-host-sync (logging)
+                             for t in state))
     rows = [("group", "accepts", "scaled", "rejects", "streak",
              "gain_ema", "s_eff", "relax_eff", "ridge_eff")]
     for g in groups:

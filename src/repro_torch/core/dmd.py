@@ -29,6 +29,10 @@ tensors; in matpow mode the coefficients are differentiable in them and
 in ``relax``, which the controller's meta-tuning backpropagates through;
 the host eig has no derivative). ``dmd_eigenvalues(_from_gram)`` are the
 host float64 spectral diagnostics.
+
+Both host steps (``_lag_eigh``, "eigh", and ``_host_eig_step``, "eig") are
+opaque ops of the audit's recorder: its solve-budget pass counts the
+systems a jump solves from their input stacks' batch rows.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.device import opaque
 
 # eig mode's host round trips since the last reset_eig_stats(): calls
 # (one device-to-host copy of the operator stack and one copy back each),
@@ -149,6 +155,7 @@ def _mean_in_order(x: torch.Tensor) -> torch.Tensor:
                               device=x.device)
 
 
+@opaque("eigh", kind="host")
 def _lag_eigh(g_lag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eigenpairs (ascending) of a (batch, k, k) stack of lag Grams X^T X,
     by the host's LAPACK (``torch.linalg.eigh`` on the CPU) for a stack on
@@ -294,6 +301,14 @@ def _host_eig(a: np.ndarray) -> np.ndarray:
     return out
 
 
+@opaque("eig", kind="host")
+def _host_eig_step(atilde: torch.Tensor) -> torch.Tensor:
+    """eig mode's host step: the operator stack copied to the host,
+    ``_host_eig`` there, the packed eigenpairs copied back."""
+    return torch.from_numpy(_host_eig(atilde.detach().cpu().numpy())).to(
+        atilde.device)
+
+
 def _eig_power(atilde: torch.Tensor, s, clamp_eigs: bool, s_max: int
                ) -> torch.Tensor:
     """Atilde^s via its eigendecomposition, batched over (batch, k, k),
@@ -321,8 +336,7 @@ def _eig_power(atilde: torch.Tensor, s, clamp_eigs: bool, s_max: int
         raise RuntimeError("eig mode's host eig cannot run inside a CUDA "
                            "graph capture: run the jump step eagerly")
     k = atilde.shape[-1]
-    packed = torch.from_numpy(_host_eig(atilde.detach().cpu().numpy()))
-    packed = packed.to(atilde.device)
+    packed = _host_eig_step(atilde)
     eigvecs = packed[..., :k, :k]
     eigvals = packed[..., k, :k]
     rcond = packed[..., k, k].real

@@ -3,11 +3,17 @@
 One frozen record per selected param leaf, built once from the real param
 tree: the leaf's path, shape, stack axes, kernel route and schedule group.
 The arena (``core/arena.py``) buckets leaves from these records.
+
+``plan_summary`` and ``plan_records`` are the reference's export views of
+the table (the audit's ``AUDIT_torch_*.json`` carries the records). With no
+mesh every leaf is unsharded, so the mesh fields are emitted as the
+reference emits them for an unsharded leaf: ``sharded`` False, the
+``param_spec`` of one None per axis and no ``psum_axes``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.core import schedule as sched_mod
 from repro_torch.core.paths import leaves_with_paths, map_with_paths
@@ -113,3 +119,30 @@ def plan_entries(plans: PyTree) -> List[LeafPlan]:
     order."""
     return [p for _, p in leaves_with_paths(plans)
             if isinstance(p, LeafPlan)]
+
+
+def param_spec(plan: LeafPlan) -> str:
+    """The reference's PartitionSpec of an unsharded leaf, as it prints:
+    one None per axis (``PartitionSpec(None, None)``)."""
+    return "PartitionSpec" + repr((None,) * len(plan.shape))
+
+
+def plan_summary(plans: PyTree) -> Dict[str, Tuple[str, int]]:
+    """{path: (route, stack_dims)}: the regression-pin view of the table."""
+    return {p.path: (p.route, p.stack_dims) for p in plan_entries(plans)}
+
+
+def plan_records(plans: PyTree) -> List[dict]:
+    """JSON-able rows of the dispatch table, the reference's keys (the
+    audit's export)."""
+    return [{
+        "path": p.path, "shape": list(p.shape), "dtype": p.dtype,
+        "stack_dims": p.stack_dims, "flat_size": p.flat_size,
+        "route": p.route, "anchor_ok": p.anchor_ok, "sharded": False,
+        "block_n": p.block_n, "group": p.group,
+        "m": (p.sched.m if p.sched is not None else None),
+        "s": (p.sched.s if p.sched is not None else None),
+        "phase": (p.sched.phase if p.sched is not None else None),
+        "param_spec": param_spec(p),
+        "psum_axes": [],
+    } for p in plan_entries(plans)]

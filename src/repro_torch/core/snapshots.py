@@ -136,7 +136,8 @@ def recompute_grams(grams: PyTree, buffers: PyTree, cfg, plans: PyTree
             if b_of.get(path) is not None]
     if not live:
         return grams
-    stale = torch.stack([(~g.any()) & b.any() for _, g, b in live]).tolist()
+    stale = torch.stack([(~g.any()) & b.any() for _, g, b in live])
+    stale = stale.tolist()  # lint: allow-host-sync (once per restore)
     plan_of = by_path(plans)
     fresh = {path: dmd_math.gram_matrix(b, anchor=cfg.anchor,
                                         stack_dims=plan_of[path].stack_dims,

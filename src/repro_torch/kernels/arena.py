@@ -188,6 +188,7 @@ def gram_grid(nb: int, m: int, n_sys: int, sms: int) -> tuple[int, int]:
     return ctas, (ctas + n_sys) * (m * (m + 1) // 2)
 
 
+@_device.opaque("gram_row")
 def gram_row(buf: torch.Tensor, q: torch.Tensor, seg: Segments, *,
              anchor_first: bool = False) -> torch.Tensor:
     """One streaming Gram row per system, one launch for the whole arena.
@@ -224,6 +225,7 @@ def gram_row(buf: torch.Tensor, q: torch.Tensor, seg: Segments, *,
     return out
 
 
+@_device.opaque("gram")
 def gram(buf: torch.Tensor, seg: Segments, *, anchor_first: bool = False,
          anchor_mean: bool = False) -> torch.Tensor:
     """Full (n_sys, m, m) Gram recompute, one launch for the whole arena
@@ -253,6 +255,7 @@ def gram(buf: torch.Tensor, seg: Segments, *, anchor_first: bool = False,
     return out
 
 
+@_device.opaque("combine")
 def combine(buf: torch.Tensor, c: torch.Tensor, seg: Segments
             ) -> torch.Tensor:
     """(nb * bn,) fp32 jump blend, one launch: block i gets

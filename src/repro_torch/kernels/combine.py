@@ -51,6 +51,7 @@ def combine_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return out.to(acc_dtype(x))
 
 
+@_device.opaque("flat_combine")
 def combine(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """(S, n) fp32 jump blend of every system, one launch for all S.
     ``c`` is contiguous float32 (S, m). Differentiable in ``c``

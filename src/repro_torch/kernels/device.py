@@ -8,15 +8,48 @@ Routing is by the device the tensors lie on, and nothing else:
 
 Entry points take an explicit ``device`` (default ``"cuda"``) and raise
 when CUDA is absent, unless the caller asks for ``"cpu"``.
+
+Every kernel wrapper is ``opaque``: under the audit's op recorder
+(``repro_torch.audit.ops``) one call records as ONE op, whether it
+launched the kernel or ran the twin, as a ``pallas_call`` is one
+equation of the reference's jaxpr. Without a recorder the decorator
+costs one global read per call.
 """
 from __future__ import annotations
 
 import functools
+from typing import Callable, Optional
 
 import torch
 
 MAX_M = 32                                   # the kernels' register/smem cap
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # buffer dtype -> kernel code
+
+# the op recorder's span hook, ``hook(name, kind, fn, args, kwargs)``, set
+# by ``repro_torch.audit.ops`` while it records; None otherwise
+_SPAN_HOOK: Optional[Callable] = None
+
+
+def set_span_hook(hook: Optional[Callable]) -> Optional[Callable]:
+    """Install `hook` (None removes it); returns the previous one."""
+    global _SPAN_HOOK
+    prev, _SPAN_HOOK = _SPAN_HOOK, hook
+    return prev
+
+
+def opaque(name: str, kind: str = "kernel"):
+    """Decorator: the wrapped entry point records as one op `name` of
+    `kind` ("kernel": a hand-written kernel or its twin; "host": the DMD
+    solve's host step) under the op recorder."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            hook = _SPAN_HOOK
+            if hook is None:
+                return fn(*args, **kwargs)
+            return hook(name, kind, fn, args, kwargs)
+        return wrapped
+    return deco
 
 
 def acc_dtype(x: torch.Tensor) -> torch.dtype:

@@ -31,9 +31,9 @@ chosen as K7's design is: bf16 at d = 64 or 128 runs K7b's Hopper design
 (TMA rings, wgmma), every other case the sm_80-unit kernels. Each K7b call
 (three kernels in order) adds one to ``LAUNCHES["flash_attention_bwd"]``,
 and one through the Hopper design one more to
-``LAUNCHES["flash_attention_bwd_wgmma"]``. On the CPU autograd
-differentiates the twin; ``flash_attention_bwd_ref`` is that gradient,
-K7b's plain twin.
+``LAUNCHES["flash_attention_bwd_wgmma"]``. On the CPU ``_FlashFn``'s
+backward is ``flash_attention_bwd_ref``, the gradient of the twin by
+autograd: K7b's plain twin.
 The reference trains through its jnp core (``repro.models.attention.
 blockwise_attention``) and differentiates it with ``jax.grad``: K7b is
 the port's counterpart of that gradient, not of a Pallas kernel.
@@ -42,7 +42,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.device import DTYPES, launch, on_cuda, stream
+from repro_torch.kernels.device import (DTYPES, launch, on_cuda, opaque,
+                                        stream)
 
 NEG_INF = -1e30
 HEAD_DIMS = tuple(range(16, 129, 16))    # the head sizes the kernel takes
@@ -190,12 +191,19 @@ def _launch_forward(q, k, v, causal: bool, window: int, with_lse: bool):
 
 
 class _FlashFn(torch.autograd.Function):
-    """Attention on the card with a gradient: K7 forward (writing the
-    log-sum-exp too), K7b backward."""
+    """Attention with a gradient. On the card: K7 forward (writing the
+    log-sum-exp too), K7b backward. On the CPU: the twin forward and its
+    gradient ``flash_attention_bwd_ref`` (autograd through the twin, the
+    same bits as differentiating the forward's graph), so that on either
+    device the backward is one ``flash_attention_bwd`` call."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out, lse = _launch_forward(q, k, v, causal, window, True)
+        if on_cuda(q, k, v):
+            out, lse = _launch_forward(q, k, v, causal, window, True)
+        else:
+            out = flash_attention_ref(q, k, v, causal=causal, window=window)
+            lse = None
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -209,20 +217,22 @@ class _FlashFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+@opaque("flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Attention of the Sq queries over the Sk keys, one launch. Where q, k
     or v requires a gradient (and grad mode is on), the backward is K7b on
-    the card and autograd through the twin on the CPU."""
+    the card and the twin's gradient on the CPU (``_FlashFn``)."""
     _check(q, k, v, window)
-    if not on_cuda(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashFn.apply(q, k, v, causal, window)
+    if not on_cuda(q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
     return _launch_forward(q, k, v, causal, window, False)[0]
 
 
+@opaque("flash_attention")
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0):
     """(out, lse): K7 with its log-sum-exp output on the card, the twins on
@@ -245,6 +255,7 @@ def _bwd_rows_shape(B: int, H: int, Sq: int, wgmma: bool) -> tuple:
     return (B, H, Sq)
 
 
+@opaque("flash_attention_bwd")
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         window: int = 0):
     """(dq, dk, dv) of <dout, flash_attention(q, k, v)> given the forward's

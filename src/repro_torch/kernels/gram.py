@@ -54,6 +54,7 @@ def grid(x: torch.Tensor, sms: int) -> tuple[bool, int, int]:
     return vec, ctas, n_sys * ctas * (m * (m + 1) // 2)
 
 
+@_device.opaque("flat_gram")
 def gram(x: torch.Tensor, *, anchor_first: bool = False) -> torch.Tensor:
     """Full (S, m, m) Gram of every system, one launch for all S."""
     check_flat_buffer(x)

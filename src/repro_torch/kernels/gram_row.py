@@ -51,6 +51,7 @@ def gram_row_ref(x: torch.Tensor, q: torch.Tensor, *,
     return torch.einsum("jsn,sn->sj", xf, qf)
 
 
+@_device.opaque("flat_gram_row")
 def gram_row(x: torch.Tensor, q: torch.Tensor, *,
              anchor_first: bool = False) -> torch.Tensor:
     """One streaming Gram row per system, one launch for all S systems.

@@ -38,15 +38,23 @@ Host dispatch is in order, so the flip lands between decode steps. With
 step; with ``adopt="drain"`` it waits (admissions held) until every active
 slot has finished.
 
-The reference's ahead-of-time program registry, its compile counters and
-its ``audit_*`` hooks have no eager counterpart here (CUDA graphs per
-bucket would be one, in a later change).
+The program registry is the reference's, eager: each bucket-shaped step
+is a program keyed ``prefill_b{B}_p{P}``, ``insert_b{B}`` or ``decode``,
+built once (``_program``; its first build is the "compile" the counters
+count, ``stats["compiles"]``, and after ``mark_steady()`` also
+``stats["steady_compiles"]``, which the audit's serve-compile pass pins at
+zero). ``max_programs`` is the reference's ceiling: one decode, one
+prefill per (prompt bucket, batch bucket), one insert per batch bucket
+and the ParamStore's landing copy. ``audit_info`` and ``audit_targets``
+feed ``repro_torch.audit`` (``serve/audit.py``); ``ServeConfig
+.force_recompile`` is its mutation seam. A program is a bound method
+here; capturing each as a CUDA graph is a later speed change.
 """
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,8 +77,12 @@ def _kv_map(fn, caches, *others):
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Shape policy, sampling and swap adoption (the reference's fields,
-    without its recompile audit seam)."""
+    """Shape policy, sampling and swap adoption: the reference's fields.
+
+    ``force_recompile`` is the audit's mutation seam (``repro_torch.audit
+    .mutations`` ``force-recompile``): prompt "buckets" degrade to exact
+    lengths, so every novel prompt length builds a fresh prefill program
+    and the serve-compile pass's steady-state pin trips."""
     n_slots: int = 8
     prompt_buckets: Tuple[int, ...] = (16, 64)
     batch_buckets: Tuple[int, ...] = (1, 4)
@@ -81,6 +93,7 @@ class ServeConfig:
     temperature: float = 1.0
     seed: int = 0
     adopt: str = "step"             # "step" | "drain"
+    force_recompile: bool = False
 
 
 @dataclass
@@ -148,14 +161,17 @@ class ServeEngine:
         self.device = model.device
         self._s_max = cfg.s_max or s_need
         self._store = ParamStore(params)
+        self._programs: Dict[str, Callable] = {}
+        self._steady = False
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self._queue: deque = deque()
         self._slots: List[Optional[_Slot]] = [None] * cfg.n_slots
         self._pending = False           # drain-adopt: staged, not committed
         self._uid = 0
         self.stats = {"submitted": 0, "completed": 0, "dropped": 0,
-                      "swaps": 0, "decode_dispatches": 0,
-                      "prefill_dispatches": 0, "tokens_emitted": 0}
+                      "swaps": 0, "compiles": 0, "steady_compiles": 0,
+                      "decode_dispatches": 0, "prefill_dispatches": 0,
+                      "tokens_emitted": 0}
         self._dstate = self._init_dstate()
 
     # -- device state -------------------------------------------------------
@@ -179,6 +195,38 @@ class ServeEngine:
                                        dtype=torch.float32),
         }
 
+    # -- program registry ---------------------------------------------------
+    def _program(self, name: str, build: Callable[[], Callable]) -> Callable:
+        """The program `name`, built by `build()` on first use: a first
+        build counts as a compile (and as a steady compile after
+        ``mark_steady``)."""
+        prog = self._programs.get(name)
+        if prog is None:
+            prog = build()
+            self._programs[name] = prog
+            self.stats["compiles"] += 1
+            if self._steady:
+                self.stats["steady_compiles"] += 1
+        return prog
+
+    def mark_steady(self) -> None:
+        """Warm-up is over: any program built after this is a steady-state
+        recompile, the defect the serve-compile audit pass pins at 0."""
+        self._steady = True
+
+    @property
+    def n_programs(self) -> int:
+        return len(self._programs) + self._store.n_programs
+
+    @property
+    def max_programs(self) -> int:
+        """The analytic ceiling: 1 decode + one prefill per (batch bucket
+        x prompt bucket) + one insert per batch bucket + the ParamStore's
+        landing copy."""
+        npb = len(self.cfg.prompt_buckets)
+        nbb = len(self.cfg.batch_buckets)
+        return 1 + npb * nbb + nbb + self._store.n_programs
+
     @property
     def params(self):
         """The weights being served (the store's active buffer)."""
@@ -199,8 +247,13 @@ class ServeEngine:
     # -- the three steps ----------------------------------------------------
     def _decode(self, params, d: Dict[str, Any]) -> Dict[str, Any]:
         cfg = self.cfg
-        logits, caches = self.model.decode_step(
+        logits, moved = self.model.decode_step(
             params, {"tokens": d["cur_tok"]}, d["caches"])
+        # the step wrote k and v in place but moved each segment's per-slot
+        # lengths on in a new tensor: written back, every tensor of the
+        # slot table keeps its storage
+        caches = d["caches"]
+        _kv_map(lambda c, m: c.length.copy_(m.length), caches, moved)
         logits = logits[:, 0, :]                     # (n_slots, V) fp32
         if cfg.sampling == "greedy":
             tok = torch.argmax(logits, dim=-1)
@@ -258,11 +311,12 @@ class ServeEngine:
 
     # -- bucketing ----------------------------------------------------------
     def _prompt_bucket(self, n: int) -> int:
-        for b in self.cfg.prompt_buckets:
-            if n <= b:
-                return b
-        raise ValueError(f"prompt length {n} exceeds the largest prompt "
-                         f"bucket {self.cfg.prompt_buckets[-1]}")
+        if n > self.cfg.prompt_buckets[-1]:
+            raise ValueError(f"prompt length {n} exceeds the largest prompt "
+                             f"bucket {self.cfg.prompt_buckets[-1]}")
+        if self.cfg.force_recompile:
+            return n        # the audit seam: exact lengths, fresh programs
+        return next(b for b in self.cfg.prompt_buckets if n <= b)
 
     def _batch_bucket(self, n: int) -> int:
         return next(b for b in self.cfg.batch_buckets if n <= b)
@@ -315,9 +369,12 @@ class ServeEngine:
                 true_lens[len(reqs):] = true_lens[0]
                 first_toks[len(reqs):] = first_toks[0]
 
-            pre = self._prefill(self._store.params, self._as_device(toks))
+            prefill = self._program(f"prefill_b{Bb}_p{pb}",
+                                    lambda: self._prefill)
+            pre = prefill(self._store.params, self._as_device(toks))
             self.stats["prefill_dispatches"] += 1
-            self._insert(pre, slots, true_lens, first_toks, targets)
+            insert = self._program(f"insert_b{Bb}", lambda: self._insert)
+            insert(pre, slots, true_lens, first_toks, targets)
             for r, req in enumerate(reqs):
                 self._slots[int(slots[r])] = _Slot(
                     uid=req.uid, prompt_len=len(req.tokens),
@@ -333,7 +390,8 @@ class ServeEngine:
         if all(s is None for s in self._slots):
             return []
         n_active = self.active_slots
-        self._dstate = self._decode(self._store.params, self._dstate)
+        decode = self._program("decode", lambda: self._decode)
+        self._dstate = decode(self._store.params, self._dstate)
         self.stats["decode_dispatches"] += 1
         self.stats["tokens_emitted"] += n_active
         finished: List[Result] = []
@@ -396,3 +454,29 @@ class ServeEngine:
             self._store.commit()
             self._pending = False
             self.stats["swaps"] += 1
+
+    # -- audit hooks --------------------------------------------------------
+    def audit_info(self) -> Dict[str, Any]:
+        """The registry's counts, as the reference's engine reports them."""
+        return {"n_programs": self.n_programs,
+                "max_programs": self.max_programs,
+                "compiles": self.stats["compiles"],
+                "steady_compiles": self.stats["steady_compiles"],
+                "n_prompt_buckets": len(self.cfg.prompt_buckets),
+                "n_batch_buckets": len(self.cfg.batch_buckets),
+                "programs": sorted(self._programs)}
+
+    def audit_targets(self) -> Dict[str, Any]:
+        """The decode program as an AuditTarget: one decode step over the
+        slot table, recorded op by op (``repro_torch.audit.targets
+        .serve_target``). The slot-table caches are the state whose storage
+        must survive the step. Empty until the decode program exists; the
+        recorded step is not counted in ``stats``."""
+        from repro_torch.audit.targets import serve_target
+
+        decode = self._programs.get("decode")
+        if decode is None:
+            return {}
+        target, self._dstate = serve_target(
+            "serve_decode", decode, self._store.params, self._dstate)
+        return {"serve_decode": target}

@@ -49,6 +49,10 @@ def _sync(tree: PyTree) -> None:
 class ParamStore:
     """Double-buffered, version-stamped residence for the weights."""
 
+    #: the store's share of the engine's program ceiling (the reference's
+    #: landing-copy program; here the per-leaf clone of ``stage``)
+    n_programs = 1
+
     def __init__(self, params: PyTree):
         self._version = 0
         self._staged: Optional[PyTree] = None

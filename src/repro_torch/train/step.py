@@ -44,6 +44,11 @@ flat}, "leaf": ...}``; the model sees per-leaf views of the flat buffers
 (``arena.tree_leafwise``), the optimizer updates the flat buffers, and
 ``record`` is one copy per bucket. Only optimizers whose moment updates
 are elementwise can be resident (``RESIDENT_OPTIMIZERS``).
+
+``audit_step_fns`` hands the same three entry points (the fused step, the
+jump, and record + streaming Gram alone) to the audit
+(``repro_torch.audit``), which records each call op by op and checks that
+the state keeps its storage across it.
 """
 from __future__ import annotations
 
@@ -476,7 +481,7 @@ def make_dmd_step(acfg, *, acc: Optional[DMDAccelerator] = None, model=None,
                                                     ccfg.accept_tol)
                               for c in cand])
             # the one host read of this jump step: every accept flag
-            flags = ok.tolist()
+            flags = ok.tolist()  # lint: allow-host-sync (once per jump)
             if flags[0]:
                 outcome, kept, loss_kept, level = (ctrl_mod.ACCEPT, p_jump,
                                                    loss_post, levels[0])
@@ -504,3 +509,51 @@ def make_dmd_step(acfg, *, acc: Optional[DMDAccelerator] = None, model=None,
             "ctrl_level": torch.tensor(level, dtype=torch.float32)}
 
     return gated_dmd_step
+
+
+def _rebinding(fn: Callable, n_state: int) -> Callable:
+    """`fn` run on a fresh copy of its first `n_state` arguments, the copy
+    returned: the state is rebound to new tensors instead of written in
+    place (the eager form of a jit without donate_argnums)."""
+    def step(*args, **kwargs):
+        fresh = tuple(tree_map(lambda t: t.clone(), a)
+                      for a in args[:n_state])
+        return fn(*fresh, *args[n_state:], **kwargs)
+    return step
+
+
+def audit_step_fns(model, acfg, *, acc: Optional[DMDAccelerator] = None,
+                   loss_fn: Callable = None, donate: bool = True,
+                   device="cuda"):
+    """The audit's surface (``repro_torch.audit.targets``): every hot entry
+    point, built as the Trainer builds it, and their shared accelerator.
+
+    Returns ``(acc, {name: fn})`` with
+      * ``train_step``: the fused step (record and streaming Gram inside),
+        ``train_step(state, batch, slots)``;
+      * ``dmd_step``: the jump, plain or loss-gated as the config says;
+      * ``record_update``: ``record_update(buffers, grams, params,
+        slots)``, record and streaming-Gram maintenance as a step of its
+        own, so the data passes are audited apart from the model.
+
+    Each writes its state in place. ``donate=False`` is the seeded
+    violation (the audit's ``drop-donation``): each step then rebinds its
+    state to fresh tensors instead of writing it in place through
+    ``assign_``."""
+    acc = _accelerator_for(model, acfg, acc, device)
+    fns = {
+        "train_step": make_train_step(model, acfg, loss_fn=loss_fn, acc=acc,
+                                      device=device),
+        "dmd_step": make_dmd_step(acfg, acc=acc, model=model,
+                                  loss_fn=loss_fn, device=device),
+    }
+
+    def record_update(buffers, grams, params, slots):
+        return acc.record(buffers, params, slots, grams)
+
+    fns["record_update"] = record_update
+    if not donate:
+        fns = {"train_step": _rebinding(fns["train_step"], 1),
+               "dmd_step": _rebinding(fns["dmd_step"], 1),
+               "record_update": _rebinding(record_update, 2)}
+    return acc, fns

@@ -1685,3 +1685,47 @@ def test_ssm_trainer_graphed_fit_matches_eager(cuda, arch):
     for (path, a), (_, b) in zip(leaves_with_paths(sg.params),
                                  leaves_with_paths(se.params)):
         assert torch.equal(a, b), path
+
+
+def test_audit_on_the_card_matches_the_cpu_and_never_syncs(cuda):
+    """chip_smoke.py phase 20 (a) and (b): the paper MLP's audit at full
+    width is clean on the card, each audited step records as many ops as
+    on the CPU and launches its kernel once (K1 in train_step and
+    record_update, K2 in both jumps); the plain train step, a record step
+    and record_update run under sync-debug "error"."""
+    from repro_torch.audit import targets as audit_targets
+    from repro_torch.audit.registry import run_passes
+    from repro_torch.train.step import audit_step_fns
+
+    ctx = audit_targets.build_context("pollutant-mlp", device=cuda)
+    report = run_passes(ctx)
+    assert report.ok and len(report.results) == 10, report.render()
+    cpu = audit_targets.build_context("pollutant-mlp", device="cpu")
+    want = {"train_step": {"gram_row": 1}, "dmd_step": {"combine": 1},
+            "dmd_step_gated": {"combine": 1},
+            "record_update": {"gram_row": 1}}
+    for name, kernels in want.items():
+        card, host = ctx.targets[name].recording, cpu.targets[name].recording
+        assert card.count == host.count, name
+        assert card.launches == kernels, name
+
+    model, acfg, batch = audit_targets._build_model_and_config(
+        "pollutant-mlp", False, cuda)
+    acc, fns = audit_step_fns(model, acfg, device=cuda)
+    state = audit_targets._init_state(model, acfg, acc, cuda)
+    slots = audit_targets.audit_slots(acc)
+    calls = (lambda: fns["train_step"](state, batch,
+                                       np.full((acc.n_groups,), -1)),
+             lambda: fns["train_step"](state, batch, slots),
+             lambda: fns["record_update"](state.dmd_buffers, state.dmd_gram,
+                                          state.params, slots))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
