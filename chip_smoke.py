@@ -410,7 +410,46 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    the registry within its ceiling, nothing dropped, no cache-shaped
    tensor made in decode, every slot-table cache tensor kept over the
    run, K7 22 a prefill dispatch; then ``force-recompile`` bites. No
-   kernel is added; the phase's wall time is printed.
+   kernel is added; the phase's wall time is printed. The six mutations
+   are those a one-device build has (``force-allgather`` needs a mesh:
+   phase 21(e)).
+21. The mesh, phase 21 "mesh" (``run_mesh_phase``): four ranks spawned
+   on the one card (``launch/mesh.py::run_ranks``, gloo on CUDA tensors,
+   a FileStore in a ``.chip_smoke_*`` directory), after the kernels were
+   built here, so that no two ranks build them; a rank that fails fails
+   the script. (0) gloo's all_reduce, broadcast and list all_gather on
+   CUDA tensors. (a) The data passes per block on a (2, 2) mesh
+   (``distributed/checks.py``'s rank-side checks, which the CPU tests run
+   too): the lane-sharded arena at TinyLlama-1.1B's full-width shard
+   shapes and the reference test's system-sharded bucket (the override
+   ("stacked", ("fsdp", None, "tp"))), arena and per-leaf routes: K1 / K4
+   streamed and K3 / K6 recomputed per block plus one all-reduce against
+   each rank's kernels on the full ring (RTOL; bit for bit on a sparse
+   integer trajectory), K2 / K5 per block equal the full combine's block
+   bit for bit (a bucket's K2 without a collective), K1-K3 against their
+   twins on the block, a record making all-reduces only; rank 0 times
+   each pass on its block (the others wait) beside its bound, and the
+   all-reduce of a K1 row and of K3's Grams. (b) TinyLlama-1.1B at full
+   width cut to ``MESH_LAYERS`` on the (2, 2) mesh, eager (DMD on every
+   param, bf16 ring of 4, the jump at step 4, AdamW) against the same run
+   on one rank, eager, here: losses within ``MESH_LOSS_TOL`` (up to the
+   jump, after it), the final params within ``MESH_PARAM_TOL`` leaf by
+   leaf (the L2 distance over the L2 distance the leaf moved) and two
+   planted faults outside it (one rank trained on the first half of
+   every batch, as a data rank whose gradient sum were lost; the initial
+   params), the coefficients the same bits on every rank before and
+   after their broadcast, K1, K2, K7 and K7b launched on every rank (K7
+   all through the wgmma design), record_update's collectives
+   all-reduces totalling the analytic bytes; step ms, peak bytes per
+   rank. (c) (b)'s checkpoint at ``MESH_SAVE`` restored onto (4, 1) and
+   onto one rank here, run to (b)'s last step: losses as (b)'s within
+   ``MESH_LOSS_TOL``, every restored running Gram equal to K3's
+   recompute of its restored ring over the window's rows. (d) The int8
+   pod sync on a (2, 1, 2) mesh: error <= scale * 1.01, one int32
+   all-reduce over "pod". (e) The audit of the reduced TinyLlama under
+   ``--mesh 2x2``: clean with record_update's one all-reduce of the
+   analytic bytes, and ``force-allgather`` fails exactly
+   collective-budget. The phase's wall time is printed.
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -447,6 +486,8 @@ from repro_torch.core.paths import (by_path, keystr_leaves,  # noqa: E402
                                     tree_map)
 from repro_torch.data import pollutant  # noqa: E402
 from repro_torch.data.synthetic import synthetic_regression  # noqa: E402
+from repro_torch.distributed import checks as mesh_checks  # noqa: E402
+from repro_torch.distributed.checks import rel_err  # noqa: E402
 from repro_torch.data.tokens import (image_positions,  # noqa: E402
                                      stream_kwargs, synthetic_lm_batches)
 from repro_torch.kernels import _build  # noqa: E402
@@ -2648,8 +2689,10 @@ def run_benches(dev, records):
 # of an 80 GB card (PERF.md §4: 22 layers need 79 GB of state alone; 15,
 # 16 and 17 ran out of memory by their first record step in
 # examples/torch_lm_depth.py; 14 peaked at 0.76 of the card; NVIDIA H100
-# 80GB HBM3, 700 W)
-LM_LAYERS = 14
+# 80GB HBM3, 700 W). It trained at 14 until phase 21 (the mesh) brought
+# the script to 1,210.7 s on a slower host (phase 15 138.1 s of it): it
+# trains at 4, one kind of layer, so the cut drops no code path
+LM_LAYERS = 4
 # 72 steps (two jumps, at 41 and 65): the script's time left room for
 # phase 17 at 96
 LM_STEPS, LM_BATCH, LM_SEQ = 72, 8, 4096
@@ -3904,10 +3947,12 @@ SSM_BF16_HELD = ("mamba2-2.7b",)
 # layers, about half its time (8 identical mamba layers: no code path of
 # the 16 is dropped); zamba2 stays at 14 (two groups of 6 and a 2-layer
 # remainder: the shared block's gradient sums its two invocations);
+# with phase 21 the script took 1,210.7 s on a slower host (mamba2-train
+# 36.6 s of it): mamba2 trains at 4 layers;
 # the DMD warm-up cut to 0 and the cool-down from 10 to SSM_COOLDOWN (the
 # least that leaves 3 replayed plain steps to profile; phase 17's time on
 # a slow host), m 14: records at 5-18, the jump at 18
-SSM_TRAIN_LAYERS = {"mamba2-2.7b": 8, "zamba2-2.7b": 14}
+SSM_TRAIN_LAYERS = {"mamba2-2.7b": 4, "zamba2-2.7b": 14}
 SSM_COOLDOWN = 5
 # the step cut to SSM_ACCUM microbatches of 1 x 4096 tokens (the config's
 # grad_accum is 8): the microbatch, and so the peak, is the config's, but
@@ -4468,7 +4513,8 @@ GEMMA_BLOCK_PRE = 192
 # granite ran at 3 (0.742), 4 ran out of memory in this phase's jump;
 # gemma ran at 1 (0.777), 2 ran out of memory. minicpm trained at 20, one
 # layer under the deepest, until phase 19 brought the script to 1,132 s
-# (minicpm-train 41 s of it); it trains at 10, about half the time;
+# (minicpm-train 41 s of it); it trains at 10, about half the time, and
+# at 4 since phase 21 brought the script to 1,210.7 s on a slower host;
 # gemma's one layer is a window layer: gemma3-train trains no
 # global layer (tests/test_torch_dense_archs.py trains one on the CPU
 # against the reference); warm-up
@@ -4477,7 +4523,7 @@ GEMMA_BLOCK_PRE = 192
 # at its last step); DENSE_ACCUM microbatches of 1 x 4096 a step
 # (the configs' grad_accum is 8 and 16: phase 17's cut, for the script's
 # time)
-DENSE_TRAIN_LAYERS = {"minicpm-2b": 10, "granite-20b": 3, "gemma3-27b": 1}
+DENSE_TRAIN_LAYERS = {"minicpm-2b": 4, "granite-20b": 3, "gemma3-27b": 1}
 DENSE_COOLDOWN = 5
 DENSE_ACCUM = 2
 
@@ -5271,7 +5317,8 @@ def _audit_mutations(dev):
     from repro_torch.audit import run_audit
     from repro_torch.audit.mutations import get, list_mutations
 
-    for name in (None,) + tuple(list_mutations()):
+    for name in (None,) + tuple(n for n in list_mutations()
+                                if not get(n).needs_mesh):
         report = run_audit("pollutant-mlp", reduced=True, mutate=name,
                            device=dev)
         failed = sorted(r.name for r in report.results if not r.ok)
@@ -5345,6 +5392,580 @@ def run_audit_phase(dev):
         walls[part] = time.perf_counter() - t0
     print(f"audit: phase 20 wall {time.perf_counter() - t_phase} s; by part "
           f"{walls}")
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the mesh, four ranks on the one card (gloo on CUDA tensors)
+# TinyLlama-1.1B at its full width, its 22 layers cut to MESH_LAYERS (all of
+# one kind, so the cut drops no code path), on a (2, 2) mesh
+MESH_LAYERS = 2
+MESH_B, MESH_S = 8, 1024          # the global batch: 4 sequences a data rank
+# gloo moves ~0.5-0.7 GB/s between ranks on one host
+# (examples/torch_mesh_probe.py on the H100 host), and a step all-gathers
+# the params and all-reduces the gradient: seconds a step at this width,
+# so the run is short
+MESH_STEPS = 6                    # one jump, at step 4 (m 4, cool-down 1)
+MESH_SAVE = 4                     # (c)'s checkpoint: mid-window (slots
+                                  # 0-2 written; the jump step 4 to run)
+MESH_DMD = dict(m=4, s=10, warmup_steps=0, cooldown_steps=1,
+                param_filter="all", snapshot_dtype="bfloat16")
+# the (2, 2) run against one rank, relative: only the order of the
+# gradient's fp32 sums differs (two half-batch gradients summed against one
+# full-batch gradient); on the H100 the losses differed by at most 4.8e-6
+# before the jump and 2.0e-6 after it
+MESH_LOSS_TOL = (1e-5, 1e-4)      # up to the first jump, after it
+# the final params against one rank's: each leaf's L2 distance over the L2
+# distance the leaf moved from its init (a run that never updated its
+# params scores 1). bf16 gradients summed in another order flip the sign
+# of Adam's early updates wherever a gradient is near zero: on the H100
+# the (2, 2) run ended 9.8% of a leaf's move away from one rank at the
+# most, against 93% for one rank trained on half of every batch
+MESH_PARAM_TOL = 0.2
+MESH_GRAM_TOL = 1e-4              # a carried Gram against K3's recompute
+MESH_RANKS = 4
+
+
+def _mesh_acfg():
+    acfg = launch_train.configure("tinyllama-1.1b", steps=MESH_STEPS,
+                                  global_batch=MESH_B, seq=MESH_S,
+                                  n_layers=MESH_LAYERS)
+    return dataclasses.replace(
+        acfg, dmd=dataclasses.replace(acfg.dmd, **MESH_DMD),
+        optimizer=dataclasses.replace(acfg.optimizer, schedule="constant"),
+        parallel=dataclasses.replace(acfg.parallel, grad_accum=1,
+                                     remat="none"))
+
+
+def _mesh_trainer(acfg, dev, mesh, ckpt=None):
+    model = launch_train.make_model(acfg, device=dev)
+    return Trainer(model, acfg, device=dev, cuda_graphs=False, mesh=mesh,
+                   checkpoint_dir=ckpt)
+
+
+def _mesh_init(tr, dev):
+    gen = torch.Generator(device=dev).manual_seed(tr.acfg.train.seed)
+    return tr.init_state(key=gen)
+
+
+def _mesh_fit(tr, dev, state, rows=None):
+    """Fit from `state` to MESH_STEPS on the token stream (each batch cut to
+    its first `rows` sequences, where given): (state, losses, jump steps,
+    host ms of each step)."""
+    tc = tr.acfg.train
+    batches = synthetic_lm_batches(tc.seed, tc.global_batch, tc.seq_len,
+                                   tr.acfg.model.vocab_size,
+                                   start_step=int(state.step), device=dev)
+    if rows is not None:
+        batches = ({k: v[:rows] for k, v in b.items()} for b in batches)
+    ms, t = [], [time.perf_counter()]
+
+    def on_m(step, m):
+        now = time.perf_counter()
+        ms.append((now - t[0]) * 1e3)
+        t[0] = now
+    state, losses, jumps, _ = mesh_checks.fit(tr, batches, MESH_STEPS, state,
+                                              on_metrics=on_m)
+    return state, losses, jumps, ms
+
+
+def _mesh_eval(tr, state, dev) -> float:
+    """The loss of the full params on a batch no step trained on (every
+    rank takes part in the gathers)."""
+    params = mesh_checks.full_params(tr, state)
+    batch = synthetic_lm_batches(tr.acfg.train.seed + 1, 2, MESH_S,
+                                 tr.acfg.model.vocab_size, device=dev)
+    with torch.no_grad():
+        out = float(tr.model.loss(mesh_checks.nest(params), next(batch))[0])
+    del params
+    return out
+
+
+def _host_params(tr, state) -> dict:
+    """{path: full param} on the host (every rank gathers)."""
+    return {p: x.detach().cpu()
+            for p, x in mesh_checks.full_params(tr, state).items()}
+
+
+def _loss_errs(got, want, jumps) -> tuple:
+    """Relative loss differences: the largest up to the first jump's step
+    (its loss included) and after it."""
+    errs = np.abs(np.asarray(got) - np.asarray(want)) / np.abs(want)
+    k = jumps[0] + 1 if jumps else len(errs)
+    return (float(errs[:k].max(initial=0.0)),
+            float(errs[k:].max(initial=0.0)))
+
+
+def _param_errs(got, want, init, dev) -> dict:
+    """Per leaf: ||got - want|| / ||want - init|| (fp32 L2 norms) and
+    max |got - want| / max |want|."""
+    out = {}
+    for p, w in want.items():
+        w = w.to(dev).float()
+        g, i = got[p].to(dev).float(), init[p].to(dev).float()
+        out[p] = (float((g - w).norm() / (w - i).norm().clamp_min(1e-30)),
+                  rel_err(g, w))
+    return out
+
+
+def _mesh_one_rank(acfg, dev, rows=None):
+    """(b)'s run on one rank without a mesh, eager (each batch cut to
+    `rows` sequences, where given): losses, jumps, step ms, launches, the
+    held-out loss and the full init and final params on the host."""
+    tr = _mesh_trainer(acfg, dev, None)
+    state = _mesh_init(tr, dev)
+    init = _host_params(tr, state)
+    reset_counts()
+    state, losses, jumps, ms = _mesh_fit(tr, dev, state, rows=rows)
+    torch.cuda.synchronize()
+    out = {"losses": losses, "jumps": jumps, "ms": ms,
+           "launches": dict(counts()), "init": init,
+           "final": _host_params(tr, state),
+           "eval": _mesh_eval(tr, state, dev)}
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_probe(mesh, dev):
+    """gloo's collectives on CUDA tensors: all_reduce, broadcast and the
+    list form of all_gather, each checked."""
+    r = mesh.rank
+    t = torch.full((64,), float(r), device=dev)
+    mesh.all_reduce(t, mesh.axis_names)
+    b = torch.full((64,), float(r + 1), device=dev)
+    mesh.broadcast(b)
+    parts = mesh.all_gather(torch.full((8,), float(r), device=dev),
+                            mesh.axis_names)
+    ok = (bool((t == 6.0).all()) and bool((b == 1.0).all())
+          and [float(p[0]) for p in parts] == [0.0, 1.0, 2.0, 3.0])
+    require(ok, f"mesh: gloo collectives on CUDA tensors wrong on rank {r}")
+    return ok
+
+
+def _mesh_kernel_case(mesh, dev, shapes, stack_dims, arena, dyadic):
+    """One data-pass case on the mesh (``distributed/checks.py``'s
+    ``data_passes``) over a trajectory drawn on the card, reduced to its
+    largest errors and its verdicts; rank 0 also times each pass on its
+    blocks (the other ranks wait at the barrier)."""
+    gen = torch.Generator(device=dev).manual_seed(5 + int(dyadic))
+
+    def draw(s):
+        if not dyadic:
+            return torch.randn(s, generator=gen, device=dev)
+        # -1, 0, 1 on one lane in 64: every partial sum of a Gram entry
+        # stays below 2^24 (65.5M lanes x 2/64 x 4 = 8.2M), so fp32 sums
+        # are exact in any order
+        x = torch.randint(-1, 2, s, generator=gen, device=dev).float()
+        keep = torch.rand(s, generator=gen, device=dev) < 1.0 / 64
+        return x * keep
+
+    gen_c = torch.Generator(device=dev).manual_seed(9)
+    coeffs = {p: torch.randint(-2, 3, tuple(s[:stack_dims[p]])
+                               + (mesh_checks.M,), generator=gen_c,
+                               device=dev).float()
+              for p, s in sorted(shapes.items())}
+
+    def probe(acc, params, bufs, leaf):
+        if arena:
+            return _mesh_bucket_times(acc, params, bufs)
+        return _mesh_leaf_times(by_path(acc.plans_for(params)), leaf)
+    res = mesh_checks.data_passes(
+        mesh, shapes, stack_dims, arena=arena, device=dev, keep_full=False,
+        snapshot=lambda j: {p: draw(s) for p, s in shapes.items()},
+        coefficients=coeffs, probe=probe if mesh.rank == 0 else None)
+    mesh.barrier()
+    one = res["one"]
+    k3 = list(res["recomputed"].items()) + list(res.get("k3", {}).items())
+    out = {"gram_err": max(rel_err(g, one[p])
+                           for p, g in res["streamed"].items()),
+           "k3_err": max(rel_err(g, one[p]) for p, g in k3),
+           "exact": all(res["streamed_equal_one"].values()),
+           "k2_equal": all(res["k2_slice_equal"].values()) and all(
+               res.get("k2_bucket_equal", {0: True}).values()),
+           "allreduce_only": all(kind == "all_reduce" for rec in
+                                 res["record_collectives"] for kind, _ in rec),
+           "record_bytes": sum(n for _, n in res["record_collectives"][-1])}
+    out.update(res.get("probe", {}))
+    return out
+
+
+def _mesh_bucket_times(acc, params, bufs):
+    """Rank 0's per-block times of K1, K3 and K2 on each bucket (the other
+    ranks wait at a barrier, so the card is this rank's) and their twins'
+    errors on the same block."""
+    table = acc.arena_for(params)
+    arenas = arena_mod.split_state(bufs)[0]
+    times, twin = {}, 0.0
+    for key, b in table.items():
+        buf = arenas[key]
+        seg = b.tables_on(buf.device)
+        q = buf[:, 1, :]
+        row = ka._gram_row(buf, q, seg, anchor_first=True)
+        gram = ka._gram(buf, seg, anchor_first=True)
+        c = torch.ones((b.n_sys, b.m), device=buf.device) / b.m
+        twin = max(twin, rel_err(row, ka.gram_row_ref(
+            buf, q, seg.block_sys, seg.n_sys, anchor_first=True)),
+            rel_err(gram, ka.gram_ref(buf, seg.block_sys, seg.n_sys,
+                                      anchor_first=True)),
+            rel_err(ka._combine(buf, c, seg),
+                    ka.combine_ref(buf, c, seg.block_sys)))
+        times[key] = {
+            "shape": list(buf.shape), "lane_axes": list(b.lane_axes),
+            "bound_ms": bound_ms(buf.numel() * buf.element_size(),
+                                 2 * buf.numel())[0],
+            "K1_ms": cuda_ms(lambda: ka._gram_row(buf, q, seg,
+                                                  anchor_first=True)),
+            "K3_ms": cuda_ms(lambda: ka._gram(buf, seg, anchor_first=True),
+                             iters=5),
+            "K2_ms": cuda_ms(lambda: ka._combine(buf, c, seg))}
+    return {"times": times, "bucket_twin_err": twin}
+
+
+def _mesh_leaf_times(plans, leaf):
+    """Rank 0's per-block times of K4, K6 and K5 on the per-leaf route's
+    largest block (the other ranks wait at a barrier), beside the least
+    time the card could take."""
+    from repro_torch.kernels import ops
+
+    bufs = by_path(leaf.dmd_buffers)
+    path = max(bufs, key=lambda p: bufs[p].numel())
+    buf, plan = bufs[path].contiguous(), plans[path]
+    m = buf.shape[0]
+    q = buf[1]
+    c = torch.ones(tuple(buf.shape[1:1 + plan.stack_dims]) + (m,),
+                   device=buf.device) / m
+    nbytes = buf.numel() * buf.element_size()
+    times = {"shape": list(buf.shape), "leaf": path,
+             "K4_ms": cuda_ms(lambda: ops.gram_row(
+                 buf, q, anchor_first=True, stack_dims=plan.stack_dims)),
+             "K6_ms": cuda_ms(lambda: ops.gram(
+                 buf, anchor_first=True, stack_dims=plan.stack_dims),
+                 iters=5),
+             "K5_ms": cuda_ms(lambda: ops.combine(
+                 buf, c, stack_dims=plan.stack_dims)),
+             "bound_ms": bound_ms(nbytes, 2 * buf.numel())[0]}
+    return {"times": {path: times}}
+
+
+def _mesh_allreduce_ms(mesh, dev, table) -> dict:
+    """Host ms of one all-reduce of each lane-sharded bucket's K1 row and
+    K3 Grams over its lane axes (every rank calls; rank 0's clock)."""
+    out = {}
+    for key, b in sorted(table.items()):
+        if not b.lane_axes:
+            continue
+        for name, shape in (("row", (b.n_sys, b.m)),
+                            ("gram", (b.n_sys, b.m, b.m))):
+            t = torch.ones(shape, device=dev)
+            mesh.all_reduce(t, b.lane_axes)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                mesh.all_reduce(t, b.lane_axes)
+            torch.cuda.synchronize()
+            out[f"{key} {name} {list(shape)}"] = (
+                (time.perf_counter() - t0) / 5 * 1e3)
+    return out
+
+
+def _mesh_kernels(mesh, dev):
+    """Phase 21(a): the lane-sharded arena at TinyLlama's full-width shard
+    shapes (2 layers) and the reference test's system-sharded bucket
+    (override ("stacked", ("fsdp", None, "tp"))), arena and per-leaf
+    routes, random and integer-valued trajectories."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models.transformer import init_params
+
+    lm = {p: tuple(x.shape) for p, x in leaves_with_paths(
+        init_params(_mesh_acfg().model, device="meta"))}
+    lm_sd = {p: (1 if p.startswith("/seg") else 0) for p in lm}
+    cases = {"lane": (lm, lm_sd, None),
+             "sys": ({"/stacked": (4, 2048, 5632), "/w": (2048, 5632)},
+                     {"/stacked": 1, "/w": 0},
+                     [(r"stacked", ("fsdp", None, "tp"))])}
+    out = {}
+    for name, (shapes, sd, override) in cases.items():
+        sharding.set_rule_overrides(override)
+        try:
+            for arena in (True, False):
+                for dyadic in (False, True):
+                    out[f"{name} {'arena' if arena else 'per-leaf'} "
+                        f"{'integer' if dyadic else 'random'}"] = \
+                        _mesh_kernel_case(mesh, dev, shapes, sd, arena,
+                                          dyadic)
+                    torch.cuda.empty_cache()
+        finally:
+            sharding.set_rule_overrides(None)
+    return out
+
+
+def _mesh_train(mesh, dev, ckpt):
+    """Phase 21(b): TinyLlama at full width on the (2, 2) mesh, eager,
+    checkpointed at MESH_SAVE for (c); rank 0 brings back the full final
+    params."""
+    from repro_torch.launch.mesh import record_collectives
+
+    acfg = _mesh_acfg()
+    acfg = dataclasses.replace(acfg, train=dataclasses.replace(
+        acfg.train, checkpoint_every=MESH_SAVE))
+    tr = _mesh_trainer(acfg, dev, mesh, ckpt)
+    coeffs = mesh_checks.CoefficientLog(mesh)
+    save_s = []
+    inner_save = tr.save
+
+    def timed_save(state, step):
+        t0 = time.perf_counter()
+        inner_save(state, step)
+        save_s.append(time.perf_counter() - t0)
+    tr.save = timed_save
+    state = _mesh_init(tr, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t_fit = time.perf_counter()
+    state, losses, jumps, ms = _mesh_fit(tr, dev, state)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t_fit
+    launches = dict(counts())
+    wgmma = {k: kf.LAUNCHES[k] for k in ("flash_attention_wgmma",
+                                         "flash_attention_bwd_wgmma")}
+    coeffs.close()
+    peak = torch.cuda.max_memory_allocated(dev)
+    table = tr.acc.arena_for(state.params)
+    slots = tr.acc.slots(6)
+    with record_collectives() as rec:
+        tr.acc.record(state.dmd_buffers, state.params, slots, state.dmd_gram)
+    analytic = sum(b.n_sys * b.m * 4 for b in table.values() if b.lane_axes)
+    ar_ms = _mesh_allreduce_ms(mesh, dev, table)
+    evl = _mesh_eval(tr, state, dev)
+    final = _host_params(tr, state)
+    out = {"losses": losses, "jumps": jumps, "ms": ms, "launches": launches,
+           "wgmma": wgmma, "peak": peak, "eval": evl, "fit_s": t_fit,
+           "save_s": save_s,
+           "final": final if mesh.rank == 0 else None,
+           "c_before": coeffs.before, "c_after": coeffs.after,
+           "record": [(c["kind"], c["bytes"]) for c in rec],
+           "analytic": analytic, "allreduce_ms": ar_ms,
+           "buckets": {k: [b.n_sys, b.n_sys_global, b.n_lanes_local,
+                           list(b.lane_axes), list(b.sys_axes)]
+                       for k, b in table.items()}}
+    del state, tr, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_restore(mesh, dev, ckpt):
+    """Phase 21(c) on a mesh (or one rank without one): (b)'s checkpoint
+    restored and run to MESH_STEPS."""
+    tr = _mesh_trainer(_mesh_acfg(), dev, mesh, ckpt)
+    t0 = time.perf_counter()
+    restored = tr.restore()           # its template: init_state's draw
+    restore_s = time.perf_counter() - t0
+    errs = mesh_checks.gram_errors(tr, restored)
+    start = int(restored.step)
+    state, losses, jumps, _ = _mesh_fit(tr, dev, restored)
+    evl = _mesh_eval(tr, state, dev)
+    out = {"start": start, "losses": losses, "jumps": jumps,
+           "gram_err": errs, "eval": evl, "restore_s": restore_s}
+    del state, restored, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_gradsync(dev):
+    """Phase 21(d): int8_psum_grads on a (2, 1, 2) pod mesh, the
+    reference's replicated case: the largest error and the scale."""
+    from repro_torch.launch.mesh import AXES, Mesh
+
+    res = mesh_checks.int8_sync(Mesh((2, 1, 2), AXES, device=dev),
+                                (2048, 256), dev)
+    return {"err": float((res["same"] - res["input"]).abs().max()),
+            "scale": float(res["input"].abs().max()) / 127.0,
+            "wire": res["wire"]}
+
+
+def mesh_rank(rank, ckpt):
+    """One of phase 21's four ranks (all on the one card)."""
+    from repro_torch.launch.mesh import Mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    walls, out = {}, {"rank": rank}
+    mesh = Mesh((2, 2), device=dev)
+    for part, fn in (("probe", lambda: _mesh_probe(mesh, dev)),
+                     ("kernels", lambda: _mesh_kernels(mesh, dev)),
+                     ("train", lambda: _mesh_train(mesh, dev, ckpt)),
+                     ("restore 4x1", lambda: _mesh_restore(
+                         Mesh((4, 1), device=dev), dev, ckpt)),
+                     ("gradsync", lambda: _mesh_gradsync(dev)),
+                     ("audit", lambda: mesh_checks.mesh_audit((2, 2), dev))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        walls[part] = time.perf_counter() - t0
+    out["walls"] = walls
+    return out
+
+
+def run_mesh_phase(dev, records):
+    """Phase 21: the mesh. The kernels are built (phase 2) before the four
+    ranks start, so that they do not race on its build directory; a rank
+    that fails fails the phase."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    acfg = _mesh_acfg()
+    # the one-rank run the mesh is held to, on the card, eager; and the
+    # planted fault the comparison must catch: the same run on the first
+    # half of every batch (what a data rank would train on if the batch
+    # axes' gradient sum were lost)
+    base = _mesh_one_rank(acfg, dev)
+    half = _mesh_one_rank(acfg, dev, rows=MESH_B // 2)
+    # a control: one rank summing two half-batch gradients (two
+    # microbatches), another order of the same sums
+    accum = _mesh_one_rank(dataclasses.replace(
+        acfg, parallel=dataclasses.replace(acfg.parallel, grad_accum=2)),
+        dev)
+    t_one = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as d:
+        ckpt = os.path.join(d, "ckpt")
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank, MESH_RANKS, ckpt, backend="gloo",
+                          join_timeout=900, threads=2, tmp_dir=d)
+        t_ranks = time.perf_counter() - t0
+        one = _mesh_restore(None, dev, ckpt)
+    r0 = ranks[0]
+    tr_ = [r["train"] for r in ranks]
+    b = tr_[0]
+    init = base.pop("init")
+    p_errs = _param_errs(b.pop("final"), base["final"], init, dev)
+    fault = {"half batch": _param_errs(half["final"], base["final"], init,
+                                       dev),
+             "no update": _param_errs(init, base["final"], init, dev)}
+    control = _param_errs(accum["final"], base["final"], init, dev)
+    del init, half, base["final"], accum["final"]
+    # every number first, then the checks
+    print(f"mesh: ranks' walls by part {[r['walls'] for r in ranks]}; "
+          f"one-rank runs {t_one} s, ranks {t_ranks} s")
+    for case, res in r0["kernels"].items():
+        print(f"mesh (a) {case}: Grams vs one rank {res['gram_err']}, K3/K6 "
+              f"vs one rank {res['k3_err']}, K2/K5 per block equal "
+              f"{res['k2_equal']}, integer exact {res['exact']}, record "
+              f"all-reduces only {res['allreduce_only']} "
+              f"({res['record_bytes']} B), twins "
+              f"{res.get('bucket_twin_err')}")
+        for key, t in res.get("times", {}).items():
+            print(f"mesh (a) {case} bucket {key} {t}")
+    errs = _loss_errs(b["losses"], base["losses"], base["jumps"])
+    p_max = max(e for e, _ in p_errs.values())
+    f_max = {k: max(e for e, _ in v.values()) for k, v in fault.items()}
+    print(f"mesh (b) losses (2, 2) {b['losses']}\nmesh (b) losses one rank "
+          f"{base['losses']}\nmesh (b) relative: up to the jump {errs[0]}, "
+          f"after it {errs[1]}; jumps {b['jumps']} vs {base['jumps']}; "
+          f"held-out loss {b['eval']} vs {base['eval']}")
+    print(f"mesh (b) final params vs one rank, by leaf (L2 over the leaf's "
+          f"L2 move, max-abs relative): {p_errs}; largest {p_max} "
+          f"(limit {MESH_PARAM_TOL}); the planted faults score {f_max}; "
+          f"one rank with two microbatches (a control, not held) scores "
+          f"{max(e for e, _ in control.values())}, its losses "
+          f"{_loss_errs(accum['losses'], base['losses'], base['jumps'])}")
+    print(f"mesh (b) c: {len(b['c_after'])} broadcasts, the same bits on "
+          f"all ranks {all(r['c_after'] == b['c_after'] for r in tr_)}; "
+          f"before the broadcast equal "
+          f"{all(r['c_before'] == b['c_before'] for r in tr_)}")
+    print(f"mesh (b) launches per rank {[r['launches'] for r in tr_]} "
+          f"(one rank: {base['launches']})")
+    print(f"mesh (b) record_update collectives {b['record']}, analytic "
+          f"{b['analytic']} B; buckets {b['buckets']}")
+    print(f"mesh (b) ms a step (2, 2) rank 0 {b['ms']} (fit {b['fit_s']} s, "
+          f"save {b['save_s']} s)\nmesh (b) ms a step one rank "
+          f"{base['ms']}\nmesh (b) peak bytes per rank "
+          f"{[r['peak'] for r in tr_]}; all-reduce ms {b['allreduce_ms']}")
+    restores = (("(4, 1)", r0["restore 4x1"]), ("one rank", one))
+    for name, res in restores:
+        res["err"] = _loss_errs(res["losses"], b["losses"][res["start"]:],
+                                [j - res["start"] for j in res["jumps"]])
+        print(f"mesh (c) {name}: restored at {res['start']} in "
+              f"{res['restore_s']} s, losses {res['losses']}, relative to "
+              f"(b) {res['err']}, jumps {res['jumps']}, Grams vs K3 "
+              f"{res['gram_err']}, held-out {res['eval']}")
+    print(f"mesh (d) int8 pod sync: error {r0['gradsync']['err']}, scale "
+          f"{r0['gradsync']['scale']}, wire {r0['gradsync']['wire']}")
+    print(f"mesh (e) audit --mesh 2x2: {[r['audit'] for r in ranks]}")
+    # (a)
+    for case, res in r0["kernels"].items():
+        require(res["gram_err"] <= RTOL and res["k3_err"] <= RTOL,
+                f"mesh (a) {case}: Grams off ({res})")
+        require(res["k2_equal"] and res["allreduce_only"],
+                f"mesh (a) {case}: {res}")
+        require(res.get("bucket_twin_err", 0.0) <= RTOL,
+                f"mesh (a) {case}: twin off ({res})")
+        if case.endswith("integer"):
+            require(res["exact"], f"mesh (a) {case}: not bit-exact")
+    # (b)
+    require(b["jumps"] == base["jumps"] and b["jumps"],
+            f"mesh (b): jumps {b['jumps']} vs {base['jumps']}")
+    require(errs[0] <= MESH_LOSS_TOL[0] and errs[1] <= MESH_LOSS_TOL[1],
+            f"mesh (b): losses off the one-rank run by {errs}")
+    require(abs(b["eval"] - base["eval"])
+            <= MESH_LOSS_TOL[1] * abs(base["eval"]),
+            f"mesh (b): held-out loss {b['eval']} vs {base['eval']}")
+    require(p_max <= MESH_PARAM_TOL,
+            f"mesh (b): final params off the one-rank run by {p_errs}")
+    require(min(f_max.values()) > MESH_PARAM_TOL,
+            f"mesh (b): the params check misses a planted fault ({f_max})")
+    require(all(r["c_after"] == b["c_after"] for r in tr_)
+            and all(r["c_before"] == b["c_before"] for r in tr_)
+            and len(b["c_after"]) == len(b["jumps"]),
+            "mesh (b): the coefficients differ between ranks")
+    for r in tr_:
+        require(r["losses"] == b["losses"], "mesh (b): ranks' losses differ")
+        lc = r["launches"]
+        require(lc["gram_row"] > 0 and lc["combine"] > 0
+                and lc["flash_attention"] > 0
+                and lc["flash_attention_bwd"] > 0
+                and r["wgmma"]["flash_attention_wgmma"]
+                == lc["flash_attention"], f"mesh (b) launches {lc}")
+    require(all(kind == "all_reduce" for kind, _ in b["record"])
+            and sum(n for _, n in b["record"]) == b["analytic"],
+            f"mesh (b) record_update collectives {b['record']}, analytic "
+            f"{b['analytic']} B")
+    # (c)
+    for name, res in restores:
+        require(res["start"] == MESH_SAVE and res["jumps"] == [
+            j for j in b["jumps"] if j >= MESH_SAVE], f"mesh (c) {name}")
+        require(res["err"][0] <= MESH_LOSS_TOL[0]
+                and res["err"][1] <= MESH_LOSS_TOL[1],
+                f"mesh (c) {name}: losses off (b) by {res['err']}")
+        require(res["gram_err"] and max(res["gram_err"].values())
+                <= MESH_GRAM_TOL, f"mesh (c) {name}: {res['gram_err']}")
+    # (d), (e)
+    for r in ranks:
+        gs, a = r["gradsync"], r["audit"]
+        require(gs["err"] <= gs["scale"] * 1.01
+                and gs["wire"] == [("all_reduce", "int32", ("pod",))],
+                f"mesh (d): {gs}")
+        require(a["clean"]["failed"] == []
+                and a["clean"]["record"] == {
+                    "all_reduce": [1, a["clean"]["analytic"]]}
+                and a["force-allgather"]["failed"] == ["collective-budget"],
+                f"mesh (e) rank {r['rank']}: {a}")
+    for name in ("gram_row", "combine", "flash_attention",
+                 "flash_attention_bwd"):
+        records[name]["mesh_launches"] = [r["launches"][name] for r in tr_]
+    for case, res in r0["kernels"].items():
+        for key, t in res.get("times", {}).items():
+            for name, col in (("gram_row", "K1_ms"), ("gram", "K3_ms"),
+                              ("combine", "K2_ms"),
+                              ("flat_gram_row", "K4_ms"),
+                              ("flat_gram", "K6_ms"),
+                              ("flat_combine", "K5_ms")):
+                if col in t:
+                    records[name].setdefault("mesh_shard_ms", {})[
+                        f"{case} {key}"] = t[col]
+    records["gram_row"]["mesh_allreduce_ms"] = b["allreduce_ms"]
+    print(f"mesh: phase 21 wall {time.perf_counter() - t_phase} s")
 
 
 def main():
@@ -5429,6 +6050,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     run_audit_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_mesh_phase(dev, records)
 
     replaces = {"gram_row": "src/repro/kernels/arena.py:206",
                 "combine": "src/repro/kernels/arena.py:294",

@@ -28,15 +28,35 @@ __all__ = ["AuditReport", "PassResult", "Violation", "get_pass",
 
 
 def run_audit(arch: str, *, reduced: bool = False, mutate=None,
-               passes=None, serve: bool = False, device="cuda"
-               ) -> AuditReport:
+              passes=None, serve: bool = False, device="cuda",
+              mesh_shape=None) -> AuditReport:
     """Build the audit targets for ``arch`` on `device` and run every
     registered pass (or the named subset): ``targets.build_context`` and
-    ``registry.run_passes``. The CLI adds the report file and the exit
-    code."""
+    ``registry.run_passes``. With `mesh_shape` this is one rank's audit
+    (the caller has joined the process group). The CLI adds the report
+    file and the exit code."""
+    return _context_and_report(arch, reduced=reduced, mutate=mutate,
+                               passes=passes, serve=serve, device=device,
+                               mesh_shape=mesh_shape)[1]
+
+
+def _context_and_report(arch, *, reduced, mutate, passes, serve, device,
+                        mesh_shape):
     from repro_torch.audit.registry import run_passes
     from repro_torch.audit.targets import build_context
 
     ctx = build_context(arch, reduced=reduced, mutate=mutate, serve=serve,
-                        device=device)
-    return run_passes(ctx, only=passes)
+                        device=device, mesh_shape=mesh_shape)
+    return ctx, run_passes(ctx, only=passes)
+
+
+def audit_rank(rank: int, args: dict, mesh_shape):
+    """One rank of ``python -m repro_torch.audit`` (``args`` its parsed
+    flags): (ok, the text report, the config key, the JSON payload)."""
+    ctx, report = _context_and_report(
+        args["arch"], reduced=args["reduced"], mutate=args["mutate"],
+        passes=args["passes"].split(",") if args["passes"] else None,
+        serve=args["serve"], device=args["device"], mesh_shape=mesh_shape)
+    payload = report.to_dict()
+    payload["tables"] = ctx.tables()
+    return report.ok, report.render(), ctx.config_key, payload

@@ -13,8 +13,12 @@ violation (``repro_torch.audit.mutations``) to prove a pass bites:
     python -m repro_torch.audit --arch pollutant-mlp --reduced \\
         --device cpu --mutate drop-donation                 # rc 1
 
-Runs on the card unless ``--device cpu``. ``--mesh`` (the reference's
-sharded build) raises: the port has no mesh yet (ROADMAP Queue 1 item 4).
+Runs on the card unless ``--device cpu``. ``--mesh DxM`` audits the
+sharded build: it spawns D*M ranks (``launch/mesh.py::run_ranks``; all on
+the one card, or on the CPU, through gloo unless ``--backend nccl``), each
+builds and records the same targets on its blocks, rank 0's report is
+printed and written, and the exit code is nonzero iff any rank's report
+has an error. ``--mutate force-allgather`` needs ``--mesh``.
 """
 import argparse
 import json
@@ -31,7 +35,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="shrink the model to the audit's reduced size")
     ap.add_argument("--mesh", default=None,
-                    help="the reference's sharded build (not ported)")
+                    help="audit the sharded build on a DxM mesh of ranks")
+    ap.add_argument("--backend", default="gloo",
+                    help="the ranks' process-group backend (gloo: ranks "
+                         "share one card or the CPU; nccl: a card each)")
     ap.add_argument("--mutate", default=None,
                     help="seed a named violation (repro_torch.audit."
                          "mutations)")
@@ -48,24 +55,30 @@ def main(argv=None) -> int:
                     help="skip the JSON report")
     args = ap.parse_args(argv)
 
-    from repro_torch.audit.registry import run_passes
-    from repro_torch.audit.targets import build_context
+    from repro_torch.audit import audit_rank
 
-    only = args.passes.split(",") if args.passes else None
-    ctx = build_context(args.arch, reduced=args.reduced,
-                        mesh_shape=args.mesh, mutate=args.mutate,
-                        serve=args.serve, device=args.device)
-    report = run_passes(ctx, only=only)
-    print(report.render())
+    if args.mesh:
+        from repro_torch.launch.mesh import parse_mesh, run_ranks
+        shape = parse_mesh(args.mesh)
+        world = 1
+        for d in shape:
+            world *= d
+        results = run_ranks(audit_rank, world, vars(args), shape,
+                            backend=args.backend, join_timeout=600)
+    else:
+        results = [audit_rank(0, vars(args), None)]
+    ok, text, key, payload = results[0]
+    print(text)
     if not args.no_json:
-        payload = report.to_dict()
-        payload["tables"] = ctx.tables()
-        path = os.path.join(args.out, f"AUDIT_torch_{ctx.config_key}.json")
+        path = os.path.join(args.out, f"AUDIT_torch_{key}.json")
         os.makedirs(args.out or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump(payload, f, indent=1, default=str)
         print(f"wrote {path}")
-    return 0 if report.ok else 1
+    bad = [r for r, res in enumerate(results) if not res[0]]
+    if bad and bad != [0]:
+        print(f"ranks with errors: {bad}")
+    return 0 if not bad else 1
 
 
 if __name__ == "__main__":

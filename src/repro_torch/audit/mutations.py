@@ -21,9 +21,10 @@ the reference names for it (``expect_fail``):
                     fresh prefill program -> serve-compile fails (steady
                     compiles > 0, registry above its ceiling)
 
-The reference's seventh, ``force-allgather`` (reshard the arena buffers
-to replicated inside record_update, a buffer-sized all-gather), needs a
-mesh: it waits for the port's mesh (ROADMAP Queue 1 item 4).
+  force-allgather   (needs --mesh) gather every lane-sharded ring to
+                    full inside record_update, a buffer-sized all-gather
+                    -> collective-budget fails (record_update makes an
+                    all-gather beside its Gram-row all-reduces)
 
 Mutations compose with ``build_context`` at its seams: ``config``
 rewrites the ArchConfig before anything is built, ``donate`` feeds
@@ -49,6 +50,7 @@ class Mutation:
     post: Optional[Callable] = None      # ctx -> None
     serve: bool = False                  # attach the serving build
     serve_cfg: Optional[Callable] = None  # ServeConfig -> ServeConfig
+    needs_mesh: bool = False             # only a sharded build has it
 
 
 _REGISTRY: Dict[str, Mutation] = {}
@@ -91,6 +93,36 @@ def _misalign_arena(ctx) -> None:
         return
     raise ValueError("misalign-arena: no arena segments in this config "
                      "(dmd.arena off or every leaf excluded)")
+
+
+def _force_allgather_fns(acc, fns):
+    from repro_torch.core import arena as arena_mod
+
+    inner = fns["record_update"]
+
+    def record_update(buffers, grams, params, slots):
+        if arena_mod.is_arena_state(buffers):
+            table = acc.arena_for(params)
+            for key, buf in arena_mod.split_state(buffers)[0].items():
+                b = table[key]
+                if b.lane_axes:
+                    # every rank's block of the ring, to every rank (flat
+                    # and left in pieces, so that only the collective, not
+                    # a new ring-shaped tensor or a pack, gives it away)
+                    acc.mesh.all_gather(buf.reshape(-1),
+                                        b.sys_axes + b.lane_axes)
+        return inner(buffers, grams, params, slots)
+
+    return {**fns, "record_update": record_update}
+
+
+_register(Mutation(
+    name="force-allgather",
+    doc="gather every lane-sharded ring to full inside record_update (a "
+        "buffer-sized all-gather)",
+    expect_fail="collective-budget",
+    wrap_fns=_force_allgather_fns,
+    needs_mesh=True))
 
 
 _register(Mutation(

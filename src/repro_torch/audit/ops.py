@@ -67,6 +67,13 @@ def shape_str(t: torch.Tensor) -> str:
     return f"{short_dtype(t.dtype)}[{','.join(str(int(d)) for d in t.shape)}]"
 
 
+def shape_str_of(dtype_name: str, shape) -> str:
+    """``shape_str`` of a tensor described by its dtype name and shape (a
+    collective's record, ``launch/mesh.py``)."""
+    return (f"{short_dtype(getattr(torch, dtype_name))}"
+            f"[{','.join(str(int(d)) for d in shape)}]")
+
+
 def shape_bytes(s: str) -> int:
     """Bytes of one shape string (0 if unparsable)."""
     dt, _, dims = s.partition("[")

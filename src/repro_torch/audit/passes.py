@@ -6,8 +6,10 @@ name with the reference's ``info`` keys, in the reference's report order:
 
   donation-alias            every state tensor keeps its storage; no new
                             ring- or Gram-shaped tensor outside a kernel
-  collective-budget         no c10d op on one device; the analytic psum
-                            budget as info
+  collective-budget         no c10d op on one device; under a mesh the
+                            record_update all-reduces exactly the
+                            analytic Gram-row bytes, and no target
+                            all-gathers a ring-buffer-shaped tensor
   trace-budget              recorded ops and kernel calls within the pins
                             (``audit/pins.py``)
   solve-budget              host-solve rows per jump within the dmd.scope
@@ -123,24 +125,85 @@ def donation_alias(ctx):
 # collective-budget
 # ---------------------------------------------------------------------------
 
+def record_allreduce_bytes(ctx) -> int:
+    """The analytic all-reduce bytes of one ``record_update`` under the
+    mesh: each lane-sharded bucket sums its (n_sys, m) fp32 Gram rows once
+    (a system-sharded one, its rank's n_sys rows), each lane-sharded
+    per-leaf plan its (stack..., m) row once. 0 without a mesh."""
+    from repro_torch.core.arena import arena_paths
+    from repro_torch.core.leafplan import plan_entries
+
+    if ctx.mesh is None:
+        return 0
+    sizes = dict(zip(ctx.mesh.axis_names, ctx.mesh.devices.shape))
+    total = 0
+    for b in ctx.arena.values():
+        if b.lane_axes:
+            total += b.scope_n_sys(ctx.cfg.scope) * b.m * 4
+    packed = arena_paths(ctx.arena)
+    for p in plan_entries(ctx.plans):
+        if p.path in packed or not p.psum_axes():
+            continue
+        n_sys = 1
+        for d, e in zip(p.shape[:p.stack_dims], p.stack_spec_entries):
+            shards = _prod(sizes.get(a, 1) for a in (
+                () if e is None else (e if isinstance(e, tuple) else (e,))))
+            n_sys *= d // shards
+        total += n_sys * p.m * 4
+    return total
+
+
 @register_pass(
     "collective-budget",
-    "no collective on one device (all-reduce bytes within the analytic "
-    "O(n_sys*m^2) psum budget; no buffer-sized all-gather)")
+    "no collective on one device; under a mesh record_update all-reduces "
+    "exactly the analytic Gram-row bytes and no target all-gathers a "
+    "ring-buffer-shaped tensor")
 def collective_budget(ctx):
-    """The port runs on one device (no mesh yet, ROADMAP Queue 1 item 4):
-    any c10d op recorded in a step is a violation. The psum budget and the
-    smallest ring are reported as the reference reports them."""
+    """On one device any c10d op recorded in a step is a violation. Under
+    a mesh (the collectives each target made through it, ``ctx.mesh``):
+    ``record_update`` makes all-reduces only, whose bytes equal the
+    analytic O(n_sys*m) Gram-row sums of the lane-sharded buckets and
+    leaves, and no target all-gathers a tensor of a ring buffer's shape
+    (a data pass must sum Gram partials, never gather a buffer). The
+    psum budget and the smallest ring are reported as the reference
+    reports them."""
     vs: List[Violation] = []
     info: Dict[str, object] = {}
-    # the analytic Gram psum budget, O(n_sys * m^2) fp32 words over the
-    # lane-sharded buckets, is 0 with no mesh: only the floor remains
-    info["psum_budget_bytes"] = PSUM_FLOOR
+    want = record_allreduce_bytes(ctx)
+    info["psum_budget_bytes"] = PSUM_FLOOR + want
     first = ctx.targets.get("train_step",
                             next(iter(ctx.targets.values()), None))
     buf_bytes = [ops_mod.shape_bytes(s)
                  for s in (first.buffer_shapes if first else ())]
     info["min_buffer_bytes"] = min(buf_bytes) if buf_bytes else None
+    if ctx.mesh is not None:
+        info["record_allreduce_bytes_analytic"] = want
+        for name, t in sorted(ctx.targets.items()):
+            counts: Dict[str, List[int]] = {}
+            for c in t.collectives:
+                n = counts.setdefault(c["kind"], [0, 0])
+                n[0] += 1
+                n[1] += c["bytes"]
+            info[f"{name}.collectives"] = counts
+            shapes = {ops_mod.shape_str_of(c["dtype"], c["shape"])
+                      for c in t.collectives if c["kind"] == "all_gather"}
+            hits = sorted(shapes & set(t.buffer_shapes))
+            if hits:
+                vs.append(Violation(
+                    "collective-budget", name,
+                    f"all-gather of a ring-buffer-shaped tensor {hits}: a "
+                    "sharded data pass must sum Gram partials, never "
+                    "gather a buffer"))
+            if name != "record_update":
+                continue
+            other = sorted(k for k in counts if k != "all_reduce")
+            got = counts.get("all_reduce", [0, 0])[1]
+            if other or got != want:
+                vs.append(Violation(
+                    "collective-budget", name,
+                    f"record_update made {counts}: want all-reduces only, "
+                    f"{want} bytes"))
+        return vs, info
     for name, t in sorted(ctx.targets.items()):
         coll = t.recording.collectives
         counts: Dict[str, List[int]] = {}
@@ -397,7 +460,7 @@ def arena_layout(ctx):
     # eligibility partition: packed iff eligible; every excluded leaf
     # keeps a valid per-leaf plan
     for p in entries:
-        elig = arena_eligible(p, ctx.cfg)
+        elig = arena_eligible(p, ctx.cfg, ctx.mesh)
         if elig and p.path not in packed:
             vs.append(Violation(
                 "arena-layout", p.path,
@@ -477,7 +540,7 @@ def arena_layout(ctx):
                     "arena-layout", seg_where,
                     f"seg_lanes={s.seg_lanes} not a block_n={b.block_n} "
                     "multiple (block straddles the next system)"))
-            want = _prod(s.shape[s.stack_dims:])
+            want = _prod(s.local_shape[s.stack_dims:])
             if s.flat_local != want:
                 vs.append(Violation(
                     "arena-layout", seg_where,
@@ -488,18 +551,18 @@ def arena_layout(ctx):
                     "arena-layout", seg_where,
                     f"seg_lanes={s.seg_lanes} < flat_local="
                     f"{s.flat_local}: lanes would be truncated"))
-            n_sys_want = _prod(s.shape[:s.stack_dims]) or 1
+            n_sys_want = _prod(s.local_shape[:s.stack_dims]) or 1
             if s.n_sys != n_sys_want:
                 vs.append(Violation(
                     "arena-layout", seg_where,
                     f"n_sys={s.n_sys} != prod(stack shape)={n_sys_want}"))
             sys_cursor += s.n_sys
             lane_cursor += s.n_sys * s.seg_lanes
-        if lane_cursor != b.n_lanes:
+        if lane_cursor != b.n_lanes_local:
             vs.append(Violation(
                 "arena-layout", where,
                 f"segment lanes sum to {lane_cursor} but the bucket "
-                f"carries n_lanes_local={b.n_lanes}"))
+                f"carries n_lanes_local={b.n_lanes_local}"))
     return vs, info
 
 
@@ -547,7 +610,7 @@ def arena_residency(ctx):
     if not ctx.arena:
         return vs, info
 
-    floor = min(b.n_lanes for b in ctx.arena.values())
+    floor = min(b.n_lanes_local for b in ctx.arena.values())
     info["min_bucket_lanes"] = floor
 
     def is_pack(o) -> bool:

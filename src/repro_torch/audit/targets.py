@@ -22,6 +22,13 @@ the GroupSchedule table; their ``*_records`` views feed the JSON report.
 
 ``device`` (default ``"cuda"``) is where the steps run; the op counts do
 not depend on it (``audit/ops.py``).
+
+``mesh_shape`` (CLI ``--mesh DxM``) audits the sharded build on this
+rank's blocks: the caller has joined a process group of as many ranks
+(``audit/__main__.py`` spawns them), every rank builds and records the
+same targets, and each target also keeps the collectives it made through
+the mesh (``launch/mesh.py::record_collectives``) for the collective
+budget.
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ class AuditTarget:
     n_dmd_leaves: int               # ring + Gram leaves among them
     buffer_shapes: FrozenSet[str]   # shape strings (``ops.shape_str``)
     gram_shapes: FrozenSet[str]
+    collectives: Tuple[dict, ...] = ()   # made through the mesh
 
     @property
     def recording(self) -> ops_mod.Recording:
@@ -96,6 +104,7 @@ class AuditContext:
     # None when none was attached (--serve)
     serve: Optional[Dict[str, Any]] = None
     device: str = "cpu"
+    mesh: Any = None                # launch/mesh.py::Mesh, or None
 
     @property
     def cfg(self):
@@ -103,10 +112,13 @@ class AuditContext:
 
     @property
     def config_key(self) -> str:
-        return self.arch + ("-reduced" if self.reduced else "")
+        return (self.arch + ("-reduced" if self.reduced else "")
+                + ("-mesh" if self.mesh is not None else ""))
 
     def meta(self) -> Dict[str, Any]:
-        return {"reduced": self.reduced, "mesh": None,
+        return {"reduced": self.reduced,
+                "mesh": ("x".join(map(str, self.mesh.devices.shape))
+                         if self.mesh is not None else None),
                 "mutate": self.mutate,
                 "config_key": self.config_key,
                 "device": self.device,
@@ -142,9 +154,12 @@ def record_target(name: str, fn: Callable, args, kwargs, state_in: PyTree,
     """Record ``fn(*args, **kwargs)`` as the target `name`. `state_in` is
     the state the call must update in place; ``state_of(output)`` picks
     the state it returned. Returns (the target, the call's output)."""
+    from repro_torch.launch.mesh import record_collectives
+
     leaves = _state_leaves(state_in)
     before = _storage(leaves)
-    out, rec = ops_mod.record(fn, *args, **kwargs)
+    with record_collectives() as coll:
+        out, rec = ops_mod.record(fn, *args, **kwargs)
     after = _storage(_state_leaves(state_of(out)))
     bufs = frozenset(ops_mod.shape_str(t) for k, t in leaves.items()
                      if "dmd_buffers" in k)
@@ -155,7 +170,8 @@ def record_target(name: str, fn: Callable, args, kwargs, state_in: PyTree,
         name=name, ops=tuple(rec.ops), launches=rec.launches,
         donated=donated, storage_before=before, storage_after=after,
         n_state_leaves=len(leaves), n_dmd_leaves=n_dmd,
-        buffer_shapes=bufs, gram_shapes=grams), out
+        buffer_shapes=bufs, gram_shapes=grams,
+        collectives=tuple(coll)), out
 
 
 def serve_target(name: str, decode: Callable, params, dstate: dict
@@ -177,7 +193,7 @@ def serve_target(name: str, decode: Callable, params, dstate: dict
 
 def adhoc_context(arch: str, acfg, targets: Dict[str, AuditTarget], *,
                   plans=None, arena=None, groups=(), state=None,
-                  reduced: bool = False, device: str = "cpu"
+                  reduced: bool = False, device: str = "cpu", mesh=None
                   ) -> AuditContext:
     """A partial AuditContext over caller-built targets: the tests and
     ``chip_smoke.py`` run single passes over it. ``arch`` doubles as the
@@ -186,7 +202,7 @@ def adhoc_context(arch: str, acfg, targets: Dict[str, AuditTarget], *,
         arch=arch, reduced=reduced, mutate=None,
         acfg=acfg, acc=None, plans=plans, arena=dict(arena or {}),
         groups=tuple(groups), state=state, targets=dict(targets),
-        device=device)
+        device=device, mesh=mesh)
 
 
 def _build_model_and_config(arch: str, reduced_flag: bool, device):
@@ -240,7 +256,8 @@ def _on(batch: dict, device) -> dict:
 def _init_state(model, acfg, acc, device):
     """A fresh TrainState (params from a generator seeded with 0: the
     MLP draws on the host, an LM on `device`), in the layout
-    ``Trainer.fit`` runs with (resident where the config says)."""
+    ``Trainer.fit`` runs with (resident where the config says); under the
+    accelerator's mesh, this rank's blocks."""
     from repro_torch.core.paths import map_with_paths
     from repro_torch.models.mlp_net import MLPModel
     from repro_torch.optim.optimizers import make_optimizer
@@ -250,6 +267,10 @@ def _init_state(model, acfg, acc, device):
     on = "cpu" if isinstance(model, MLPModel) else device
     params = model.init(torch.Generator(device=on).manual_seed(0))
     params = map_with_paths(lambda _, x: x.to(device), params)
+    if acc.mesh is not None:
+        from repro_torch.distributed.sharding import shard_tree
+        acc.plans_for(params)                 # the table, from full shapes
+        params = shard_tree(params, acc.param_specs, acc.mesh)
     opt = make_optimizer(acfg.optimizer)
     bufs = acc.init(params) if acfg.dmd.enabled else None
     state = TrainState(params, opt.init(params),
@@ -323,25 +344,27 @@ def build_context(arch: str, *, reduced: bool = False,
     ``serve=True`` (CLI ``--serve``) also drives a serving engine through
     a warm-up and a steady wave and attaches its registry counts
     (``ctx.serve``) and its recorded decode (the ``serve_decode``
-    target) for the serve-compile pass. A mesh is not ported yet."""
+    target) for the serve-compile pass. ``mesh_shape`` audits the sharded
+    build on this rank of a process group of as many ranks."""
     from repro_torch.kernels.device import resolve_device
 
-    if mesh_shape:
-        raise NotImplementedError(
-            "--mesh: the port has no mesh yet (ROADMAP Queue 1 item 4, "
-            "where the force-allgather mutation and the collective budget "
-            "under a mesh wait too)")
     dev = resolve_device(device)
+    mesh = None
+    if mesh_shape:
+        from repro_torch.launch.mesh import Mesh
+        mesh = Mesh(mesh_shape, device=dev)
     model, acfg, batch = _build_model_and_config(arch, reduced, dev)
     return context_for(arch, model, acfg, batch, reduced=reduced,
-                       mutate=mutate, serve=serve, device=dev)
+                       mutate=mutate, serve=serve, device=dev, mesh=mesh)
 
 
 def context_for(arch: str, model, acfg, batch, *, reduced: bool = False,
                 mutate: Optional[str] = None, serve: bool = False,
-                device="cuda") -> AuditContext:
+                device="cuda", mesh=None) -> AuditContext:
     """``build_context`` for a caller-built model, config and batch on
-    `device` (a bespoke model's audit); `arch` is the pin key."""
+    `device` (a bespoke model's audit); `arch` is the pin key. Under
+    `mesh` the state is this rank's blocks and `batch` the global
+    batch."""
     from repro_torch.audit import mutations as mut_mod
     from repro_torch.configs.base import DMDControllerConfig
     from repro_torch.train.step import audit_step_fns
@@ -352,7 +375,11 @@ def context_for(arch: str, model, acfg, batch, *, reduced: bool = False,
         acfg = mutation.config(acfg)
     donate = mutation.donate if mutation is not None else True
 
-    acc, fns = audit_step_fns(model, acfg, donate=donate, device=dev)
+    if mutation is not None and mutation.needs_mesh and mesh is None:
+        raise ValueError(f"{mutate} needs --mesh (a sharded build): on one "
+                         "device there is nothing to gather")
+    acc, fns = audit_step_fns(model, acfg, donate=donate, device=dev,
+                              mesh=mesh)
     if mutation is not None and mutation.wrap_fns is not None:
         fns = mutation.wrap_fns(acc, fns)
     state = _init_state(model, acfg, acc, dev)
@@ -361,7 +388,7 @@ def context_for(arch: str, model, acfg, batch, *, reduced: bool = False,
     ctx = AuditContext(
         arch=arch, reduced=reduced, mutate=mutate,
         acfg=acfg, acc=acc, plans=plans, arena=dict(arena),
-        groups=acc.groups, state=state, device=dev.type)
+        groups=acc.groups, state=state, device=dev.type, mesh=mesh)
     ctx.state = _record_steps(ctx, fns, acc, state, batch, donate, False)
 
     # the gated (controller) variant: a controller-enabled clone
@@ -370,7 +397,7 @@ def context_for(arch: str, model, acfg, batch, *, reduced: bool = False,
             acfg.dmd, controller=DMDControllerConfig(enabled=True,
                                                      eval_rows=4)))
     gacc, gfns = audit_step_fns(model, gated_acfg, donate=donate,
-                                device=dev)
+                                device=dev, mesh=mesh)
     if mutation is not None and mutation.wrap_fns is not None:
         gfns = mutation.wrap_fns(gacc, gfns)
     gstate = _init_state(model, gated_acfg, gacc, dev)

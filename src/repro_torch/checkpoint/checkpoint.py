@@ -24,8 +24,16 @@ array (its stored dtype) on the template leaf's device; a leaf the
 manifest lacks keeps the template's value (state grown after the
 checkpoint was written, e.g. the controller's). Trainers save the
 leaf-wise state (``DMDAccelerator.state_leafwise``), so the format does
-not depend on ``dmd.arena`` or residency. No mesh yet (ROADMAP Queue 1
-item 4).
+not depend on ``dmd.arena`` or residency.
+
+Under a mesh every rank holds blocks of the state. ``save_checkpoint(...,
+mesh=, specs=)`` gathers each leaf to full (``specs`` by key string:
+``launch/inputs.py::state_specs``), the mesh's first rank writes the same
+format, and a barrier follows the write; ``restore_checkpoint(...,
+mesh=, specs=)`` reads the checkpoint on every rank and keeps each leaf's
+block under the CURRENT mesh's specs. So a checkpoint written on one mesh
+restores onto another, onto one card, or into the reference, and the
+reverse.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.paths import keystr_leaves, map_keystrs
+from repro_torch.distributed.sharding import gather_full, local_shard
 
 PyTree = Any
 
@@ -58,31 +67,51 @@ def _to_host(x: torch.Tensor) -> Tuple[np.ndarray, str]:
                                                             str(arr.dtype))
 
 
-def _from_host(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
+def _from_host(arr: np.ndarray, dtype: str, device, spec=None,
+               mesh=None) -> torch.Tensor:
     if dtype == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if mesh is not None:
+        t = local_shard(t, spec, mesh)
     return t.to(device)
 
 
-def save_checkpoint(ckpt_dir, state: PyTree, step: int, keep: int = 3
-                    ) -> str:
+def save_checkpoint(ckpt_dir, state: PyTree, step: int, keep: int = 3,
+                    mesh=None, specs=None) -> str:
     """Write `state` as ``ckpt_dir/step_{step}`` (replacing one there) and
-    prune to the newest `keep` steps. Returns the step's directory."""
+    prune to the newest `keep` steps. Returns the step's directory. Under
+    `mesh`, `state` holds this rank's blocks, laid out by `specs` ({key
+    string: Spec}); every rank takes part in the gathers, the mesh's first
+    rank writes."""
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    writer = mesh is None or mesh.rank == 0
+    final = ckpt_dir / f"step_{step}"
     arrays = {}
     manifest = {"step": int(step), "leaves": {}}
     leaves = sorted(keystr_leaves(state), key=lambda kv: kv[0])
     for i, (path, leaf) in enumerate(leaves):
+        if mesh is not None:
+            leaf = gather_full(leaf, specs[path], mesh)
+        if not writer:
+            continue
         key = f"a{i}"
         arrays[key], dtype = _to_host(leaf)
         manifest["leaves"][path] = {"key": key,
                                     "shape": list(arrays[key].shape),
                                     "dtype": dtype}
+    if writer:
+        _write(ckpt_dir, final, arrays, manifest, keep)
+    if mesh is not None:
+        mesh.barrier()
+    return str(final)
+
+
+def _write(ckpt_dir: Path, final: Path, arrays: dict, manifest: dict,
+           keep: int) -> None:
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_"))
-    final = ckpt_dir / f"step_{step}"
     try:
         np.savez(tmp / "arrays.npz", **arrays)
         del arrays
@@ -94,7 +123,6 @@ def save_checkpoint(ckpt_dir, state: PyTree, step: int, keep: int = 3
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _prune(ckpt_dir, keep)
-    return str(final)
 
 
 def _prune(ckpt_dir: Path, keep: int) -> None:
@@ -122,11 +150,14 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir, template: PyTree,
-                       step: Optional[int] = None) -> Optional[PyTree]:
+                       step: Optional[int] = None, mesh=None,
+                       specs=None) -> Optional[PyTree]:
     """`template` with every leaf the manifest of `step` (default: the
     newest) names replaced by the stored array, on the template leaf's
     device; the others keep the template's value. None when there is no
-    checkpoint. The arrays are read into memory, not mapped."""
+    checkpoint. The arrays are read into memory, not mapped. Under `mesh`
+    each rank keeps its block of each stored array under ``specs[key
+    string]``."""
     ckpt_dir = Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -139,5 +170,6 @@ def restore_checkpoint(ckpt_dir, template: PyTree,
             if meta is None:
                 return leaf
             return _from_host(arrays[meta["key"]], meta["dtype"],
-                              getattr(leaf, "device", "cpu"))
+                              getattr(leaf, "device", "cpu"),
+                              None if mesh is None else specs[path], mesh)
         return map_keystrs(one, template)

@@ -37,7 +37,17 @@ update writes its (1, m, m) Gram, a jump solves one system per bucket and
 K2 broadcasts one coefficient row; per-leaf-route leaves keep their own
 solves in either scope. ``spectrum_table`` prints each bucket's Koopman
 eigenvalues (leaf scope sums its per-system Grams first, so the two
-scopes read alike). Not ported yet: a mesh (ROADMAP Queue 1).
+scopes read alike).
+
+Under a mesh (``DMDAccelerator(cfg, mesh=...)``, DESIGN.md §6) the plan
+table is built once from the FULL params (``plans_for`` with the full
+tree; afterwards any tree of the same paths, such as a rank's blocks,
+maps to it) and carries each leaf's specs; every state tensor is a rank's
+block. Buckets and per-leaf buffers run their data passes on the block
+and sum the partials with one all-reduce (``kernels/sharded.py``, the
+reference's ``pallas_shard_map`` route); the jump solves on the mesh's
+Grams, broadcasts the coefficients from the first rank, and combines each
+rank's block with no collective.
 """
 from __future__ import annotations
 
@@ -52,7 +62,9 @@ from repro_torch.core import dmd, leafplan, schedule as sched_mod
 from repro_torch.core import snapshots as snap
 from repro_torch.core.paths import (by_path, fill_paths, leaves_with_paths,
                                     map_with_paths)
-from repro_torch.kernels import ops
+from repro_torch.distributed.sharding import (Spec, gather_full, local_shard,
+                                              param_specs)
+from repro_torch.kernels import sharded
 from repro_torch.kernels.device import resolve_device
 
 PyTree = Any
@@ -73,24 +85,39 @@ def dmd_leaf_jump(cfg, plan: leafplan.LeafPlan, p: torch.Tensor,
     pass, both routed by the leaf's plan. The horizon, energy target and
     ridge are the leaf's group's; in controller mode `s_dyn` (the adapted
     horizon, capped by the group's s) and `ridge_dyn` (the meta-tuned
-    ridge) replace them. The result is cast to the param's dtype."""
+    ridge) replace them. The result is cast to the param's dtype. Under a
+    mesh `p` and `buf` are the rank's blocks: a Gram sharded over stack
+    axes is gathered for the solve, the coefficients are broadcast from
+    the mesh's first rank (unless they carry a gradient) and each rank
+    keeps its systems' rows."""
     nstack = plan.stack_dims
     kernel = plan.route in snap.KERNEL_ROUTES
     if gram is None:
         if kernel and plan.anchor_ok:
-            gram = ops.gram(buf, anchor_first=cfg.anchor == "first",
-                            stack_dims=nstack)
+            gram = sharded.gram(buf, plan, anchor_first=cfg.anchor == "first")
         else:
-            gram = dmd.gram_matrix(buf, anchor=cfg.anchor, stack_dims=nstack,
-                                   upcast=cfg.gram_upcast)
+            gram = sharded.psum(dmd.gram_matrix(
+                buf, anchor=cfg.anchor, stack_dims=nstack,
+                upcast=cfg.gram_upcast), plan)
+    mesh = plan.mesh
+    sys_sharded = mesh is not None and any(
+        e is not None for e in plan.stack_spec_entries)
+    if sys_sharded:
+        gram = gather_full(gram, plan.gram_spec, mesh)
     sched = plan.sched
     c, info = dmd.dmd_coefficients(
         gram, s=sched.s, tol=cfg.tol, mode=cfg.mode,
         clamp_eigs=cfg.clamp_eigs, anchor=cfg.anchor, affine=cfg.affine, trust_region=cfg.trust_region, relax=relax,
         energy=sched.energy, atol=cfg.atol, ridge=sched.ridge, s_dyn=s_dyn,
         ridge_dyn=ridge_dyn)
+    rank = info["rank"]
+    if mesh is not None and not c.requires_grad:
+        c = mesh.broadcast(c.contiguous())
+    if sys_sharded:
+        c = local_shard(c, Spec(*plan.stack_spec_entries, None), mesh)
+        rank = local_shard(rank, Spec(*plan.stack_spec_entries), mesh)
     if kernel:
-        w = ops.combine(buf, c, stack_dims=nstack)
+        w = sharded.combine(buf, c, plan)
     else:
         w = dmd.combine_snapshots(buf, c, stack_dims=nstack,
                                   upcast=cfg.gram_upcast)
@@ -98,7 +125,7 @@ def dmd_leaf_jump(cfg, plan: leafplan.LeafPlan, p: torch.Tensor,
     # leave params less finite than the last snapshot (the last ring row,
     # as the reference does, not the just-written slot)
     w = torch.where(torch.isfinite(w), w, buf[-1].to(w.dtype))
-    return LeafJump(w.to(p.dtype), info["rank"].float().mean())
+    return LeafJump(w.to(p.dtype), rank.float().mean())
 
 
 def jump_tree(cfg, plans: PyTree, params: PyTree, buffers: PyTree,
@@ -163,10 +190,13 @@ def jump_tree(cfg, plans: PyTree, params: PyTree, buffers: PyTree,
 
 class DMDAccelerator:
     def __init__(self, cfg, *, stack_dims: Optional[dict] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """`stack_dims` maps param paths to their stacked leading axes
-        (None: no stacked leaves). State lives on `device`."""
+        (None: no stacked leaves). State lives on `device`; under `mesh`
+        (``launch/mesh.py``) each state tensor is this rank's block."""
         self.cfg = cfg
+        self.mesh = mesh
+        self.param_specs = {}       # {path: Spec} of every param (mesh)
         self.stack_dims = stack_dims
         self.device = resolve_device(device)
         self.groups = sched_mod.resolve_groups(cfg)
@@ -212,16 +242,22 @@ class DMDAccelerator:
     # ---- the dispatch tables ----------------------------------------------
     def plans_for(self, params: PyTree) -> PyTree:
         """LeafPlan tree for `params`, cached by path, shape and dtype. The
-        resident wrapper maps to the plan table it was packed with."""
+        resident wrapper maps to the plan table it was packed with. Under a
+        mesh the table is built from the first tree given, which must be
+        the full params; the cache is keyed by path and dtype, so a rank's
+        blocks map to the same table."""
         if arena_mod.is_arena_state(params):
             if self._plans is None:
                 raise ValueError("resident params but no plan table yet")
             return self._plans
-        key = tuple((p, tuple(x.shape), str(x.dtype))
-                    for p, x in leaves_with_paths(params))
+        key = tuple((p, () if self.mesh is not None else tuple(x.shape),
+                     str(x.dtype)) for p, x in leaves_with_paths(params))
         if self._plans is None or self._plans_key != key:
             self._plans = leafplan.build_plans(params, self.cfg,
-                                               self.stack_dims)
+                                               self.stack_dims,
+                                               mesh=self.mesh)
+            if self.mesh is not None:
+                self.param_specs = param_specs(params, self.mesh)
             self._plans_key = key
             self._arena = None
         return self._plans
@@ -235,7 +271,8 @@ class DMDAccelerator:
             return self._arena
         self.plans_for(params)
         if self._arena is None:
-            self._arena = (arena_mod.build_arenas(self._plans, self.cfg)
+            self._arena = (arena_mod.build_arenas(self._plans, self.cfg,
+                                                  self.mesh)
                            if self.cfg.enabled else {})
         return self._arena
 
@@ -245,7 +282,7 @@ class DMDAccelerator:
         it is unset), stack dims, shape, flat size, block_n, each leaf's
         bucket and lane offset, `resident` ("y" for packed leaves with
         ``dmd.arena_native``, "n" packed without, "-" per leaf), the
-        PartitionSpec and psum axes of an unsharded leaf, its DMD `scope`
+        leaf's PartitionSpec and psum axes, its DMD `scope`
         ("bucket" when its bucket fits one shared operator); then
         `n_solve`, the systems its bucket (or the leaf alone) adds to the
         jump's solve."""
@@ -255,7 +292,8 @@ class DMDAccelerator:
         else:
             self.arena_for(params)
         if self._arena is None and self.cfg.enabled:
-            self._arena = arena_mod.build_arenas(self._plans, self.cfg)
+            self._arena = arena_mod.build_arenas(self._plans, self.cfg,
+                                                 self.mesh)
         native = bool(self.cfg.arena_native)
         seg_of = {}
         for b in (self._arena or {}).values():
@@ -278,7 +316,8 @@ class DMDAccelerator:
                          str(p.sched.s), str(p.sched.phase), energy,
                          str(p.stack_dims), "x".join(map(str, p.shape)),
                          str(p.flat_size), str(p.block_n), akey, aoff, res,
-                         leafplan.param_spec(p), "-", asc, nsol))
+                         leafplan.param_spec(p),
+                         ",".join(p.psum_axes()) or "-", asc, nsol))
         widths = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
         return "\n".join("  ".join(c.ljust(w) for c, w in zip(r, widths))
                          .rstrip() for r in rows)
@@ -310,7 +349,10 @@ class DMDAccelerator:
                 buf = arenas[key]
                 g = ka.gram(buf, b.tables_on(buf.device, self.scope),
                             anchor_first=self.cfg.anchor == "first",
-                            anchor_mean=self.cfg.anchor == "mean")
+                            anchor_mean=self.cfg.anchor == "mean",
+                            **b.shard_kw())
+            if b.sys_axes:
+                g = gather_full(g, b.gram_spec(), b.mesh)
             g = g.detach().cpu().numpy()  # lint: allow-host-sync (diagnostic)
             g = g.astype(np.float64)
             if not b.bucket_scoped(self.scope):

@@ -49,12 +49,26 @@ per-system Grams from the buffers) and ``buffers_from_leafwise`` /
 ``grams_from_leafwise`` pack it back (segment-summed in bucket scope), so
 the on-disk format depends neither on ``dmd.arena`` nor on the scope.
 
-Not ported yet: a mesh (sharded buckets; ROADMAP Queue 1).
+Under a mesh (DESIGN.md §6) the bucket key also carries the leaves'
+sharding class: the mesh axes that shard their lanes (``lane_axes``) and,
+for a leaf whose leading stack axis is sharded, the axes that shard its
+systems (``sys_axes``, one leaf to a bucket). Every rank holds the same
+layout over its own blocks: segments carry the leaf's block shape
+(``local_shape``), ``n_sys`` / ``n_lanes_local`` / ``n_blocks_local`` are
+a rank's and ``n_sys_global`` / ``n_lanes`` / ``n_blocks`` the mesh's.
+Packing and unpacking work on a rank's blocks alone; K1 and K3 run on them
+and sum a lane-sharded bucket's partials with one all-reduce; K2 makes
+none. A lane-sharded bucket's Grams are the same on every rank, a
+system-sharded bucket's are the rank's own systems (its buffer and Grams
+stay sharded over ``sys_axes``, and it never collapses under
+``scope="bucket"``). The jump gathers those Grams to the group's full
+stack, solves, broadcasts the coefficients from the mesh's first rank
+(so every rank holds the same bits) and keeps each rank's rows.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +78,8 @@ from repro_torch.core import dmd as dmd_math
 from repro_torch.core.leafplan import LeafPlan, plan_entries
 from repro_torch.core.paths import by_path, fill_paths, map_with_paths
 from repro_torch.core.schedule import GroupSchedule
+from repro_torch.distributed.sharding import (Spec, entry_axes, gather_full,
+                                              local_shard)
 from repro_torch.kernels import arena as ka
 from repro_torch.kernels.ops import lane_block
 
@@ -78,12 +94,15 @@ class ArenaSegment:
     path: str
     sys_start: int                 # first system index within the bucket
     lane_start: int                # first lane
-    n_sys: int                     # DMD systems in this leaf
+    n_sys: int                     # a rank's DMD systems in this leaf
     flat_local: int                # real lanes per system (unpadded)
     seg_lanes: int                 # padded lanes per system (block multiple)
-    shape: Tuple[int, ...]
+    shape: Tuple[int, ...]         # the full leaf shape
+    local_shape: Tuple[int, ...]   # a rank's block of it
     stack_dims: int
     param_dtype: str
+    param_spec: Spec = Spec()
+    snapshot_spec: Spec = Spec()
 
     @property
     def lanes(self) -> int:
@@ -92,12 +111,20 @@ class ArenaSegment:
 
 @dataclass(frozen=True)
 class ArenaBucket:
-    """One packed arena: all leaves of one (group, dtype) class."""
+    """One packed arena: all leaves of one (group, dtype, sharding)
+    class."""
     key: str
     group: int
     sched: GroupSchedule
     block_n: int
     segments: Tuple[ArenaSegment, ...]
+    lane_axes: Tuple[str, ...] = ()   # mesh axes sharding the lanes (the
+                                      # Gram's all-reduce axes)
+    shard_factor: int = 1             # their mesh size
+    sys_axes: Tuple[str, ...] = ()    # mesh axes sharding the leading
+                                      # stack dim (single-segment buckets)
+    sys_factor: int = 1
+    mesh: Any = field(default=None, repr=False, compare=False)
     # device copies of the block -> system tables, built once per device
     # and scope
     _device_tables: Dict[Tuple[str, bool], ka.Segments] = field(
@@ -109,15 +136,45 @@ class ArenaBucket:
 
     @property
     def n_sys(self) -> int:
+        """A rank's system count (what the segmented kernels see)."""
         return sum(s.n_sys for s in self.segments)
 
     @property
-    def n_lanes(self) -> int:
+    def n_sys_global(self) -> int:
+        return self.n_sys * self.sys_factor
+
+    @property
+    def n_lanes_local(self) -> int:
         return sum(s.lanes for s in self.segments)
+
+    @property
+    def n_lanes(self) -> int:
+        """The mesh's lane count."""
+        return self.n_lanes_local * self.shard_factor * self.sys_factor
+
+    @property
+    def n_blocks_local(self) -> int:
+        """A rank's block count: the leading dim of its ring buffer."""
+        return self.n_lanes_local // self.block_n
 
     @property
     def n_blocks(self) -> int:
         return self.n_lanes // self.block_n
+
+    def shard_kw(self) -> dict:
+        """The mesh arguments of the ``kernels/arena.py`` passes."""
+        return {"mesh": self.mesh, "lane_axes": self.lane_axes}
+
+    def lane_spec(self) -> Spec:
+        return ka.lane_spec(self.sys_axes + self.lane_axes)
+
+    def buffer_spec(self) -> Spec:
+        return ka.buf_spec(self.sys_axes + self.lane_axes)
+
+    def gram_spec(self) -> Spec:
+        """Spec of the (n_sys_global, m, m) Gram stack."""
+        return (Spec(ka._axis_entry(self.sys_axes), None, None)
+                if self.sys_axes else Spec())
 
     def block_sys(self) -> np.ndarray:
         """Block -> system-index table; blocks of one system are
@@ -130,21 +187,28 @@ class ArenaBucket:
     # ---- dmd.scope (DESIGN.md §9) -----------------------------------------
     def bucket_scoped(self, scope: str) -> bool:
         """True when this bucket carries ONE shared Koopman system under
-        `scope` ("leaf" or "bucket"; anything else raises)."""
+        `scope` ("leaf" or "bucket"; anything else raises). A
+        system-sharded bucket stays per system in either scope: each rank
+        owns whole systems, and one operator over them all would need a
+        sum over the system axes that the kernels do not make."""
         if scope not in ("leaf", "bucket"):
             raise ValueError(f"unknown dmd.scope {scope!r}")
-        return scope == "bucket"
+        return scope == "bucket" and not self.sys_axes
 
     def gram_lead(self, scope: str) -> int:
-        """Leading dim of the carried Gram stack, and the bucket's share of
+        """Leading dim of the mesh's Gram stack, and the bucket's share of
         the group's batched coefficient solve, under `scope`."""
+        return 1 if self.bucket_scoped(scope) else self.n_sys_global
+
+    def gram_lead_local(self, scope: str) -> int:
+        """Leading dim of a rank's Gram stack under `scope`."""
         return 1 if self.bucket_scoped(scope) else self.n_sys
 
     def scope_block_sys(self, scope: str) -> np.ndarray:
         """The block -> system table the kernels walk under `scope`: bucket
         scope maps every block to system 0."""
         if self.bucket_scoped(scope):
-            return np.zeros(self.n_blocks, np.int32)
+            return np.zeros(self.n_blocks_local, np.int32)
         return self.block_sys()
 
     def scope_n_sys(self, scope: str) -> int:
@@ -166,41 +230,96 @@ class ArenaBucket:
 # Bucketing
 # ---------------------------------------------------------------------------
 
-def arena_eligible(plan: LeafPlan, cfg) -> bool:
-    """A leaf joins an arena unless arenas are off or its route is forced
-    to the ``dot_general`` oracle."""
-    return bool(cfg.arena) and plan.route != "dot_general"
+def _sizes(mesh) -> Dict[str, int]:
+    return (dict(zip(mesh.axis_names, mesh.devices.shape))
+            if mesh is not None else {})
 
 
-def build_arenas(plans, cfg) -> Dict[str, ArenaBucket]:
+def _axes_of(entries, mesh) -> Tuple[str, ...]:
+    """Mesh axes (size > 1) named in a run of spec entries, sorted."""
+    sizes = _sizes(mesh)
+    out: List[str] = []
+    for e in entries:
+        for a in entry_axes(e):
+            if sizes.get(a, 1) > 1 and a not in out:
+                out.append(a)
+    return tuple(sorted(out))
+
+
+def _local_shape(plan: LeafPlan, mesh) -> Tuple[int, ...]:
+    if mesh is None:
+        return plan.shape
+    sizes = _sizes(mesh)
+    ent = tuple(plan.param_spec) + (None,) * len(plan.shape)
+    return tuple(d // int(np.prod([sizes.get(a, 1) for a in entry_axes(e)]))
+                 for d, e in zip(plan.shape, ent))
+
+
+def arena_eligible(plan: LeafPlan, cfg, mesh=None) -> bool:
+    """A leaf joins an arena unless arenas are off, its route is forced to
+    the ``dot_general`` oracle, or a NON-leading stack axis of it is
+    sharded (packing it by rank would interleave the global system
+    order). A sharded leading stack axis gets a bucket of its own
+    (``sys_axes``)."""
+    if not cfg.arena or plan.route == "dot_general":
+        return False
+    ent = tuple(plan.param_spec) + (None,) * plan.stack_dims
+    return not (plan.stack_dims > 1
+                and _axes_of(ent[1:plan.stack_dims], mesh))
+
+
+def build_arenas(plans, cfg, mesh=None) -> Dict[str, ArenaBucket]:
     """LeafPlan tree -> {bucket_key: ArenaBucket}, leaves in tree order.
-    Bucket key = (schedule group, param dtype); ``block_n`` is
-    ``lane_block(cfg.arena_block_n, widest member)``."""
-    grouped: Dict[str, List[LeafPlan]] = {}
+    Bucket key = (schedule group, param dtype, lane-sharding axes), and for
+    a system-sharded leaf its sys axes and its path (one leaf to a
+    bucket). ``block_n`` is ``lane_block(cfg.arena_block_n, widest
+    member's block)``. Only ``mesh.axis_names`` and ``mesh.devices.shape``
+    are read."""
+    grouped: Dict[str, list] = {}
     for plan in plan_entries(plans):
-        if arena_eligible(plan, cfg):
-            grouped.setdefault(f"g{plan.group}-{plan.dtype}", []).append(plan)
+        if not arena_eligible(plan, cfg, mesh):
+            continue
+        ent = tuple(plan.param_spec) + (None,) * len(plan.shape)
+        lane_axes = _axes_of(ent[plan.stack_dims:], mesh)
+        sys_axes = _axes_of(ent[:plan.stack_dims], mesh)
+        key = f"g{plan.group}-{plan.dtype}"
+        if lane_axes:
+            key += "-" + "+".join(lane_axes)
+        if sys_axes:
+            key += ("-sys" + "+".join(sys_axes) + "-"
+                    + plan.path.replace("/", "."))
+        grouped.setdefault(key, []).append((plan, lane_axes, sys_axes))
 
+    sizes = _sizes(mesh)
     out: Dict[str, ArenaBucket] = {}
     for key in sorted(grouped):
         members = grouped[key]
-        block_n = lane_block(int(cfg.arena_block_n),
-                             max(p.flat_size for p in members))
+        locals_ = [_local_shape(p, mesh) for p, _, _ in members]
+        flats = [int(np.prod(ls[p.stack_dims:], dtype=np.int64) or 1)
+                 for (p, _, _), ls in zip(members, locals_)]
+        block_n = lane_block(int(cfg.arena_block_n), max(flats))
         segs: List[ArenaSegment] = []
         sys_i = lane_i = 0
-        for plan in members:
-            n_sys = int(np.prod(plan.shape[:plan.stack_dims], dtype=np.int64))
-            seg_lanes = -(-plan.flat_size // block_n) * block_n
+        for (plan, _, _), lshape, flat in zip(members, locals_, flats):
+            n_sys = int(np.prod(lshape[:plan.stack_dims], dtype=np.int64))
+            seg_lanes = -(-flat // block_n) * block_n
             segs.append(ArenaSegment(
                 path=plan.path, sys_start=sys_i, lane_start=lane_i,
-                n_sys=n_sys, flat_local=plan.flat_size, seg_lanes=seg_lanes,
-                shape=plan.shape, stack_dims=plan.stack_dims,
-                param_dtype=plan.dtype))
+                n_sys=n_sys, flat_local=flat, seg_lanes=seg_lanes,
+                shape=plan.shape, local_shape=lshape,
+                stack_dims=plan.stack_dims, param_dtype=plan.dtype,
+                param_spec=plan.param_spec,
+                snapshot_spec=plan.snapshot_spec))
             sys_i += n_sys
             lane_i += n_sys * seg_lanes
-        out[key] = ArenaBucket(key=key, group=members[0].group,
-                               sched=members[0].sched, block_n=block_n,
-                               segments=tuple(segs))
+        lane_axes, sys_axes = members[0][1], members[0][2]
+        out[key] = ArenaBucket(
+            key=key, group=members[0][0].group, sched=members[0][0].sched,
+            block_n=block_n, segments=tuple(segs), lane_axes=lane_axes,
+            shard_factor=int(np.prod([sizes[a] for a in lane_axes])),
+            sys_axes=sys_axes,
+            sys_factor=int(np.prod([sizes[a] for a in sys_axes])),
+            mesh=mesh)
     return out
 
 
@@ -211,8 +330,8 @@ def arena_paths(table: Dict[str, ArenaBucket]) -> frozenset:
 def layout_table(table: Dict[str, ArenaBucket], scope: str = "leaf"
                  ) -> list:
     """JSON-able rows of the packed layout, one per bucket, with the
-    reference's field names (no mesh). `scope` stamps each bucket's DMD
-    granularity and its solve share (``n_solve``)."""
+    reference's field names. `scope` stamps each bucket's DMD granularity
+    and its solve share (``n_solve``)."""
     out = []
     for key in sorted(table):
         b = table[key]
@@ -220,14 +339,16 @@ def layout_table(table: Dict[str, ArenaBucket], scope: str = "leaf"
             "key": b.key, "group": b.group, "m": b.m,
             "scope": "bucket" if b.bucket_scoped(scope) else "leaf",
             "n_solve": b.gram_lead(scope), "block_n": b.block_n,
-            "n_sys": b.n_sys,
-            "n_lanes": b.n_lanes,
+            "n_sys": b.n_sys, "n_sys_global": b.n_sys_global,
+            "n_lanes_local": b.n_lanes_local, "n_lanes": b.n_lanes,
+            "lane_axes": list(b.lane_axes), "shard_factor": b.shard_factor,
+            "sys_axes": list(b.sys_axes), "sys_factor": b.sys_factor,
             "segments": [{
                 "path": s.path, "sys_start": s.sys_start,
                 "lane_start": s.lane_start, "n_sys": s.n_sys,
                 "flat_local": s.flat_local, "seg_lanes": s.seg_lanes,
-                "shape": list(s.shape), "stack_dims": s.stack_dims,
-                "param_dtype": s.param_dtype,
+                "shape": list(s.shape), "local_shape": list(s.local_shape),
+                "stack_dims": s.stack_dims, "param_dtype": s.param_dtype,
             } for s in b.segments],
         })
     return out
@@ -255,16 +376,16 @@ def snapshot_dtype(cfg) -> torch.dtype:
 
 def init_arena_buffers(table: Dict[str, ArenaBucket], cfg,
                        device) -> Dict[str, torch.Tensor]:
-    return {key: torch.zeros((b.n_blocks, b.m, b.block_n),
+    return {key: torch.zeros((b.n_blocks_local, b.m, b.block_n),
                              dtype=snapshot_dtype(cfg), device=device)
             for key, b in table.items()}
 
 
 def init_arena_grams(table: Dict[str, ArenaBucket], device,
                      scope: str = "leaf") -> Dict[str, torch.Tensor]:
-    """Zeroed Gram stacks: (n_sys, m, m) per bucket in leaf scope, the one
-    (1, m, m) shared-operator Gram in bucket scope."""
-    return {key: torch.zeros((b.gram_lead(scope), b.m, b.m),
+    """Zeroed Gram stacks: a rank's (n_sys, m, m) per bucket in leaf
+    scope, the one (1, m, m) shared-operator Gram in bucket scope."""
+    return {key: torch.zeros((b.gram_lead_local(scope), b.m, b.m),
                              dtype=torch.float32, device=device)
             for key, b in table.items()}
 
@@ -290,7 +411,7 @@ def _unpack_leaf(row: torch.Tensor, seg: ArenaSegment) -> torch.Tensor:
     lead = tuple(row.shape[:-1])
     x = row[..., seg.lane_start:seg.lane_start + seg.lanes]
     x = x.reshape(lead + (seg.n_sys, seg.seg_lanes))[..., :seg.flat_local]
-    return x.reshape(lead + seg.shape)
+    return x.reshape(lead + seg.local_shape)
 
 
 def pack_row(bucket: ArenaBucket, params_by_path: Dict[str, torch.Tensor],
@@ -362,7 +483,7 @@ def buffers_leafwise(table: Dict[str, ArenaBucket],
     out = {}
     for key, buf in arenas.items():
         b = table[key]
-        slab = buf.transpose(0, 1).reshape(b.m, b.n_lanes)
+        slab = buf.transpose(0, 1).reshape(b.m, b.n_lanes_local)
         for seg, x in zip(b.segments, _unpack_row(b, slab)):
             out[seg.path] = x
     return out
@@ -392,10 +513,10 @@ def grams_leafwise(table: Dict[str, ArenaBucket],
             buf = arenas[key]
             g = ka.gram(buf, b.tables_on(buf.device),
                         anchor_first=cfg.anchor == "first",
-                        anchor_mean=cfg.anchor == "mean")
+                        anchor_mean=cfg.anchor == "mean", **b.shard_kw())
         for seg in b.segments:
             out[seg.path] = g[seg.sys_start:seg.sys_start + seg.n_sys] \
-                .reshape(seg.shape[:seg.stack_dims] + (b.m, b.m))
+                .reshape(seg.local_shape[:seg.stack_dims] + (b.m, b.m))
     return out
 
 
@@ -410,7 +531,7 @@ def buffers_from_leafwise(table: Dict[str, ArenaBucket],
     for key, b in table.items():
         slab = torch.cat([_pack_leaf(by_path_[s.path], s, dtype, lead=1)
                           for s in b.segments], dim=1)
-        out[key] = slab.reshape(b.m, b.n_blocks, b.block_n) \
+        out[key] = slab.reshape(b.m, b.n_blocks_local, b.block_n) \
             .transpose(0, 1).contiguous()
     return out
 
@@ -459,7 +580,8 @@ def restream_grams(agrams: Dict[str, torch.Tensor],
         segs = b.tables_on(buf.device, cfg.scope)
         for s in range(k + 1):
             row = ka.gram_row(buf, buf[:, s, :], segs,
-                              anchor_first=cfg.anchor == "first")
+                              anchor_first=cfg.anchor == "first",
+                              **b.shard_kw())
             dmd_math.set_gram_row(g, row, s)
     return agrams
 
@@ -493,7 +615,7 @@ def record(arenas: Dict[str, torch.Tensor], params,
         if s < 0 or (group is not None and b.group != group):
             continue
         row = flat[key] if resident else pack_row(b, leaves, dtype)
-        buf[:, s, :].copy_(row.view(b.n_blocks, b.block_n))
+        buf[:, s, :].copy_(row.view(b.n_blocks_local, b.block_n))
     return arenas
 
 
@@ -514,7 +636,7 @@ def update_grams(agrams: Dict[str, torch.Tensor],
         buf = arenas[key]
         row = ka.gram_row(buf, buf[:, s, :],
                           b.tables_on(buf.device, cfg.scope),
-                          anchor_first=cfg.anchor == "first")
+                          anchor_first=cfg.anchor == "first", **b.shard_kw())
         dmd_math.set_gram_row(g, row, s)
     return agrams
 
@@ -578,7 +700,12 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
     `ridge_vec` that requires grad makes the result differentiable in it
     (the combine's backward is K1). In bucket scope each bucket is ONE
     system of the group's solve (its table's zeros broadcast the one
-    coefficient row in K2) and every segment reports the bucket's rank."""
+    coefficient row in K2) and every segment reports the bucket's rank.
+    Under a mesh a system-sharded bucket's Grams are gathered to the
+    mesh's stack first, the solve's coefficients are broadcast from the
+    mesh's first rank (unless they carry a gradient: every rank then
+    computes the same bits from the same Grams), and each rank keeps the
+    rows of its own systems."""
     scope = cfg.scope
     leaves = None if resident else by_path(params)
     updates: Dict[str, torch.Tensor] = {}
@@ -598,7 +725,9 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
                 buf = arenas[b.key]
                 g = ka.gram(buf, b.tables_on(buf.device, scope),
                             anchor_first=cfg.anchor == "first",
-                            anchor_mean=cfg.anchor == "mean")
+                            anchor_mean=cfg.anchor == "mean", **b.shard_kw())
+            if b.sys_axes:
+                g = gather_full(g, b.gram_spec(), b.mesh)
             grams.append(g)
         gcat = grams[0] if len(grams) == 1 else torch.cat(grams)
         sched = buckets[0].sched
@@ -610,18 +739,26 @@ def jump(cfg, table: Dict[str, ArenaBucket], params,
             energy=sched.energy, atol=cfg.atol, ridge=sched.ridge,
             s_dyn=None if s_vec is None else s_vec[gi],
             ridge_dyn=None if ridge_vec is None else ridge_vec[gi])
+        mesh = buckets[0].mesh
+        if mesh is not None and not c.requires_grad:
+            c = mesh.broadcast(c.contiguous())
         ofs = 0
         for b in buckets:
             lead = b.gram_lead(scope)
-            cb = c[ofs:ofs + lead].contiguous()
+            cb = c[ofs:ofs + lead]
             rb = info["rank"][ofs:ofs + lead]
             ofs += lead
+            if b.sys_axes:
+                rows = Spec(ka._axis_entry(b.sys_axes), None)
+                cb = local_shard(cb, rows, b.mesh)
+                rb = local_shard(rb.reshape(-1, 1), rows, b.mesh)[:, 0]
+            cb = cb.contiguous()
             buf = arenas[b.key]
             dtype = (getattr(torch, b.segments[0].param_dtype) if resident
                      else torch.float32)
             flat = _finite_or_last(
-                ka.combine(buf, cb, b.tables_on(buf.device, scope)), buf,
-                dtype)
+                ka.combine(buf, cb, b.tables_on(buf.device, scope),
+                           **b.shard_kw()), buf, dtype)
             if b.bucket_scoped(scope):
                 seg_ranks = [rb.float().mean()] * len(b.segments)
             else:

@@ -16,6 +16,12 @@ systems), ``dot_general`` takes the plain contractions of
 per-group slot vector indexed by ``plan.group``; negative slots skip the
 leaf, and ``group=`` restricts a call to one schedule group.
 
+Under a mesh each rank holds its block of every buffer (the plan's
+``snapshot_spec``) and of every Gram (``gram_spec``): the data passes run
+on the block and sum their partials over the leaf's ``psum_axes`` with one
+all-reduce (``kernels/sharded.py``), so a Gram whose stack dims no axis
+shards is the same on every rank.
+
 Buffers and Grams are updated IN PLACE (``record`` writes the slot,
 ``update_grams`` a Gram row and column): at the paper's MLP the largest
 buffer is 149.5 MB, and a functional update would copy it on every step.
@@ -30,7 +36,7 @@ import torch
 from repro_torch.core import dmd as dmd_math
 from repro_torch.core.leafplan import LeafPlan
 from repro_torch.core.paths import by_path, leaves_with_paths, map_with_paths
-from repro_torch.kernels import ops
+from repro_torch.kernels import sharded
 
 PyTree = Any
 KERNEL_ROUTES = ("pallas_flat", "pallas_shard_map")
@@ -92,7 +98,7 @@ def init_grams(buffers: PyTree, plans: PyTree) -> PyTree:
 
     def make(path, buf):
         plan = plan_of[path]
-        shape = plan.shape[:plan.stack_dims] + (plan.m, plan.m)
+        shape = tuple(buf.shape[1:1 + plan.stack_dims]) + (plan.m, plan.m)
         return torch.zeros(shape, dtype=torch.float32, device=buf.device)
     return map_with_paths(make, buffers)
 
@@ -104,11 +110,11 @@ def _stream_gram_row(plan: LeafPlan, buf: torch.Tensor, slot: int, cfg
     dispatched by the plan's route."""
     q = buf[slot]
     if plan.route in KERNEL_ROUTES:
-        return ops.gram_row(buf, q, anchor_first=cfg.anchor == "first",
-                            stack_dims=plan.stack_dims)
-    return dmd_math.gram_row_matrix(buf, q, anchor=cfg.anchor,
-                                    stack_dims=plan.stack_dims,
-                                    upcast=cfg.gram_upcast)
+        return sharded.gram_row(buf, q, plan,
+                                anchor_first=cfg.anchor == "first")
+    return sharded.psum(dmd_math.gram_row_matrix(
+        buf, q, anchor=cfg.anchor, stack_dims=plan.stack_dims,
+        upcast=cfg.gram_upcast), plan)
 
 
 def update_grams(grams: PyTree, buffers: PyTree, slot, cfg, plans: PyTree,
@@ -130,17 +136,24 @@ def recompute_grams(grams: PyTree, buffers: PyTree, cfg, plans: PyTree
     checkpoint written without streaming Grams restores zeros; the next
     jump would otherwise solve on a Gram with zeroed rows). The staleness
     of every leaf is read in one device-to-host copy; each stale leaf then
-    takes one ``gram_matrix`` pass. Returns a new tree."""
+    takes one ``gram_matrix`` pass. Returns a new tree. Under a mesh a
+    leaf is stale where it is on any rank (every rank then rebuilds it,
+    one all-reduce of the partials each), so all ranks make the same
+    collectives."""
     b_of = by_path(buffers)
     live = [(path, g, b_of[path]) for path, g in leaves_with_paths(grams)
             if b_of.get(path) is not None]
     if not live:
         return grams
-    stale = torch.stack([(~g.any()) & b.any() for _, g, b in live])
-    stale = stale.tolist()  # lint: allow-host-sync (once per restore)
     plan_of = by_path(plans)
-    fresh = {path: dmd_math.gram_matrix(b, anchor=cfg.anchor,
-                                        stack_dims=plan_of[path].stack_dims,
-                                        upcast=cfg.gram_upcast)
-             for flag, (path, _, b) in zip(stale, live) if flag}
+    stale = torch.stack([(~g.any()) & b.any() for _, g, b in live]).int()
+    mesh = plan_of[live[0][0]].mesh
+    if mesh is not None:
+        mesh.all_reduce(stale, mesh.axis_names,
+                        op=torch.distributed.ReduceOp.MAX)
+    stale = stale.tolist()  # lint: allow-host-sync (once per restore)
+    fresh = {path: sharded.psum(dmd_math.gram_matrix(
+        b, anchor=cfg.anchor, stack_dims=plan_of[path].stack_dims,
+        upcast=cfg.gram_upcast), plan_of[path])
+        for flag, (path, _, b) in zip(stale, live) if flag}
     return map_with_paths(lambda path, g: fresh.get(path, g), grams)

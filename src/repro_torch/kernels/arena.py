@@ -35,10 +35,12 @@ and no anchor, i.e. K1 itself. Each such launch also counts under
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import Spec
 from repro_torch.kernels import device as _device
 from repro_torch.kernels.device import (DTYPES, MAX_M, acc_dtype, launch,
                                         on_cuda, resolve_device, sm_count,
@@ -188,9 +190,56 @@ def gram_grid(nb: int, m: int, n_sys: int, sms: int) -> tuple[int, int]:
     return ctas, (ctas + n_sys) * (m * (m + 1) // 2)
 
 
-@_device.opaque("gram_row")
+# ---------------------------------------------------------------------------
+# Under a mesh: each rank's block of a bucket, then one all-reduce
+# ---------------------------------------------------------------------------
+
+def shard_wrap(mesh, lane_axes: Tuple[str, ...], fn: Callable) -> Callable:
+    """The shard contract of the three passes: ``fn`` runs on this rank's
+    block (K1 / K3 / K2 on the local blocks), then its output is summed
+    over `lane_axes` with ONE all-reduce. No mesh or no sharded lanes: the
+    local computation is the global one."""
+    if mesh is None or not lane_axes:
+        return fn
+
+    def wrapped(*args, **kwargs):
+        return mesh.all_reduce(fn(*args, **kwargs), lane_axes)
+    return wrapped
+
+
+def _axis_entry(axes: Tuple[str, ...]):
+    """One spec entry for a (possibly multi-axis) set of mesh axes."""
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def lane_spec(lane_axes: Tuple[str, ...]) -> Spec:
+    """Spec of a bucket's flat 1-D lane axis (pack / unpack rows, the
+    combine's output)."""
+    return Spec(_axis_entry(lane_axes))
+
+
+def buf_spec(axes: Tuple[str, ...]) -> Spec:
+    """Spec of a block-major (n_blocks, m, block_n) ring buffer: the axes
+    that shard the flat lane axis shard its leading BLOCK axis (each
+    rank's lane count is a block multiple, so shard boundaries are block
+    boundaries)."""
+    return Spec(_axis_entry(axes), None, None)
+
+
 def gram_row(buf: torch.Tensor, q: torch.Tensor, seg: Segments, *,
-             anchor_first: bool = False) -> torch.Tensor:
+             anchor_first: bool = False, mesh=None,
+             lane_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """One streaming Gram row per system of this rank's block, one launch
+    (K1). A lane-sharded bucket (`lane_axes`) sums the partial rows with
+    one O(n_sys*m) all-reduce; a system-sharded one (each rank owns whole
+    systems) needs none, and its rows stay this rank's."""
+    return shard_wrap(mesh, lane_axes, _gram_row)(
+        buf, q, seg, anchor_first=anchor_first)
+
+
+@_device.opaque("gram_row")
+def _gram_row(buf: torch.Tensor, q: torch.Tensor, seg: Segments, *,
+              anchor_first: bool = False) -> torch.Tensor:
     """One streaming Gram row per system, one launch for the whole arena.
     ``q`` is (nb, bn) with unit lane stride; its rows may be strided, so a
     slot of the ring buffer itself (``buf[:, slot, :]``) is passed without a
@@ -225,9 +274,19 @@ def gram_row(buf: torch.Tensor, q: torch.Tensor, seg: Segments, *,
     return out
 
 
-@_device.opaque("gram")
 def gram(buf: torch.Tensor, seg: Segments, *, anchor_first: bool = False,
-         anchor_mean: bool = False) -> torch.Tensor:
+         anchor_mean: bool = False, mesh=None,
+         lane_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """Full (n_sys, m, m) Grams of this rank's block, one launch (K3), then
+    one O(n_sys*m^2) all-reduce over `lane_axes`; a system-sharded
+    bucket's Grams stay this rank's."""
+    return shard_wrap(mesh, lane_axes, _gram)(
+        buf, seg, anchor_first=anchor_first, anchor_mean=anchor_mean)
+
+
+@_device.opaque("gram")
+def _gram(buf: torch.Tensor, seg: Segments, *, anchor_first: bool = False,
+          anchor_mean: bool = False) -> torch.Tensor:
     """Full (n_sys, m, m) Gram recompute, one launch for the whole arena
     (the ``streaming_gram=False`` path and mean-anchored buckets)."""
     if anchor_first and anchor_mean:
@@ -256,13 +315,15 @@ def gram(buf: torch.Tensor, seg: Segments, *, anchor_first: bool = False,
 
 
 @_device.opaque("combine")
-def combine(buf: torch.Tensor, c: torch.Tensor, seg: Segments
-            ) -> torch.Tensor:
-    """(nb * bn,) fp32 jump blend, one launch: block i gets
-    ``c[block_sys[i]] . buf[i]``. Differentiable in ``c`` (``CombineFn``)
-    when ``c`` requires grad."""
+def combine(buf: torch.Tensor, c: torch.Tensor, seg: Segments, *,
+            mesh=None, lane_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """(nb * bn,) fp32 jump blend of this rank's block, one launch: block i
+    gets ``c[block_sys[i]] . buf[i]``. No collective: `c` holds this rank's
+    systems, and the output has the bucket's lane layout. Differentiable
+    in ``c`` (``CombineFn``) when ``c`` requires grad; under a mesh its
+    backward sums the K1 partials over `lane_axes`."""
     if torch.is_grad_enabled() and c.requires_grad:
-        return CombineFn.apply(buf, c, seg)
+        return CombineFn.apply(buf, c, seg, mesh, tuple(lane_axes))
     return _combine(buf, c, seg)
 
 
@@ -297,9 +358,10 @@ class CombineFn(torch.autograd.Function):
     controller's meta-tuning reads only the sign of the knob gradients."""
 
     @staticmethod
-    def forward(ctx, buf, c, seg):
+    def forward(ctx, buf, c, seg, mesh=None, lane_axes=()):
         ctx.save_for_backward(buf)
         ctx.seg = seg
+        ctx.mesh, ctx.lane_axes = mesh, lane_axes
         ctx.c_dtype = c.dtype
         if twin_only(buf):
             return combine_ref(buf, c.detach(), seg.block_sys)
@@ -312,9 +374,11 @@ class CombineFn(torch.autograd.Function):
         seg = ctx.seg
         q = dw.reshape(nb, bn).to(buf.dtype).contiguous()
         if twin_only(buf):
-            dc = gram_row_ref(buf, q, seg.block_sys, seg.n_sys)
+            dc = shard_wrap(ctx.mesh, ctx.lane_axes, gram_row_ref)(
+                buf, q, seg.block_sys, seg.n_sys)
         else:
-            dc = gram_row(buf, q, seg)
+            dc = gram_row(buf, q, seg, mesh=ctx.mesh,
+                          lane_axes=ctx.lane_axes)
         if buf.is_cuda:
             BWD_LAUNCHES["gram_row_bwd"] += 1
-        return None, dc.to(ctx.c_dtype), None
+        return None, dc.to(ctx.c_dtype), None, None, None

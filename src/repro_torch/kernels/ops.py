@@ -15,9 +15,10 @@ kernels or raise.
 ``flash_attention`` is the attention core of the dense LM (kernel K7,
 ``kernels/flash_attention.py``), routed the same way.
 
-With ``stack_dims > 0`` they are the reference's ``kernels/sharded.py``
-passes without a mesh: one launch over all stacked systems, reading the
-buffer through its system stride instead of moving the stack axes first.
+With ``stack_dims > 0`` they are the local passes of the reference's
+``kernels/sharded.py`` (the port's runs them on each rank's block): one
+launch over all stacked systems, reading the buffer through its system
+stride instead of moving the stack axes first.
 """
 from __future__ import annotations
 

@@ -19,7 +19,7 @@ full widths: ``minicpm-2b`` (44 B a param: its bf16 ring of 14; its full
 40 layers need 120 GB), ``granite-20b`` and ``gemma3-27b`` (32 B a param,
 rings of 8; gemma's tied 262144 x 5376 embedding alone is 45 GB of
 state). ``check_fits`` admits 23, 4 and 2 layers; on an 80 GB H100 21, 3
-and 1 train (``chip_smoke.py`` trains 10, 3 and 1; gemma's
+and 1 train (``chip_smoke.py`` trains 4, 3 and 1; gemma's
 first layers are window layers, of 1024 tokens). ``qwen2-vl-7b`` (36 B a
 param: its bf16 ring of 10; the full depth's state is 274 GB) trains on
 the stream's M-RoPE positions, three equal arange streams as the
@@ -40,22 +40,33 @@ the step, so a resumed run sees the same batches; with the model's
 launcher passes them.
 
 The reference places the full config on its production mesh. The port
-runs on one card: without ``--reduced`` it first reckons the state's
+runs on one card unless asked for a mesh: ``--mesh DxM`` (or ``PxDxM``)
+trains on a (data, model) or (pod, data, model) mesh of ranks, one process
+each, and ``--multi-pod`` on the production (2, 16, 16) mesh. Under
+``torchrun`` (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``
+set) each process joins the group it describes; without it the launcher
+spawns the mesh's ranks itself. Rank r runs on card ``r % cards``;
+``--backend`` (default gloo) is the process group's: NCCL needs a card for
+each rank, gloo lets ranks share one. A mesh runs its steps eagerly: on a
+card it needs ``--eager`` (the Trainer raises otherwise). Without ``--reduced`` on a card it first reckons the state's
 bytes (params, the optimizer's moments, the fp32 gradient sum and one
-microbatch's gradient, and the DMD ring of m snapshots) and raises, with
-those bytes, where they exceed 90% of the card's memory. It never shrinks
-the model by itself: ``--layers N`` cuts the depth on request (the only
-flag the reference does not have). ``--multi-pod`` raises: a mesh is not
-ported (ROADMAP Queue 1 item 4). ``--eager`` turns the CUDA graphs off.
+microbatch's gradient, and the DMD ring of m snapshots; under a mesh a
+rank's blocks of them plus the forward's gathered params and gradient)
+and raises, with those bytes, where they exceed 90% of the card's memory,
+or of a rank's share of it where ranks share a card. It never shrinks the
+model by itself: ``--layers N`` cuts the depth on request (the only flag
+the reference does not have). ``--eager`` turns the CUDA graphs off.
 Without ``--device cpu`` it needs a card and raises otherwise.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import latest_step
@@ -63,6 +74,7 @@ from repro_torch.configs import get_config, reduced as reduce_model
 from repro_torch.configs import shape_by_name
 from repro_torch.data.tokens import stream_kwargs, synthetic_lm_batches
 from repro_torch.kernels.device import resolve_device
+from repro_torch.launch.mesh import Mesh, init_from_env, parse_mesh, run_ranks
 from repro_torch.models.transformer import LanguageModel, init_params
 from repro_torch.train import Trainer
 from repro_torch.train.step import state_resident
@@ -97,7 +109,10 @@ def configure(arch: str, *, steps: int, reduced: bool = False,
 def make_model(acfg, *, reduced: bool = False, device="cuda"
                ) -> LanguageModel:
     """The reference launcher's model: chunk_k min(seq, 1024), the
-    config's remat unless reduced."""
+    config's remat unless reduced. ``parallel.pad_attn_heads_to`` is not
+    passed: its padded heads serve head-parallel compute over "model",
+    which the port does not run (ROADMAP Queue 1), and would only add
+    work."""
     return LanguageModel(acfg.model, chunk_k=min(acfg.train.seq_len, 1024),
                          remat="none" if reduced else acfg.parallel.remat,
                          device=device)
@@ -122,28 +137,50 @@ def state_bytes(acfg, n_params: int) -> dict:
     return {k: v * n_params for k, v in parts.items()}
 
 
-def check_fits(acfg, n_params: int, total: int) -> int:
-    """The state's bytes; raises where they exceed CARD_FRACTION of the
-    card's `total` bytes (the port does not shard the state over a
-    mesh)."""
-    need = sum(state_bytes(acfg, n_params).values())
-    if need > CARD_FRACTION * total:
+def local_param_count(model: LanguageModel, mesh) -> int:
+    """Parameters of one rank's blocks under `mesh` (anything with
+    ``axis_names`` and ``devices.shape``), counted on the meta device."""
+    from repro_torch.core.paths import leaves_with_paths
+    from repro_torch.distributed.sharding import local_shape, param_specs
+
+    params = init_params(model.cfg, device="meta")
+    specs = param_specs(params, mesh)
+    return sum(int(np.prod(local_shape(x.shape, specs[p], mesh),
+                           dtype=np.int64))
+               for p, x in leaves_with_paths(params))
+
+
+def check_fits(acfg, n_params: int, total: int, *,
+               n_local: Optional[int] = None, share: int = 1) -> int:
+    """The state's bytes on one rank; raises where they exceed
+    CARD_FRACTION of the card's `total` bytes over the `share` ranks that
+    use the card. Under a mesh (`n_local`: the params of a rank's blocks)
+    a rank holds its blocks of the state and, in a step, the forward's
+    full params and the full gradient (in the params' dtype and in
+    fp32)."""
+    need = sum(state_bytes(acfg, n_params if n_local is None
+                           else n_local).values())
+    if n_local is not None:
+        p = torch.empty((), dtype=getattr(torch, acfg.model.dtype)
+                        ).element_size()
+        need += (2 * p + 4) * n_params
+    if need > CARD_FRACTION * total / share:
         raise RuntimeError(
             f"{acfg.model.name} at {acfg.model.n_layers} layers: the "
-            f"training state alone needs {need} bytes ({n_params} params, "
-            f"{state_bytes(acfg, n_params)}), more than {CARD_FRACTION} of "
-            f"the card's {total} bytes; the port runs on one card (a mesh "
-            "is ROADMAP Queue 1 item 4): cut the depth with --layers or "
-            "train --reduced")
+            f"training state alone needs {need} bytes a rank ({n_params} "
+            f"params, {n_local} a rank's, {share} rank(s) to the card), "
+            f"more than {CARD_FRACTION} of the card's {total} bytes"
+            f"{'' if share == 1 else f' / {share}'}: cut the depth with "
+            "--layers, shard over more cards, or train --reduced")
     return need
 
 
 def make_trainer(acfg, model: LanguageModel, *, ckpt: str = "",
                  cuda_graphs: bool = True,
-                 fail_at_step: Optional[int] = None) -> Trainer:
+                 fail_at_step: Optional[int] = None, mesh=None) -> Trainer:
     return Trainer(model, acfg, checkpoint_dir=ckpt or None,
                    device=model.device, cuda_graphs=cuda_graphs,
-                   fail_at_step=fail_at_step)
+                   fail_at_step=fail_at_step, mesh=mesh)
 
 
 def fresh_state(trainer: Trainer):
@@ -160,14 +197,14 @@ def run(acfg, model: LanguageModel, *, steps: int, ckpt: str = "",
         cuda_graphs: bool = True, log_every: int = 10,
         on_metrics: Optional[Callable] = None,
         trainer: Optional[Trainer] = None, state=None,
-        fail_at_step: Optional[int] = None):
+        fail_at_step: Optional[int] = None, mesh=None):
     """Train to step `steps` on the synthetic token stream, from `state`,
     else from the newest checkpoint in `ckpt`, else from ``fresh_state``.
     Returns (trainer, final state)."""
     if trainer is None:
         trainer = make_trainer(acfg, model, ckpt=ckpt,
                                cuda_graphs=cuda_graphs,
-                               fail_at_step=fail_at_step)
+                               fail_at_step=fail_at_step, mesh=mesh)
     if state is None:
         start = (latest_step(ckpt) or 0) if ckpt else 0
         state = fresh_state(trainer)          # the restore's template
@@ -197,34 +234,80 @@ def main(argv=None) -> None:
     ap.add_argument("--eager", action="store_true",
                     help="no CUDA graphs on a CUDA device")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="",
+                    help="train on a DxM (or PxDxM) mesh of ranks")
+    ap.add_argument("--backend", default="gloo",
+                    help="the ranks' process group: gloo (ranks may share a "
+                         "card) or nccl (a card each)")
     args = ap.parse_args(argv)
+    shape = None
     if args.multi_pod:
-        raise NotImplementedError("--multi-pod needs the production mesh, "
-                                  "which is not ported (ROADMAP Queue 1 "
-                                  "item 4)")
+        shape = (2, 16, 16)
+    elif args.mesh:
+        shape = parse_mesh(args.mesh)
+    if shape is None:
+        _train(0, args, None)
+        return
+    world = int(np.prod(shape))
+    if "RANK" in os.environ:
+        got = int(os.environ["WORLD_SIZE"])
+        if got != world:
+            raise ValueError(f"a {shape} mesh needs {world} ranks; torchrun "
+                             f"started {got}")
+        rank, _ = init_from_env(args.backend)
+        _train(rank, args, shape)
+    elif args.multi_pod:
+        raise ValueError(f"--multi-pod's production mesh needs {world} "
+                         "ranks: launch them with torchrun")
+    else:
+        # by its module's name, so that the spawned ranks can import it
+        from repro_torch.launch import train as launcher
+        run_ranks(launcher._train, world, args, shape, backend=args.backend,
+                  join_timeout=24 * 3600,
+                  threads=max(1, (os.cpu_count() or 1) // world))
+
+
+def _train(rank: int, args, shape) -> None:
+    """One rank of the launcher (the only one, without a mesh)."""
     device = resolve_device(args.device)
+    mesh = None
+    if shape is not None:
+        if device.type == "cuda":
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        mesh = Mesh(shape, device=device)
+    say = print if rank == 0 else (lambda *a, **k: None)
     acfg = configure(args.arch, steps=args.steps, reduced=args.reduced,
                      no_dmd=args.no_dmd, global_batch=args.global_batch,
                      seq=args.seq, ckpt=args.ckpt, n_layers=args.layers)
     model = make_model(acfg, reduced=args.reduced, device=device)
     n_params = param_count(model)
     if device.type == "cuda" and not args.reduced:
-        check_fits(acfg, n_params,
-                   torch.cuda.get_device_properties(device).total_memory)
+        if mesh is None:
+            check_fits(acfg, n_params,
+                       torch.cuda.get_device_properties(device).total_memory)
+        else:
+            n_ranks = int(np.prod(mesh.shape))
+            check_fits(acfg, n_params,
+                       torch.cuda.get_device_properties(device).total_memory,
+                       n_local=local_param_count(model, mesh),
+                       share=-(-n_ranks // torch.cuda.device_count()))
     gb, seq = acfg.train.global_batch, acfg.train.seq_len
-    print(f"{args.arch}: {n_params / 1e6:.1f}M params, "
-          f"dmd={'off' if args.no_dmd else 'on'}, batch={gb}x{seq}")
+    say(f"{args.arch}: {n_params / 1e6:.1f}M params, "
+        f"dmd={'off' if args.no_dmd else 'on'}, batch={gb}x{seq}"
+        + ("" if mesh is None else f", mesh {mesh.shape} on "
+           f"{mesh.backend}"))
     losses = []
     t0 = time.perf_counter()
     trainer, state = run(acfg, model, steps=args.steps, ckpt=args.ckpt,
-                         cuda_graphs=not args.eager,
+                         cuda_graphs=not args.eager, mesh=mesh,
                          on_metrics=lambda t, m: losses.append(
                              float(m["loss"])))
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     done = len(losses)
-    print(f"{done} steps in {wall:.3f} s on {device} "
+    say(f"{done} steps in {wall:.3f} s on {device} "
           f"({wall / max(done, 1) * 1e3:.3f} ms/step, "
           f"{done * gb * seq / max(wall, 1e-9):.0f} tokens/s), loss "
           f"{losses[0] if losses else float('nan'):.4f} -> "

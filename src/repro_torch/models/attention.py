@@ -198,11 +198,24 @@ def _ring_decode(cache: RingKVCache, k: torch.Tensor, v: torch.Tensor
     return RingKVCache(cache.k, cache.v, cache.pos, cache.length + 1)
 
 
+def pad_heads(t: torch.Tensor, target_groups_rep) -> torch.Tensor:
+    """Zero-pad heads per GQA group: (B, S, H, hd) with H = K*rep ->
+    (B, S, K*rep_pad, hd), keeping the q-head -> kv-head grouping. Padded
+    heads are exact: a real head attends the same kv head as before and
+    the padded heads' outputs are dropped."""
+    K, rep, rep_pad = target_groups_rep
+    B, S, H, hd = t.shape
+    g = t.reshape(B, S, K, rep, hd)
+    g = torch.nn.functional.pad(g, (0, 0, 0, rep_pad - rep))
+    return g.reshape(B, S, K * rep_pad, hd)
+
+
 def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
            causal: bool = True, window: int = 0,
            cache: Optional[Union[KVCache, RingKVCache]] = None,
            chunk_k: int = 1024, use_rope: bool = True,
-           kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+           kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+           pad_heads_to: int = 0
            ) -> Tuple[torch.Tensor, Optional[Union[KVCache, RingKVCache]]]:
     """Projections, RoPE (unless ``use_rope`` is off), the attention core
     and the output projection.
@@ -214,7 +227,12 @@ def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     the prompt in context) and S == 1 a decode step against the ring.
     With ``kv_override`` = (k, v), (B, Sk, K, hd) each, the call is
     cross-attention over them (``cache`` is ignored): S > 1 through K7,
-    S == 1 (a decode step) through the plain core."""
+    S == 1 (a decode step) through the plain core. ``pad_heads_to``
+    (``parallel.pad_attn_heads_to``) zero-pads the heads of a forward
+    without a cache to a multiple of it, under the reference's condition
+    (H not a multiple, no cross-attention): MHA pads q, k and v at the
+    end, GQA each group's q heads; the padded heads' outputs are dropped,
+    so the result is the unpadded one."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, hd)
@@ -233,6 +251,17 @@ def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
         k = layers.apply_rope(k, positions, cfg.rope_theta,
                               cfg.mrope_sections)
     v = (x @ p["wv"]).reshape(B, S, K, hd)
+
+    pad_rep = None
+    if pad_heads_to and H % pad_heads_to != 0 and cache is None:
+        H_pad = -(-H // pad_heads_to) * pad_heads_to
+        if K == H:
+            pad_rep = (1, H, H_pad)
+            k, v = pad_heads(k, pad_rep), pad_heads(v, pad_rep)
+        elif H_pad % K == 0:
+            pad_rep = (K, H // K, H_pad // K)
+        if pad_rep is not None:
+            q = pad_heads(q, pad_rep)
 
     new_cache = None
     in_context = cache is None
@@ -270,6 +299,9 @@ def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
 
     if in_context:
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        if pad_rep is not None:             # drop the padded q heads
+            K_, rep, rep_pad = pad_rep
+            out = out.reshape(B, S, K_, rep_pad, hd)[:, :, :, :rep]
     else:
         out = blockwise_attention(q, cache.k, cache.v, causal=causal,
                                   window=window, q_offset=cache.length,

@@ -218,22 +218,25 @@ def _unbind(tree, count: int) -> List[dict]:
 
 
 def _apply_dense(x, p, cfg, *, positions, cache, chunk_k, window=0,
-                 causal=True, use_rope=True):
+                 causal=True, use_rope=True, pad_heads_to=0):
     h = layers.apply_norm(x, p["ln1"], cfg)
     a, new_cache = attention.attend(h, p["attn"], cfg, positions=positions,
                                     causal=causal, window=window,
                                     cache=cache, chunk_k=chunk_k,
-                                    use_rope=use_rope)
+                                    use_rope=use_rope,
+                                    pad_heads_to=pad_heads_to)
     x = x + a
     h = layers.apply_norm(x, p["ln2"], cfg)
     return x + layers.apply_mlp(h, p["mlp"], cfg), new_cache
 
 
-def _apply_moe_block(x, p, cfg, *, positions, cache, chunk_k):
+def _apply_moe_block(x, p, cfg, *, positions, cache, chunk_k,
+                     pad_heads_to=0):
     """Attention, then the MoE feed-forward: (x, new cache, fp32 aux)."""
     h = layers.apply_norm(x, p["ln1"], cfg)
     a, new_cache = attention.attend(h, p["attn"], cfg, positions=positions,
-                                    cache=cache, chunk_k=chunk_k)
+                                    cache=cache, chunk_k=chunk_k,
+                                    pad_heads_to=pad_heads_to)
     x = x + a
     h = layers.apply_norm(x, p["ln2"], cfg)
     f, aux = moe.apply_moe(h, p["moe"], cfg)
@@ -322,10 +325,11 @@ def _apply_dec(x, p, cfg, *, positions, cache, chunk_k, enc):
 
 
 def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k,
-                 shared=None, enc=None):
+                 shared=None, enc=None, pad_heads_to=0):
     """One super-block of the plan: (x, new cache, fp32 aux or None).
     `shared` is the hybrid family's shared block, `enc` the encoder's
-    output a dec block attends."""
+    output a dec block attends. `pad_heads_to` reaches the attention of
+    the dense, dense_local and MoE blocks, as in the reference."""
     if kind == "enc":
         x, _ = _apply_dense(x, p, cfg, positions=positions, cache=None,
                             chunk_k=chunk_k, causal=False, use_rope=False)
@@ -337,7 +341,8 @@ def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k,
     if kind in ("dense", "dense_local"):
         window = cfg.sliding_window if kind == "dense_local" else 0
         x, nc = _apply_dense(x, p, cfg, positions=positions, cache=cache,
-                             chunk_k=chunk_k, window=window)
+                             chunk_k=chunk_k, window=window,
+                             pad_heads_to=pad_heads_to)
         return x, nc, None
     if kind == "gemma":
         lc = None if cache is None else cache["local"]
@@ -352,7 +357,7 @@ def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k,
                    else {"local": lc, "global": ngc}), None
     if kind == "moe":
         return _apply_moe_block(x, p, cfg, positions=positions, cache=cache,
-                                chunk_k=chunk_k)
+                                chunk_k=chunk_k, pad_heads_to=pad_heads_to)
     if kind == "mamba":
         y, ns = ssm.apply_ssm(layers.apply_norm(x, p["ln"], cfg), p["ssm"],
                               cfg, state=cache)
@@ -373,7 +378,8 @@ def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k,
     x, ndc = _apply_dense(x, p["dense"], cfg, positions=positions,
                           cache=dc, chunk_k=chunk_k)
     x, nmc, aux = _apply_moe_block(x, p["moe"], cfg, positions=positions,
-                                   cache=mc, chunk_k=chunk_k)
+                                   cache=mc, chunk_k=chunk_k,
+                                   pad_heads_to=pad_heads_to)
     return x, (None if cache is None else {"dense": ndc, "moe": nmc}), aux
 
 
@@ -400,10 +406,13 @@ REMAT = ("none", "block", "full")
 
 class LanguageModel:
     """The LM of every family (dense, VLM, MoE, SSM, hybrid, enc-dec) with
-    unrolled layers."""
+    unrolled layers. `pad_heads_to` (``parallel.pad_attn_heads_to``) pads
+    the attention heads of a forward without a cache, as the reference's
+    does (``attention.attend``); the result is the same."""
 
     def __init__(self, cfg, *, chunk_k: int = 1024, remat: str = "none",
-                 scan_layers: bool = False, device="cuda"):
+                 scan_layers: bool = False, device="cuda",
+                 pad_heads_to: int = 0):
         if scan_layers:
             raise NotImplementedError(
                 "the port runs its layers in a Python loop (the reference's "
@@ -414,6 +423,7 @@ class LanguageModel:
         self.cfg = cfg
         self.plan = segment_plan(cfg)
         self.chunk_k = chunk_k
+        self.pad_heads_to = pad_heads_to
         self.remat = remat
         self.scan_layers = False
         self.device = resolve_device(device)
@@ -477,7 +487,8 @@ class LanguageModel:
     def _layer_fn(self, kind, x, p, positions, shared, enc):
         x, _, aux = _apply_block(kind, x, p, self.cfg, positions=positions,
                                  cache=None, chunk_k=self.chunk_k,
-                                 shared=shared, enc=enc)
+                                 shared=shared, enc=enc,
+                                 pad_heads_to=self.pad_heads_to)
         return x if aux is None else (x, aux)
 
     def _blocks(self, params, i: int, seg) -> list:
@@ -530,7 +541,8 @@ class LanguageModel:
                     x, _, aux = _apply_block(
                         seg.kind, x, lp, self.cfg, positions=positions,
                         cache=_layer_cache(c, j), chunk_k=self.chunk_k,
-                        shared=shared, enc=enc)
+                        shared=shared, enc=enc,
+                        pad_heads_to=self.pad_heads_to)
                 if aux is not None:
                     aux_total = aux if aux_total is None else aux_total + aux
             if c is not None:

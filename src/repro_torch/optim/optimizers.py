@@ -121,8 +121,9 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(tree: PyTree, max_norm: float) -> PyTree:
-    norm = global_norm(tree)
+def clip_by_global_norm(tree: PyTree, max_norm: float,
+                        norm_fn: Callable = global_norm) -> PyTree:
+    norm = norm_fn(tree)
     scale = torch.clamp_max(max_norm / (norm + 1e-12), 1.0)
     return tree_map(lambda x: x * scale.to(x.dtype), tree)
 
@@ -332,9 +333,11 @@ def adam8bit(lr_fn, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0
 # Factory
 # ---------------------------------------------------------------------------
 
-def make_optimizer(cfg) -> Optimizer:
+def make_optimizer(cfg, norm_fn: Callable = global_norm) -> Optimizer:
     """cfg: OptimizerConfig -> Optimizer with the schedule and gradient
-    clipping baked in."""
+    clipping baked in. `norm_fn` is the clip's global norm: under a mesh,
+    the train step's, which sums each leaf's squares over the axes that
+    shard it and counts a replicated leaf once."""
     lr_fn = make_schedule(cfg)
     if cfg.name == "sgd":
         base = sgd(lr_fn)
@@ -355,12 +358,12 @@ def make_optimizer(cfg) -> Optimizer:
         inner = base
 
         def update(grads, state, params, step):
-            grads = clip_by_global_norm(grads, cfg.grad_clip)
+            grads = clip_by_global_norm(grads, cfg.grad_clip, norm_fn)
             return inner.update(grads, state, params, step)
 
         def update_(grads, state, params, step):
             scale = torch.clamp_max(
-                cfg.grad_clip / (global_norm(grads) + 1e-12), 1.0)
+                cfg.grad_clip / (norm_fn(grads) + 1e-12), 1.0)
             inner.update_(grads, state, params, step, scale)
         base = Optimizer(inner.init, update,
                          None if inner.update_ is None else update_)

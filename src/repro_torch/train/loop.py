@@ -42,6 +42,20 @@ per-leaf layout (``checkpoint/``, ``DMDAccelerator.state_leafwise``), so
 either package restores the other's; a resumed run is bit-identical to
 an uninterrupted one (the data stream is a function of the step index,
 and every schedule position is derived from the restored step).
+
+Under a mesh (``Trainer(model, acfg, mesh=...)``, ``launch/mesh.py``) every
+rank runs this loop on its blocks of the state (``train/step.py``). The
+params are drawn in full on every rank from the same seed and cut to the
+rank's blocks, so a mesh run starts where a one-card run starts. Every
+host decision is one that all ranks take alike: the schedule is a
+function of the step, the losses and the gate's flags are global, the
+coefficients are broadcast, and a SIGTERM on any rank stops every rank
+after the same step (one all-reduce of the flag a step). Checkpoints are
+gathered and written by the first rank in the one-card format, and
+``restore`` places every leaf against the CURRENT mesh, so a run saved on
+(2, 2) resumes on (4, 1), on (1, 4) or on one card. CUDA graphs cannot
+capture gloo's collectives: a mesh Trainer asked for graphs on a card
+raises.
 """
 from __future__ import annotations
 
@@ -57,6 +71,7 @@ from repro_torch.core.accelerator import DMDAccelerator
 from repro_torch.core import controller as ctrl_mod
 from repro_torch.core import snapshots as snap
 from repro_torch.core.paths import leaves_with_paths, map_with_paths
+from repro_torch.distributed.sharding import gather_full, shard_tree
 from repro_torch.data.tokens import stream_kwargs, validation_batch
 from repro_torch.kernels import arena as _ka
 from repro_torch.kernels import combine as _kc
@@ -64,6 +79,7 @@ from repro_torch.kernels import flash_attention as _kf
 from repro_torch.kernels import gram as _kg
 from repro_torch.kernels import gram_row as _kgr
 from repro_torch.kernels.device import resolve_device
+from repro_torch.launch.inputs import state_specs
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.train.state import TrainState
 from repro_torch.train.step import (make_dmd_step, make_train_step,
@@ -199,30 +215,37 @@ class Trainer:
                  fail_at_step: Optional[int] = None,
                  val_batch: Optional[PyTree] = None,
                  on_publish: Optional[Callable] = None,
-                 device="cuda", cuda_graphs: bool = True):
+                 device="cuda", cuda_graphs: bool = True, mesh=None):
         """`on_publish(params_leafwise, version)` is called after every jump
         the controller did not reject (every jump when it is off).
         `val_batch` is the controller's gate batch, disjoint from the
         training stream. `cuda_graphs=False` runs a CUDA Trainer's steps
-        eagerly."""
+        eagerly. Under `mesh` the state is this rank's blocks; on a card
+        it needs ``cuda_graphs=False``."""
         self.model = model
         self.acfg = acfg
+        self.mesh = mesh
         self.device = resolve_device(device)
+        if mesh is not None and cuda_graphs and self.device.type == "cuda":
+            raise ValueError(
+                "a mesh Trainer cannot capture its steps as CUDA graphs (a "
+                "graph cannot capture gloo's collectives; NCCL capture is "
+                "not ported): pass cuda_graphs=False")
         self.on_publish = on_publish
         # one accelerator, hence one plan table, for the schedule and both
         # steps
         self.acc = DMDAccelerator(
             acfg.dmd, device=self.device,
-            stack_dims=model_stack_dims(model))
+            stack_dims=model_stack_dims(model), mesh=mesh)
         self.opt = make_optimizer(acfg.optimizer)
         self.checkpoint_dir = checkpoint_dir or acfg.train.checkpoint_dir
         self.fail_at_step = fail_at_step
         self._preempted = False
         self.train_step = make_train_step(model, acfg, loss_fn=loss_fn,
-                                          acc=self.acc)
+                                          acc=self.acc, device=self.device)
         self.controller_on = self.acc.controller_on
         self.dmd_step = make_dmd_step(acfg, acc=self.acc, model=model,
-                                      loss_fn=loss_fn)
+                                      loss_fn=loss_fn, device=self.device)
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
         self.graph_stats: Dict[str, int] = {}
         # the controller's persistent validation split: carved once, never
@@ -239,10 +262,15 @@ class Trainer:
 
     def _publish(self, state, info, version: int) -> None:
         """The serving publish hook for a non-rejected jump (a rejected one
-        left the weights as they were)."""
+        left the weights as they were); under a mesh every rank gathers the
+        full params and publishes them."""
         if self.controller_on and info.get("ctrl_outcome") == ctrl_mod.REJECT:
             return
-        self.on_publish(self.acc.params_leafwise(state.params), version)
+        params = self.acc.params_leafwise(state.params)
+        if self.mesh is not None:
+            params = map_with_paths(lambda p, x: gather_full(
+                x, self.acc.param_specs[p], self.mesh), params)
+        self.on_publish(params, version)
 
     def _carve_val_batch(self) -> Optional[PyTree]:
         """The default validation split for vocab models: one batch at the
@@ -264,12 +292,21 @@ class Trainer:
         """A fresh state on the Trainer's device. `params` (e.g. the
         reference's init through ``convert.params_from_jax``) replaces the
         model's init from `key` (default: a generator seeded with
-        ``train.seed``)."""
+        ``train.seed`` on the device the model draws on: an LM's, the
+        host for the MLP). Under a mesh `params` are the FULL params (every
+        rank draws the same ones) and the state holds this rank's
+        blocks."""
         if params is None:
-            gen = key if key is not None else \
-                torch.Generator().manual_seed(self.acfg.train.seed)
+            # a model draws on its own device (an LM on the card), the
+            # MLP on the host
+            gen = key if key is not None else torch.Generator(
+                device=getattr(self.model, "device", "cpu")).manual_seed(
+                    self.acfg.train.seed)
             params = self.model.init(gen)
         params = map_with_paths(lambda _, x: x.to(self.device), params)
+        if self.mesh is not None:
+            self.acc.plans_for(params)        # the table, from full shapes
+            params = shard_tree(params, self.acc.param_specs, self.mesh)
         opt_state = self.opt.init(params)
         bufs = self.acc.init(params) if self.acfg.dmd.enabled else None
         grams = self.acc.init_grams(bufs)
@@ -287,8 +324,17 @@ class Trainer:
         place."""
         if not self.checkpoint_dir:
             return
-        save_checkpoint(self.checkpoint_dir, self.acc.state_leafwise(state),
-                        step, keep=self.acfg.train.keep_checkpoints)
+        leafwise = self.acc.state_leafwise(state)
+        save_checkpoint(self.checkpoint_dir, leafwise, step,
+                        keep=self.acfg.train.keep_checkpoints,
+                        mesh=self.mesh, specs=self._specs(leafwise))
+
+    def _specs(self, leafwise) -> Optional[dict]:
+        """{key string: Spec} of a leaf-wise state under the mesh."""
+        if self.mesh is None:
+            return None
+        return state_specs(leafwise, self.acc.plans_for(leafwise.params),
+                           self.acc.param_specs)
 
     def restore(self, state_like: Optional[TrainState] = None
                 ) -> Optional[TrainState]:
@@ -297,12 +343,16 @@ class Trainer:
         one. The template is `state_like` or ``init_state()``; its leaves
         the checkpoint lacks keep their value. Grams a checkpoint carries
         all zero beside a non-zero buffer (written before streaming) are
-        rebuilt from the buffers."""
+        rebuilt from the buffers. Under a mesh each rank keeps its blocks
+        of every leaf under this Trainer's mesh, whatever mesh wrote the
+        checkpoint; then the state is packed into this mesh's buckets."""
         if not self.checkpoint_dir or latest_step(self.checkpoint_dir) is None:
             return None
         template = state_like if state_like is not None else self.init_state()
-        state = restore_checkpoint(self.checkpoint_dir,
-                                   self.acc.state_leafwise(template))
+        template = self.acc.state_leafwise(template)
+        state = restore_checkpoint(self.checkpoint_dir, template,
+                                   mesh=self.mesh,
+                                   specs=self._specs(template))
         if self.acc.streaming and state.dmd_gram is not None:
             state = state._replace(dmd_gram=snap.recompute_grams(
                 state.dmd_gram, state.dmd_buffers, self.acfg.dmd,
@@ -409,12 +459,16 @@ class Trainer:
                 metrics.update(info)
                 if self.on_publish is not None:
                     self._publish(state, info, step + 1)
-            if log_every and step % log_every == 0:
+            if log_every and step % log_every == 0 and (
+                    self.mesh is None or self.mesh.rank == 0):
                 print(f"step {step}: loss={float(metrics['loss']):.6f}")
             if on_metrics is not None:
                 on_metrics(step, metrics)
             if ckpt_every and (step + 1) % ckpt_every == 0:
                 self.save(state, step + 1)
+            if self.mesh is not None:
+                # every rank stops after the same step
+                self._preempted = self.mesh.any_(self._preempted)
             if self._preempted:
                 self.save(state, step + 1)
                 print(f"preempted at step {step + 1}")

@@ -45,6 +45,23 @@ flat}, "leaf": ...}``; the model sees per-leaf views of the flat buffers
 ``record`` is one copy per bucket. Only optimizers whose moment updates
 are elementwise can be resident (``RESIDENT_OPTIMIZERS``).
 
+Under a mesh (``make_train_step(..., mesh=)``, ``launch/mesh.py``) each
+rank holds its block of every param, moment, ring buffer and Gram (the
+state of record), laid out by the path rules and the plan table. The
+step's batch is the global one; each rank takes its rows
+(``launch/inputs.py::shard_batch``: split over ``("pod", "data")``, or
+replicated where those axes do not divide it). The forward all-gathers
+each param to full through ``_GatherParam``, whose backward sums the full
+gradient over the batch axes with one all-reduce, divides by their size
+and keeps the rank's block: compute is FSDP-style (tensor-parallel
+compute over ``"model"`` is not ported; ROADMAP Queue 1). The loss and the
+gate's losses are the batch axes' means, so every rank takes the same
+host decisions; the clip's global norm sums each leaf's squares over the
+axes that shard it (``sharding.sum_squares``). With
+``parallel.grad_compression = "int8"`` and a ``"pod"`` axis the reduced
+gradient then crosses the pods as int8 (``distributed/gradsync.py``).
+Only the elementwise optimizers run under a mesh.
+
 ``audit_step_fns`` hands the same three entry points (the fused step, the
 jump, and record + streaming Gram alone) to the audit
 (``repro_torch.audit``), which records each call op by op and checks that
@@ -60,9 +77,13 @@ import torch
 from repro_torch.core import arena as arena_mod
 from repro_torch.core import controller as ctrl_mod
 from repro_torch.core.accelerator import DMDAccelerator, jump_tree
+from repro_torch.distributed.gradsync import int8_psum_grads
 from repro_torch.core.paths import (by_path, leaves_with_paths,
                                     map_with_paths, tree_map)
-from repro_torch.optim.optimizers import init_, make_optimizer
+from repro_torch.distributed.sharding import (gather_full, local_shard,
+                                              spec_axes, sum_squares)
+from repro_torch.launch.inputs import batch_axes, shard_batch
+from repro_torch.optim.optimizers import global_norm, init_, make_optimizer
 from repro_torch.train.state import TrainState
 
 PyTree = Any
@@ -79,12 +100,85 @@ VDOT_ELEMS = 2 ** 31 - 1
 
 def resolve_grad_accum(acfg, mesh, global_batch: int) -> int:
     """Largest accumulation factor <= the config's that keeps >= 1 row per
-    microbatch. No mesh yet (ROADMAP Queue 1 item 4)."""
-    if mesh is not None:
-        raise NotImplementedError("a mesh is not ported yet (ROADMAP Queue "
-                                  "1 item 4)")
+    batch shard of each microbatch."""
     ga = max(acfg.parallel.grad_accum, 1)
-    return max(min(ga, global_batch), 1)
+    shards = 1
+    if mesh is not None:
+        sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+        shards = sizes.get("data", 1) * sizes.get("pod", 1)
+    while ga > 1 and (global_batch // ga) % shards != 0:
+        ga //= 2
+    return max(min(ga, global_batch // shards), 1)
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh
+# ---------------------------------------------------------------------------
+
+class _GatherParam(torch.autograd.Function):
+    """A rank's block of a param -> the full param (one all-gather per
+    sharded dim). Backward: the full gradient summed over the batch axes
+    the rows were split over (one all-reduce, in the gradient's dtype, as
+    the reference's psum of a bf16 param's gradient is bf16), divided by
+    their size, and cut to the rank's block."""
+
+    @staticmethod
+    def forward(ctx, local, spec, mesh, reduce_axes, n):
+        ctx.spec, ctx.mesh, ctx.reduce_axes, ctx.n = spec, mesh, reduce_axes, n
+        return gather_full(local, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        if ctx.reduce_axes:
+            ctx.mesh.all_reduce(g, ctx.reduce_axes)
+            g = g / ctx.n
+        return local_shard(g, ctx.spec, ctx.mesh), None, None, None, None
+
+
+def _gathered(params: PyTree, specs, mesh, split: bool) -> PyTree:
+    """The full params the model's forward reads, from a rank's blocks;
+    `split` (the batch rows were split) makes the backward reduce over the
+    batch axes."""
+    axes = batch_axes(mesh) if split else ()
+    n = mesh.axis_size(axes)
+
+    def one(path, x):
+        spec = specs[path]
+        if not spec_axes(spec) and not mesh.live_axes(axes):
+            return x
+        return _GatherParam.apply(x, spec, mesh, axes, n)
+    return map_with_paths(one, params)
+
+
+def _mean_over(x: torch.Tensor, mesh, split: bool) -> torch.Tensor:
+    """A rank's mean over its rows -> the mean over the batch (the batch
+    axes' mean of equal-sized shards)."""
+    if not split:
+        return x
+    axes = batch_axes(mesh)
+    t = x.detach().float().reshape(1).clone()
+    mesh.all_reduce(t, axes)
+    return (t / mesh.axis_size(axes)).reshape(())
+
+
+def shard_axes_of(acc: DMDAccelerator, params: PyTree) -> Callable:
+    """path -> the mesh axes that shard that leaf of a params-shaped tree
+    (a resident wrapper's flat bucket: its bucket's axes)."""
+    specs = acc.param_specs
+    table = acc.arena_for(params) if arena_mod.is_arena_state(params) \
+        else {}
+    buckets = {p: table[k].sys_axes + table[k].lane_axes
+               for p, k in leaves_with_paths(
+                   {arena_mod.ARENA_KEY: {k: k for k in table}})}
+
+    def axes_of(path: str):
+        if path in buckets:
+            return buckets[path]
+        if arena_mod.is_arena_state(params):
+            path = path[len("/leaf"):]
+        return spec_axes(specs[path])
+    return axes_of
 
 
 def resident_enabled(acc: DMDAccelerator, acfg) -> bool:
@@ -158,12 +252,14 @@ def model_stack_dims(model) -> Optional[dict]:
     return None if sd is None else by_path(sd)
 
 
-def _accelerator_for(model, acfg, acc: Optional[DMDAccelerator], device
-                     ) -> DMDAccelerator:
+def _accelerator_for(model, acfg, acc: Optional[DMDAccelerator], device,
+                     mesh=None) -> DMDAccelerator:
     if acc is not None:
+        if mesh is not None and acc.mesh is not mesh:
+            raise ValueError("the accelerator's mesh is not the step's")
         return acc
     return DMDAccelerator(acfg.dmd, stack_dims=model_stack_dims(model),
-                          device=device)
+                          device=device, mesh=mesh)
 
 
 def _loss_of(model, loss_fn):
@@ -190,20 +286,48 @@ def value_and_grad(loss, params: PyTree, batch: PyTree):
                                           params)
 
 
+def _check_mesh_optimizer(acfg, mesh) -> None:
+    if mesh is not None and acfg.optimizer.name not in RESIDENT_OPTIMIZERS:
+        raise NotImplementedError(
+            f"{acfg.optimizer.name} under a mesh: its moments read a leaf's "
+            "shape across ranks' blocks; only the elementwise optimizers "
+            f"{RESIDENT_OPTIMIZERS} run under a mesh")
+
+
+def _mesh_loss(loss, acc: DMDAccelerator, mesh, split: bool) -> Callable:
+    """`loss` on a rank's blocks: the params gathered to full first
+    (resident views keep their per-leaf paths)."""
+    return lambda p, b: loss(_gathered(p, acc.param_specs, mesh, split), b)
+
+
 def make_train_step(model, acfg, *, global_batch=None,
                     loss_fn: Callable = None,
-                    acc: Optional[DMDAccelerator] = None, device="cuda"):
+                    acc: Optional[DMDAccelerator] = None, device="cuda",
+                    mesh=None):
     """Returns ``train_step(state, batch, slots=None) -> (state, metrics)``.
 
     `slots` is the per-group slot vector of this step (``acc.slots(step)``,
     a host value); None or all-negative records nothing. The state is
-    updated in place and returned; metrics are device tensors."""
-    opt = make_optimizer(acfg.optimizer)
+    updated in place and returned; metrics are device tensors. Under
+    `mesh` (default: the accelerator's) the state holds this rank's blocks
+    and `batch` is the global batch."""
+    acc = _accelerator_for(model, acfg, acc, device, mesh)
+    mesh = acc.mesh
+    _check_mesh_optimizer(acfg, mesh)
+    norm_state = {}
+
+    def norm_fn(tree):
+        if mesh is None:
+            return global_norm(tree)
+        return torch.sqrt(sum_squares(tree, norm_state["axes_of"], mesh))
+
+    opt = make_optimizer(acfg.optimizer, norm_fn)
     gb = global_batch or acfg.train.global_batch
-    ga = resolve_grad_accum(acfg, None, gb)
-    acc = _accelerator_for(model, acfg, acc, device)
+    ga = resolve_grad_accum(acfg, mesh, gb)
     dmd_on = acfg.dmd.enabled
     _loss = _loss_of(model, loss_fn)
+    int8_sync = (mesh is not None and "pod" in mesh.axis_names
+                 and acfg.parallel.grad_compression == "int8")
     # the fp32 gradient sums of grad accumulation, made once per param
     # structure and zeroed in place each step: a params-sized buffer that
     # neither a step's warm-up nor its CUDA graph's pool allocates anew
@@ -226,6 +350,11 @@ def make_train_step(model, acfg, *, global_batch=None,
         params = state.params
         resident = arena_mod.is_arena_state(params)
         table = acc.arena_for(params) if resident else None
+        loss_of, split = _loss, False
+        if mesh is not None:
+            batch, split = shard_batch(batch, mesh)
+            loss_of = _mesh_loss(_loss, acc, mesh, split)
+            norm_state["axes_of"] = shard_axes_of(acc, params)
 
         if ga > 1 or resident:
             # the fp32 sum and its mean are formed in place: a + b.float()
@@ -246,7 +375,7 @@ def make_train_step(model, acfg, *, global_batch=None,
             lsum = None
             for i in range(ga):
                 mb = tree_map(lambda x: x[i], mbs)
-                value, g = value_and_grad(_loss, view, mb)
+                value, g = value_and_grad(loss_of, view, mb)
                 for path, gi in leaves_with_paths(g):
                     g_of[path].add_(gi)
                 del g
@@ -257,12 +386,18 @@ def make_train_step(model, acfg, *, global_batch=None,
             del g_of, view
             loss = lsum / ga
         else:
-            loss, grads = value_and_grad(_loss, params, batch)
+            loss, grads = value_and_grad(loss_of, params, batch)
             grads = tree_map(lambda g: g.float(), grads)
+        if mesh is not None:
+            loss = _mean_over(loss, mesh, split)
+        if int8_sync:
+            grads = int8_psum_grads(grads, mesh)
 
         with torch.no_grad():
             gnorm = None
-            for _, g in leaves_with_paths(grads):
+            if mesh is not None:
+                gnorm = sum_squares(grads, norm_state["axes_of"], mesh)
+            for _, g in leaves_with_paths(grads if mesh is None else {}):
                 # BLAS's dot takes at most 2^31 - 1 elements a call (the
                 # flat gradient sum of a resident bucket passes it at 2.2B
                 # params: gemma3's tied embedding and two layers), so a
@@ -355,17 +490,21 @@ def _blend(pre: PyTree, jump: PyTree, f: float) -> PyTree:
 
 
 def make_dmd_step(acfg, *, acc: Optional[DMDAccelerator] = None, model=None,
-                  loss_fn: Callable = None, device="cuda"):
+                  loss_fn: Callable = None, device="cuda", mesh=None):
     """Returns the jump step. Controller off:
     ``dmd_step(state, relax, groups=None) -> (state, info)``. Controller on:
     ``dmd_step(state, relax, eval_batch, groups=None) -> (state, info)``,
     the loss-gated jump scored on `eval_batch` (a validation batch disjoint
     from the training stream). `groups` are the schedule groups whose
     window closed (None: all); `relax` is a scalar or the per-group vector
-    of ``acc.relax_vector``. Params and moments are written in place."""
+    of ``acc.relax_vector``. Params and moments are written in place.
+    Under a mesh the gate's losses are the batch axes' means and its accept
+    flags are broadcast from the mesh's first rank, so every rank keeps
+    the same candidate."""
     cfg = acfg.dmd
     opt = make_optimizer(acfg.optimizer)
-    acc = _accelerator_for(model, acfg, acc, device)
+    acc = _accelerator_for(model, acfg, acc, device, mesh)
+    mesh = acc.mesh
 
     def grams_of(state):
         return state.dmd_gram if acc.streaming else None
@@ -439,7 +578,16 @@ def make_dmd_step(acfg, *, acc: Optional[DMDAccelerator] = None, model=None,
         def eval_loss(p):
             if resident:
                 p = arena_mod.tree_leafwise(table, p)
-            return _loss(p, eval_batch)
+            if mesh is None:
+                return _loss(p, eval_batch)
+            rows, split = shard_batch(eval_batch, mesh)
+            local = _mesh_loss(_loss, acc, mesh, split)(p, rows)
+            if not split:
+                return local
+            # the batch axes' mean, bit for bit, carrying this rank's
+            # gradient (meta-tuning): ``_GatherParam``'s backward makes it
+            # the mean's
+            return _mean_over(local, mesh, split) + (local - local.detach())
 
         s_vec = ctrl_mod.effective_s(ctrl, acc.groups, ccfg)
         relax_vec = torch.as_tensor(relax, dtype=torch.float32,
@@ -480,6 +628,8 @@ def make_dmd_step(acfg, *, acc: Optional[DMDAccelerator] = None, model=None,
             ok = torch.stack([ctrl_mod.gate_outcome(loss_pre, c,
                                                     ccfg.accept_tol)
                               for c in cand])
+            if mesh is not None:
+                ok = mesh.broadcast(ok.to(torch.int32))
             # the one host read of this jump step: every accept flag
             flags = ok.tolist()  # lint: allow-host-sync (once per jump)
             if flags[0]:
@@ -524,7 +674,7 @@ def _rebinding(fn: Callable, n_state: int) -> Callable:
 
 def audit_step_fns(model, acfg, *, acc: Optional[DMDAccelerator] = None,
                    loss_fn: Callable = None, donate: bool = True,
-                   device="cuda"):
+                   device="cuda", mesh=None):
     """The audit's surface (``repro_torch.audit.targets``): every hot entry
     point, built as the Trainer builds it, and their shared accelerator.
 
@@ -539,8 +689,8 @@ def audit_step_fns(model, acfg, *, acc: Optional[DMDAccelerator] = None,
     Each writes its state in place. ``donate=False`` is the seeded
     violation (the audit's ``drop-donation``): each step then rebinds its
     state to fresh tensors instead of writing it in place through
-    ``assign_``."""
-    acc = _accelerator_for(model, acfg, acc, device)
+    ``assign_``. Under `mesh` each works on this rank's blocks."""
+    acc = _accelerator_for(model, acfg, acc, device, mesh)
     fns = {
         "train_step": make_train_step(model, acfg, loss_fn=loss_fn, acc=acc,
                                       device=device),

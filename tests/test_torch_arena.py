@@ -29,9 +29,11 @@ from repro_torch.kernels import arena as tka
 from repro_torch.kernels import device as tdevice
 
 PORT_LAYOUT_KEYS = ("key", "group", "m", "scope", "n_solve", "block_n",
-                    "n_sys", "n_lanes")
+                    "n_sys", "n_sys_global", "n_lanes_local", "n_lanes",
+                    "lane_axes", "shard_factor", "sys_axes", "sys_factor")
 PORT_SEG_KEYS = ("path", "sys_start", "lane_start", "n_sys", "flat_local",
-                 "seg_lanes", "shape", "stack_dims", "param_dtype")
+                 "seg_lanes", "shape", "local_shape", "stack_dims",
+                 "param_dtype")
 
 
 def _mlp_shapes(sizes):

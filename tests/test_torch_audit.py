@@ -176,7 +176,8 @@ def test_clean_reduced_mlp_audit_is_green():
     assert dinfo["train_step.dmd_copies"] == 0
 
 
-@pytest.mark.parametrize("name", list_mutations())
+@pytest.mark.parametrize("name", [n for n in list_mutations()
+                                  if not get_mutation(n).needs_mesh])
 def test_mutation_fails_exactly_its_pass(name):
     """Each seeded violation flips exactly the pass the reference names
     for it, and nothing else."""
@@ -189,9 +190,16 @@ def test_mutation_fails_exactly_its_pass(name):
 
 
 def test_only_force_allgather_is_missing():
-    assert set(list_mutations()) < set(ref_mutations())
-    assert set(ref_mutations()) - set(list_mutations()) == {"force-allgather"}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    """Every reference mutation is ported; force-allgather (the one that
+    needs a mesh, tests/test_torch_distributed.py) refuses a one-device
+    build, and a mesh build needs a process group."""
+    assert set(list_mutations()) == set(ref_mutations())
+    assert [n for n in list_mutations() if get_mutation(n).needs_mesh] == \
+        ["force-allgather"]
+    with pytest.raises(ValueError, match="needs --mesh"):
+        build_context("pollutant-mlp", reduced=True, mutate="force-allgather",
+                      device="cpu")
+    with pytest.raises(RuntimeError, match="default process group"):
         build_context("pollutant-mlp", reduced=True, mesh_shape=(2, 4),
                       device="cpu")
 
@@ -329,6 +337,6 @@ def test_cli_exit_code_and_json(tmp_path):
                          .read_text())
     assert [p["name"] for p in mutated["passes"] if not p["ok"]] == \
         ["arena-residency"]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cli.main(["--arch", "pollutant-mlp", "--mesh", "2x4", "--device",
-                  "cpu"])
+    with pytest.raises(ValueError, match="needs --mesh"):
+        cli.main(["--arch", "pollutant-mlp", "--mutate", "force-allgather",
+                  "--device", "cpu"])

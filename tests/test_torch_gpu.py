@@ -1729,3 +1729,27 @@ def test_audit_on_the_card_matches_the_cpu_and_never_syncs(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def test_sharded_kernels_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """The mesh's data passes on the card: two ranks on the one card
+    (gloo on CUDA tensors, a (1, 2) mesh), the lane-sharded arena of the
+    small LM and the reference test's system-sharded bucket, both routes:
+    K1 / K4 and K3 / K6 per block plus one all-reduce equal one rank's
+    kernels (bit for bit on integer data, 1e-5 relative otherwise), K2 /
+    K5 per block equal the one-rank kernel's block bit for bit, and a
+    record makes all-reduces only. The library is built before the ranks
+    start, so that they do not race on its build directory."""
+    import torch_mesh_worker as W
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_ranks
+
+    _build.build()
+    for r in run_ranks(W.card_kernel_checks, 2, join_timeout=300,
+                       tmp_dir=str(tmp_path)):
+        for (case, arena, dyadic), v in r.items():
+            what = f"{case} {'arena' if arena else 'perleaf'} {dyadic}"
+            assert v["k2"] and v["allreduce_only"], what
+            if dyadic:
+                assert v["exact"], what
+            assert v["err"] <= 1e-5, what

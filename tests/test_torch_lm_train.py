@@ -421,7 +421,8 @@ def test_launcher_reduced_trains_with_dmd_on_cpu(capsys):
     launch_train.main(["--arch", "tinyllama-1.1b", "--reduced", "--device",
                        "cpu", "--steps", "12"])
     assert "12 steps in" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="512 ranks: launch them with "
+                       "torchrun"):
         launch_train.main(["--arch", "tinyllama-1.1b", "--multi-pod",
                            "--device", "cpu"])
 

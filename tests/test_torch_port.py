@@ -206,7 +206,9 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in ('configs.tinyllama_1_1b', 'models.layers', "
         "'models.attention', 'models.transformer', "
         "'kernels.flash_attention', 'serve.engine', 'serve.store', "
-        "'launch.serve', 'launch.train', 'configs'):\n"
+        "'launch.serve', 'launch.train', 'configs', "
+        "'distributed', 'distributed.sharding', 'distributed.gradsync', "
+        "'kernels.sharded', 'launch.mesh', 'launch.inputs'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
