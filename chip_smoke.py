@@ -431,30 +431,48 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    each pass on its block (the others wait) beside its bound, and the
    all-reduce of a K1 row and of K3's Grams. (b) TinyLlama-1.1B at full
    width cut to ``MESH_LAYERS`` on the (2, 2) mesh, eager (DMD on every
-   param, bf16 ring of 4, the jump at step 4, AdamW) against the same run
+   param, bf16 ring of 4, the jump at step 4, AdamW), tensor-parallel
+   over "model" (each rank on its heads, ffn columns and vocabulary
+   rows), against the same run
    on one rank, eager, here: losses within ``MESH_LOSS_TOL`` (up to the
    jump, after it), the final params within ``MESH_PARAM_TOL`` leaf by
    leaf (the L2 distance over the L2 distance the leaf moved) and two
    planted faults outside it (one rank trained on the first half of
    every batch, as a data rank whose gradient sum were lost; the initial
    params), the coefficients the same bits on every rank before and
-   after their broadcast, K1, K2, K7 and K7b launched on every rank (K7
-   all through the wgmma design), record_update's collectives
-   all-reduces totalling the analytic bytes; step ms, peak bytes per
-   rank. (c) (b)'s checkpoint at ``MESH_SAVE`` restored onto (4, 1) and
+   after their broadcast, K1 and K2 launched on every rank, K7 and K7b
+   12 times each on every rank at its ``MESH_HEADS`` (16 / 2 heads of
+   64), all through their wgmma designs, no param block all-gathered
+   over "model" and the activation all-reduces over "model" totalling
+   their analytic bytes (``_tp_activation_bytes``), record_update's
+   collectives all-reduces totalling the analytic bytes; step ms, peak
+   bytes per rank beside the gather-everything compute's. (c) (b)'s checkpoint at ``MESH_SAVE`` restored onto (4, 1) and
    onto one rank here, run to (b)'s last step: losses as (b)'s within
    ``MESH_LOSS_TOL``, every restored running Gram equal to K3's
    recompute of its restored ring over the window's rows. (d) The int8
    pod sync on a (2, 1, 2) mesh: error <= scale * 1.01, one int32
    all-reduce over "pod". (e) The audit of the reduced TinyLlama under
    ``--mesh 2x2``: clean with record_update's one all-reduce of the
-   analytic bytes, and ``force-allgather`` fails exactly
-   collective-budget. The phase's wall time is printed.
+   analytic bytes and no param block gathered over "model", and
+   ``force-allgather`` and ``force-gather-model`` each fail exactly
+   collective-budget. (f) ``TP_FAMILIES`` (MiniCPM-2B's 36 MHA heads
+   padded to 48 and moved, Granite-20B's one replicated kv head and GELU
+   MLP, Qwen3-30B-A3B's 64 of 128 experts a rank, Mamba2-2.7B's 40 of 80
+   heads a rank) at full width, one layer each, on the (2, 2) mesh
+   against one rank on the same params and one microbatch of 2 x 1024
+   tokens (``distributed/checks.py::tp_gradients``): the loss within
+   ``TP_LOSS_TOL`` and each param block's gradient within
+   ``TP_GRAD_TOL`` of its leaf's norm, the planted faults
+   (``TP_FAULTS``: MiniCPM's MLP row-parallel all-reduce dropped,
+   Mamba2's ``norm_scale`` sum over "model" dropped) outside them, K7
+   and K7b through wgmma on every rank of the attention families, no
+   param block gathered over "model". The phase's wall time is printed.
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2691,8 +2709,10 @@ def run_benches(dev, records):
 # examples/torch_lm_depth.py; 14 peaked at 0.76 of the card; NVIDIA H100
 # 80GB HBM3, 700 W). It trained at 14 until phase 21 (the mesh) brought
 # the script to 1,210.7 s on a slower host (phase 15 138.1 s of it): it
-# trains at 4, one kind of layer, so the cut drops no code path
-LM_LAYERS = 4
+# trains at 4, one kind of layer, so the cut drops no code path; at 2
+# since phase 21(f) brought the script to 1,042.9 s on an H100 80GB HBM3
+# (700 W; phase 15 55.5 s of it)
+LM_LAYERS = 2
 # 72 steps (two jumps, at 41 and 65): the script's time left room for
 # phase 17 at 96
 LM_STEPS, LM_BATCH, LM_SEQ = 72, 8, 4096
@@ -3948,11 +3968,14 @@ SSM_BF16_HELD = ("mamba2-2.7b",)
 # the 16 is dropped); zamba2 stays at 14 (two groups of 6 and a 2-layer
 # remainder: the shared block's gradient sums its two invocations);
 # with phase 21 the script took 1,210.7 s on a slower host (mamba2-train
-# 36.6 s of it): mamba2 trains at 4 layers;
+# 36.6 s of it): mamba2 trains at 4 layers; with phase 21(f) 1,042.9 s
+# (mamba2-train 20.8 s, zamba2-train 57.8 s): mamba2 at 2, zamba2 at 12
+# (its two groups: the shared block still sums two invocations; the
+# remainder's mamba segment is mamba2-train's kind);
 # the DMD warm-up cut to 0 and the cool-down from 10 to SSM_COOLDOWN (the
 # least that leaves 3 replayed plain steps to profile; phase 17's time on
 # a slow host), m 14: records at 5-18, the jump at 18
-SSM_TRAIN_LAYERS = {"mamba2-2.7b": 4, "zamba2-2.7b": 14}
+SSM_TRAIN_LAYERS = {"mamba2-2.7b": 2, "zamba2-2.7b": 12}
 SSM_COOLDOWN = 5
 # the step cut to SSM_ACCUM microbatches of 1 x 4096 tokens (the config's
 # grad_accum is 8): the microbatch, and so the peak, is the config's, but
@@ -4515,6 +4538,8 @@ GEMMA_BLOCK_PRE = 192
 # layer under the deepest, until phase 19 brought the script to 1,132 s
 # (minicpm-train 41 s of it); it trains at 10, about half the time, and
 # at 4 since phase 21 brought the script to 1,210.7 s on a slower host;
+# minicpm and granite at 2 since phase 21(f) brought it to 1,042.9 s
+# (minicpm-train 12.7 s, granite-train 22.8 s of it; one kind of layer);
 # gemma's one layer is a window layer: gemma3-train trains no
 # global layer (tests/test_torch_dense_archs.py trains one on the CPU
 # against the reference); warm-up
@@ -4523,7 +4548,7 @@ GEMMA_BLOCK_PRE = 192
 # at its last step); DENSE_ACCUM microbatches of 1 x 4096 a step
 # (the configs' grad_accum is 8 and 16: phase 17's cut, for the script's
 # time)
-DENSE_TRAIN_LAYERS = {"minicpm-2b": 4, "granite-20b": 3, "gemma3-27b": 1}
+DENSE_TRAIN_LAYERS = {"minicpm-2b": 2, "granite-20b": 2, "gemma3-27b": 1}
 DENSE_COOLDOWN = 5
 DENSE_ACCUM = 2
 
@@ -4890,8 +4915,10 @@ VLM_BLOCK_TOKENS, VLM_BLOCK_PRE, VLM_BLOCK_GRID = 256, 192, (8, 12)
 # (6.35 GB of state) with WHISPER_TRAIN_ROWS sequences of 4096 tokens and
 # 1500 frames a microbatch (PERF.md §4: the config's 256 in one
 # microbatch cannot fit without remat); both DENSE_ACCUM microbatches a
-# step, warm-up 0, cool-down DENSE_COOLDOWN
-VLM_TRAIN_LAYERS = 2
+# step, warm-up 0, cool-down DENSE_COOLDOWN; qwen2-vl at 1 since phase
+# 21(f) brought the script to 1,042.9 s (qwen2-vl-train 20.3 s of it; one
+# kind of layer)
+VLM_TRAIN_LAYERS = 1
 WHISPER_TRAIN_ROWS = 16
 # qwen2-vl-train's sequences open with a stub image block of 32 x 32
 # patches (a 896 x 896 image at 28 pixels a merged patch): the (t, h, w)
@@ -5423,6 +5450,35 @@ MESH_LOSS_TOL = (1e-5, 1e-4)      # up to the first jump, after it
 MESH_PARAM_TOL = 0.2
 MESH_GRAM_TOL = 1e-4              # a carried Gram against K3's recompute
 MESH_RANKS = 4
+# (b) is tensor-parallel over "model": each rank's K7 / K7b run on its
+# heads, (q heads, kv heads, head size): TinyLlama's 32 / 4 heads of 64
+# over a "model" axis of 2
+MESH_HEADS = (16, 2, 64)
+# (f): four families at full width, each cut to one layer of one kind, on
+# the (2, 2) mesh against one rank on the same params and batch (one
+# microbatch of TP_B x TP_S tokens, the configs' remat)
+TP_FAMILIES = ("minicpm-2b", "granite-20b", "qwen3-moe-30b-a3b",
+               "mamba2-2.7b")
+TP_ATTENTION = ("minicpm-2b", "granite-20b", "qwen3-moe-30b-a3b")
+TP_B, TP_S = 2, 1024
+# the planted faults of distributed/checks.py and the family each runs on
+TP_FAULTS = {"drop-row-sum": "minicpm-2b",
+             "drop-replicated-sum": "mamba2-2.7b"}
+# the (2, 2) mesh against one rank, bf16: the loss relative, and each
+# param block's gradient as ||mesh - one rank|| over the block / the
+# leaf's ||one rank||. On the H100 the four families read at most 1.3e-6
+# and 0.045 (Qwen3's ln2 scale: a sum over every token of bf16 partial
+# products), the dropped row-parallel all-reduce 1.8e-4 and 0.74, the
+# dropped norm_scale sum 0 and 0.69
+TP_LOSS_TOL = 1e-5
+TP_GRAD_TOL = 0.1
+# K7 / K7b timed at a rank's shapes (B, Sq, Sk, H, K, d, causal, window):
+# (b)'s TinyLlama rank, then (f)'s MiniCPM (moved, padded MHA), Granite
+# (one kv head) and Qwen3 ranks
+TP_K7_CASES = {"tinyllama rank": (4, 1024, 1024, 16, 2, 64, True, 0),
+               "minicpm rank": (1, 1024, 1024, 24, 24, 64, True, 0),
+               "granite rank": (1, 1024, 1024, 24, 1, 128, True, 0),
+               "qwen3 rank": (1, 1024, 1024, 16, 2, 128, True, 0)}
 
 
 def _mesh_acfg():
@@ -5437,7 +5493,7 @@ def _mesh_acfg():
 
 
 def _mesh_trainer(acfg, dev, mesh, ckpt=None):
-    model = launch_train.make_model(acfg, device=dev)
+    model = launch_train.make_model(acfg, device=dev, mesh=mesh)
     return Trainer(model, acfg, device=dev, cuda_graphs=False, mesh=mesh,
                    checkpoint_dir=ckpt)
 
@@ -5525,6 +5581,49 @@ def _mesh_one_rank(acfg, dev, rows=None):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def _flash_heads(out):
+    """(q heads, kv heads, head size) of every K7 call the models make
+    (``kernels.ops.flash_attention``) inside the block, into `out`."""
+    from repro_torch.kernels import ops as kops
+
+    real = kops.flash_attention
+
+    def logged(q, k, v, **kw):
+        out.append((q.shape[2], k.shape[2], q.shape[3]))
+        return real(q, k, v, **kw)
+    kops.flash_attention = logged
+    try:
+        yield out
+    finally:
+        kops.flash_attention = real
+
+
+def _tp_activation_bytes(cfg, rows, seq) -> int:
+    """The activation all-reduces over "model" of one training step of a
+    dense model without remat on a rank's `rows` x `seq` tokens: the
+    embedding's rows; per layer attention's and the MLP's partial outputs
+    forward and their inputs' gradients backward; the head's input
+    gradient and, per token, its max, sum of exponentials and label logit
+    in fp32, in the forward and again in the checkpointed passes'
+    recomputation."""
+    t = rows * seq
+    p = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return t * cfg.d_model * p * (2 + 4 * cfg.n_layers) + 6 * 4 * t
+
+
+def _tp_records(rec) -> dict:
+    """The tensor-parallel collectives among `rec` (over "model", named by
+    a site): all-reduce bytes, the other kinds, and the param blocks
+    all-gathered over "model"."""
+    tp = [c for c in rec if c["axes"] == ("model",) and c["what"]
+          and not str(c["what"]).startswith("param:")]
+    return {"bytes": sum(c["bytes"] for c in tp if c["kind"] == "all_reduce"),
+            "other": sorted({(c["kind"], c["what"]) for c in tp
+                             if c["kind"] != "all_reduce"}),
+            "model_gathers": len(mesh_checks.model_param_gathers(rec))}
 
 
 def _mesh_probe(mesh, dev):
@@ -5722,10 +5821,14 @@ def _mesh_train(mesh, dev, ckpt):
     state = _mesh_init(tr, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
+    heads = []
     t_fit = time.perf_counter()
-    state, losses, jumps, ms = _mesh_fit(tr, dev, state)
+    with _flash_heads(heads), record_collectives() as fit_rec:
+        state, losses, jumps, ms = _mesh_fit(tr, dev, state)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t_fit
+    tp = _tp_records(fit_rec)
+    del fit_rec
     launches = dict(counts())
     wgmma = {k: kf.LAUNCHES[k] for k in ("flash_attention_wgmma",
                                          "flash_attention_bwd_wgmma")}
@@ -5748,7 +5851,10 @@ def _mesh_train(mesh, dev, ckpt):
            "analytic": analytic, "allreduce_ms": ar_ms,
            "buckets": {k: [b.n_sys, b.n_sys_global, b.n_lanes_local,
                            list(b.lane_axes), list(b.sys_axes)]
-                       for k, b in table.items()}}
+                       for k, b in table.items()},
+           "heads": sorted(set(heads)), "tp": tp,
+           "tp_analytic": MESH_STEPS * _tp_activation_bytes(
+               acfg.model, MESH_B // mesh.axis_size("data"), MESH_S)}
     del state, tr, final
     gc.collect()
     torch.cuda.empty_cache()
@@ -5774,6 +5880,60 @@ def _mesh_restore(mesh, dev, ckpt):
     return out
 
 
+def _tp_family(mesh, dev, arch):
+    """Phase 21(f), one family: one layer at full width on the (2, 2)
+    mesh against one rank on the same params and batch (each rank runs
+    the one-rank reference itself), and the family's planted faults."""
+    from repro_torch.core.paths import leaves_with_paths
+
+    t0 = time.perf_counter()
+    acfg = launch_train.configure(arch, steps=1, global_batch=TP_B,
+                                  seq=TP_S, n_layers=1)
+    model = launch_train.make_model(acfg, device=dev, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(acfg.train.seed)
+    params = dict(leaves_with_paths(model.init(gen)))
+    batch = next(synthetic_lm_batches(acfg.train.seed, TP_B, TP_S,
+                                      acfg.model.vocab_size, device=dev))
+    one = mesh_checks.one_rank(model, params, batch)
+    reset_counts()
+    heads = []
+    with _flash_heads(heads):
+        res = mesh_checks.tp_gradients(model, params, batch, mesh, one=one)
+    torch.cuda.synchronize()
+    lc = all_counts()
+    l2 = res["grad_err_l2"]
+    out = {"pad": model.pad_heads_to, "heads": sorted(set(heads)),
+           "loss": res["loss"], "loss_one": one[0],
+           "loss_err": abs(res["loss"] - one[0]) / abs(one[0]),
+           "grad_l2": max(l2.values()), "worst": max(l2, key=l2.get),
+           "grad_max": max(res["grad_err"].values()),
+           "k7": lc["flash_attention"], "k7b": lc["flash_attention_bwd"],
+           "wgmma": (lc["flash_attention_wgmma"],
+                     lc["flash_attention_bwd_wgmma"]),
+           "tp": _tp_records(res["collectives"]),
+           "sites": sorted({str(c["what"]) for c in res["collectives"]
+                            if c["what"] and not str(c["what"])
+                            .startswith("param:")}), "faults": {}}
+    del res
+    for fault, fam in TP_FAULTS.items():
+        if fam == arch:
+            f = mesh_checks.tp_gradients(model, params, batch, mesh,
+                                         fault=fault, one=one)
+            out["faults"][fault] = {
+                "loss_err": abs(f["loss"] - one[0]) / abs(one[0]),
+                "grad_l2": max(f["grad_err_l2"].values())}
+            del f
+    del params, one, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_tp_families(mesh, dev):
+    return {arch: _tp_family(mesh, dev, arch) for arch in TP_FAMILIES}
+
+
 def _mesh_gradsync(dev):
     """Phase 21(d): int8_psum_grads on a (2, 1, 2) pod mesh, the
     reference's replicated case: the largest error and the scale."""
@@ -5797,6 +5957,7 @@ def mesh_rank(rank, ckpt):
     for part, fn in (("probe", lambda: _mesh_probe(mesh, dev)),
                      ("kernels", lambda: _mesh_kernels(mesh, dev)),
                      ("train", lambda: _mesh_train(mesh, dev, ckpt)),
+                     ("tp families", lambda: _mesh_tp_families(mesh, dev)),
                      ("restore 4x1", lambda: _mesh_restore(
                          Mesh((4, 1), device=dev), dev, ckpt)),
                      ("gradsync", lambda: _mesh_gradsync(dev)),
@@ -5879,9 +6040,37 @@ def run_mesh_phase(dev, records):
     print(f"mesh (b) record_update collectives {b['record']}, analytic "
           f"{b['analytic']} B; buckets {b['buckets']}")
     print(f"mesh (b) ms a step (2, 2) rank 0 {b['ms']} (fit {b['fit_s']} s, "
-          f"save {b['save_s']} s)\nmesh (b) ms a step one rank "
+          f"save {b['save_s']} s; before tensor-parallel compute, on an "
+          f"H100 80GB HBM3 at 700 W: 1,431-3,398 ms)\nmesh (b) ms a step one rank "
           f"{base['ms']}\nmesh (b) peak bytes per rank "
-          f"{[r['peak'] for r in tr_]}; all-reduce ms {b['allreduce_ms']}")
+          f"{[r['peak'] for r in tr_]} (before tensor-parallel compute: "
+          f"3,898,582,016 B); all-reduce "
+          f"ms {b['allreduce_ms']}")
+    print(f"mesh (b) tensor-parallel: K7 heads per rank "
+          f"{[r['heads'] for r in tr_]} (want {MESH_HEADS}); K7 / K7b "
+          f"launches {[(r['launches']['flash_attention'], r['launches']['flash_attention_bwd']) for r in tr_]}, "
+          f"wgmma {[tuple(r['wgmma'].values()) for r in tr_]}; activation "
+          f"all-reduces over 'model' {[r['tp']['bytes'] for r in tr_]} B "
+          f"against {b['tp_analytic']} B analytic, other "
+          f"{b['tp']['other']}; param blocks all-gathered over 'model' "
+          f"{[r['tp']['model_gathers'] for r in tr_]}")
+    fams = [r["tp families"] for r in ranks]
+    for arch in TP_FAMILIES:
+        f0 = fams[0][arch]
+        print(f"mesh (f) {arch}: heads padded to {f0['pad']}, K7 heads "
+              f"{f0['heads']}; loss (2, 2) {f0['loss']} one rank "
+              f"{f0['loss_one']}, relative "
+              f"{max(f[arch]['loss_err'] for f in fams)}; gradient blocks "
+              f"L2 {max(f[arch]['grad_l2'] for f in fams)} (worst "
+              f"{f0['worst']} on rank 0), max-abs "
+              f"{max(f[arch]['grad_max'] for f in fams)}; K7 / K7b per rank "
+              f"{[(f[arch]['k7'], f[arch]['k7b'], f[arch]['wgmma']) for f in fams]}; "
+              f"'model' all-reduce bytes {[f[arch]['tp']['bytes'] for f in fams]}, "
+              f"moves {f0['tp']['other']}, param gathers over 'model' "
+              f"{[f[arch]['tp']['model_gathers'] for f in fams]}; faults "
+              f"{[f[arch]['faults'] for f in fams]}; {f0['s']} s")
+    print(f"mesh (f) limits: loss {TP_LOSS_TOL}, gradient blocks "
+          f"{TP_GRAD_TOL}")
     restores = (("(4, 1)", r0["restore 4x1"]), ("one rank", one))
     for name, res in restores:
         res["err"] = _loss_errs(res["losses"], b["losses"][res["start"]:],
@@ -5922,11 +6111,19 @@ def run_mesh_phase(dev, records):
     for r in tr_:
         require(r["losses"] == b["losses"], "mesh (b): ranks' losses differ")
         lc = r["launches"]
+        n = MESH_LAYERS * MESH_STEPS
         require(lc["gram_row"] > 0 and lc["combine"] > 0
-                and lc["flash_attention"] > 0
-                and lc["flash_attention_bwd"] > 0
-                and r["wgmma"]["flash_attention_wgmma"]
-                == lc["flash_attention"], f"mesh (b) launches {lc}")
+                and lc["flash_attention"] == n
+                and lc["flash_attention_bwd"] == n
+                and r["wgmma"]["flash_attention_wgmma"] == n
+                and r["wgmma"]["flash_attention_bwd_wgmma"] == n,
+                f"mesh (b) launches {lc}, wgmma {r['wgmma']}")
+        require(r["heads"] == [MESH_HEADS], f"mesh (b) K7 heads "
+                f"{r['heads']}, want {MESH_HEADS}")
+        require(r["tp"]["model_gathers"] == 0 and not r["tp"]["other"]
+                and r["tp"]["bytes"] == r["tp_analytic"],
+                f"mesh (b) tensor-parallel collectives {r['tp']}, "
+                f"analytic {r['tp_analytic']} B")
     require(all(kind == "all_reduce" for kind, _ in b["record"])
             and sum(n for _, n in b["record"]) == b["analytic"],
             f"mesh (b) record_update collectives {b['record']}, analytic "
@@ -5949,8 +6146,31 @@ def run_mesh_phase(dev, records):
         require(a["clean"]["failed"] == []
                 and a["clean"]["record"] == {
                     "all_reduce": [1, a["clean"]["analytic"]]}
-                and a["force-allgather"]["failed"] == ["collective-budget"],
+                and a["clean"]["model_gathers"] == 0
+                and a["force-allgather"]["failed"] == ["collective-budget"]
+                and a["force-gather-model"]["failed"]
+                == ["collective-budget"]
+                and a["force-gather-model"]["model_gathers"] > 0,
                 f"mesh (e) rank {r['rank']}: {a}")
+    # (f)
+    for arch in TP_FAMILIES:
+        for f in fams:
+            res = f[arch]
+            require(res["tp"]["model_gathers"] == 0,
+                    f"mesh (f) {arch}: param blocks gathered over 'model'")
+            if arch in TP_ATTENTION:
+                require(res["k7"] > 0 and res["k7b"] > 0
+                        and res["wgmma"] == (res["k7"], res["k7b"]),
+                        f"mesh (f) {arch}: K7 / K7b {res}")
+            require(res["loss_err"] <= TP_LOSS_TOL
+                    and res["grad_l2"] <= TP_GRAD_TOL,
+                    f"mesh (f) {arch}: off one rank ({res})")
+            for fault, fr in res["faults"].items():
+                require(fr["loss_err"] > TP_LOSS_TOL
+                        or fr["grad_l2"] > TP_GRAD_TOL,
+                        f"mesh (f) {arch}: {fault} within the limits")
+    require(sorted(f for r in fams[0].values() for f in r["faults"])
+            == sorted(TP_FAULTS), "mesh (f): a planted fault did not run")
     for name in ("gram_row", "combine", "flash_attention",
                  "flash_attention_bwd"):
         records[name]["mesh_launches"] = [r["launches"][name] for r in tr_]
@@ -5965,6 +6185,13 @@ def run_mesh_phase(dev, records):
                     records[name].setdefault("mesh_shard_ms", {})[
                         f"{case} {key}"] = t[col]
     records["gram_row"]["mesh_allreduce_ms"] = b["allreduce_ms"]
+    # K7 and K7b at the ranks' shapes, the card to themselves
+    for tag, case in TP_K7_CASES.items():
+        records["flash_attention"][tag] = time_flash(case, dev)
+        records["flash_attention_bwd"][tag] = time_flash_bwd(case, dev)
+        require(records["flash_attention_bwd"][tag]["row_err"]
+                <= BWD_ROW_TOL[torch.bfloat16], f"mesh K7b {tag}: "
+                f"{records['flash_attention_bwd'][tag]}")
     print(f"mesh: phase 21 wall {time.perf_counter() - t_phase} s")
 
 

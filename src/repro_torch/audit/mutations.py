@@ -25,10 +25,15 @@ the reference names for it (``expect_fail``):
                     full inside record_update, a buffer-sized all-gather
                     -> collective-budget fails (record_update makes an
                     all-gather beside its Gram-row all-reduces)
+  force-gather-model (needs --mesh; the port's own) the steps gather every
+                    param to full over "model" too and the model runs as on
+                    one device, the compute before tensor parallelism ->
+                    collective-budget fails (param blocks all-gathered over
+                    "model")
 
 Mutations compose with ``build_context`` at its seams: ``config``
-rewrites the ArchConfig before anything is built, ``donate`` feeds
-``audit_step_fns``, ``wrap_fns`` replaces entry points, ``post`` edits the
+rewrites the ArchConfig before anything is built, ``donate`` and
+``step_kw`` feed ``audit_step_fns``, ``wrap_fns`` replaces entry points, ``post`` edits the
 static tables after the build, and ``serve`` / ``serve_cfg`` attach and
 rewrite the serving build (``serve/audit.py::attach_serve``).
 """
@@ -51,6 +56,7 @@ class Mutation:
     serve: bool = False                  # attach the serving build
     serve_cfg: Optional[Callable] = None  # ServeConfig -> ServeConfig
     needs_mesh: bool = False             # only a sharded build has it
+    step_kw: Optional[Dict] = None       # audit_step_fns keywords
 
 
 _REGISTRY: Dict[str, Mutation] = {}
@@ -122,6 +128,15 @@ _register(Mutation(
         "buffer-sized all-gather)",
     expect_fail="collective-budget",
     wrap_fns=_force_allgather_fns,
+    needs_mesh=True))
+
+
+_register(Mutation(
+    name="force-gather-model",
+    doc="gather every param to full over 'model' too and run the model as "
+        "on one device (the compute before tensor parallelism)",
+    expect_fail="collective-budget",
+    step_kw={"tp_compute": False},
     needs_mesh=True))
 
 

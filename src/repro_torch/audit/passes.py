@@ -8,8 +8,9 @@ name with the reference's ``info`` keys, in the reference's report order:
                             ring- or Gram-shaped tensor outside a kernel
   collective-budget         no c10d op on one device; under a mesh the
                             record_update all-reduces exactly the
-                            analytic Gram-row bytes, and no target
-                            all-gathers a ring-buffer-shaped tensor
+                            analytic Gram-row bytes, no target
+                            all-gathers a ring-buffer-shaped tensor, and
+                            none a param block over "model"
   trace-budget              recorded ops and kernel calls within the pins
                             (``audit/pins.py``)
   solve-budget              host-solve rows per jump within the dmd.scope
@@ -156,17 +157,20 @@ def record_allreduce_bytes(ctx) -> int:
 @register_pass(
     "collective-budget",
     "no collective on one device; under a mesh record_update all-reduces "
-    "exactly the analytic Gram-row bytes and no target all-gathers a "
-    "ring-buffer-shaped tensor")
+    "exactly the analytic Gram-row bytes, no target all-gathers a "
+    "ring-buffer-shaped tensor, and none a param block over 'model'")
 def collective_budget(ctx):
     """On one device any c10d op recorded in a step is a violation. Under
     a mesh (the collectives each target made through it, ``ctx.mesh``):
     ``record_update`` makes all-reduces only, whose bytes equal the
     analytic O(n_sys*m) Gram-row sums of the lane-sharded buckets and
-    leaves, and no target all-gathers a tensor of a ring buffer's shape
-    (a data pass must sum Gram partials, never gather a buffer). The
-    psum budget and the smallest ring are reported as the reference
-    reports them."""
+    leaves, no target all-gathers a tensor of a ring buffer's shape (a
+    data pass must sum Gram partials, never gather a buffer), and, where
+    the mesh's "model" axis is larger than one, no target all-gathers a
+    param block over "model" (the compute is tensor-parallel: a rank
+    reads its "model" block of each param; heads moved between layouts
+    are activations, recorded under their sites). The psum budget and the
+    smallest ring are reported as the reference reports them."""
     vs: List[Violation] = []
     info: Dict[str, object] = {}
     want = record_allreduce_bytes(ctx)
@@ -194,6 +198,18 @@ def collective_budget(ctx):
                     f"all-gather of a ring-buffer-shaped tensor {hits}: a "
                     "sharded data pass must sum Gram partials, never "
                     "gather a buffer"))
+            model = sorted({c["what"] for c in t.collectives
+                            if c["kind"] == "all_gather"
+                            and "model" in c["axes"]
+                            and str(c.get("what") or "").startswith(
+                                "param:")})
+            info[f"{name}.model_param_gathers"] = len(model)
+            if model:
+                vs.append(Violation(
+                    "collective-budget", name,
+                    f"{len(model)} param block(s) all-gathered over "
+                    f"'model' ({model[:3]}): the compute over 'model' must "
+                    "be tensor-parallel, each rank on its own block"))
             if name != "record_update":
                 continue
             other = sorted(k for k in counts if k != "all_reduce")

@@ -374,12 +374,13 @@ def context_for(arch: str, model, acfg, batch, *, reduced: bool = False,
     if mutation is not None and mutation.config is not None:
         acfg = mutation.config(acfg)
     donate = mutation.donate if mutation is not None else True
+    step_kw = dict(mutation.step_kw or {}) if mutation is not None else {}
 
     if mutation is not None and mutation.needs_mesh and mesh is None:
         raise ValueError(f"{mutate} needs --mesh (a sharded build): on one "
                          "device there is nothing to gather")
     acc, fns = audit_step_fns(model, acfg, donate=donate, device=dev,
-                              mesh=mesh)
+                              mesh=mesh, **step_kw)
     if mutation is not None and mutation.wrap_fns is not None:
         fns = mutation.wrap_fns(acc, fns)
     state = _init_state(model, acfg, acc, dev)
@@ -397,7 +398,7 @@ def context_for(arch: str, model, acfg, batch, *, reduced: bool = False,
             acfg.dmd, controller=DMDControllerConfig(enabled=True,
                                                      eval_rows=4)))
     gacc, gfns = audit_step_fns(model, gated_acfg, donate=donate,
-                                device=dev, mesh=mesh)
+                                device=dev, mesh=mesh, **step_kw)
     if mutation is not None and mutation.wrap_fns is not None:
         gfns = mutation.wrap_fns(gacc, gfns)
     gstate = _init_state(model, gated_acfg, gacc, dev)

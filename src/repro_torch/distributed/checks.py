@@ -1,7 +1,8 @@
 """Rank-side checks of the mesh against one rank, on any device and at any
 size: the DMD data passes per block, the coefficients' broadcast, a run's
-full final params, the restored running Grams, the int8 pod sync and the
-audit under a mesh.
+full final params, the restored running Grams, the int8 pod sync, the
+audit under a mesh, and tensor-parallel compute (a model's loss and each
+leaf's gradient block against one rank's, with planted faults).
 
 Every rank of a mesh calls them alike (each makes collectives); they
 return tensors and verdicts and assert nothing, so that the caller holds
@@ -11,7 +12,9 @@ process), and ``chip_smoke.py``'s mesh phase on ranks sharing one card.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -21,8 +24,9 @@ from repro_torch.core import arena as arena_mod
 from repro_torch.core.accelerator import DMDAccelerator
 from repro_torch.core.paths import by_path, leaves_with_paths
 from repro_torch.distributed.gradsync import int8_psum_grads
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.distributed.sharding import (Spec, gather_full, local_shard,
-                                              shard_tree)
+                                              param_specs, shard_tree)
 from repro_torch.kernels import arena as ka
 from repro_torch.kernels import ops
 from repro_torch.kernels import sharded as ks
@@ -288,13 +292,14 @@ def int8_sync(pods, shape: tuple, device) -> dict:
 
 
 def mesh_audit(mesh_shape: tuple, device) -> dict:
-    """The audit of the reduced TinyLlama under `mesh_shape`, clean and
-    with ``force-allgather``: the failed passes, record_update's
-    collectives and the analytic all-reduce bytes of each."""
+    """The audit of the reduced TinyLlama under `mesh_shape`, clean, with
+    ``force-allgather`` and with ``force-gather-model``: the failed
+    passes, record_update's collectives, the analytic all-reduce bytes
+    and train_step's param blocks all-gathered over "model" of each."""
     from repro_torch.audit import run_audit
 
     out = {}
-    for mutate in (None, "force-allgather"):
+    for mutate in (None, "force-allgather", "force-gather-model"):
         report = run_audit("tinyllama-1.1b", reduced=True, device=device,
                            mesh_shape=mesh_shape, mutate=mutate)
         info = next(r.info for r in report.results
@@ -302,5 +307,106 @@ def mesh_audit(mesh_shape: tuple, device) -> dict:
         out[mutate or "clean"] = {
             "failed": sorted(r.name for r in report.results if not r.ok),
             "record": info.get("record_update.collectives"),
-            "analytic": info.get("record_allreduce_bytes_analytic")}
+            "analytic": info.get("record_allreduce_bytes_analytic"),
+            "model_gathers": info.get("train_step.model_param_gathers")}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel compute
+# ---------------------------------------------------------------------------
+
+# the planted faults of tensor-parallel compute: (the collective to drop,
+# the site it is dropped at)
+PLANTED = {
+    # one row-parallel product's all-reduce: each rank keeps its partial
+    # sum (the MLP's w_out; the SSM's out_proj)
+    "drop-row-sum": ("leave", ("mlp.w_out", "ssm.out_proj")),
+    # one replicated param's gradient sum over "model": each rank keeps
+    # the gradient of its own part of the work (the SSM's norm_scale, the
+    # k / v projections of kv columns the rules replicate)
+    "drop-replicated-sum": ("enter", ("ssm.norm_scale", "attn.wk")),
+}
+
+
+@contextlib.contextmanager
+def planted_fault(name: Optional[str]):
+    """Inside the block, ``tensor_parallel``'s `kind` collective (PLANTED)
+    is the identity at the fault's sites."""
+    if name is None:
+        yield
+        return
+    kind, sites = PLANTED[name]
+    real = getattr(tpm, kind)
+
+    def faulty(x, tp, what):
+        return x if what in sites else real(x, tp, what)
+    setattr(tpm, kind, faulty)
+    try:
+        yield
+    finally:
+        setattr(tpm, kind, real)
+
+
+def one_rank(model, params: Dict[str, torch.Tensor], batch) -> tuple:
+    """`model`'s loss and gradient on the full `params` ({path: tensor})
+    and batch here, without a mesh: (loss, {path: gradient})."""
+    from repro_torch.train import step as step_mod
+
+    v1, g1 = step_mod.value_and_grad(lambda p, b: model.loss(p, b)[0],
+                                     nest(params), batch)
+    return float(v1), by_path(g1)
+
+
+def tp_gradients(model, params: Dict[str, torch.Tensor], batch, mesh, *,
+                 fault: Optional[str] = None, one: Optional[tuple] = None,
+                 keep: bool = False) -> dict:
+    """`model`'s loss and gradient on `mesh` (tensor-parallel over
+    "model", the batch split over the batch axes) through the train
+    step's mesh loss, from the full `params` ({path: tensor}, the same on
+    every rank) cut to this rank's blocks. Against `one` (``one_rank``'s
+    result on the same params and batch), each leaf's error: max |mesh -
+    one| over the block / max |one| over the leaf (``grad_err``), and
+    ||mesh - one|| over the block / ||one|| over the leaf
+    (``grad_err_l2``). Also the collectives of the mesh's step and, with
+    `keep`, the mesh's gradient, every rank's blocks gathered to full
+    (``grads``). `fault` plants one of PLANTED."""
+    from repro_torch.launch.inputs import shard_batch
+    from repro_torch.train import step as step_mod
+
+    tree = nest(params)
+    specs = param_specs(tree, mesh)
+    local = shard_tree(tree, specs, mesh)
+    rows, split = shard_batch(batch, mesh)
+    loss = step_mod._mesh_loss(lambda p, b: model.loss(p, b)[0],
+                               SimpleNamespace(param_specs=specs), mesh,
+                               split)
+    with record_collectives() as rec, planted_fault(fault):
+        value, grads = step_mod.value_and_grad(loss, local, rows)
+        value = step_mod._mean_over(value, mesh, split)
+    del local
+    out = {"loss": float(value), "collectives": [
+        {k: c[k] for k in ("kind", "axes", "bytes", "what")} for c in rec]}
+    if keep:
+        out["grads"] = {p: gather_full(g.contiguous(), specs[p], mesh)
+                        for p, g in leaves_with_paths(grads)}
+    if one is None:
+        return out
+    out["loss_one"], g1_of = one
+    errs, l2 = {}, {}
+    for path, g in leaves_with_paths(grads):
+        want = g1_of[path].float()
+        diff = g.float() - local_shard(want, specs[path], mesh)
+        errs[path] = float(diff.abs().max()
+                           / want.abs().max().clamp_min(1e-30))
+        l2[path] = float(diff.norm() / want.norm().clamp_min(1e-30))
+    out["grad_err"], out["grad_err_l2"] = errs, l2
+    return out
+
+
+def model_param_gathers(collectives) -> List[dict]:
+    """The all-gathers of a param block over "model" among `collectives`
+    (``record_collectives``' dicts)."""
+    return [c for c in collectives if c["kind"] == "all_gather"
+            and "model" in c["axes"]
+            and str(c.get("what") or "").startswith("param:")]

@@ -94,9 +94,11 @@ def batch_axes(mesh=None) -> Tuple[str, ...]:
 
 def constrain(x, *spec):
     """The identity. The reference constrains activations' shardings so
-    that GSPMD lays out its compiled program; eager compute here runs on
-    each rank's own tensors and never re-shards an activation, so there is
-    nothing to constrain."""
+    that GSPMD lays out its compiled program and inserts the collectives;
+    here the layout is explicit: each rank computes on its own blocks and
+    the models call ``distributed/tensor_parallel.py``'s collectives where
+    the reference's constraints change a sharding, so there is nothing to
+    constrain."""
     return x
 
 
@@ -253,10 +255,11 @@ def local_shard(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return x if x is full else x.contiguous()
 
 
-def gather_full(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def gather_full(local: torch.Tensor, spec: Spec, mesh, what=None
+                ) -> torch.Tensor:
     """The full tensor from every rank's block under `spec` (one
-    all-gather per sharded dim); `local` itself where nothing is
-    sharded."""
+    all-gather per sharded dim, each recorded as `what`); `local` itself
+    where nothing is sharded."""
     if mesh is None:
         return local
     x = local
@@ -264,8 +267,22 @@ def gather_full(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
         axes = entry_axes(e)
         if mesh.axis_size(axes) == 1:
             continue
-        x = torch.cat(mesh.all_gather(x, axes), dim=dim)
+        x = torch.cat(mesh.all_gather(x, axes, what=what), dim=dim)
     return x
+
+
+def without_axis(spec: Spec, axis: str) -> Spec:
+    """`spec` with the dims `axis` shards replicated: the layout of a
+    block gathered over every other axis (a param the forward reads on a
+    rank's "model" block)."""
+    out = []
+    for e in spec:
+        axes = entry_axes(e)
+        if axis in axes and len(axes) > 1:
+            raise ValueError(f"{spec}: a dim sharded over {axis} and "
+                             f"{axes} together")
+        out.append(None if axis in axes else e)
+    return Spec(*out)
 
 
 def shard_tree(tree: PyTree, specs: Dict[str, Spec], mesh) -> PyTree:

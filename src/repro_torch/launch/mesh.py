@@ -26,8 +26,9 @@ timeout (``TIMEOUT_S``), so a rank that diverges from the others raises
 instead of hanging the run.
 
 Every collective made through a ``Mesh`` is appended to the innermost
-``record_collectives()`` list (kind, axes, dtype, shape, bytes): the
-audit's collective budget reads it.
+``record_collectives()`` list (kind, axes, dtype, shape, bytes, and the
+caller's ``what``: a param's path for a param block, a tensor-parallel
+site for an activation): the audit's collective budget reads it.
 
 ``run_ranks(fn, world, ...)`` spawns `world` ranks (start method
 ``spawn``), each joined to a gloo or NCCL group through a ``FileStore``, runs
@@ -59,7 +60,8 @@ _RECORDS: List[list] = []
 @contextlib.contextmanager
 def record_collectives():
     """Collect every collective a ``Mesh`` makes inside the block: a list
-    of dicts (``kind``, ``axes``, ``dtype``, ``shape``, ``bytes``)."""
+    of dicts (``kind``, ``axes``, ``dtype``, ``shape``, ``bytes``,
+    ``what``: what the caller named the tensor, or None)."""
     out: list = []
     _RECORDS.append(out)
     try:
@@ -68,12 +70,12 @@ def record_collectives():
         _RECORDS.remove(out)
 
 
-def _record(kind: str, axes, t: torch.Tensor) -> None:
+def _record(kind: str, axes, t: torch.Tensor, what=None) -> None:
     for rec in _RECORDS:
         rec.append({"kind": kind, "axes": tuple(axes),
                     "dtype": str(t.dtype).removeprefix("torch."),
                     "shape": tuple(t.shape),
-                    "bytes": t.numel() * t.element_size()})
+                    "bytes": t.numel() * t.element_size(), "what": what})
 
 
 def init_process_group(backend: str, *, rank: int, world_size: int,
@@ -205,24 +207,27 @@ class Mesh:
         return self._groups[live] if live else None
 
     # ---- collectives --------------------------------------------------------
-    def all_reduce(self, t: torch.Tensor, axes, op=dist.ReduceOp.SUM
-                   ) -> torch.Tensor:
-        """Reduce `t` over `axes` in place; returns `t`."""
+    def all_reduce(self, t: torch.Tensor, axes, op=dist.ReduceOp.SUM,
+                   what=None) -> torch.Tensor:
+        """Reduce `t` over `axes` in place; returns `t`. `what` names the
+        tensor in the recorder."""
         g = self.group(axes)
         if g is not None:
-            _record("all_reduce", self.live_axes(axes), t)
+            _record("all_reduce", self.live_axes(axes), t, what)
             dist.all_reduce(t, op=op, group=g)
         return t
 
-    def all_gather(self, t: torch.Tensor, axes) -> List[torch.Tensor]:
+    def all_gather(self, t: torch.Tensor, axes, what=None
+                   ) -> List[torch.Tensor]:
         """Every rank's `t` over `axes`, ordered by the linear index over
-        `axes` in the order given (the spec entry's order)."""
+        `axes` in the order given (the spec entry's order). `what` names
+        the tensor in the recorder."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
         g = self.group(axes)
         if g is None:
             return [t]
         live = self.live_axes(axes)
-        _record("all_gather", live, t)
+        _record("all_gather", live, t, what)
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.axis_size(live))]
         dist.all_gather(parts, t, group=g)

@@ -19,7 +19,7 @@ full widths: ``minicpm-2b`` (44 B a param: its bf16 ring of 14; its full
 40 layers need 120 GB), ``granite-20b`` and ``gemma3-27b`` (32 B a param,
 rings of 8; gemma's tied 262144 x 5376 embedding alone is 45 GB of
 state). ``check_fits`` admits 23, 4 and 2 layers; on an 80 GB H100 21, 3
-and 1 train (``chip_smoke.py`` trains 4, 3 and 1; gemma's
+and 1 train (``chip_smoke.py`` trains 2, 2 and 1; gemma's
 first layers are window layers, of 1024 tokens). ``qwen2-vl-7b`` (36 B a
 param: its bf16 ring of 10; the full depth's state is 274 GB) trains on
 the stream's M-RoPE positions, three equal arange streams as the
@@ -51,7 +51,8 @@ each rank, gloo lets ranks share one. A mesh runs its steps eagerly: on a
 card it needs ``--eager`` (the Trainer raises otherwise). Without ``--reduced`` on a card it first reckons the state's
 bytes (params, the optimizer's moments, the fp32 gradient sum and one
 microbatch's gradient, and the DMD ring of m snapshots; under a mesh a
-rank's blocks of them plus the forward's gathered params and gradient)
+rank's blocks of them plus the params its tensor-parallel forward reads,
+its "model" blocks gathered over the other axes, and their gradient)
 and raises, with those bytes, where they exceed 90% of the card's memory,
 or of a rank's share of it where ranks share a card. It never shrinks the
 model by itself: ``--layers N`` cuts the depth on request (the only flag
@@ -106,16 +107,19 @@ def configure(arch: str, *, steps: int, reduced: bool = False,
                                   checkpoint_dir=ckpt))
 
 
-def make_model(acfg, *, reduced: bool = False, device="cuda"
+def make_model(acfg, *, reduced: bool = False, device="cuda", mesh=None
                ) -> LanguageModel:
     """The reference launcher's model: chunk_k min(seq, 1024), the
-    config's remat unless reduced. ``parallel.pad_attn_heads_to`` is not
-    passed: its padded heads serve head-parallel compute over "model",
-    which the port does not run (ROADMAP Queue 1), and would only add
-    work."""
+    config's remat unless reduced. Under a `mesh` whose "model" axis is
+    larger than one it passes ``parallel.pad_attn_heads_to``, as the
+    reference's launcher does: its padded heads serve head-parallel
+    compute over "model". Without one it passes none: on one card the
+    padded heads would only add work."""
+    pad = (acfg.parallel.pad_attn_heads_to
+           if mesh is not None and mesh.axis_size("model") > 1 else 0)
     return LanguageModel(acfg.model, chunk_k=min(acfg.train.seq_len, 1024),
                          remat="none" if reduced else acfg.parallel.remat,
-                         device=device)
+                         device=device, pad_heads_to=pad)
 
 
 def param_count(model: LanguageModel) -> int:
@@ -137,33 +141,45 @@ def state_bytes(acfg, n_params: int) -> dict:
     return {k: v * n_params for k, v in parts.items()}
 
 
-def local_param_count(model: LanguageModel, mesh) -> int:
+def local_param_count(model: LanguageModel, mesh,
+                      model_only: bool = False) -> int:
     """Parameters of one rank's blocks under `mesh` (anything with
-    ``axis_names`` and ``devices.shape``), counted on the meta device."""
+    ``axis_names`` and ``devices.shape``), counted on the meta device;
+    `model_only`: of its blocks over "model" alone (the params a
+    tensor-parallel forward reads, gathered over the other axes)."""
     from repro_torch.core.paths import leaves_with_paths
-    from repro_torch.distributed.sharding import local_shape, param_specs
+    from repro_torch.distributed.sharding import (Spec, entry_axes,
+                                                  local_shape, param_specs)
 
     params = init_params(model.cfg, device="meta")
     specs = param_specs(params, mesh)
-    return sum(int(np.prod(local_shape(x.shape, specs[p], mesh),
+
+    def spec(path):
+        if not model_only:
+            return specs[path]
+        return Spec(*(e if "model" in entry_axes(e) else None
+                      for e in specs[path]))
+    return sum(int(np.prod(local_shape(x.shape, spec(p), mesh),
                            dtype=np.int64))
                for p, x in leaves_with_paths(params))
 
 
 def check_fits(acfg, n_params: int, total: int, *,
-               n_local: Optional[int] = None, share: int = 1) -> int:
+               n_local: Optional[int] = None, share: int = 1,
+               n_read: Optional[int] = None) -> int:
     """The state's bytes on one rank; raises where they exceed
     CARD_FRACTION of the card's `total` bytes over the `share` ranks that
     use the card. Under a mesh (`n_local`: the params of a rank's blocks)
-    a rank holds its blocks of the state and, in a step, the forward's
-    full params and the full gradient (in the params' dtype and in
+    a rank holds its blocks of the state and, in a step, the params its
+    forward reads (`n_read`, default all: its "model" blocks gathered
+    over the other axes) and their gradient (in the params' dtype and in
     fp32)."""
     need = sum(state_bytes(acfg, n_params if n_local is None
                            else n_local).values())
     if n_local is not None:
         p = torch.empty((), dtype=getattr(torch, acfg.model.dtype)
                         ).element_size()
-        need += (2 * p + 4) * n_params
+        need += (2 * p + 4) * (n_params if n_read is None else n_read)
     if need > CARD_FRACTION * total / share:
         raise RuntimeError(
             f"{acfg.model.name} at {acfg.model.n_layers} layers: the "
@@ -280,7 +296,8 @@ def _train(rank: int, args, shape) -> None:
     acfg = configure(args.arch, steps=args.steps, reduced=args.reduced,
                      no_dmd=args.no_dmd, global_batch=args.global_batch,
                      seq=args.seq, ckpt=args.ckpt, n_layers=args.layers)
-    model = make_model(acfg, reduced=args.reduced, device=device)
+    model = make_model(acfg, reduced=args.reduced, device=device,
+                       mesh=mesh)
     n_params = param_count(model)
     if device.type == "cuda" and not args.reduced:
         if mesh is None:
@@ -291,12 +308,16 @@ def _train(rank: int, args, shape) -> None:
             check_fits(acfg, n_params,
                        torch.cuda.get_device_properties(device).total_memory,
                        n_local=local_param_count(model, mesh),
-                       share=-(-n_ranks // torch.cuda.device_count()))
+                       share=-(-n_ranks // torch.cuda.device_count()),
+                       n_read=local_param_count(model, mesh,
+                                                model_only=True))
     gb, seq = acfg.train.global_batch, acfg.train.seq_len
     say(f"{args.arch}: {n_params / 1e6:.1f}M params, "
         f"dmd={'off' if args.no_dmd else 'on'}, batch={gb}x{seq}"
         + ("" if mesh is None else f", mesh {mesh.shape} on "
-           f"{mesh.backend}"))
+           f"{mesh.backend}")
+        + (f", heads padded to {model.pad_heads_to}" if model.pad_heads_to
+           else ""))
     losses = []
     t0 = time.perf_counter()
     trainer, state = run(acfg, model, steps=args.steps, ckpt=args.ckpt,

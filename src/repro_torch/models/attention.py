@@ -35,6 +35,28 @@ self-attention's decode does.
 
 Caches are updated in place (the reference donates them; here the write
 lands in the caller's tensors and the returned cache shares them).
+
+Under a mesh whose "model" axis is larger than one (``tp``, a
+``distributed/tensor_parallel.TP``) a forward without a cache is
+head-parallel, the reference's head-TP (``src/repro/models/attention.py
+:226-306``): each rank projects its ``wq`` columns (H / tp heads), runs
+K7 forward and K7b backward on the heads it attends, then its ``wo``
+rows, and one all-reduce sums the ranks' partial outputs. k and v come
+from the rank's ``wk`` / ``wv`` columns: its own kv heads where "model"
+divides K, else the kv heads its q heads read, all-gathered from the
+ranks' columns (an activation: MQA's single head). Padded head-TP
+(``pad_heads_to``, where the reference pads: H not a multiple, no cache,
+no cross-attention) attends H_pad / tp padded heads a rank, the zero heads
+at the end of each group as the reference places them; where those are
+not the heads the rank's ``wq`` block projects (an MHA such as
+MiniCPM-2B's 36 heads over 2 ranks: rank 0 projects heads 0-17 but
+attends padded heads 0-23), q (and, for an MHA, k and v) move between the
+layouts before the core and the output moves back before ``wo``
+(``tensor_parallel.reshard``); no padded head's value reaches the
+output. Where the (padded) q heads do not divide over "model", or the
+model asks for kv-SP (``head_tp=False``), ``attend`` raises: kv-SP, the
+reference's third layout, is not ported. Decode, prefill and ring caches
+are not run under a mesh (serving under a mesh waits).
 """
 from __future__ import annotations
 
@@ -42,6 +64,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -210,12 +233,95 @@ def pad_heads(t: torch.Tensor, target_groups_rep) -> torch.Tensor:
     return g.reshape(B, S, K * rep_pad, hd)
 
 
+def _pad_rep(H: int, K: int, pad_heads_to: int) -> Optional[tuple]:
+    """The reference's padding of H heads to a multiple of
+    `pad_heads_to` (its condition apart from the cache and
+    cross-attention): (groups, rep, rep_pad), or None."""
+    if not pad_heads_to or H % pad_heads_to == 0:
+        return None
+    H_pad = -(-H // pad_heads_to) * pad_heads_to
+    if K == H:
+        return (1, H, H_pad)
+    if H_pad % K == 0:
+        return (K, H // K, H_pad // K)
+    return None
+
+
+def _tp_layout(cfg, tp, pad_rep) -> "tpm.HeadLayout":
+    H = cfg.n_heads
+    if pad_rep is None and (tp.head_tp is False or H % tp.size):
+        why = ("the model asks for kv-SP (head_tp=False)"
+               if tp.head_tp is False else
+               f"{H} q heads do not split over 'model' ({tp.size})")
+        raise ValueError(f"{cfg.name}: {why}; {tpm.KV_SP}")
+    return tpm.head_layout(H, cfg.n_kv_heads, cfg.head_dim, tp, pad_rep)
+
+
+def tp_kv(src: torch.Tensor, p: dict, cfg, tp) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """Cross-attention's k, v under `tp`: the kv heads the rank's q heads
+    read, from the rank's ``wk`` / ``wv`` columns over the replicated
+    `src` (the encoder's output), (B, Se, n_kv, hd) each."""
+    lay = _tp_layout(cfg, tp, None)
+    return _tp_project_kv(tpm.enter(src, tp, "cross.kv"), p, cfg, tp, lay)
+
+
+def _tp_project_kv(x, p, cfg, tp, lay):
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    wk, wv = p["wk"], p["wv"]
+    tp.check_local(wk, cfg.kv_dim, -1, "wk")
+    if not lay.kv_split:
+        # the kv columns are replicated (the rules leave them so): each
+        # rank computes them whole, for its own heads' part of the work
+        wk, wv = tpm.enter(wk, tp, "attn.wk"), tpm.enter(wv, tp, "attn.wv")
+    out = []
+    for w, name in ((wk, "attn.k"), (wv, "attn.v")):
+        t = tpm.reshard(x @ w, tp, lay.kv_move, name)
+        out.append(t.reshape(B, S, lay.n_kv, hd))
+    return out[0], out[1]
+
+
+def _attend_tp(x, p, cfg, tp, *, positions, causal, window, use_rope,
+               kv_override, pad_heads_to):
+    """``attend``'s forward without a cache on the rank's heads (see the
+    module's docstring)."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pad_rep = None if kv_override is not None else _pad_rep(H, K,
+                                                           pad_heads_to)
+    lay = _tp_layout(cfg, tp, pad_rep)
+    tp.check_local(p["wq"], cfg.q_dim, -1, "wq")
+    tp.check_local(p["wo"], cfg.q_dim, -2, "wo")
+    x = tpm.enter(x, tp, "attn")
+    q = tpm.reshard(x @ p["wq"], tp, lay.q_move, "attn.q")
+    q = q.reshape(B, S, lay.n_q, hd)
+    if use_rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta,
+                              cfg.mrope_sections)
+    if kv_override is not None:
+        k, v = kv_override
+        causal = False
+    else:
+        k, v = _tp_project_kv(x, p, cfg, tp, lay)
+        if use_rope:
+            k = layers.apply_rope(k, positions, cfg.rope_theta,
+                                  cfg.mrope_sections)
+    # K7 / K7b take contiguous inputs: a moved or padded tensor is a new
+    # one (index_select), a rotated one too (apply_rope)
+    out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=causal, window=window)
+    out = tpm.reshard(out.reshape(B, S, lay.n_q * hd), tp, lay.out_move,
+                      "attn.out")
+    return tpm.leave(out @ p["wo"], tp, "attn.wo"), None
+
+
 def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
            causal: bool = True, window: int = 0,
            cache: Optional[Union[KVCache, RingKVCache]] = None,
            chunk_k: int = 1024, use_rope: bool = True,
            kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-           pad_heads_to: int = 0
+           pad_heads_to: int = 0, tp=None
            ) -> Tuple[torch.Tensor, Optional[Union[KVCache, RingKVCache]]]:
     """Projections, RoPE (unless ``use_rope`` is off), the attention core
     and the output projection.
@@ -232,7 +338,18 @@ def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     without a cache to a multiple of it, under the reference's condition
     (H not a multiple, no cross-attention): MHA pads q, k and v at the
     end, GQA each group's q heads; the padded heads' outputs are dropped,
-    so the result is the unpadded one."""
+    so the result is the unpadded one. Under `tp` (a mesh's "model" axis)
+    the call is head-parallel (the module's docstring); `kv_override` is
+    then ``tp_kv``'s, on the rank's kv heads."""
+    if tp is not None:
+        if cache is not None:
+            raise NotImplementedError(
+                "attention against a cache under a mesh: serving under a "
+                "mesh is not ported (ROADMAP Queue 1 item 4)")
+        return _attend_tp(x, p, cfg, tp, positions=positions, causal=causal,
+                          window=window, use_rope=use_rope,
+                          kv_override=kv_override,
+                          pad_heads_to=pad_heads_to)
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, hd)
@@ -252,16 +369,11 @@ def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
                               cfg.mrope_sections)
     v = (x @ p["wv"]).reshape(B, S, K, hd)
 
-    pad_rep = None
-    if pad_heads_to and H % pad_heads_to != 0 and cache is None:
-        H_pad = -(-H // pad_heads_to) * pad_heads_to
+    pad_rep = None if cache is not None else _pad_rep(H, K, pad_heads_to)
+    if pad_rep is not None:
         if K == H:
-            pad_rep = (1, H, H_pad)
             k, v = pad_heads(k, pad_rep), pad_heads(v, pad_rep)
-        elif H_pad % K == 0:
-            pad_rep = (K, H // K, H_pad // K)
-        if pad_rep is not None:
-            q = pad_heads(q, pad_rep)
+        q = pad_heads(q, pad_rep)
 
     new_cache = None
     in_context = cache is None

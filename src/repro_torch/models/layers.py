@@ -16,6 +16,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tpm
+
 
 # the most fp32 elements ``dense_init`` draws at once (1 GiB): a larger
 # leaf is drawn in slices of whole rows, so that its fp32 temporary stays
@@ -160,10 +162,19 @@ def mlp_init(gen: torch.Generator, cfg, device,
     return p
 
 
-def apply_mlp(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
+def apply_mlp(x: torch.Tensor, p: dict, cfg, tp=None,
+              d_ff: int = 0) -> torch.Tensor:
     """Gated: (act(x W_gate) * x W_in) W_out, act silu or gelu; plain:
-    gelu(x W_in) W_out."""
+    gelu(x W_in) W_out. Under `tp` (a mesh's "model" axis, where it
+    splits the hidden width `d_ff`, default the config's) column-parallel
+    in ``w_in`` / ``w_gate`` and row-parallel in ``w_out``: the rank's
+    hidden columns, then one all-reduce of the partial outputs (the
+    reference's ``layers.py:144-146``)."""
     _check_act(cfg)
+    if tp is not None and tp.check_local(p["w_out"], d_ff or cfg.d_ff, -2,
+                                         "w_out"):
+        return tpm.leave(apply_mlp(tpm.enter(x, tp, "mlp"), p, cfg), tp,
+                         "mlp.w_out")
     h = x @ p["w_in"]
     if "w_gate" in p:
         g = x @ p["w_gate"]

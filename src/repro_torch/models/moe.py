@@ -26,6 +26,16 @@ expert fills its capacity with add exact zeros there, and are masked
 here). No float atomics, so repeat runs and a CUDA graph's replay give
 the same bits. Expert loads are counted by a scatter of ones into a fixed
 (E,) buffer: nothing reads back to the host, so a step captures.
+
+Expert-parallel under a mesh whose "model" axis is larger than one
+(``tp``; the reference's ``moe.py:154-179``): the router stays
+replicated, so routing and the aux loss are the same on every rank; a
+rank runs its E / tp experts (the ``experts_*`` blocks it holds), its
+capacity selection reads only its experts' gate columns, its combine sums
+its experts' part of each token, and one all-reduce over "model" adds
+the ranks' parts. The gate enters the region (its gradient, each rank's
+own experts' columns, is summed over "model"), so the router's gradient
+is whole on every rank. The shared expert is ``layers.apply_mlp``'s.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models import layers
 
 
@@ -84,14 +95,17 @@ def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
 def aux_load_balance_loss(probs: torch.Tensor, top_i: torch.Tensor,
                           n_experts: int) -> torch.Tensor:
     """Switch-Transformer load balancing loss (arXiv:2101.03961).
-    probs (B, S, E) fp32, top_i (B, S, k)."""
+    probs (B, S, E) fp32, top_i (B, S, k); under a mesh's split batch its
+    fractions are the whole batch's (``tensor_parallel.batch_mean``)."""
     ones = torch.ones(top_i.numel(), dtype=torch.float32,
                       device=probs.device)
     counts = torch.zeros(n_experts, dtype=torch.float32,
                          device=probs.device).scatter_add_(
                              0, top_i.reshape(-1), ones)
-    frac_tokens = counts / max(top_i.numel(), 1)
-    frac_probs = probs.mean(dim=(0, 1))
+    # over the whole batch, as the reference's global batch (a rank's
+    # rows under a mesh: the mean over the batch axes' shards)
+    frac_tokens = tpm.batch_mean(counts / max(top_i.numel(), 1))
+    frac_probs = tpm.batch_mean(probs.mean(dim=(0, 1)))
     return n_experts * torch.sum(frac_tokens * frac_probs)
 
 
@@ -102,10 +116,12 @@ class Routing:
     the slot holds a token of that expert's top-k routing (its gate is
     not 0); ``flat`` (B, S, k): for each token and each of its top-k
     experts in ascending order, the flat slot e * C + c that kept it, or
-    -1 where that expert dropped it."""
+    -1 where that expert dropped it. With `first` (expert-parallel) the E
+    experts are the rank's, those from `first` on: a token's other
+    experts are not kept here."""
 
     def __init__(self, sel_idx: torch.Tensor, kept: torch.Tensor,
-                 top_i: torch.Tensor):
+                 top_i: torch.Tensor, first: Optional[int] = None):
         B, E, C = sel_idx.shape
         S = top_i.shape[1]
         dev = sel_idx.device
@@ -117,7 +133,13 @@ class Routing:
         cand = torch.sort(top_i, dim=-1)[0]                   # (B, S, k)
         rows = torch.arange(B, device=dev)[:, None, None]
         toks = torch.arange(S, device=dev)[None, :, None]
-        c = where[rows, cand, toks]
+        if first is not None:
+            cand = cand - first
+            mine = (cand >= 0) & (cand < E)
+            c = torch.where(mine, where[rows, cand.clamp(0, E - 1), toks],
+                            -1)
+        else:
+            c = where[rows, cand, toks]
         self.sel_idx, self.kept = sel_idx, kept
         self.flat = torch.where(c >= 0, cand * C + c, -1)
         self.seq_len = S
@@ -189,10 +211,12 @@ def _experts(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def route(x: torch.Tensor, p: dict, cfg,
-          gen: Optional[torch.Generator] = None):
+          gen: Optional[torch.Generator] = None, tp=None):
     """The router: (probs (B, S, E) fp32, top_i (B, S, k), sel_gate
     (B, E, C) fp32, Routing). Router jitter applies only with a
-    generator, as the reference's only with a key."""
+    generator, as the reference's only with a key. Under `tp` the
+    capacity selection runs on the rank's E / tp experts' gate columns:
+    sel_gate and the Routing are theirs."""
     m = cfg.moe
     S = x.shape[1]
     logits = x.float() @ p["router"]
@@ -204,28 +228,39 @@ def route(x: torch.Tensor, p: dict, cfg,
     # routed mass per (token, expert): the probability where the expert is
     # among the token's top-k (distinct indices: no colliding writes)
     gate = torch.zeros_like(probs).scatter(-1, top_i, top_p)
+    first = None
+    if tp is not None:
+        first = tp.block(m.n_experts)[0]
+        gate = tp.narrow(tpm.enter(gate, tp, "moe.gate"))
     sel_gate, sel_idx = top_k_stable(gate.transpose(1, 2),
                                      capacity(S, cfg))        # (B, E, C)
     kept = sel_gate > 0.0
     sel_gate = torch.where(kept, sel_gate, 0.0)
-    return probs, top_i, sel_gate, Routing(sel_idx, kept, top_i)
+    return probs, top_i, sel_gate, Routing(sel_idx, kept, top_i, first)
 
 
 def apply_moe(x: torch.Tensor, p: dict, cfg,
-              gen: Optional[torch.Generator] = None
+              gen: Optional[torch.Generator] = None, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (out (B, S, D) in x's dtype, fp32 aux loss)."""
+    """x (B, S, D) -> (out (B, S, D) in x's dtype, fp32 aux loss). Under
+    `tp` expert-parallel where "model" divides the experts (the module's
+    docstring)."""
     m = cfg.moe
     _check_act(cfg)
-    probs, top_i, sel_gate, routing = route(x, p, cfg, gen)
+    ep = tp if tp is not None and tp.check_local(
+        p["experts_in"], m.n_experts, -3, "experts_in") else None
+    probs, top_i, sel_gate, routing = route(x, p, cfg, gen, ep)
     aux = aux_load_balance_loss(probs, top_i, m.n_experts) * \
         m.aux_loss_weight
-    xe = dispatch(x, routing)                                 # (B, E, C, D)
+    xe = dispatch(x if ep is None else tpm.enter(x, ep, "moe"), routing)
     h = _experts(xe, p["experts_in"])
     g = _experts(xe, p["experts_gate"])
     ye = _experts(F.silu(g) * h, p["experts_out"])
     ye = ye * sel_gate[..., None].to(ye.dtype)
     out = combine(ye, routing)
+    if ep is not None:
+        out = tpm.leave(out, ep, "moe.combine")
     if "shared" in p:
-        out = out + layers.apply_mlp(x, p["shared"], cfg).to(out.dtype)
+        out = out + layers.apply_mlp(x, p["shared"], cfg, tp,
+                                     m.shared_d_ff).to(out.dtype)
     return out.to(x.dtype), aux

@@ -31,6 +31,17 @@ model's dtype, h in fp32) is written in place, as the KV caches are
 (``models/attention.py``): the returned state shares the caller's tensors.
 Prompts must be of equal length: a padded prompt would run its pad tokens
 through the recurrence (why the serving engine refuses these families).
+
+Under a mesh whose "model" axis is larger than one (``tp``; the
+reference's ``ssm.py:168-208``) the heads are split over "model": a rank
+projects its columns of ``z``, ``x`` and ``dt``, convolves its channels
+of ``x`` and runs the SSD on its H / tp heads with its blocks of
+``A_log``, ``dt_bias`` and ``skip_d``; B and C stay replicated (each rank
+reads them for its own heads, so their params' gradients are summed over
+"model", as is ``norm_scale``'s, of which a rank reads its channels); the
+gated RMS norm runs over the full ``d_inner``, its sum of squares summed
+over "model"; ``out_proj``'s rows are followed by one all-reduce. The
+decode state is not run under a mesh (serving under a mesh waits).
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models import layers
 
 
@@ -241,12 +253,59 @@ def _decode(xh, dt, A, Bm, Cm, h):
     return y[:, None], h_new
 
 
+def _apply_ssm_tp(x, p, cfg, tp):
+    """``apply_ssm`` without a state on the rank's heads (the module's
+    docstring)."""
+    s = cfg.ssm
+    Bsz, S, _ = x.shape
+    d_inner, H = ssm_dims(cfg)
+    P, G, N = s.head_dim, s.n_groups, s.state_dim
+    if H % tp.size:
+        raise ValueError(f"{cfg.name}: {H} SSM heads do not split over "
+                         f"'model' ({tp.size})")
+    Hl, rep = H // tp.size, H // G
+    if Hl % rep and rep % Hl:
+        raise ValueError(f"{cfg.name}: a rank's {Hl} SSM heads cut its "
+                         f"groups of {rep}")
+    ip, cw = p["in_proj"], p["conv_w"]
+    tp.check_local(ip["x"], d_inner, -1, "in_proj/x")
+    x = tpm.enter(x, tp, "ssm")
+    z = x @ ip["z"]
+    xs, _ = _causal_conv(x @ ip["x"], cw["x"])
+    Bs, _ = _causal_conv(x @ tpm.enter(ip["B"], tp, "ssm.in_proj/B"),
+                         tpm.enter(cw["B"], tp, "ssm.conv_w/B"))
+    Cs, _ = _causal_conv(x @ tpm.enter(ip["C"], tp, "ssm.in_proj/C"),
+                         tpm.enter(cw["C"], tp, "ssm.conv_w/C"))
+    xh = xs.reshape(Bsz, S, Hl, P)
+    Bm, Cm = Bs.reshape(Bsz, S, G, N), Cs.reshape(Bsz, S, G, N)
+    if G > 1:
+        # the groups of the rank's heads
+        g0, g1 = tp.index * Hl // rep, -(-(tp.index + 1) * Hl // rep)
+        Bm, Cm = Bm[:, :, g0:g1], Cm[:, :, g0:g1]
+    dt = F.softplus((x @ ip["dt"]).float() + p["dt_bias"])    # (B, S, Hl)
+    A = -torch.exp(p["A_log"])
+    y, _ = ssd_chunked(xh, dt, A, Bm, Cm, s.chunk)
+    y = y + xh.float() * p["skip_d"][:, None]
+    scale = tp.narrow(tpm.enter(p["norm_scale"], tp, "ssm.norm_scale"))
+    y = tpm.rms_norm(y.reshape(Bsz, S, d_inner // tp.size).to(x.dtype),
+                     scale, d_inner, tp, "ssm.norm")
+    out = (y * F.silu(z)) @ p["out_proj"]
+    return tpm.leave(out, tp, "ssm.out_proj").to(x.dtype), None
+
+
 def apply_ssm(x: torch.Tensor, p: dict, cfg, *,
-              state: Optional[SSMState] = None
+              state: Optional[SSMState] = None, tp=None
               ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """Mamba-2 block, x (B, S, D). With `state` (prefill or decode) the
     new state is written into its tensors and returned; S == 1 with a
-    state is the O(1) decode step."""
+    state is the O(1) decode step. Under `tp` the heads are split over
+    "model" (the module's docstring)."""
+    if tp is not None:
+        if state is not None:
+            raise NotImplementedError(
+                "an SSM state under a mesh: serving under a mesh is not "
+                "ported (ROADMAP Queue 1 item 4)")
+        return _apply_ssm_tp(x, p, cfg, tp)
     s = cfg.ssm
     Bsz, S, _ = x.shape
     d_inner, H = ssm_dims(cfg)

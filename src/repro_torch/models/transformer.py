@@ -54,6 +54,22 @@ M-RoPE; else 0 ... S - 1, and in a decode step the cache length on; a
 VLM's decode takes its positions from the batch) and ``frames`` (B,
 encoder_seq_len, d) for the encoder. The encoder's output is not normed:
 the reference applies no final norm there, and the port keeps that.
+
+Under a mesh whose "model" axis is larger than one (``loss`` and
+``forward`` called inside ``sharding.mesh_context``, as the train step
+calls them on a rank's blocks) the model is tensor-parallel over
+"model" (``distributed/tensor_parallel.py``): head-parallel attention
+(``attention.attend``), column / row-parallel MLPs, expert-parallel MoE
+layers, head-parallel SSM blocks, and a vocab-parallel embedding, head
+and cross entropy (the rank's vocabulary rows; a vocabulary the rules
+leave replicated is computed whole). The reference decides its layout
+at build time from the literal 16, its production mesh's "model" size
+(``transformer.py:402-404``, ``attention.py:229,234``); the port decides
+it from the live mesh's "model" size, which at 16 gives the reference's
+choice for every config but Whisper-base (8 heads: the reference's
+kv-SP, which the port does not run). ``head_tp`` is the reference's
+argument: False asks for kv-SP and raises under such a mesh. Serving
+(``prefill``, ``decode_step``) under such a mesh is not ported.
 """
 from __future__ import annotations
 
@@ -64,6 +80,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.paths import tree_map
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.kernels.device import resolve_device
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.attention import KVCache, RingKVCache
@@ -218,28 +235,28 @@ def _unbind(tree, count: int) -> List[dict]:
 
 
 def _apply_dense(x, p, cfg, *, positions, cache, chunk_k, window=0,
-                 causal=True, use_rope=True, pad_heads_to=0):
+                 causal=True, use_rope=True, pad_heads_to=0, tp=None):
     h = layers.apply_norm(x, p["ln1"], cfg)
     a, new_cache = attention.attend(h, p["attn"], cfg, positions=positions,
                                     causal=causal, window=window,
                                     cache=cache, chunk_k=chunk_k,
                                     use_rope=use_rope,
-                                    pad_heads_to=pad_heads_to)
+                                    pad_heads_to=pad_heads_to, tp=tp)
     x = x + a
     h = layers.apply_norm(x, p["ln2"], cfg)
-    return x + layers.apply_mlp(h, p["mlp"], cfg), new_cache
+    return x + layers.apply_mlp(h, p["mlp"], cfg, tp), new_cache
 
 
 def _apply_moe_block(x, p, cfg, *, positions, cache, chunk_k,
-                     pad_heads_to=0):
+                     pad_heads_to=0, tp=None):
     """Attention, then the MoE feed-forward: (x, new cache, fp32 aux)."""
     h = layers.apply_norm(x, p["ln1"], cfg)
     a, new_cache = attention.attend(h, p["attn"], cfg, positions=positions,
                                     cache=cache, chunk_k=chunk_k,
-                                    pad_heads_to=pad_heads_to)
+                                    pad_heads_to=pad_heads_to, tp=tp)
     x = x + a
     h = layers.apply_norm(x, p["ln2"], cfg)
-    f, aux = moe.apply_moe(h, p["moe"], cfg)
+    f, aux = moe.apply_moe(h, p["moe"], cfg, tp=tp)
     return x + f, new_cache, aux
 
 
@@ -294,7 +311,7 @@ def cache_length(caches: dict):
     return 0 if kv is None else kv.length
 
 
-def _apply_dec(x, p, cfg, *, positions, cache, chunk_k, enc):
+def _apply_dec(x, p, cfg, *, positions, cache, chunk_k, enc, tp=None):
     """Whisper's decoder block: causal self-attention without rope, then
     cross-attention over this layer's k, v of the encoder's output `enc`
     (written into the cache's ``cross_k`` / ``cross_v`` in a prefill), or,
@@ -303,11 +320,13 @@ def _apply_dec(x, p, cfg, *, positions, cache, chunk_k, enc):
     h = layers.apply_norm(x, p["ln1"], cfg)
     a, nsc = attention.attend(h, p["self_attn"], cfg, positions=positions,
                               cache=None if cache is None else cache["self"],
-                              chunk_k=chunk_k, use_rope=False)
+                              chunk_k=chunk_k, use_rope=False, tp=tp)
     x = x + a
     h = layers.apply_norm(x, p["ln_x"], cfg)
     if enc is None:
         kv = (cache["cross_k"], cache["cross_v"])
+    elif tp is not None:
+        kv = attention.tp_kv(enc, p["cross_attn"], cfg, tp)
     else:
         B, Se, _ = enc.shape
         K, hd = cfg.n_kv_heads, cfg.head_dim
@@ -317,69 +336,73 @@ def _apply_dec(x, p, cfg, *, positions, cache, chunk_k, enc):
             cache["cross_k"].copy_(kv[0])
             cache["cross_v"].copy_(kv[1])
     a, _ = attention.attend(h, p["cross_attn"], cfg, positions=positions,
-                            chunk_k=chunk_k, use_rope=False, kv_override=kv)
+                            chunk_k=chunk_k, use_rope=False, kv_override=kv,
+                            tp=tp)
     x = x + a
     h = layers.apply_norm(x, p["ln2"], cfg)
-    x = x + layers.apply_mlp(h, p["mlp"], cfg)
+    x = x + layers.apply_mlp(h, p["mlp"], cfg, tp)
     return x, (None if cache is None else dict(cache, self=nsc))
 
 
 def _apply_block(kind, x, p, cfg, *, positions, cache, chunk_k,
-                 shared=None, enc=None, pad_heads_to=0):
+                 shared=None, enc=None, pad_heads_to=0, tp=None):
     """One super-block of the plan: (x, new cache, fp32 aux or None).
     `shared` is the hybrid family's shared block, `enc` the encoder's
     output a dec block attends. `pad_heads_to` reaches the attention of
-    the dense, dense_local and MoE blocks, as in the reference."""
+    the dense, dense_local and MoE blocks, as in the reference. `tp` (a
+    mesh's "model" axis) makes every layer tensor-parallel."""
     if kind == "enc":
         x, _ = _apply_dense(x, p, cfg, positions=positions, cache=None,
-                            chunk_k=chunk_k, causal=False, use_rope=False)
+                            chunk_k=chunk_k, causal=False, use_rope=False,
+                            tp=tp)
         return x, None, None
     if kind == "dec":
         x, nc = _apply_dec(x, p, cfg, positions=positions, cache=cache,
-                           chunk_k=chunk_k, enc=enc)
+                           chunk_k=chunk_k, enc=enc, tp=tp)
         return x, nc, None
     if kind in ("dense", "dense_local"):
         window = cfg.sliding_window if kind == "dense_local" else 0
         x, nc = _apply_dense(x, p, cfg, positions=positions, cache=cache,
                              chunk_k=chunk_k, window=window,
-                             pad_heads_to=pad_heads_to)
+                             pad_heads_to=pad_heads_to, tp=tp)
         return x, nc, None
     if kind == "gemma":
         lc = None if cache is None else cache["local"]
         for i, lp in enumerate(p["local"]):
             x, _ = _apply_dense(x, lp, cfg, positions=positions,
                                 cache=_layer_cache(lc, i), chunk_k=chunk_k,
-                                window=cfg.sliding_window)
+                                window=cfg.sliding_window, tp=tp)
         x, ngc = _apply_dense(x, p["global"], cfg, positions=positions,
                               cache=None if cache is None
-                              else cache["global"], chunk_k=chunk_k)
+                              else cache["global"], chunk_k=chunk_k, tp=tp)
         return x, (None if cache is None
                    else {"local": lc, "global": ngc}), None
     if kind == "moe":
         return _apply_moe_block(x, p, cfg, positions=positions, cache=cache,
-                                chunk_k=chunk_k, pad_heads_to=pad_heads_to)
+                                chunk_k=chunk_k, pad_heads_to=pad_heads_to,
+                                tp=tp)
     if kind == "mamba":
         y, ns = ssm.apply_ssm(layers.apply_norm(x, p["ln"], cfg), p["ssm"],
-                              cfg, state=cache)
+                              cfg, state=cache, tp=tp)
         return x + y, ns, None
     if kind == "zamba":
         mc = None if cache is None else cache["mamba"]
         for i, lp in enumerate(p["mamba"]):
             x, _, _ = _apply_block("mamba", x, lp, cfg, positions=positions,
                                    cache=_layer_cache(mc, i),
-                                   chunk_k=chunk_k)
+                                   chunk_k=chunk_k, tp=tp)
         x, nsc = _apply_dense(x, shared, cfg, positions=positions,
                               cache=None if cache is None
-                              else cache["shared"], chunk_k=chunk_k)
+                              else cache["shared"], chunk_k=chunk_k, tp=tp)
         return x, (None if cache is None
                    else {"mamba": mc, "shared": nsc}), None
     dc = None if cache is None else cache["dense"]
     mc = None if cache is None else cache["moe"]
     x, ndc = _apply_dense(x, p["dense"], cfg, positions=positions,
-                          cache=dc, chunk_k=chunk_k)
+                          cache=dc, chunk_k=chunk_k, tp=tp)
     x, nmc, aux = _apply_moe_block(x, p["moe"], cfg, positions=positions,
                                    cache=mc, chunk_k=chunk_k,
-                                   pad_heads_to=pad_heads_to)
+                                   pad_heads_to=pad_heads_to, tp=tp)
     return x, (None if cache is None else {"dense": ndc, "moe": nmc}), aux
 
 
@@ -408,9 +431,13 @@ class LanguageModel:
     """The LM of every family (dense, VLM, MoE, SSM, hybrid, enc-dec) with
     unrolled layers. `pad_heads_to` (``parallel.pad_attn_heads_to``) pads
     the attention heads of a forward without a cache, as the reference's
-    does (``attention.attend``); the result is the same."""
+    does (``attention.attend``); the result is the same. `head_tp` is the
+    reference's choice of attention layout under a mesh (None: head-TP
+    where the heads split over "model"; False: kv-SP, not ported); on
+    one device neither changes a value."""
 
-    def __init__(self, cfg, *, chunk_k: int = 1024, remat: str = "none",
+    def __init__(self, cfg, *, head_tp: Optional[bool] = None,
+                 chunk_k: int = 1024, remat: str = "none",
                  scan_layers: bool = False, device="cuda",
                  pad_heads_to: int = 0):
         if scan_layers:
@@ -424,6 +451,7 @@ class LanguageModel:
         self.plan = segment_plan(cfg)
         self.chunk_k = chunk_k
         self.pad_heads_to = pad_heads_to
+        self.head_tp = head_tp
         self.remat = remat
         self.scan_layers = False
         self.device = resolve_device(device)
@@ -443,16 +471,30 @@ class LanguageModel:
         return count(params)
 
     # -- embedding / head ----------------------------------------------------
-    def _embed(self, params, batch, length=None) -> torch.Tensor:
+    def _tp(self):
+        """The ambient mesh's "model" axis (None: compute as on one
+        device)."""
+        return tpm.current(self.head_tp)
+
+    def _vocab_split(self, table, tp) -> bool:
+        return tp is not None and tp.check_local(
+            table, self.cfg.padded_vocab, 0, "the vocabulary table")
+
+    def _embed(self, params, batch, length=None, tp=None) -> torch.Tensor:
         """The batch's ``embeds`` (the stub frontend's) in the model's
         dtype, else its tokens' rows scaled by sqrt(d); with learned
         positions plus their rows: the batch's ``positions`` (stream 0 of
         (B, 3, S)) or 0 ... S - 1, and in a decode step (`length`, the
         cache's) the rows at (length + i) % max_seq_len, as the
-        reference's ``_embed_decode``."""
+        reference's ``_embed_decode``. Under `tp` the rows come from the
+        rank's vocabulary block (vocab-parallel), the same values."""
         cfg = self.cfg
         if "embeds" in batch:
             x = batch["embeds"].to(getattr(torch, cfg.dtype))
+        elif self._vocab_split(params["emb"], tp):
+            x = tpm.vocab_embed(batch["tokens"], params["emb"], tp)
+            root = torch.sqrt(torch.tensor(float(cfg.d_model)))
+            x = x * root.to(x.dtype)
         else:
             # F.embedding: its backward on the card sums the rows of
             # repeated tokens in a fixed order (no float atomics), so a
@@ -475,20 +517,25 @@ class LanguageModel:
                 pos = pos[:, 0]
         return x + F.embedding(pos.long(), params["pos_emb"]).to(x.dtype)
 
-    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, params, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """fp32 logits; under `tp` with the vocabulary split, the rank's
+        vocabulary block of them (``tensor_parallel.vocab_logits``)."""
         cfg = self.cfg
         x = layers.apply_norm(x, params["final_norm"], cfg)
         table = params.get("lm_head", params["emb"])
+        if self._vocab_split(table, tp):
+            return tpm.vocab_logits(x, table, tp, softcap=cfg.logit_softcap,
+                                    vocab_size=cfg.vocab_size)
         logits = layers.softcap((x @ table.t()).float(), cfg.logit_softcap)
         if cfg.padded_vocab != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = -1e30
         return logits
 
-    def _layer_fn(self, kind, x, p, positions, shared, enc):
+    def _layer_fn(self, kind, x, p, positions, shared, enc, tp=None):
         x, _, aux = _apply_block(kind, x, p, self.cfg, positions=positions,
                                  cache=None, chunk_k=self.chunk_k,
                                  shared=shared, enc=enc,
-                                 pad_heads_to=self.pad_heads_to)
+                                 pad_heads_to=self.pad_heads_to, tp=tp)
         return x if aux is None else (x, aux)
 
     def _blocks(self, params, i: int, seg) -> list:
@@ -514,7 +561,7 @@ class LanguageModel:
         return (self.remat != "none" and caches is None
                 and torch.is_grad_enabled())
 
-    def _layers(self, params, x, positions, caches, enc=None):
+    def _layers(self, params, x, positions, caches, enc=None, tp=None):
         """Every layer in order (the ``enc`` segment apart: ``_encode``
         runs it); returns x, the new caches (None without caches), whose
         tensors every layer wrote in place, and the fp32 sum of the MoE
@@ -534,15 +581,16 @@ class LanguageModel:
             for j, lp in enumerate(self._blocks(params, i, seg)):
                 if remat:
                     out = checkpoint(self._layer_fn, seg.kind, x, lp,
-                                     positions, shared, enc,
-                                     use_reentrant=False)
+                                     positions, shared, enc, tp,
+                                     use_reentrant=False,
+                                     context_fn=tpm.recompute_context())
                     x, aux = out if isinstance(out, tuple) else (out, None)
                 else:
                     x, _, aux = _apply_block(
                         seg.kind, x, lp, self.cfg, positions=positions,
                         cache=_layer_cache(c, j), chunk_k=self.chunk_k,
                         shared=shared, enc=enc,
-                        pad_heads_to=self.pad_heads_to)
+                        pad_heads_to=self.pad_heads_to, tp=tp)
                 if aux is not None:
                     aux_total = aux if aux_total is None else aux_total + aux
             if c is not None:
@@ -570,7 +618,7 @@ class LanguageModel:
             pos = pos[:, None, :].expand(x.shape[0], 3, x.shape[1])
         return pos
 
-    def _encode(self, params, batch) -> Optional[torch.Tensor]:
+    def _encode(self, params, batch, tp=None) -> Optional[torch.Tensor]:
         """The enc-dec family's encoder over ``batch["frames"]`` (B, Se,
         d), in the model's dtype plus ``enc_pos_emb``'s first Se rows:
         the ``enc`` blocks, non-causal and without rope, each
@@ -586,23 +634,30 @@ class LanguageModel:
         for lp in self._blocks(params, 0, self.plan[0]):
             if remat:
                 x = checkpoint(self._layer_fn, "enc", x, lp, pos, None, None,
-                               use_reentrant=False)
+                               tp, use_reentrant=False,
+                               context_fn=tpm.recompute_context())
             else:
                 x, _, _ = _apply_block("enc", x, lp, self.cfg, positions=pos,
-                                       cache=None, chunk_k=self.chunk_k)
+                                       cache=None, chunk_k=self.chunk_k,
+                                       tp=tp)
         return x
 
     # -- forward (no cache) ------------------------------------------------
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (fp32 logits (B, S, V), the fp32 aux loss summed over
-        the MoE layers; 0 without them)."""
-        enc = self._encode(params, batch)
-        x = self._embed(params, batch)
+        the MoE layers; 0 without them). Under a mesh's "model" axis the
+        ranks' vocabulary blocks of the logits are gathered."""
+        tp = self._tp()
+        enc = self._encode(params, batch, tp)
+        x = self._embed(params, batch, tp=tp)
         x, _, aux = self._layers(params, x, self._positions(batch, x), None,
-                                 enc)
+                                 enc, tp)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._head(params, x), aux
+        logits = self._head(params, x, tp)
+        if logits.shape[-1] != self.cfg.padded_vocab:
+            logits = tpm.gather_vocab(logits, tp)
+        return logits, aux
 
     def loss(self, params, batch) -> Tuple[torch.Tensor,
                                            Dict[str, torch.Tensor]]:
@@ -615,35 +670,51 @@ class LanguageModel:
         labels = batch.get("labels")
         if labels is None:
             labels = torch.nn.functional.pad(batch["tokens"][:, 1:], (0, 1))
-        enc = self._encode(params, batch)
-        x = self._embed(params, batch)
+        tp = self._tp()
+        enc = self._encode(params, batch, tp)
+        x = self._embed(params, batch, tp=tp)
         x, _, aux = self._layers(params, x, self._positions(batch, x), None,
-                                 enc)
+                                 enc, tp)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x, labels = x.reshape(1, -1, x.shape[-1]), labels.reshape(1, -1)
         n = labels.shape[1]
         if n <= HEAD_ROWS:
-            ce = cross_entropy(self._head(params, x), labels)
+            ce = self._nll(params, x, labels, tp).mean()
             return ce + aux, {"ce": ce, "aux": aux}
         total = None
         for a in range(0, n, HEAD_ROWS):
             xs, ls = x[:, a:a + HEAD_ROWS], labels[:, a:a + HEAD_ROWS]
             if torch.is_grad_enabled():
-                part = checkpoint(self._ce_sum, params, xs, ls,
-                                  use_reentrant=False)
+                part = checkpoint(self._ce_sum, params, xs, ls, tp,
+                                  use_reentrant=False,
+                                  context_fn=tpm.recompute_context())
             else:
-                part = self._ce_sum(params, xs, ls)
+                part = self._ce_sum(params, xs, ls, tp)
             total = part if total is None else total + part
         ce = total / n
         return ce + aux, {"ce": ce, "aux": aux}
 
-    def _ce_sum(self, params, x, labels):
+    def _nll(self, params, x, labels, tp=None):
+        """Per-token cross entropy through the head (vocab-parallel where
+        `tp` splits the vocabulary)."""
+        logits = self._head(params, x, tp)
+        if logits.shape[-1] != self.cfg.padded_vocab:
+            return tpm.vocab_nll(logits, labels, tp)
+        return _nll(logits, labels)
+
+    def _ce_sum(self, params, x, labels, tp=None):
         """The summed cross entropy of a pass of tokens through the
         head."""
-        return _nll(self._head(params, x), labels).sum()
+        return self._nll(params, x, labels, tp).sum()
 
     # -- serving -----------------------------------------------------------
+    def _refuse_mesh(self) -> None:
+        if self._tp() is not None:
+            raise NotImplementedError(
+                "prefill / decode under a mesh's 'model' axis: serving "
+                "under a mesh is not ported (ROADMAP Queue 1 item 4)")
+
     def init_cache(self, batch_size: int, s_max: int) -> dict:
         """Zeroed caches matching the segment plan, length 0: a stacked
         KVCache per ``dense`` or ``moe`` segment, the pair ``{"dense",
@@ -709,6 +780,7 @@ class LanguageModel:
         ``frames`` (enc-dec: the encoder runs here, and each dec layer's
         cross k, v land in its cache). Returns the last position's logits
         (B, 1, V)."""
+        self._refuse_mesh()
         enc = self._encode(params, batch)
         x = self._embed(params, batch)
         x, caches, _ = self._layers(params, x, self._positions(batch, x),
@@ -720,6 +792,7 @@ class LanguageModel:
         tensor of per-row lengths); at the batch's ``positions`` where
         given (a VLM's streams continue from its image grid, not from the
         cache's length). Returns (logits (B, 1, V), caches)."""
+        self._refuse_mesh()
         length = cache_length(caches)
         x = self._embed(params, batch, length)
         x, caches, _ = self._layers(params, x,

@@ -51,10 +51,18 @@ state of record), laid out by the path rules and the plan table. The
 step's batch is the global one; each rank takes its rows
 (``launch/inputs.py::shard_batch``: split over ``("pod", "data")``, or
 replicated where those axes do not divide it). The forward all-gathers
-each param to full through ``_GatherParam``, whose backward sums the full
-gradient over the batch axes with one all-reduce, divides by their size
-and keeps the rank's block: compute is FSDP-style (tensor-parallel
-compute over ``"model"`` is not ported; ROADMAP Queue 1). The loss and the
+each param over the axes other than ``"model"`` through ``_GatherParam``
+(FSDP over ``"data"``), whose backward sums the gradient over the batch
+axes with one all-reduce, divides by their size and keeps the rank's
+block. Over ``"model"`` the compute is tensor-parallel: the model runs
+under the mesh (``sharding.mesh_context``) on each param's ``"model"``
+block (heads, ffn columns, vocabulary rows, experts, SSM heads; the
+models' collectives are ``distributed/tensor_parallel.py``'s), so no
+param block crosses ``"model"``; a replicated param that a rank reads on
+its own part of the work gets its gradient summed over ``"model"`` inside
+the model. ``tp_compute=False`` gathers every param to full instead and
+runs the model as on one device (the audit's ``force-gather-model``
+mutation). The loss and the
 gate's losses are the batch axes' means, so every rank takes the same
 host decisions; the clip's global norm sums each leaf's squares over the
 axes that shard it (``sharding.sum_squares``). With
@@ -77,11 +85,13 @@ import torch
 from repro_torch.core import arena as arena_mod
 from repro_torch.core import controller as ctrl_mod
 from repro_torch.core.accelerator import DMDAccelerator, jump_tree
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.distributed.gradsync import int8_psum_grads
 from repro_torch.core.paths import (by_path, leaves_with_paths,
                                     map_with_paths, tree_map)
 from repro_torch.distributed.sharding import (gather_full, local_shard,
-                                              spec_axes, sum_squares)
+                                              mesh_context, spec_axes,
+                                              sum_squares, without_axis)
 from repro_torch.launch.inputs import batch_axes, shard_batch
 from repro_torch.optim.optimizers import global_norm, init_, make_optimizer
 from repro_torch.train.state import TrainState
@@ -116,16 +126,17 @@ def resolve_grad_accum(acfg, mesh, global_batch: int) -> int:
 # ---------------------------------------------------------------------------
 
 class _GatherParam(torch.autograd.Function):
-    """A rank's block of a param -> the full param (one all-gather per
-    sharded dim). Backward: the full gradient summed over the batch axes
-    the rows were split over (one all-reduce, in the gradient's dtype, as
-    the reference's psum of a bf16 param's gradient is bf16), divided by
-    their size, and cut to the rank's block."""
+    """A rank's block of a param -> the param the forward reads: gathered
+    over the dims `spec` shards (one all-gather per sharded dim, recorded
+    as ``param:<path>``). Backward: the gradient summed over the batch
+    axes the rows were split over (one all-reduce, in the gradient's
+    dtype, as the reference's psum of a bf16 param's gradient is bf16),
+    divided by their size, and cut to the rank's block."""
 
     @staticmethod
-    def forward(ctx, local, spec, mesh, reduce_axes, n):
+    def forward(ctx, local, spec, mesh, reduce_axes, n, path):
         ctx.spec, ctx.mesh, ctx.reduce_axes, ctx.n = spec, mesh, reduce_axes, n
-        return gather_full(local, spec, mesh)
+        return gather_full(local, spec, mesh, what=f"param:{path}")
 
     @staticmethod
     def backward(ctx, g):
@@ -133,21 +144,26 @@ class _GatherParam(torch.autograd.Function):
         if ctx.reduce_axes:
             ctx.mesh.all_reduce(g, ctx.reduce_axes)
             g = g / ctx.n
-        return local_shard(g, ctx.spec, ctx.mesh), None, None, None, None
+        return (local_shard(g, ctx.spec, ctx.mesh), None, None, None, None,
+                None)
 
 
-def _gathered(params: PyTree, specs, mesh, split: bool) -> PyTree:
-    """The full params the model's forward reads, from a rank's blocks;
-    `split` (the batch rows were split) makes the backward reduce over the
-    batch axes."""
+def _gathered(params: PyTree, specs, mesh, split: bool,
+              tp_compute: bool = True) -> PyTree:
+    """The params the model's forward reads, from a rank's blocks: each
+    gathered over its axes other than "model" (every axis without
+    `tp_compute`); `split` (the batch rows were split) makes the backward
+    reduce over the batch axes."""
     axes = batch_axes(mesh) if split else ()
     n = mesh.axis_size(axes)
 
     def one(path, x):
         spec = specs[path]
+        if tp_compute:
+            spec = without_axis(spec, "model")
         if not spec_axes(spec) and not mesh.live_axes(axes):
             return x
-        return _GatherParam.apply(x, spec, mesh, axes, n)
+        return _GatherParam.apply(x, spec, mesh, axes, n, path)
     return map_with_paths(one, params)
 
 
@@ -294,23 +310,34 @@ def _check_mesh_optimizer(acfg, mesh) -> None:
             f"{RESIDENT_OPTIMIZERS} run under a mesh")
 
 
-def _mesh_loss(loss, acc: DMDAccelerator, mesh, split: bool) -> Callable:
-    """`loss` on a rank's blocks: the params gathered to full first
-    (resident views keep their per-leaf paths)."""
-    return lambda p, b: loss(_gathered(p, acc.param_specs, mesh, split), b)
+def _mesh_loss(loss, acc: DMDAccelerator, mesh, split: bool,
+               tp_compute: bool = True) -> Callable:
+    """`loss` on a rank's blocks (resident views keep their per-leaf
+    paths): the params gathered over the axes other than "model" and the
+    model run under the mesh, tensor-parallel over "model"; without
+    `tp_compute` gathered to full and run as on one device."""
+    axes = batch_axes(mesh) if split else ()
+
+    def run(p, b):
+        full = _gathered(p, acc.param_specs, mesh, split, tp_compute)
+        with mesh_context(mesh if tp_compute else None), \
+                tpm.batch_split(mesh, axes):
+            return loss(full, b)
+    return run
 
 
 def make_train_step(model, acfg, *, global_batch=None,
                     loss_fn: Callable = None,
                     acc: Optional[DMDAccelerator] = None, device="cuda",
-                    mesh=None):
+                    mesh=None, tp_compute: bool = True):
     """Returns ``train_step(state, batch, slots=None) -> (state, metrics)``.
 
     `slots` is the per-group slot vector of this step (``acc.slots(step)``,
     a host value); None or all-negative records nothing. The state is
     updated in place and returned; metrics are device tensors. Under
     `mesh` (default: the accelerator's) the state holds this rank's blocks
-    and `batch` is the global batch."""
+    and `batch` is the global batch; the model computes tensor-parallel
+    over "model" (``tp_compute=False``: on params gathered to full)."""
     acc = _accelerator_for(model, acfg, acc, device, mesh)
     mesh = acc.mesh
     _check_mesh_optimizer(acfg, mesh)
@@ -353,7 +380,7 @@ def make_train_step(model, acfg, *, global_batch=None,
         loss_of, split = _loss, False
         if mesh is not None:
             batch, split = shard_batch(batch, mesh)
-            loss_of = _mesh_loss(_loss, acc, mesh, split)
+            loss_of = _mesh_loss(_loss, acc, mesh, split, tp_compute)
             norm_state["axes_of"] = shard_axes_of(acc, params)
 
         if ga > 1 or resident:
@@ -490,7 +517,8 @@ def _blend(pre: PyTree, jump: PyTree, f: float) -> PyTree:
 
 
 def make_dmd_step(acfg, *, acc: Optional[DMDAccelerator] = None, model=None,
-                  loss_fn: Callable = None, device="cuda", mesh=None):
+                  loss_fn: Callable = None, device="cuda", mesh=None,
+                  tp_compute: bool = True):
     """Returns the jump step. Controller off:
     ``dmd_step(state, relax, groups=None) -> (state, info)``. Controller on:
     ``dmd_step(state, relax, eval_batch, groups=None) -> (state, info)``,
@@ -581,7 +609,8 @@ def make_dmd_step(acfg, *, acc: Optional[DMDAccelerator] = None, model=None,
             if mesh is None:
                 return _loss(p, eval_batch)
             rows, split = shard_batch(eval_batch, mesh)
-            local = _mesh_loss(_loss, acc, mesh, split)(p, rows)
+            local = _mesh_loss(_loss, acc, mesh, split, tp_compute)(p,
+                                                                    rows)
             if not split:
                 return local
             # the batch axes' mean, bit for bit, carrying this rank's
@@ -674,7 +703,7 @@ def _rebinding(fn: Callable, n_state: int) -> Callable:
 
 def audit_step_fns(model, acfg, *, acc: Optional[DMDAccelerator] = None,
                    loss_fn: Callable = None, donate: bool = True,
-                   device="cuda", mesh=None):
+                   device="cuda", mesh=None, tp_compute: bool = True):
     """The audit's surface (``repro_torch.audit.targets``): every hot entry
     point, built as the Trainer builds it, and their shared accelerator.
 
@@ -689,13 +718,16 @@ def audit_step_fns(model, acfg, *, acc: Optional[DMDAccelerator] = None,
     Each writes its state in place. ``donate=False`` is the seeded
     violation (the audit's ``drop-donation``): each step then rebinds its
     state to fresh tensors instead of writing it in place through
-    ``assign_``. Under `mesh` each works on this rank's blocks."""
+    ``assign_``. Under `mesh` each works on this rank's blocks
+    (``tp_compute=False``: the model reads params gathered to full, the
+    audit's ``force-gather-model``)."""
     acc = _accelerator_for(model, acfg, acc, device, mesh)
     fns = {
         "train_step": make_train_step(model, acfg, loss_fn=loss_fn, acc=acc,
-                                      device=device),
+                                      device=device, tp_compute=tp_compute),
         "dmd_step": make_dmd_step(acfg, acc=acc, model=model,
-                                  loss_fn=loss_fn, device=device),
+                                  loss_fn=loss_fn, device=device,
+                                  tp_compute=tp_compute),
     }
 
     def record_update(buffers, grams, params, slots):

@@ -190,12 +190,17 @@ def test_mutation_fails_exactly_its_pass(name):
 
 
 def test_only_force_allgather_is_missing():
-    """Every reference mutation is ported; force-allgather (the one that
-    needs a mesh, tests/test_torch_distributed.py) refuses a one-device
-    build, and a mesh build needs a process group."""
-    assert set(list_mutations()) == set(ref_mutations())
+    """Every reference mutation is ported, beside the port's own
+    force-gather-model; force-allgather and force-gather-model (the ones
+    that need a mesh, tests/test_torch_distributed.py) refuse a
+    one-device build, and a mesh build needs a process group."""
+    assert set(list_mutations()) == set(ref_mutations()) | {
+        "force-gather-model"}
     assert [n for n in list_mutations() if get_mutation(n).needs_mesh] == \
-        ["force-allgather"]
+        ["force-allgather", "force-gather-model"]
+    with pytest.raises(ValueError, match="needs --mesh"):
+        build_context("pollutant-mlp", reduced=True,
+                      mutate="force-gather-model", device="cpu")
     with pytest.raises(ValueError, match="needs --mesh"):
         build_context("pollutant-mlp", reduced=True, mutate="force-allgather",
                       device="cpu")

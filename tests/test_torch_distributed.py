@@ -466,6 +466,18 @@ def test_mesh_audit_green_and_force_allgather_fails_the_budget(ranks):
         assert "all_gather" in a["force-allgather"]["record"]
 
 
+def test_mesh_audit_force_gather_model_fails_the_budget(ranks):
+    """Under ``--mesh 2x2`` the clean build's train_step gathers no param
+    block over "model" (its compute is tensor-parallel); with
+    ``force-gather-model`` (the gather-everything compute before it) it
+    does, and exactly collective-budget fails."""
+    for r in ranks:
+        a = r["audit"]
+        assert a["clean"]["model_gathers"] == 0
+        assert a["force-gather-model"]["model_gathers"] > 0
+        assert a["force-gather-model"]["failed"] == ["collective-budget"]
+
+
 # -- the entry points -------------------------------------------------------
 
 def test_launcher_trains_on_a_mesh(tmp_path):

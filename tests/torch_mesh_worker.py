@@ -30,9 +30,11 @@ from repro_torch.models.mlp_net import MLPModel
 from repro_torch.models.transformer import LanguageModel
 from repro_torch.train import Trainer
 
-# the small LM (tests/test_torch_lm_train.py's), fp32: its (2, 2) mesh run
-# is held to the one-process run at the Trainer tests' 1e-5
-SMALL = dict(n_layers=2, d_model=32, d_ff=64, vocab_size=128, n_heads=2,
+# the small LM (tests/test_torch_lm_train.py's, with 4 q heads: its
+# compute is head-parallel over "model", and the (1, 4) mesh a run is
+# restored onto splits 4 heads, where 2 would need kv-SP), fp32: its
+# (2, 2) mesh run is held to the one-process run at the Trainer tests' 1e-5
+SMALL = dict(n_layers=2, d_model=32, d_ff=64, vocab_size=128, n_heads=4,
              n_kv_heads=1, head_dim=16, dtype="float32")
 LM_B, LM_S = 4, 16
 LM_DMD = dict(enabled=True, m=4, s=10, tol=1e-4, warmup_steps=4,
@@ -279,7 +281,7 @@ def _planted_fault(mesh, inputs) -> dict:
 
     def own_rows(ctx, g):
         return (sharding.local_shard(g.contiguous(), ctx.spec, ctx.mesh),
-                None, None, None, None)
+                None, None, None, None, None)
     fn.backward = staticmethod(own_rows)
     try:
         tr = _lm_trainer(lm_cfg(), mesh)
