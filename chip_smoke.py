@@ -10,7 +10,8 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
 2. Build the CUDA kernels (``src/repro_torch/kernels/csrc/*.cu``, one
    ``nvcc`` per source, in parallel) and print ptxas's registers, shared
    memory and spills (``-Xptxas -v``) of the Hopper flash-attention design
-   (with and without its log-sum-exp output), of K7b's Hopper design
+   (with and without its log-sum-exp output, and at a key offset), of
+   K7b's Hopper design
    (its three kernels) and of K1 and K3-K6; K7's design, K7b's at d 64,
    K1, K5 and every m <= 16 instantiation of K3 and K6 must not spill,
    and every one of those instantiations must be in the report. ptxas's
@@ -64,7 +65,7 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    slices of one fused tensor); repeat launches bit-identical; timings at
    the 4096 shape and the largest serve prefill shape beside the bound and
    ``scaled_dot_product_attention``, with K7's time over SDPA's and its
-   CUDA-graph replay time.
+   CUDA-graph replay time. A row that sees no key must be exactly 0.
 9. The serving path at TinyLlama-1.1B's full width (22 layers, d 2048,
    32/4 heads, vocab 32000, bf16, random weights from a seeded generator on
    the card) through ``repro_torch.launch.serve``: the launcher's stream of
@@ -466,7 +467,28 @@ Phases, in order; any failed check exits non-zero (nothing is caught):
    (``TP_FAULTS``: MiniCPM's MLP row-parallel all-reduce dropped,
    Mamba2's ``norm_scale`` sum over "model" dropped) outside them, K7
    and K7b through wgmma on every rank of the attention families, no
-   param block gathered over "model". The phase's wall time is printed.
+   param block gathered over "model". (g) kv-SP (k and v split by
+   sequence over "model", q whole on every rank, the blocks' attention
+   merged by their log-sum-exps): ``KV_SP_CELLS`` at full width on the
+   (2, 2) mesh against one rank (``tp_gradients``, one microbatch of 2 x
+   1024 tokens), TinyLlama-1.1B at one layer in the reference's
+   ``--reduced`` layout (head_tp False) and Whisper-base at full depth as
+   its config lays it out (head_tp None: kv-SP in all 18 attention
+   calls, 1500 frames): the loss within ``TP_LOSS_TOL``, each gradient
+   block within ``TP_GRAD_TOL`` of its leaf's norm, no param block
+   gathered over "model", the attention's collectives over "model"
+   equal to their analytic bytes site by site (``_kv_sp_sites``), every
+   K7 and K7b launch through wgmma and those of a rank past the first's
+   self-attention at a key offset (``LAUNCHES[..._offset]``), and the
+   planted faults (``KV_SP_FAULTS``: the merge without its weights, dq
+   without its sum over "model") outside the limits; (e)'s audit runs
+   kv-SP (its merge's collectives made). Then, the card to itself, K7 and
+   K7b with a key offset against their twins (``KV_SP_CHECKS`` in fp32
+   and bf16, both designs), the planted blind CTAs (``KV_SP_BLIND``: out
+   0, log-sum-exp -1e30, zero gradients, no hang), the merge of two
+   halves against the whole and K7b on the merged output against its
+   twin, and ``KV_SP_CASES`` timed beside their bounds and SDPA under
+   the same boolean mask. The phase's wall time is printed.
    The script's wall time is printed before the kernels' line.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -568,6 +590,8 @@ def reset_counts():
 # design counters: a subset of their kernel's launches, not another kernel
 DESIGNS = {"flash_attention_wgmma": "flash_attention",
            "flash_attention_bwd_wgmma": "flash_attention_bwd",
+           "flash_attention_offset": "flash_attention",
+           "flash_attention_bwd_offset": "flash_attention_bwd",
            "gram_row_bwd": "gram_row", "flat_gram_row_bwd": "flat_gram_row"}
 
 
@@ -963,15 +987,17 @@ NO_SPILL_M16 = ("arena_gram_k", "gram_flat")
 
 
 def _kernel_name(mangled):
-    """flash_wgmma<64> and flash_wgmma<64,lse> (K7), bwd_rows_wgmma<64>,
+    """flash_wgmma<64>, flash_wgmma<64,lse> and flash_wgmma<64,off> (K7:
+    with its log-sum-exp; at a key offset, with it), bwd_rows_wgmma<64>,
     bwd_dkdv_wgmma<64> and bwd_dq_wgmma<64> (K7b's Hopper design),
     row_part<float,16,vec=1> (K4), arena_row<...>
     (K1), combine_flat<...> (K5), arena_gram_k<...> (K3) and
     gram_flat<...> (K6) from ptxas's mangled names, with their MMAX (None
     for K7 and K7b)."""
     if m := re.search(r"flash_wgmmaILi(\d+)E", mangled):
-        lse = ",lse" if "ProblemLse" in mangled else ""   # with its LSE
-        return f"flash_wgmma<{m.group(1)}{lse}>", None
+        extra = (",lse" if "ProblemLse" in mangled        # with its LSE
+                 else ",off" if "ProblemOff" in mangled else "")
+        return f"flash_wgmma<{m.group(1)}{extra}>", None
     if m := re.search(r"(bwd_(?:rows|dkdv|dq)_wgmma)ILi(64|128)E", mangled):
         return f"{m.group(1)}<{m.group(2)}>", None       # K7b, Hopper
     if m := re.search(r"(row_part|arena_row|combine_flat|arena_gram_k|"
@@ -1006,8 +1032,8 @@ def report_ptxas():
     want = {f"{k}<{d},{mm},vec={v}>" for k in NO_SPILL_M16
             for d in ("float", "bf16") for mm in (8, 16, 32) for v in (0, 1)}
     want |= {f"{k}<{d}>" for k in BWD_KERNELS for d in (64, 128)}
-    want |= {f"flash_wgmma<{d}{lse}>" for d in (64, 128)
-             for lse in ("", ",lse")}
+    want |= {f"flash_wgmma<{d}{extra}>" for d in (64, 128)
+             for extra in ("", ",lse", ",off")}
     require(want <= seen, f"ptxas report lacks {sorted(want - seen)}")
     # ptxas's notes where it serialises a kernel's wgmma (it then waits for
     # each product before the next instruction): printed, not required
@@ -1173,34 +1199,45 @@ def _flash_inputs(case, dtype, dev, seed):
             for shape in ((B, Sq, H, d), (B, Sk, K, d), (B, Sk, K, d))]
 
 
-def _flash_pairs(Sq, Sk, causal, window):
+def _offset(case):
+    """A case's key offset: its ninth entry, 0 where it has none."""
+    return case[8] if len(case) > 8 else 0
+
+
+def _flash_pairs(Sq, Sk, causal, window, k_offset=0):
     """Visible (query, key) pairs of one head: the work the data needs."""
-    return int(kf._mask(Sq, Sk, causal, window, "cpu").sum())
+    return int(kf._mask(Sq, Sk, causal, window, "cpu", k_offset).sum())
 
 
 def _check_flash_case(case, dtype, dev, seed, qkv=None):
     """K7 on one case against its twin; both launches through the design
-    its dtype and d select. `qkv` replaces the drawn inputs."""
-    causal, window = case[6], case[7]
+    its dtype and d select. A row that sees no key must be exactly 0.
+    `qkv` replaces the drawn inputs."""
+    causal, window, off = case[6], case[7], _offset(case)
     q, k, v = qkv or _flash_inputs(case, dtype, dev, seed)
     w0 = kf.LAUNCHES["flash_attention_wgmma"]
-    got = kf.flash_attention(q, k, v, causal=causal, window=window)
+    got = kf.flash_attention(q, k, v, causal=causal, window=window,
+                             k_offset=off)
     require(torch.equal(got, kf.flash_attention(q, k, v, causal=causal,
-                                                window=window)),
+                                                window=window,
+                                                k_offset=off)),
             f"flash {case} {dtype} not repeatable")
     require(kf.LAUNCHES["flash_attention_wgmma"] - w0 ==
             2 * kf.uses_wgmma(dtype, case[5]),
             f"flash {case} {dtype}: wrong design launched")
-    want = kf.flash_attention_ref(q, k, v, causal=causal, window=window)
-    rows = kf._mask(case[1], case[2], causal, window, dev).any(dim=1)
+    want = kf.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                  k_offset=off)
+    rows = kf._mask(case[1], case[2], causal, window, dev, off).any(dim=1)
     diff = (got[:, rows].float() - want[:, rows].float()).abs()
     atol, rtol = FLASH_TOL[dtype]
     limit = atol + rtol * want[:, rows].float().abs()
     require(torch.isfinite(got.float()).all(), f"flash {case}: non-finite")
+    require(not (got[:, ~rows] != 0).any(), f"flash {case} {dtype}: a row "
+            "that sees no key is not 0")
+    err = float(diff.max()) if diff.numel() else 0.0
     require(bool((diff <= limit).all()), f"flash {case} {dtype}: max "
-            f"|kernel - twin| {float(diff.max())} beyond {atol} + "
-            f"{rtol}|twin|")
-    return float(diff.max()), (q, k, v)
+            f"|kernel - twin| {err} beyond {atol} + {rtol}|twin|")
+    return err, (q, k, v)
 
 
 def check_flash(dev):
@@ -1240,12 +1277,12 @@ def check_flash(dev):
     return record
 
 
-def _sdpa_mask(Sq, Sk, causal, window, dev):
+def _sdpa_mask(Sq, Sk, causal, window, dev, k_offset=0):
     """SDPA's (is_causal, attn_mask) for K7's mask: is_causal alone where
-    there is no window, else the boolean mask itself."""
-    if not window:
+    there is no window and no key offset, else the boolean mask itself."""
+    if not window and not k_offset:
         return causal, None
-    return False, kf._mask(Sq, Sk, causal, window, dev)
+    return False, kf._mask(Sq, Sk, causal, window, dev, k_offset)
 
 
 def time_flash(case, dev, seed=7):
@@ -1253,22 +1290,24 @@ def time_flash(case, dev, seed=7):
     SDPA under the same mask) and replayed beside its bound (the pairs
     the mask lets through); returns its record."""
     err, (q, k, v) = _check_flash_case(case, torch.bfloat16, dev, seed)
-    B, Sq, Sk, H, K, d, causal, window = case
+    B, Sq, Sk, H, K, d, causal, window = case[:8]
+    off = _offset(case)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    is_causal, mask = _sdpa_mask(Sq, Sk, causal, window, dev)
+    is_causal, mask = _sdpa_mask(Sq, Sk, causal, window, dev, off)
     kern = lambda: kf.flash_attention(q, k, v, causal=causal,  # noqa: E731
-                                      window=window)
+                                      window=window, k_offset=off)
     k_ms, l_ms = in_turns(
         kern, lambda: sdpa(qt, kt, vt, is_causal=is_causal, attn_mask=mask,
                            enable_gqa=True))
-    p_ms = cuda_ms(lambda: kf.flash_attention_ref(q, k, v, causal=causal,
-                                                  window=window), iters=5)
-    flops = 4.0 * d * _flash_pairs(Sq, Sk, causal, window) * B * H
+    p_ms = cuda_ms(lambda: kf.flash_attention_ref(
+        q, k, v, causal=causal, window=window, k_offset=off), iters=5)
+    flops = 4.0 * d * _flash_pairs(Sq, Sk, causal, window, off) * B * H
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
     mask_s = ("causal" if causal else "non-causal") + (
-        f" window {window}" if window else "")
+        f" window {window}" if window else "") + (
+        f" k_offset {off}" if off else "")
     print(f"kernel flash_attention bf16 {case[:6]} {mask_s}: kernel_ms "
           f"{k_ms} ref_ms {p_ms} sdpa_ms {l_ms} bound_ms {b_ms} ({b_by})"
           f" max_abs_err {err} TFLOP/s {flops / k_ms / 1e9}")
@@ -2804,7 +2843,7 @@ def _bwd_control(q, k, v, out, dout, *, drop=0):
     for b in range(B):
         qb, kb, vb, ob, gb = (t[b:b + 1].float()
                               for t in (q, k, v, out, dout))
-        s, _ = kf._scores_ref(q[b:b + 1], k[b:b + 1], True, 0)
+        s = kf._scores_ref(q[b:b + 1], k[b:b + 1], True, 0)[0]
         p = torch.exp(s - lse[b:b + 1, :, :, None])      # (1, H, S, S)
         del s
         if drop:
@@ -2827,29 +2866,26 @@ def _bwd_case(case, dtype, dev, seed):
     """K7 with its log-sum-exp and K7b on one case against the twins;
     returns ({gradient: row error, "max_abs": largest |kernel - twin|},
     the log-sum-exp's error, inputs, forward outputs)."""
-    B, Sq, Sk, H, K, d, causal, window = case
+    B, Sq, Sk, H, K, d, causal, window = case[:8]
+    off = _offset(case)
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dtype)
                      for shape in ((B, Sq, H, d), (B, Sk, K, d),
                                    (B, Sk, K, d), (B, Sq, H, d)))
-    out, lse = kf.flash_attention_lse(q, k, v, causal=causal, window=window)
-    require(torch.equal(out, kf.flash_attention(q, k, v, causal=causal,
-                                                window=window)),
+    mask = dict(causal=causal, window=window, k_offset=off)
+    out, lse = kf.flash_attention_lse(q, k, v, **mask)
+    require(torch.equal(out, kf.flash_attention(q, k, v, **mask)),
             f"K7 {case} {dtype}: the log-sum-exp output changed the output")
-    lse_err = float((lse - kf.lse_ref(q, k, causal=causal, window=window))
-                    .abs().max())
+    lse_err = float((lse - kf.lse_ref(q, k, **mask)).abs().max())
     require(lse_err <= LSE_ATOL, f"K7 {case} {dtype}: log-sum-exp off its "
             f"twin by {lse_err} > {LSE_ATOL}")
     w0 = kf.LAUNCHES["flash_attention_bwd_wgmma"]
-    got = kf.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
-                                 window=window)
-    again = kf.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
-                                   window=window)
+    got = kf.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    again = kf.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
     require(kf.LAUNCHES["flash_attention_bwd_wgmma"] - w0 ==
             2 * kf.uses_wgmma(dtype, d), f"K7b {case} {dtype}: wrong design "
             "launched")
-    want = kf.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
-                                      window=window, out=out)
+    want = kf.flash_attention_bwd_ref(q, k, v, dout, out=out, **mask)
     errs = {"max_abs": max(max_err(a.float(), w.float())
                            for a, w in zip(got, want))}
     for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
@@ -2914,12 +2950,13 @@ def time_flash_bwd(case, dev, seed=7):
         case, torch.bfloat16, dev, seed=seed)
     err = max(errs[g] for g in ("dq", "dk", "dv"))
     torch.cuda.empty_cache()
-    B, Sq, Sk, H, K, d, causal, window = case
+    B, Sq, Sk, H, K, d, causal, window = case[:8]
+    off = _offset(case)
     kern = lambda: kf.flash_attention_bwd(  # noqa: E731
-        q, k, v, out, dout, lse, causal=causal, window=window)
+        q, k, v, out, dout, lse, causal=causal, window=window, k_offset=off)
     leaves = [t.transpose(1, 2).detach().requires_grad_(True)
               for t in (q, k, v)]
-    is_causal, mask = _sdpa_mask(Sq, Sk, causal, window, dev)
+    is_causal, mask = _sdpa_mask(Sq, Sk, causal, window, dev, off)
     with torch.enable_grad():
         o_lib = torch.nn.functional.scaled_dot_product_attention(
             *leaves, is_causal=is_causal, attn_mask=mask, enable_gqa=True)
@@ -2928,15 +2965,17 @@ def time_flash_bwd(case, dev, seed=7):
                                       retain_graph=True)
     k_ms, l_ms = in_turns(kern, lib, iters=20)
     p_ms = cuda_ms(lambda: kf.flash_attention_bwd_ref(
-        q, k, v, dout, causal=causal, window=window), iters=3, warmup=1)
+        q, k, v, dout, causal=causal, window=window, k_offset=off), iters=3,
+        warmup=1)
     g_ms = graph_ms(kern)
-    pairs = _flash_pairs(Sq, Sk, causal, window)
+    pairs = _flash_pairs(Sq, Sk, causal, window, off)
     flops = 10.0 * d * pairs * B * H          # S, dP, dV, dK, dQ
     # q, O, dO in and dq out; k, v in and dk, dv out; the log-sum-exp in
     nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
     mask_s = ("causal" if causal else "non-causal") + (
-        f" window {window}" if window else "")
+        f" window {window}" if window else "") + (
+        f" k_offset {off}" if off else "")
     print(f"kernel flash_attention_bwd bf16 {case[:6]} {mask_s}: kernel_ms "
           f"{k_ms} graph_ms {g_ms} ref_ms {p_ms} sdpa_bwd_ms {l_ms} "
           f"bound_ms {b_ms} ({b_by}) row error {err} TFLOP/s "
@@ -2947,11 +2986,132 @@ def time_flash_bwd(case, dev, seed=7):
     del o_lib, leaves
     rec = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=l_ms, max_abs_err=errs["max_abs"], row_err=err,
-               graph_ms=g_ms, shape=list(case[:6]))
+               graph_ms=g_ms, shape=list(case[:6]), k_offset=off)
     if "control" in errs:
         rec.update(control_row_err=errs["control"],
                    wrong_row_err=errs["wrong"])
     return rec
+
+
+# kv-SP's key offset (B, Sq, Sk, H, K, d, causal, window, k_offset) at the
+# ranks' full-width shapes under a "model" axis of 2, timed: TinyLlama's
+# 1024 tokens split in two (rank 0's keys, rank 1's at offset 512), Gemma3's
+# window layer at 4096 (rank 1), Whisper's encoder (1500 frames, rank 1's
+# 750) and its cross-attention (1024 queries over 750 frames,
+# non-causal), and d 80 through the sm_80-unit design
+KV_SP_CASES = {
+    "kv-sp tinyllama r0": (1, 1024, 512, 32, 4, 64, True, 0, 0),
+    "kv-sp tinyllama r1": (1, 1024, 512, 32, 4, 64, True, 0, 512),
+    "kv-sp gemma window r1": (1, 4096, 2048, 32, 16, 128, True, 1024, 2048),
+    "kv-sp whisper encoder r1": (1, 1500, 750, 8, 8, 64, False, 0, 750),
+    "kv-sp whisper cross r1": (1, 1024, 750, 8, 8, 64, False, 0, 750),
+    "kv-sp d80 r1": (1, 1024, 512, 32, 32, 80, True, 0, 512),
+}
+# checked in fp32 and bf16 (both designs), not timed: offsets at the tile
+# edges, odd lengths, a window across the offset, non-causal
+KV_SP_CHECKS = [(1, 300, 150, 8, 2, 64, True, 0, 150),
+                (1, 257, 129, 4, 4, 128, True, 64, 128),
+                (2, 200, 77, 4, 1, 80, True, 0, 123),
+                (1, 129, 64, 8, 8, 64, False, 0, 65)]
+# planted: the keys past every query, so that no row of any CTA sees a key
+# (out 0, log-sum-exp -1e30, dq, dk and dv 0, and no hang), through the
+# Hopper design (bf16 d 64) and the sm_80-unit ones (bf16 d 80, fp32)
+KV_SP_BLIND = [(1, 256, 128, 8, 2, 64, True, 0, 256),
+               (1, 256, 128, 8, 2, 80, True, 0, 300)]
+
+
+def _check_blind(case, dtype, dev):
+    """A KV_SP_BLIND case: every output exactly the no-key contract."""
+    _, _, (q, k, v, dout), (out, lse) = _bwd_case(case, dtype, dev, seed=11)
+    mask = dict(causal=case[6], window=case[7], k_offset=_offset(case))
+    grads = kf.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
+    torch.cuda.synchronize()
+    require(not out.any() and bool((lse == kf.NEG_INF).all())
+            and not any(t.any() for t in grads), f"blind {case} {dtype}: "
+            f"out {float(out.float().abs().max())}, lse "
+            f"{float(lse.max())}, grads "
+            f"{[float(t.float().abs().max()) for t in grads]}")
+
+
+def _check_merge(dev, seed=13):
+    """kv-SP at TinyLlama's shape on one card, in plain PyTorch around the
+    kernels: K7 on the two halves of the keys (offsets 0 and 512) merged
+    by their log-sum-exps equals K7 over all of them; K7b on each half
+    given the merged output and log-sum-exp equals its twin on them
+    (``flash_attention_bwd_ref(..., lse=)``), row by row. Returns the
+    errors."""
+    B, S, H, K, d = 1, 1024, 32, 4, 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, dout = (torch.randn((B, S, H, d), generator=g, device=dev).bfloat16()
+               for _ in range(2))
+    k, v = (torch.randn((B, S, K, d), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    halves = [(0, S // 2), (S // 2, S)]
+    parts = [kf.flash_attention_lse(q, k[:, a:b], v[:, a:b], k_offset=a)
+             for a, b in halves]
+    m = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp(lse - m).transpose(1, 2)[..., None] for _, lse in parts]
+    den = w[0] + w[1]
+    out = ((parts[0][0].float() * w[0] + parts[1][0].float() * w[1])
+           / den).bfloat16()
+    L = (m + torch.log(den[..., 0]).transpose(1, 2)).contiguous()
+    whole, lse = kf.flash_attention_lse(q, k, v)
+    errs = {"out": max_err(out.float(), whole.float()),
+            "lse": float((L - lse).abs().max())}
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    require(bool(((out.float() - whole.float()).abs()
+                  <= atol + rtol * whole.float().abs()).all())
+            and errs["lse"] <= LSE_ATOL, f"kv-SP merge: {errs}")
+    for a, b in halves:
+        got = kf.flash_attention_bwd(q, k[:, a:b], v[:, a:b], out, dout, L,
+                                     k_offset=a)
+        want = kf.flash_attention_bwd_ref(q, k[:, a:b], v[:, a:b], dout,
+                                          k_offset=a, out=out, lse=L)
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            errs[f"{name} [{a}, {b})"] = row_err(x, y)
+    require(max(v_ for n, v_ in errs.items() if n[0] == "d")
+            <= BWD_ROW_TOL[torch.bfloat16], f"kv-SP K7b on the merged "
+            f"output: {errs}")
+    return errs
+
+
+def check_kv_sp_kernels(dev, records):
+    """Phase 21(g), the kernels: K7 and K7b with a key offset against their
+    twins (KV_SP_CHECKS in fp32 and bf16, KV_SP_CASES in bf16, the launches
+    counted under the offset keys), the planted blind CTAs (KV_SP_BLIND),
+    the merge of two halves against the whole (``_check_merge``), and
+    KV_SP_CASES timed beside their bounds and SDPA under the same boolean
+    mask, into `records`."""
+    n = 0
+    for case in KV_SP_CHECKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            _check_flash_case(case, dtype, dev, seed=500 + n)
+            _bwd_case(case, dtype, dev, seed=500 + n)
+            n += 1
+    blind = 0
+    for case in KV_SP_BLIND:
+        for dtype in (torch.float32, torch.bfloat16):
+            _check_blind(case, dtype, dev)
+            blind += 1
+    merge = _check_merge(dev)
+    print(f"kv-sp kernels: {n} offset cases match the twins (K7 within "
+          f"{FLASH_TOL}, K7b row by row within {BWD_ROW_TOL}); {blind} blind "
+          f"cases give out 0, log-sum-exp -1e30 and zero gradients; the "
+          f"merge of two halves vs the whole and K7b on the merged output "
+          f"{merge}")
+    for tag, case in KV_SP_CASES.items():
+        w0 = dict(kf.LAUNCHES)
+        records["flash_attention"][tag] = time_flash(case, dev)
+        records["flash_attention_bwd"][tag] = time_flash_bwd(case, dev)
+        require(records["flash_attention_bwd"][tag]["row_err"]
+                <= BWD_ROW_TOL[torch.bfloat16], f"kv-sp K7b {tag}: "
+                f"{records['flash_attention_bwd'][tag]}")
+        off = {k: kf.LAUNCHES[k] - w0[k] for k in
+               ("flash_attention_offset", "flash_attention_bwd_offset")}
+        require(min(off.values()) > 0 if _offset(case)
+                else not any(off.values()), f"kv-sp {tag}: offset "
+                f"launches {off}")
+    records["flash_attention"]["kv_sp_merge"] = merge
 
 
 def _gram_row_f64(x, q, block_sys, n_sys, anchor, chunk=1 << 16):
@@ -5475,6 +5635,20 @@ TP_GRAD_TOL = 0.1
 # K7 / K7b timed at a rank's shapes (B, Sq, Sk, H, K, d, causal, window):
 # (b)'s TinyLlama rank, then (f)'s MiniCPM (moved, padded MHA), Granite
 # (one kv head) and Qwen3 ranks
+# (g) kv-SP at full width on the (2, 2) mesh against one rank, one
+# microbatch of TP_B x TP_S tokens: TinyLlama-1.1B at KV_SP_LAYERS layers
+# in the reference's --reduced layout (head_tp False: 32 / 4 heads of 64
+# on every rank, rank 1's keys at offset 512), and Whisper-base at its
+# full depth as its config lays it out (head_tp None: kv-SP in all 18
+# attention calls, the encoder's and the cross-attention's over 1500
+# frames, 750 a rank); held to TP_LOSS_TOL and TP_GRAD_TOL
+KV_SP_CELLS = ("tinyllama-1.1b", "whisper-base")
+KV_SP_LAYERS = 1
+WHISPER_PARAMS = 88_175_616
+# the planted faults of kv-SP (distributed/checks.py) and the cell each
+# runs on: the merge without its weights, dq without its sum over "model"
+KV_SP_FAULTS = {"kv-sp-unweighted-merge": "tinyllama-1.1b",
+                "kv-sp-drop-dq-sum": "tinyllama-1.1b"}
 TP_K7_CASES = {"tinyllama rank": (4, 1024, 1024, 16, 2, 64, True, 0),
                "minicpm rank": (1, 1024, 1024, 24, 24, 64, True, 0),
                "granite rank": (1, 1024, 1024, 24, 1, 128, True, 0),
@@ -5934,6 +6108,195 @@ def _mesh_tp_families(mesh, dev):
     return {arch: _tp_family(mesh, dev, arch) for arch in TP_FAMILIES}
 
 
+def _site_bytes(rec) -> dict:
+    """The activation collectives over "model" among `rec` by (kind,
+    site): their bytes."""
+    out: dict = {}
+    for c in rec:
+        if c["axes"] == ("model",) and c["what"] and not str(
+                c["what"]).startswith("param:"):
+            key = (c["kind"], str(c["what"]))
+            out[key] = out.get(key, 0) + c["bytes"]
+    return out
+
+
+def _kv_sp_sites(cfg, calls, tp=2) -> dict:
+    """The analytic bytes by (kind, site) of kv-SP attention calls over a
+    "model" axis of `tp`, one forward and backward without remat; `calls`
+    lists (query tokens, key tokens, cross) a rank computes: the input's
+    gradient all-reduced ("attn"), q's column blocks all-gathered and its
+    gradient all-reduced whole ("attn.q"), k's and v's likewise
+    ("attn.k", "attn.v"; over the key tokens), the merge's max and its
+    weighted fp32 outputs with their weights ("attn.merge.max", ".sum"),
+    dO summed ("attn.merge.dout"), the output projection's partial sums
+    ("attn.wo"), and cross-attention's encoder output's gradient
+    ("cross.kv")."""
+    p = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    H, K, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    out: dict = {}
+
+    def add(kind, site, n):
+        out[(kind, site)] = out.get((kind, site), 0) + n
+    for tq, tk, cross in calls:
+        add("all_reduce", "attn", tq * d * p)
+        add("all_reduce", "attn.wo", tq * d * p)
+        add("all_gather", "attn.q", tq * H * hd // tp * p)
+        add("all_reduce", "attn.q", tq * H * hd * p)
+        for site in ("attn.k", "attn.v"):
+            add("all_gather", site, tk * K * hd // tp * p)
+            add("all_reduce", site, tk * K * hd * p)
+        add("all_reduce", "attn.merge.max", tq * H * 4)
+        add("all_reduce", "attn.merge.sum", tq * H * (hd + 1) * 4)
+        add("all_reduce", "attn.merge.dout", tq * H * hd * p)
+        if cross:
+            add("all_reduce", "cross.kv", tk * d * p)
+    return out
+
+
+def _kv_sp_model(arch, dev, mesh):
+    """Phase 21(g)'s model of `arch` (KV_SP_CELLS) and its ArchConfig."""
+    if arch == "tinyllama-1.1b":
+        # the reference's --reduced launch layout at full width: head_tp
+        # False, no remat
+        acfg = launch_train.configure(arch, steps=1, global_batch=TP_B,
+                                      seq=TP_S, n_layers=KV_SP_LAYERS)
+        return launch_train.make_model(acfg, reduced=True, device=dev,
+                                       mesh=mesh), acfg
+    # Whisper at full depth as its config lays it out: head_tp None (8
+    # heads are no multiple of 16: kv-SP), its pad_attn_heads_to 16
+    acfg = launch_train.configure(arch, steps=1, global_batch=TP_B,
+                                  seq=TP_S)
+    return tfm.LanguageModel(
+        acfg.model, head_tp=None, chunk_k=min(TP_S, 1024),
+        remat=acfg.parallel.remat, device=dev,
+        pad_heads_to=acfg.parallel.pad_attn_heads_to), acfg
+
+
+def _kv_sp_cell(mesh, dev, arch):
+    """Phase 21(g), one cell: the model in kv-SP at full width on the (2, 2)
+    mesh against one rank on the same params and batch (each rank runs
+    the one-rank reference itself), the collectives over "model" by site
+    against ``_kv_sp_sites``, the offset launches, and on TinyLlama
+    KV_SP_FAULTS."""
+    t0 = time.perf_counter()
+    model, acfg = _kv_sp_model(arch, dev, mesh)
+    mc = acfg.model
+    gen = torch.Generator(device=dev).manual_seed(acfg.train.seed)
+    params = dict(leaves_with_paths(model.init(gen)))
+    n_params = sum(x.numel() for x in params.values())
+    batch = next(synthetic_lm_batches(acfg.train.seed, TP_B, TP_S,
+                                      mc.vocab_size, device=dev,
+                                      **stream_kwargs(mc)))
+    one = mesh_checks.one_rank(model, params, batch)
+    reset_counts()
+    res = mesh_checks.tp_gradients(model, params, batch, mesh, one=one)
+    torch.cuda.synchronize()
+    lc = all_counts()
+    rows = TP_B // mesh.axis_size("data")
+    tq = rows * TP_S
+    if mc.family == "encdec":
+        te = rows * mc.encoder_seq_len
+        calls = ([(te, te, False)] * mc.n_encoder_layers
+                 + [(tq, tq, False), (tq, te, True)] * mc.n_layers)
+        n_attn = mc.n_encoder_layers + 2 * mc.n_layers
+    else:
+        calls, n_attn = [(tq, tq, False)] * mc.n_layers, mc.n_layers
+    sites = _site_bytes(res["collectives"])
+    want = _kv_sp_sites(mc, calls)
+    # a rank past the first holds keys at an offset in every self-attention
+    # (cross-attention's blocks go in at offset 0: no position enters a
+    # non-causal mask)
+    n_offset = (0 if mesh.axis_index("model") == 0
+                else sum(not cross for _, _, cross in calls))
+    l2 = res["grad_err_l2"]
+    out = {"model_index": mesh.axis_index("model"), "n_offset": n_offset,
+           "head_tp": model.head_tp, "params": n_params, "n_attn": n_attn,
+           "loss": res["loss"], "loss_one": one[0],
+           "loss_err": abs(res["loss"] - one[0]) / abs(one[0]),
+           "grad_l2": max(l2.values()), "worst": max(l2, key=l2.get),
+           "grad_max": max(res["grad_err"].values()),
+           "launches": {k: lc[k] for k in kf.LAUNCHES},
+           "model_gathers": len(mesh_checks.model_param_gathers(
+               res["collectives"])),
+           "sites": {f"{k} {w}": n for (k, w), n in sorted(sites.items())},
+           "sites_off": {f"{k} {w}": (sites.get((k, w)), n)
+                         for (k, w), n in want.items()
+                         if sites.get((k, w)) != n},
+           "faults": {}}
+    out["allreduce"] = sum(n for (k, _), n in sites.items()
+                           if k == "all_reduce")
+    del res
+    for fault, cell in KV_SP_FAULTS.items():
+        if cell == arch:
+            f = mesh_checks.tp_gradients(model, params, batch, mesh,
+                                         fault=fault, one=one)
+            out["faults"][fault] = {
+                "loss_err": abs(f["loss"] - one[0]) / abs(one[0]),
+                "grad_l2": max(f["grad_err_l2"].values())}
+            del f
+    del params, one, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_kv_sp(mesh, dev):
+    return {arch: _kv_sp_cell(mesh, dev, arch) for arch in KV_SP_CELLS}
+
+
+def _check_kv_sp_cells(kvs, records):
+    """Phase 21(g)'s cells as every rank returned them (``_kv_sp_cell``):
+    printed, then held to one rank, their analytic collectives by site,
+    the offset launches through the Hopper design, and the planted
+    faults; their launches into `records`."""
+    for arch in KV_SP_CELLS:
+        c0 = kvs[0][arch]
+        print(f"mesh (g) {arch}: {c0['params']} params, head_tp "
+              f"{c0['head_tp']}; loss (2, 2) {c0['loss']} one rank "
+              f"{c0['loss_one']}, relative "
+              f"{max(c[arch]['loss_err'] for c in kvs)}; gradient blocks "
+              f"L2 {max(c[arch]['grad_l2'] for c in kvs)} (worst "
+              f"{c0['worst']} on rank 0), max-abs "
+              f"{max(c[arch]['grad_max'] for c in kvs)}; launches per rank "
+              f"{[c[arch]['launches'] for c in kvs]}; 'model' collectives "
+              f"by site on rank 0 {c0['sites']}, off the analytic "
+              f"{[c[arch]['sites_off'] for c in kvs]}; all-reduce bytes "
+              f"{[c[arch]['allreduce'] for c in kvs]}; "
+              f"param gathers over 'model' "
+              f"{[c[arch]['model_gathers'] for c in kvs]}; faults "
+              f"{[c[arch]['faults'] for c in kvs]}; {c0['s']} s")
+    for arch in KV_SP_CELLS:
+        for c in (c_[arch] for c_ in kvs):
+            lc, n = c["launches"], c["n_attn"]
+            require(c["head_tp"] is False and c["model_gathers"] == 0
+                    and not c["sites_off"],
+                    f"mesh (g) {arch}: layout or collectives {c}")
+            require(c["loss_err"] <= TP_LOSS_TOL
+                    and c["grad_l2"] <= TP_GRAD_TOL,
+                    f"mesh (g) {arch}: off one rank ({c})")
+            require(lc["flash_attention"] == n == lc["flash_attention_bwd"]
+                    and lc["flash_attention_wgmma"] == n
+                    and lc["flash_attention_bwd_wgmma"] == n
+                    and lc["flash_attention_offset"] == c["n_offset"]
+                    == lc["flash_attention_bwd_offset"],
+                    f"mesh (g) {arch}: launches {lc}, want {n} through "
+                    f"wgmma, {c['n_offset']} at an offset")
+            for fault, fr in c["faults"].items():
+                require(fr["loss_err"] > TP_LOSS_TOL
+                        or fr["grad_l2"] > TP_GRAD_TOL,
+                        f"mesh (g) {arch}: {fault} within the limits")
+    require(kvs[0]["whisper-base"]["params"] == WHISPER_PARAMS
+            and sum(c["tinyllama-1.1b"]["launches"]["flash_attention_offset"]
+                    for c in kvs) > 0
+            and sorted(f for c in kvs[0].values() for f in c["faults"])
+            == sorted(KV_SP_FAULTS), "mesh (g): params, offsets or faults")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        records[name]["mesh_kv_sp_launches"] = {
+            arch: [c[arch]["launches"][name] for c in kvs]
+            for arch in KV_SP_CELLS}
+
+
 def _mesh_gradsync(dev):
     """Phase 21(d): int8_psum_grads on a (2, 1, 2) pod mesh, the
     reference's replicated case: the largest error and the scale."""
@@ -5958,6 +6321,7 @@ def mesh_rank(rank, ckpt):
                      ("kernels", lambda: _mesh_kernels(mesh, dev)),
                      ("train", lambda: _mesh_train(mesh, dev, ckpt)),
                      ("tp families", lambda: _mesh_tp_families(mesh, dev)),
+                     ("kv-sp", lambda: _mesh_kv_sp(mesh, dev)),
                      ("restore 4x1", lambda: _mesh_restore(
                          Mesh((4, 1), device=dev), dev, ckpt)),
                      ("gradsync", lambda: _mesh_gradsync(dev)),
@@ -6150,7 +6514,8 @@ def run_mesh_phase(dev, records):
                 and a["force-allgather"]["failed"] == ["collective-budget"]
                 and a["force-gather-model"]["failed"]
                 == ["collective-budget"]
-                and a["force-gather-model"]["model_gathers"] > 0,
+                and a["force-gather-model"]["model_gathers"] > 0
+                and a["clean"]["merges"] > 0,
                 f"mesh (e) rank {r['rank']}: {a}")
     # (f)
     for arch in TP_FAMILIES:
@@ -6171,6 +6536,8 @@ def run_mesh_phase(dev, records):
                         f"mesh (f) {arch}: {fault} within the limits")
     require(sorted(f for r in fams[0].values() for f in r["faults"])
             == sorted(TP_FAULTS), "mesh (f): a planted fault did not run")
+    # (g)
+    _check_kv_sp_cells([r["kv-sp"] for r in ranks], records)
     for name in ("gram_row", "combine", "flash_attention",
                  "flash_attention_bwd"):
         records[name]["mesh_launches"] = [r["launches"][name] for r in tr_]
@@ -6192,6 +6559,7 @@ def run_mesh_phase(dev, records):
         require(records["flash_attention_bwd"][tag]["row_err"]
                 <= BWD_ROW_TOL[torch.bfloat16], f"mesh K7b {tag}: "
                 f"{records['flash_attention_bwd'][tag]}")
+    check_kv_sp_kernels(dev, records)
     print(f"mesh: phase 21 wall {time.perf_counter() - t_phase} s")
 
 

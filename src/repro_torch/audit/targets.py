@@ -238,9 +238,11 @@ def _build_model_and_config(arch: str, reduced_flag: bool, device):
             train=TrainConfig(global_batch=REDUCED_BATCH,
                               seq_len=REDUCED_SEQ))
     mc = acfg.model
-    model = LanguageModel(mc, chunk_k=min(16 if reduced_flag else 1024,
-                                          acfg.train.seq_len),
-                          remat=acfg.parallel.remat, device=device)
+    # the reference's target: kv-SP when reduced, its rule otherwise, and
+    # LanguageModel's default remat ("none")
+    model = LanguageModel(mc, head_tp=False if reduced_flag else None,
+                          chunk_k=min(16 if reduced_flag else 1024,
+                                      acfg.train.seq_len), device=device)
     b, s = acfg.train.global_batch, acfg.train.seq_len
     toks = torch.randint(1, mc.vocab_size, (b, s + 1), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -294,21 +294,26 @@ def int8_sync(pods, shape: tuple, device) -> dict:
 def mesh_audit(mesh_shape: tuple, device) -> dict:
     """The audit of the reduced TinyLlama under `mesh_shape`, clean, with
     ``force-allgather`` and with ``force-gather-model``: the failed
-    passes, record_update's collectives, the analytic all-reduce bytes
-    and train_step's param blocks all-gathered over "model" of each."""
+    passes, record_update's collectives, the analytic all-reduce bytes,
+    train_step's param blocks all-gathered over "model" of each, and the
+    collectives of kv-SP's merge the build made (the reduced model
+    attends in kv-SP, as the reference's audit target does)."""
     from repro_torch.audit import run_audit
 
     out = {}
     for mutate in (None, "force-allgather", "force-gather-model"):
-        report = run_audit("tinyllama-1.1b", reduced=True, device=device,
-                           mesh_shape=mesh_shape, mutate=mutate)
+        with record_collectives() as rec:
+            report = run_audit("tinyllama-1.1b", reduced=True, device=device,
+                               mesh_shape=mesh_shape, mutate=mutate)
         info = next(r.info for r in report.results
                     if r.name == "collective-budget")
         out[mutate or "clean"] = {
             "failed": sorted(r.name for r in report.results if not r.ok),
             "record": info.get("record_update.collectives"),
             "analytic": info.get("record_allreduce_bytes_analytic"),
-            "model_gathers": info.get("train_step.model_param_gathers")}
+            "model_gathers": info.get("train_step.model_param_gathers"),
+            "merges": sum(str(c["what"]).startswith("attn.merge")
+                          for c in rec)}
     return out
 
 
@@ -316,36 +321,48 @@ def mesh_audit(mesh_shape: tuple, device) -> dict:
 # Tensor-parallel compute
 # ---------------------------------------------------------------------------
 
-# the planted faults of tensor-parallel compute: (the collective to drop,
-# the site it is dropped at)
+# the planted faults of tensor-parallel compute: the function of
+# ``tensor_parallel`` replaced, the sites (its one str argument) where the
+# replacement runs, and what the replacement returns there
 PLANTED = {
     # one row-parallel product's all-reduce: each rank keeps its partial
     # sum (the MLP's w_out; the SSM's out_proj)
-    "drop-row-sum": ("leave", ("mlp.w_out", "ssm.out_proj")),
+    "drop-row-sum": ("leave", ("mlp.w_out", "ssm.out_proj"),
+                     lambda x, tp, what: x),
     # one replicated param's gradient sum over "model": each rank keeps
     # the gradient of its own part of the work (the SSM's norm_scale, the
     # k / v projections of kv columns the rules replicate)
-    "drop-replicated-sum": ("enter", ("ssm.norm_scale", "attn.wk")),
+    "drop-replicated-sum": ("enter", ("ssm.norm_scale", "attn.wk"),
+                            lambda x, tp, what: x),
+    # kv-SP's merge without its weights: each rank keeps the attention
+    # over its own block of the keys, and its log-sum-exp
+    "kv-sp-unweighted-merge": ("merge_blocks", ("attn.merge",),
+                               lambda o, lse, tp, what: (o.float(), lse)),
+    # kv-SP's dq without its sum over "model" (the q move's backward
+    # all-reduce): each rank keeps the part its own keys give
+    "kv-sp-drop-dq-sum": ("_all_reduce", ("attn.q",),
+                          lambda t, tp, what, op=None: t.contiguous()),
 }
 
 
 @contextlib.contextmanager
 def planted_fault(name: Optional[str]):
-    """Inside the block, ``tensor_parallel``'s `kind` collective (PLANTED)
-    is the identity at the fault's sites."""
+    """Inside the block, ``tensor_parallel``'s function of the fault
+    (PLANTED) returns the fault's value at the fault's sites."""
     if name is None:
         yield
         return
-    kind, sites = PLANTED[name]
-    real = getattr(tpm, kind)
+    attr, sites, value = PLANTED[name]
+    real = getattr(tpm, attr)
 
-    def faulty(x, tp, what):
-        return x if what in sites else real(x, tp, what)
-    setattr(tpm, kind, faulty)
+    def faulty(*args, **kw):
+        what = next(a for a in args if isinstance(a, str))
+        return (value if what in sites else real)(*args, **kw)
+    setattr(tpm, attr, faulty)
     try:
         yield
     finally:
-        setattr(tpm, kind, real)
+        setattr(tpm, attr, real)
 
 
 def one_rank(model, params: Dict[str, torch.Tensor], batch) -> tuple:

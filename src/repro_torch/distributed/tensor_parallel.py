@@ -27,7 +27,17 @@ group:
   * ``vocab_embed`` / ``vocab_nll``: the embedding lookup on a rank's
     vocabulary rows (zeros elsewhere, one all-reduce) and the
     log-softmax cross entropy over the vocabulary's blocks (max, sum of
-    exponentials and the target's logit over "model").
+    exponentials and the target's logit over "model");
+  * ``kv_sp_attention``: kv-SP's core, the reference's third attention
+    layout (``src/repro/models/attention.py:6-15``): every rank attends
+    every head's queries over its own block of the keys (K7 with the
+    block's key offset), and the blocks' results merge by their
+    log-sum-exps, one all-reduce of the max and one of the weighted fp32
+    outputs and weights (the reference's "two small all-reduces");
+    backward, dO is summed over "model" (each rank's ``wo`` rows saw its
+    own columns of the output) and K7b runs on the merged output and
+    log-sum-exp, so dK and dV come out whole for the rank's keys and dQ
+    as its part of a sum that the q move's backward completes.
 
 Each collective goes through ``launch/mesh.py``'s ``Mesh``, recorded
 with its site as ``what``. ``TP`` is the "model" axis of a live mesh;
@@ -58,10 +68,23 @@ AXIS = "model"
 NEG_INF = -1e30
 
 
+# the reference decides head-TP at build time against its production
+# mesh's "model" size (``src/repro/models/transformer.py:402-404``), not
+# the live mesh's: head-TP where the q heads are a multiple of it
+HEAD_TP_DEGREE = 16
+
+
+def resolve_head_tp(n_heads: int, head_tp: Optional[bool]) -> bool:
+    """The reference's choice of attention layout: `head_tp` where given,
+    else head-TP where `n_heads` is a multiple of HEAD_TP_DEGREE (kv-SP
+    otherwise)."""
+    return n_heads % HEAD_TP_DEGREE == 0 if head_tp is None else head_tp
+
+
 class TP:
     """The "model" axis of `mesh` as the models see it: its size, this
-    rank's index on it, and the model's ``head_tp`` choice (None: decide
-    from the heads)."""
+    rank's index on it, and the model's ``head_tp`` choice (None: the
+    reference's rule, ``resolve_head_tp``)."""
 
     def __init__(self, mesh, head_tp: Optional[bool] = None):
         self.mesh = mesh
@@ -83,6 +106,13 @@ class TP:
         """This rank's block of a replicated tensor along `dim`."""
         a, b = self.block(t.shape[dim])
         return t.narrow(dim, a, b - a)
+
+    def seq_block(self, n: int) -> Tuple[int, int]:
+        """[start, stop) of this rank's block of a sequence of `n` under
+        kv-SP: blocks of ceil(n / size), the last ones shorter (or empty)
+        where the axis does not divide `n`."""
+        b = -(-n // self.size)
+        return min(self.index * b, n), min((self.index + 1) * b, n)
 
     def check_local(self, t: torch.Tensor, full: int, dim: int,
                     what: str) -> bool:
@@ -311,11 +341,6 @@ def reshard(x: torch.Tensor, tp: TP, move: Move, what: str) -> torch.Tensor:
 # Head layouts of attention
 # ---------------------------------------------------------------------------
 
-KV_SP = ("kv-SP (k and v sharded by sequence over 'model', the "
-         "reference's third attention layout) is not ported: ROADMAP "
-         "Queue 1 item 4")
-
-
 class HeadLayout:
     """How a rank of a "model" axis of `tp` computes one attention call.
 
@@ -345,7 +370,7 @@ class HeadLayout:
         if H_eff % tp_size:
             raise ValueError(
                 f"{H_eff} attention heads do not split over a 'model' axis "
-                f"of {tp_size}; {KV_SP}")
+                f"of {tp_size}")
         if (H * hd) % tp_size:
             raise ValueError(f"the q projection's {H * hd} columns do not "
                              f"split over a 'model' axis of {tp_size}")
@@ -385,7 +410,36 @@ class HeadLayout:
         self.kv_split = kv_split
 
 
-_LAYOUTS: Dict[tuple, HeadLayout] = {}
+class KvSpLayout:
+    """kv-SP's layout of one attention call under a "model" axis of
+    `tp_size`: ``q_move`` all-gathers the projection's column blocks to
+    every head on every rank, ``out_move`` keeps the rank's own columns
+    of the (whole, merged) output for its ``wo`` rows, and ``kv_move``
+    all-gathers the kv projection's column blocks to every kv head (the
+    identity where the rules replicate the kv columns: ``kv_split``
+    False); each rank then attends its block of the sequence's keys
+    (``TP.seq_block``)."""
+
+    def __init__(self, H: int, K: int, hd: int, tp_size: int,
+                 kv_split: bool):
+        if (H * hd) % tp_size:
+            raise ValueError(f"kv-SP: the q projection's {H * hd} columns "
+                             f"do not split over a 'model' axis of "
+                             f"{tp_size}")
+        c, kc = H * hd // tp_size, K * hd
+        q_blocks = [np.arange(r * c, (r + 1) * c) for r in range(tp_size)]
+        every = [np.arange(H * hd)] * tp_size
+        self.q_move = Move(q_blocks, every)
+        self.out_move = Move(every, q_blocks)
+        have = ([np.arange(r * kc // tp_size, (r + 1) * kc // tp_size)
+                 for r in range(tp_size)] if kv_split
+                else [np.arange(kc)] * tp_size)
+        self.kv_move = Move(have, [np.arange(kc)] * tp_size)
+        self.kv_split = kv_split
+        self.n_q, self.n_kv = H, K
+
+
+_LAYOUTS: Dict[tuple, object] = {}
 
 
 def head_layout(H: int, K: int, hd: int, tp: TP,
@@ -396,6 +450,95 @@ def head_layout(H: int, K: int, hd: int, tp: TP,
         _LAYOUTS[key] = HeadLayout(H, K, hd, tp.size, pad_rep,
                                    tp.splits(K * hd))
     return _LAYOUTS[key]
+
+
+def kv_sp_layout(H: int, K: int, hd: int, tp: TP) -> KvSpLayout:
+    """The (cached) KvSpLayout of one attention call under `tp`."""
+    key = ("kv-SP", H, K, hd, tp.size, tp.splits(K * hd))
+    if key not in _LAYOUTS:
+        _LAYOUTS[key] = KvSpLayout(H, K, hd, tp.size, tp.splits(K * hd))
+    return _LAYOUTS[key]
+
+
+# ---------------------------------------------------------------------------
+# kv-SP's attention core
+# ---------------------------------------------------------------------------
+
+def merge_blocks(o: torch.Tensor, lse: torch.Tensor, tp: TP, what: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kv-SP's merge of the ranks' attention over their blocks of the keys:
+    `o` (B, Sq, H, hd) and `lse` (B, H, Sq) fp32 this rank's; returns the
+    whole attention's (out in fp32, its log-sum-exp): L = max_r lse_r +
+    log sum_r exp(lse_r - max_r lse_r), out = sum_r exp(lse_r - L) o_r.
+    One all-reduce of the max (``what.max``) and one of the weighted
+    outputs packed with their weights (``what.sum``). A rank whose row saw
+    no key (lse -1e30) adds it a weight of exactly 0."""
+    hd = o.shape[-1]
+    m = _all_reduce(lse, tp, f"{what}.max", op=dist.ReduceOp.MAX)
+    w = torch.exp(lse - m).transpose(1, 2)[..., None]       # (B, Sq, H, 1)
+    packed = _all_reduce(torch.cat([o.float() * w, w], dim=-1), tp,
+                         f"{what}.sum")
+    num, den = packed[..., :hd], packed[..., hd:]
+    return num / den, m + torch.log(den[..., 0]).transpose(1, 2)
+
+
+class _KvSpCore(torch.autograd.Function):
+    """Attention of every head's queries over the rank's block of the keys,
+    merged over "model" (see ``kv_sp_attention``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, tp, causal, window, k_offset, what):
+        from repro_torch.kernels import flash_attention as kf
+
+        B, Sq, H, hd = q.shape
+        if k.shape[1]:
+            o, lse = kf.flash_attention_lse(q, k, v, causal=causal,
+                                            window=window, k_offset=k_offset)
+        else:                         # an empty block: no key, weight 0
+            o = q.new_zeros(q.shape)
+            lse = q.new_full((B, H, Sq), NEG_INF, dtype=torch.float32)
+        out, lse = merge_blocks(o, lse, tp, what)
+        out = out.to(q.dtype)
+        lse = lse.contiguous()
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.tp, ctx.what = tp, what
+        ctx.causal, ctx.window, ctx.k_offset = causal, window, k_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels import flash_attention as kf
+
+        q, k, v, out, lse = ctx.saved_tensors
+        # each rank's `out` fed only its own columns to its wo rows: the
+        # whole dO is the sum of the ranks' (the transpose of the
+        # forward's selection)
+        dout = _all_reduce(dout, ctx.tp, f"{ctx.what}.dout")
+        if not k.shape[1]:
+            return (torch.zeros_like(q), torch.zeros_like(k),
+                    torch.zeros_like(v)) + (None,) * 5
+        dq, dk, dv = kf.flash_attention_bwd(
+            q, k, v, out, dout, lse, causal=ctx.causal, window=ctx.window,
+            k_offset=ctx.k_offset)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def kv_sp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    tp: TP, *, causal: bool, window: int = 0,
+                    k_offset: int = 0, what: str = "attn.merge"
+                    ) -> torch.Tensor:
+    """kv-SP's core: `q` (B, Sq, H, hd), every head's queries, the same on
+    every rank; `k`, `v` (B, Sk_r, K, hd) the rank's block of the keys,
+    key 0 at position `k_offset`. K7 with its log-sum-exp on the block,
+    then the merge over "model": L = logsumexp_r lse_r, out = sum_r
+    exp(lse_r - L) out_r in fp32 (one all-reduce of the max, one of the
+    weighted outputs and weights), rounded once to q's dtype; the same
+    (B, Sq, H, hd) on every rank. A row or a block that sees no key has
+    lse -1e30 and a weight of exactly 0. Backward (``_KvSpCore``): dO
+    summed over "model", then K7b on the merged output and log-sum-exp:
+    dq is the rank's part (the q move's backward sums it), dk and dv are
+    whole for the rank's keys."""
+    return _KvSpCore.apply(q, k, v, tp, causal, window, k_offset, what)
 
 
 # ---------------------------------------------------------------------------

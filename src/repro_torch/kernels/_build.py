@@ -44,13 +44,13 @@ SIGNATURES = {
     "flat_gram": (_I, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "flat_combine": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _P),
     "flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        *(_LL,) * 12, _I, _I, _P, _P),
+                        *(_LL,) * 12, _I, _I, _I, _P, _P),
     "flash_attention_wgmma": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              *(_LL,) * 12, _I, _I, _P, _P),
+                              *(_LL,) * 12, _I, _I, _I, _P, _P),
     "flash_attention_bwd": (_I, *(_P,) * 10, *(_I,) * 6, *(_LL,) * 24, _I,
-                            _I, _P),
+                            _I, _I, _P),
     "flash_attention_bwd_wgmma": (_I, *(_P,) * 10, *(_I,) * 6, *(_LL,) * 24,
-                                  _I, _I, _P),
+                                  _I, _I, _I, _P),
 }
 
 

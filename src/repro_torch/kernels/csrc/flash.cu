@@ -5,21 +5,26 @@
 //   _flash_kernel) -> flash_attention
 // and computes what it computes: for every (batch b, head h, query i)
 //   s_ij = <q_i, k_j> / sqrt(d) over the keys j of kv head h / (H / K),
-//   masked to NEG_INF = -1e30 (finite, never -inf) unless j < Sk and, if
-//   causal, i - j >= 0 and, if window > 0, i - j < window, with query and
-//   key positions both counted from 0 (not right-aligned when Sq != Sk);
+//   masked to NEG_INF = -1e30 (finite, never -inf) unless j < Sk and, with
+//   rel = i - (j + k_offset), if causal, rel >= 0 and, if window > 0,
+//   rel < window: query positions count from 0 and key j sits at position
+//   j + k_offset (k_offset >= 0, 0 but for kv-SP, where a rank holds the
+//   keys of one block of the sequence; not right-aligned when Sq != Sk);
 //   an online softmax over key tiles with an fp32 running max m, sum l and
 //   accumulator; out = acc / max(l, 1e-30) in q's dtype; and, where the
 //   caller passes a buffer for it, each row's fp32 log-sum-exp of its
 //   scaled scores, (B, H, Sq), which the backward K7b (flash_bwd.cu)
-//   recomputes the softmax from. Without the buffer the sm_80-unit
-//   designs add one null test per row at the end; the Hopper design takes
-//   it as a template argument, so its launches without it run the code
-//   they ran before the output existed.
+//   recomputes the softmax from and kv-SP merges the ranks' blocks by.
+//   Without the buffer the sm_80-unit designs add one null test per row
+//   at the end; the Hopper design takes it as a template argument, so its
+//   launches without it run the code they ran before the output existed,
+//   and the key offset likewise (ProblemOff): a launch at offset 0 runs
+//   the kernels it ran before the offset existed.
 // Key tiles that no query of the CTA's tile can see (causal or window) are
-// skipped whole, as the Pallas kernel skips its grid steps. A row that sees
-// no key at all gets the mean of V over the keys of its visible tiles, as
-// the online softmax gives it there (finite; outside the contract).
+// skipped whole, as the Pallas kernel skips its grid steps; a CTA may see
+// none (a kv-SP rank's later keys under the causal mask). A row that sees
+// no key at all (its running max still the mask value) writes out 0 and
+// lse NEG_INF: both finite, and a weight of exactly 0 in kv-SP's merge.
 //
 // Layout: q (B, Sq, H, d), k and v (B, Sk, K, d), out (B, Sq, H, d), read
 // and written where they lie through their batch, sequence and head
@@ -93,6 +98,7 @@ struct Problem {
   float scale_log2;                  // log2(e) / sqrt(d) (bf16 path)
   Strides q, k, v, o;
   static constexpr bool kLse = false;
+  static constexpr bool kOff = false;
 };
 
 // The Hopper design's problem when it writes the log-sum-exp. A type of its
@@ -103,6 +109,24 @@ struct ProblemLse : Problem {
   static constexpr bool kLse = true;
 };
 
+// A problem whose key j sits at position j + k_offset (kv-SP), with the
+// log-sum-exp (the merge needs it): a type of its own for the same reason,
+// so that every launch at offset 0 keeps its parameter and its code.
+struct ProblemOff : ProblemLse {
+  int k_offset;                      // > 0
+  static constexpr bool kOff = true;
+};
+
+// The position of key 0: 0 unless the problem carries an offset.
+template <class P>
+__device__ __forceinline__ int key_offset(const P& p) {
+  if constexpr (P::kOff) {
+    return p.k_offset;
+  } else {
+    return 0;
+  }
+}
+
 // The row's log-sum-exp of its scaled scores, ln sum_j exp(s_ij), from the
 // running max m and sum l of an online softmax kept in log2 units (the
 // bf16 designs): (m + log2 l) ln 2. K7b recomputes P from it.
@@ -110,29 +134,39 @@ __device__ __forceinline__ float lse_of_log2(float m, float l) {
   return (m + log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
 }
 
-__device__ __forceinline__ bool visible_tile(const Problem& p, int q0, int bq,
+// Some query row of [q0, q0 + bq) sees some key of [k0, k0 + bk) (key
+// indices; their positions start at k0 + the offset).
+template <class P>
+__device__ __forceinline__ bool visible_tile(const P& p, int q0, int bq,
                                              int k0, int bk) {
+  const int kp = k0 + key_offset(p);
   bool vis = true;
-  if (p.causal) vis = q0 + bq - 1 >= k0;
-  if (p.window > 0) vis = vis && (k0 + bk - 1 > q0 - p.window);
+  if (p.causal) vis = q0 + bq - 1 >= kp;
+  if (p.window > 0) vis = vis && (kp + bk - 1 > q0 - p.window);
   return vis;
 }
 
 // Every query row of [q0, q0 + bq) sees every key of [k0, k0 + bk): the
 // tile needs no per-element mask.
-__device__ __forceinline__ bool whole_tile(const Problem& p, int q0, int bq,
+template <class P>
+__device__ __forceinline__ bool whole_tile(const P& p, int q0, int bq,
                                            int k0, int bk) {
-  return k0 + bk <= p.Sk && (!p.causal || k0 + bk - 1 <= q0) &&
-         (p.window <= 0 || q0 + bq - 1 - k0 < p.window);
+  const int kp = k0 + key_offset(p);
+  return k0 + bk <= p.Sk && (!p.causal || kp + bk - 1 <= q0) &&
+         (p.window <= 0 || q0 + bq - 1 - kp < p.window);
 }
 
-__device__ __forceinline__ bool visible(const Problem& p, int qi, int kj) {
-  const int rel = qi - kj;
+template <class P>
+__device__ __forceinline__ bool visible(const P& p, int qi, int kj) {
+  const int rel = qi - (kj + key_offset(p));
   bool m = kj < p.Sk;
   if (p.causal) m = m && rel >= 0;
   if (p.window > 0) m = m && rel < p.window;
   return m;
 }
+
+// A row whose running max is still the mask value saw no key.
+__device__ __forceinline__ bool saw_none(float m) { return m == kNegInf; }
 
 // ---------------------------------------------------------------- bf16 --
 
@@ -141,12 +175,12 @@ constexpr int kBK = 64;              // keys per tile
 constexpr int kThreads = 128;
 
 // (mma m16n8k16 fragment layouts: flash.cuh)
-template <int D>
+template <int D, class P>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16(const __nv_bfloat16* __restrict__ q,
            const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v,
-           __nv_bfloat16* __restrict__ o, Problem p,
+           __nv_bfloat16* __restrict__ o, P p,
            float* __restrict__ lse) {
   constexpr int kLd = D + 8;                 // padded smem row (elements)
   constexpr int kNT = kBK / 8;               // 8-key column tiles of S
@@ -304,12 +338,14 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
     l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
-  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
-  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  const float inv_a = saw_none(m_a) ? 0.f : 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = saw_none(m_b) ? 0.f : 1.f / fmaxf(l_b, 1e-30f);
   if (lse != nullptr && t == 0) {
     float* lb = lse + (b * p.H + h) * (long long)p.Sq;
-    if (row_a < p.Sq) lb[row_a] = lse_of_log2(m_a, l_a);
-    if (row_b < p.Sq) lb[row_b] = lse_of_log2(m_b, l_b);
+    if (row_a < p.Sq)
+      lb[row_a] = saw_none(m_a) ? kNegInf : lse_of_log2(m_a, l_a);
+    if (row_b < p.Sq)
+      lb[row_b] = saw_none(m_b) ? kNegInf : lse_of_log2(m_b, l_b);
   }
   __nv_bfloat16* ob = o + b * p.o.b + (long long)h * p.o.h;
 #pragma unroll
@@ -329,10 +365,10 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
 constexpr int kFBQ = 16;             // query rows per CTA (4 per warp)
 constexpr int kFBK = 32;             // keys per tile (one per lane)
 
-template <int D>
+template <int D, class P>
 __global__ void __launch_bounds__(kThreads)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, Problem p,
+          const float* __restrict__ v, float* __restrict__ o, P p,
           float* __restrict__ lse) {
   constexpr int kCols = (D + 31) / 32;       // output columns per lane
   constexpr int kRows = kFBQ / (kThreads / 32);
@@ -416,10 +452,11 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRows; ++r) {
     const int row = q0 + warp * kRows + r;
     if (row >= p.Sq) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    const bool none = saw_none(m[r]);
+    const float inv = none ? 0.f : 1.f / fmaxf(l[r], 1e-30f);
     if (lse != nullptr && lane == 0)
       lse[(b * p.H + h) * (long long)p.Sq + row] =
-          m[r] + logf(fmaxf(l[r], 1e-30f));
+          none ? kNegInf : m[r] + logf(fmaxf(l[r], 1e-30f));
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
@@ -530,8 +567,8 @@ struct Consumer {
   // updates m and l and returns in c_a, c_b the factors O must be scaled
   // by before this tile's P V. No branch depends on the data: a wgmma may
   // be in flight.
-  template <bool kMasked>
-  __device__ __forceinline__ void softmax(const Problem& p, int k0,
+  template <bool kMasked, class P>
+  __device__ __forceinline__ void softmax(const P& p, int k0,
                                           float& c_a, float& c_b) {
     const float scale = p.scale_log2;
     if constexpr (kMasked) {
@@ -605,8 +642,8 @@ struct Consumer {
 
   // The first tile: S_0 and its softmax (nothing else in flight, so the
   // mask may be chosen at run time).
-  __device__ __forceinline__ void first(const Problem& p, int k0,
-                                        bool masked) {
+  template <class P>
+  __device__ __forceinline__ void first(const P& p, int k0, bool masked) {
     mbar_wait(full + 8 * stage, phase);
     named_sync(1 + cw);
     issue_s<D, BK>(s, qs, base + L::kK + stage * L::kKVTile);
@@ -624,8 +661,8 @@ struct Consumer {
 
   // A later tile: S_t and P_{t-1} V_{t-1} in flight, the softmax of S_t
   // under the second product, then the stage of t - 1 released.
-  template <bool kMasked>
-  __device__ __forceinline__ void next(const Problem& p, int k0) {
+  template <bool kMasked, class P>
+  __device__ __forceinline__ void next(const P& p, int k0) {
     mbar_wait(full + 8 * stage, phase);
     named_sync(1 + cw);
     issue_s<D, BK>(s, qs, base + L::kK + stage * L::kKVTile);
@@ -635,7 +672,7 @@ struct Consumer {
     wgmma_wait<1>();
     fence_regs(s);
     float c_a, c_b;
-    softmax<kMasked>(p, k0, c_a, c_b);
+    softmax<kMasked, P>(p, k0, c_a, c_b);
     fence_regs(s);                   // P is computed before the wait below
     wgmma_wait<0>();
 #pragma unroll
@@ -751,13 +788,15 @@ __device__ __forceinline__ void consume(const P& p,
     l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
-  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
-  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  const float inv_a = saw_none(c.m_a) ? 0.f : 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = saw_none(c.m_b) ? 0.f : 1.f / fmaxf(l_b, 1e-30f);
   if constexpr (P::kLse) {
     if (c.t == 0) {
       float* lb = p.lse + ((long long)b * p.H + h) * p.Sq;
-      if (c.row_a < p.Sq) lb[c.row_a] = lse_of_log2(c.m_a, l_a);
-      if (c.row_b < p.Sq) lb[c.row_b] = lse_of_log2(c.m_b, l_b);
+      if (c.row_a < p.Sq)
+        lb[c.row_a] = saw_none(c.m_a) ? kNegInf : lse_of_log2(c.m_a, l_a);
+      if (c.row_b < p.Sq)
+        lb[c.row_b] = saw_none(c.m_b) ? kNegInf : lse_of_log2(c.m_b, l_b);
     }
   }
   __nv_bfloat16* ob = o + (long long)b * p.o.b + (long long)h * p.o.h;
@@ -794,9 +833,12 @@ __device__ __forceinline__ void consume(const P& p,
 // under the other's products. The tiles that need the per-element mask
 // (the causal diagonal, a window's edge, the ragged end of Sk) are walked
 // by loops of their own, so no branch on the mask sits where a product is
-// in flight. P is Problem, or ProblemLse to write the log-sum-exp (a type,
-// so that the launches without it run the code and take the parameters
-// they did before it existed).
+// in flight. P is Problem, ProblemLse to write the log-sum-exp, or
+// ProblemOff for keys at an offset (types, so that the launches without
+// them run the code and take the parameters they did before they existed).
+// A CTA whose queries see no key tile (hi == lo) loads Q, runs no product
+// and writes zeros: the producer's loop is empty, and the ping-pong's one
+// arrival and one wait still pair.
 template <int D, class P>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -878,19 +920,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, class P>
 void launch_d(int dtype, const void* q, const void* k, const void* v, void* o,
-              int B, const Problem& p, float* lse, cudaStream_t st) {
+              int B, const P& p, float* lse, cudaStream_t st) {
   if (dtype == 1) {
     const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
-    flash_bf16<D><<<grid, kThreads, 0, st>>>(
+    flash_bf16<D, P><<<grid, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
         static_cast<__nv_bfloat16*>(o), p, lse);
   } else {
     const dim3 grid((p.Sq + kFBQ - 1) / kFBQ, p.H, B);
-    flash_f32<D><<<grid, kThreads, 0, st>>>(
+    flash_f32<D, P><<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), p, lse);
   }
@@ -917,68 +959,80 @@ Problem make_problem(int Sq, int Sk, int H, int K, int d, long long qsb,
   return p;
 }
 
-}  // namespace
+// `p` with keys at position j + k_offset (> 0) and the log-sum-exp buffer.
+ProblemOff with_offset(const Problem& p, int k_offset, void* lse) {
+  ProblemOff po;
+  static_cast<Problem&>(po) = p;
+  po.lse = static_cast<float*>(lse);
+  po.k_offset = k_offset;
+  return po;
+}
 
-// dtype: 0 = float32, 1 = bfloat16. Strides in elements, (batch, seq, head)
-// for each of q, k, v, out. lse: a (B, H, Sq) fp32 buffer for each row's
-// log-sum-exp, or null (then nothing else changes). d in {16, 32, ...,
-// 128}; H % K == 0. The sm_80-unit designs: flash_f32 (float32),
-// flash_bf16 (bfloat16).
-extern "C" int flash_attention(
-    int dtype, const void* q, const void* k, const void* v, void* o, int B,
-    int Sq, int Sk, int H, int K, int d, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, long long osb,
-    long long oss, long long osh, int causal, int window, void* lse,
-    void* stream) {
-  const Problem p = make_problem(Sq, Sk, H, K, d, qsb, qss, qsh, ksb, kss,
-                                 ksh, vsb, vss, vsh, osb, oss, osh, causal,
-                                 window);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <class P>
+int launch_all(int dtype, const void* q, const void* k, const void* v,
+               void* o, int B, int d, const P& p, float* lse,
+               cudaStream_t st) {
   switch (d) {
-    case 16:
-      launch_d<16>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
-      break;
-    case 32:
-      launch_d<32>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
-      break;
-    case 48:
-      launch_d<48>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
-      break;
-    case 64:
-      launch_d<64>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
-      break;
-    case 80:
-      launch_d<80>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
-      break;
-    case 96:
-      launch_d<96>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
-      break;
-    case 112:
-      launch_d<112>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
-      break;
-    case 128:
-      launch_d<128>(dtype, q, k, v, o, B, p, static_cast<float*>(lse), st);
-      break;
+    case 16: launch_d<16>(dtype, q, k, v, o, B, p, lse, st); break;
+    case 32: launch_d<32>(dtype, q, k, v, o, B, p, lse, st); break;
+    case 48: launch_d<48>(dtype, q, k, v, o, B, p, lse, st); break;
+    case 64: launch_d<64>(dtype, q, k, v, o, B, p, lse, st); break;
+    case 80: launch_d<80>(dtype, q, k, v, o, B, p, lse, st); break;
+    case 96: launch_d<96>(dtype, q, k, v, o, B, p, lse, st); break;
+    case 112: launch_d<112>(dtype, q, k, v, o, B, p, lse, st); break;
+    case 128: launch_d<128>(dtype, q, k, v, o, B, p, lse, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Strides in elements, (batch, seq, head)
+// for each of q, k, v, out. k_offset >= 0: the position of key 0. lse: a
+// (B, H, Sq) fp32 buffer for each row's log-sum-exp, or null (then nothing
+// else changes). d in {16, 32, ..., 128}; H % K == 0. The sm_80-unit
+// designs: flash_f32 (float32), flash_bf16 (bfloat16).
+extern "C" int flash_attention(
+    int dtype, const void* q, const void* k, const void* v, void* o, int B,
+    int Sq, int Sk, int H, int K, int d, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, long long osb,
+    long long oss, long long osh, int causal, int window, int k_offset,
+    void* lse, void* stream) {
+  const Problem p = make_problem(Sq, Sk, H, K, d, qsb, qss, qsh, ksb, kss,
+                                 ksh, vsb, vss, vsh, osb, oss, osh, causal,
+                                 window);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (k_offset < 0) return (int)cudaErrorInvalidValue;
+  if (k_offset == 0) return launch_all(dtype, q, k, v, o, B, d, p, l, st);
+  return launch_all(dtype, q, k, v, o, B, d, with_offset(p, k_offset, lse),
+                    l, st);
+}
+
 // The Hopper design, flash_wgmma: bfloat16 (dtype 1) at d 64 or 128 only;
-// the same arguments as flash_attention.
+// the same arguments as flash_attention, but a nonzero k_offset needs the
+// lse buffer.
 extern "C" int flash_attention_wgmma(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
     int Sq, int Sk, int H, int K, int d, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
-    long long oss, long long osh, int causal, int window, void* lse,
-    void* stream) {
+    long long oss, long long osh, int causal, int window, int k_offset,
+    void* lse, void* stream) {
   const Problem p = make_problem(Sq, Sk, H, K, d, qsb, qss, qsh, ksb, kss,
                                  ksh, vsb, vss, vsh, osb, oss, osh, causal,
                                  window);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || k_offset < 0 || (k_offset > 0 && lse == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (k_offset > 0) {
+    const ProblemOff po = with_offset(p, k_offset, lse);
+    if (d == 64) return launch_wgmma<64>(q, k, v, o, B, K, po, st);
+    if (d == 128) return launch_wgmma<128>(q, k, v, o, B, K, po, st);
+    return (int)cudaErrorInvalidValue;
+  }
   ProblemLse pl;
   static_cast<Problem&>(pl) = p;
   pl.lse = static_cast<float*>(lse);

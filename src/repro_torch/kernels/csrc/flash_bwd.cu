@@ -5,10 +5,15 @@
 // blockwise_attention) and lets jax.grad differentiate it. K7b is the
 // port's counterpart of that gradient, behind the forward K7 (flash.cu).
 // For every (batch b, head h), query i and key j, with K7's mask (key j
-// seen by query i when i < Sq, j < Sk and, if causal, i - j >= 0 and, if
-// window > 0, i - j < window) and K7's log-sum-exp LSE_i of the row's
-// scaled scores:
+// seen by query i when i < Sq, j < Sk and, with rel = i - (j + k_offset),
+// if causal, rel >= 0 and, if window > 0, rel < window: key j sits at
+// position j + k_offset, 0 but for kv-SP) and a log-sum-exp LSE_i of the
+// row's scaled scores (K7's; kv-SP passes the one merged over every
+// rank's keys, and D from the merged output, so that P is the global
+// softmax restricted to the rank's keys, dK and dV are whole for them and
+// dQ is the rank's part of a sum):
 //   s_ij = <q_i, k_j> / sqrt(d),  P_ij = exp(s_ij - LSE_i) where seen, else 0
+//   (a row that sees no key: P 0, so dQ 0, whatever its LSE)
 //   D_i = sum_c dO_ic O_ic
 //   dV_j = sum_i P_ij dO_i,       dP_ij = <dO_i, v_j>
 //   dS_ij = P_ij (dP_ij - D_i)
@@ -116,6 +121,7 @@ struct Bwd {
   const float* lse;                  // (B, H, Sq), natural log
   float* delta;                      // (B, H, Sq); the Hopper design's:
                                      // (B, H, 2, Sq padded), LSE_2 and D
+  int k_offset;                      // the position of key 0 (>= 0)
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -124,25 +130,28 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 }
 
 __device__ __forceinline__ bool seen(const Bwd& p, int qi, int kj) {
-  const int rel = qi - kj;
+  const int rel = qi - (kj + p.k_offset);
   bool m = qi < p.Sq && kj < p.Sk;
   if (p.causal) m = m && rel >= 0;
   if (p.window > 0) m = m && rel < p.window;
   return m;
 }
 
-// [lo, hi): the queries that see some key of [k0, k0 + bk)
+// [lo, hi): the queries that see some key of [k0, k0 + bk) (empty, lo >=
+// hi, where none does: the CTA writes dK = dV = 0)
 __device__ __forceinline__ void query_range(const Bwd& p, int k0, int bk,
                                             int& lo, int& hi) {
-  lo = p.causal ? k0 : 0;
-  hi = p.window > 0 ? min(p.Sq, k0 + bk - 1 + p.window) : p.Sq;
+  const int kp = k0 + p.k_offset;
+  lo = p.causal ? kp : 0;
+  hi = p.window > 0 ? min(p.Sq, kp + bk - 1 + p.window) : p.Sq;
 }
 
-// [lo, hi): the keys that some query of [q0, q0 + bq) sees
+// [lo, hi): the keys that some query of [q0, q0 + bq) sees (empty where
+// none does: the CTA writes dQ = 0)
 __device__ __forceinline__ void key_range(const Bwd& p, int q0, int bq,
                                           int& lo, int& hi) {
-  lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  hi = p.causal ? min(p.Sk, q0 + bq) : p.Sk;
+  lo = p.window > 0 ? max(0, q0 - p.window + 1 - p.k_offset) : 0;
+  hi = p.causal ? min(p.Sk, q0 + bq - p.k_offset) : p.Sk;
 }
 
 __device__ __forceinline__ long long row_base(long long b, int h,
@@ -711,12 +720,14 @@ struct QSmem {
   static constexpr int kAlloc = kBar + (2 * kStages + 1) * 8 + 1024;
 };
 
-// Some pair of [q0, q0 + bq) x [k0, k0 + bk) is seen (K7's visible_tile).
+// Some pair of [q0, q0 + bq) x [k0, k0 + bk) is seen (K7's visible_tile;
+// key indices, their positions from k0 + the offset).
 __device__ __forceinline__ bool tile_seen(const Bwd& p, int q0, int bq,
                                           int k0, int bk) {
+  const int kp = k0 + p.k_offset;
   bool vis = true;
-  if (p.causal) vis = q0 + bq - 1 >= k0;
-  if (p.window > 0) vis = vis && (k0 + bk - 1 > q0 - p.window);
+  if (p.causal) vis = q0 + bq - 1 >= kp;
+  if (p.window > 0) vis = vis && (kp + bk - 1 > q0 - p.window);
   return vis;
 }
 
@@ -724,9 +735,10 @@ __device__ __forceinline__ bool tile_seen(const Bwd& p, int q0, int bq,
 // with the ragged end of Sq as well).
 __device__ __forceinline__ bool tile_whole(const Bwd& p, int q0, int bq,
                                            int k0, int bk) {
+  const int kp = k0 + p.k_offset;
   return q0 + bq <= p.Sq && k0 + bk <= p.Sk &&
-         (!p.causal || k0 + bk - 1 <= q0) &&
-         (p.window <= 0 || q0 + bq - 1 - k0 < p.window);
+         (!p.causal || kp + bk - 1 <= q0) &&
+         (p.window <= 0 || q0 + bq - 1 - kp < p.window);
 }
 
 // The run [lo, hi) of n tiles of `step` rows (tile i at i * step; queries
@@ -1494,7 +1506,8 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
 }
 
 Bwd make_bwd(int Sq, int Sk, int H, int K, int d, int causal, int window,
-             const long long* st, const void* lse, void* delta) {
+             int k_offset, const long long* st, const void* lse,
+             void* delta) {
   Bwd p;
   p.Sq = Sq;
   p.Sk = Sk;
@@ -1509,6 +1522,7 @@ Bwd make_bwd(int Sq, int Sk, int H, int K, int d, int causal, int window,
     *all[i] = {st[3 * i], st[3 * i + 1], st[3 * i + 2]};
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
+  p.k_offset = k_offset;
   return p;
 }
 
@@ -1522,6 +1536,7 @@ Bwd make_bwd(int Sq, int Sk, int H, int K, int d, int causal, int window,
 // strides multiples of 8 and their pointers 16-byte aligned, for the
 // cp.async staging). d in {16, 32, ..., 128}, but bfloat16 at d 64 and
 // 128 is refused: flash_attention_bwd_wgmma serves it. H % K == 0.
+// k_offset >= 0: the position of key 0 (K7's).
 extern "C" int flash_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -1532,13 +1547,15 @@ extern "C" int flash_attention_bwd(
     long long gss, long long gsh, long long dqsb, long long dqss,
     long long dqsh, long long dksb, long long dkss, long long dksh,
     long long dvsb, long long dvss, long long dvsh, int causal, int window,
-    void* stream) {
+    int k_offset, void* stream) {
   const long long st3[24] = {qsb,  qss,  qsh,  ksb,  kss,  ksh,  vsb,  vss,
                              vsh,  osb,  oss,  osh,  gsb,  gss,  gsh,  dqsb,
                              dqss, dqsh, dksb, dkss, dksh, dvsb, dvss, dvsh};
-  const Bwd p = make_bwd(Sq, Sk, H, K, d, causal, window, st3, lse, delta);
+  const Bwd p = make_bwd(Sq, Sk, H, K, d, causal, window, k_offset, st3, lse,
+                         delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || k_offset < 0)
+    return (int)cudaErrorInvalidValue;
   switch (d) {
     case 16: return launch_bwd<16>(dtype, q, k, v, o, dout, dq, dk, dv, B, K, p, st);
     case 32: return launch_bwd<32>(dtype, q, k, v, o, dout, dq, dk, dv, B, K, p, st);
@@ -1567,13 +1584,14 @@ extern "C" int flash_attention_bwd_wgmma(
     long long gss, long long gsh, long long dqsb, long long dqss,
     long long dqsh, long long dksb, long long dkss, long long dksh,
     long long dvsb, long long dvss, long long dvsh, int causal, int window,
-    void* stream) {
+    int k_offset, void* stream) {
   const long long st3[24] = {qsb,  qss,  qsh,  ksb,  kss,  ksh,  vsb,  vss,
                              vsh,  osb,  oss,  osh,  gsb,  gss,  gsh,  dqsb,
                              dqss, dqsh, dksb, dkss, dksh, dvsb, dvss, dvsh};
-  const Bwd p = make_bwd(Sq, Sk, H, K, d, causal, window, st3, lse, delta);
+  const Bwd p = make_bwd(Sq, Sk, H, K, d, causal, window, k_offset, st3, lse,
+                         delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || k_offset < 0) return (int)cudaErrorInvalidValue;
   if (d == 64)
     return launch_bwd_wgmma<64>(q, k, v, o, dout, dq, dk, dv, B, K, p, st);
   if (d == 128)

@@ -76,7 +76,8 @@ def model_and_params(arch: str, *, use_reduced: bool = False, device="cuda",
     mc = reduce_cfg(acfg.model) if use_reduced else acfg.model
     if n_layers:
         mc = dataclasses.replace(mc, n_layers=n_layers)
-    model = LanguageModel(mc, chunk_k=64, device=device)
+    model = LanguageModel(mc, head_tp=not use_reduced, chunk_k=64,
+                          device=device)
     return model, model.init(torch.Generator(device=device).manual_seed(0))
 
 

@@ -110,14 +110,17 @@ def configure(arch: str, *, steps: int, reduced: bool = False,
 def make_model(acfg, *, reduced: bool = False, device="cuda", mesh=None
                ) -> LanguageModel:
     """The reference launcher's model: chunk_k min(seq, 1024), the
-    config's remat unless reduced. Under a `mesh` whose "model" axis is
-    larger than one it passes ``parallel.pad_attn_heads_to``, as the
-    reference's launcher does: its padded heads serve head-parallel
-    compute over "model". Without one it passes none: on one card the
-    padded heads would only add work."""
+    config's remat unless reduced, ``head_tp=not reduced`` (a reduced
+    model under a mesh attends in kv-SP, as the reference's launcher
+    makes it, ``src/repro/launch/train.py:53``). Under a `mesh` whose
+    "model" axis is larger than one it passes
+    ``parallel.pad_attn_heads_to``, as the reference's launcher does: its
+    padded heads serve head-parallel compute over "model". Without one it
+    passes none: on one card the padded heads would only add work."""
     pad = (acfg.parallel.pad_attn_heads_to
            if mesh is not None and mesh.axis_size("model") > 1 else 0)
-    return LanguageModel(acfg.model, chunk_k=min(acfg.train.seq_len, 1024),
+    return LanguageModel(acfg.model, head_tp=not reduced,
+                         chunk_k=min(acfg.train.seq_len, 1024),
                          remat="none" if reduced else acfg.parallel.remat,
                          device=device, pad_heads_to=pad)
 

@@ -37,9 +37,14 @@ Caches are updated in place (the reference donates them; here the write
 lands in the caller's tensors and the returned cache shares them).
 
 Under a mesh whose "model" axis is larger than one (``tp``, a
-``distributed/tensor_parallel.TP``) a forward without a cache is
-head-parallel, the reference's head-TP (``src/repro/models/attention.py
-:226-306``): each rank projects its ``wq`` columns (H / tp heads), runs
+``distributed/tensor_parallel.TP``) a forward without a cache takes the
+layout the reference's branch order gives (``src/repro/models/
+attention.py:226-241``): padded head-TP where ``pad_heads_to`` pads (no
+cross-attention); otherwise head-TP where the model asks for it
+(``head_tp``, the reference's rule: ``tensor_parallel.resolve_head_tp``);
+otherwise kv-SP.
+
+Head-TP: each rank projects its ``wq`` columns (H / tp heads), runs
 K7 forward and K7b backward on the heads it attends, then its ``wo``
 rows, and one all-reduce sums the ranks' partial outputs. k and v come
 from the rank's ``wk`` / ``wv`` columns: its own kv heads where "model"
@@ -53,10 +58,26 @@ MiniCPM-2B's 36 heads over 2 ranks: rank 0 projects heads 0-17 but
 attends padded heads 0-23), q (and, for an MHA, k and v) move between the
 layouts before the core and the output moves back before ``wo``
 (``tensor_parallel.reshard``); no padded head's value reaches the
-output. Where the (padded) q heads do not divide over "model", or the
-model asks for kv-SP (``head_tp=False``), ``attend`` raises: kv-SP, the
-reference's third layout, is not ported. Decode, prefill and ring caches
-are not run under a mesh (serving under a mesh waits).
+output. Head-TP whose q heads do not divide over "model" (6 over 4: the
+reference's GSPMD shards them unevenly) pads the core's heads to the
+next multiple the same way, transiently (``_core_pad``), and drops the
+padded outputs: the values are the unpadded ones.
+
+kv-SP (``tensor_parallel.kv_sp_attention``): q's column blocks are
+all-gathered to every head on every rank; k and v are projected as
+head-TP's are, all-gathered to every kv head, and each rank keeps its
+block of the sequence, [r ceil(S / tp), ...) (``TP.seq_block``; an
+uneven split leaves the last blocks shorter: the all-gathers move
+full-length tensors, so gloo's equal sizes hold, and the gradient of
+each block returns through the move's all-reduce of a full-length
+tensor, zero outside the block). K7 runs every head's queries over the
+block with ``k_offset`` = the block's start (the causal and window masks
+read key positions), the ranks' outputs merge by their log-sum-exps,
+and each rank's ``wo`` rows read its own columns of the merged output.
+Cross-attention under kv-SP takes ``tp_kv``'s block of the encoder's
+frames, non-causal (no position enters its mask: offset 0). Decode,
+prefill and ring caches are not run under a mesh (serving under a mesh
+waits).
 """
 from __future__ import annotations
 
@@ -247,28 +268,61 @@ def _pad_rep(H: int, K: int, pad_heads_to: int) -> Optional[tuple]:
     return None
 
 
-def _tp_layout(cfg, tp, pad_rep) -> "tpm.HeadLayout":
-    H = cfg.n_heads
-    if pad_rep is None and (tp.head_tp is False or H % tp.size):
-        why = ("the model asks for kv-SP (head_tp=False)"
-               if tp.head_tp is False else
-               f"{H} q heads do not split over 'model' ({tp.size})")
-        raise ValueError(f"{cfg.name}: {why}; {tpm.KV_SP}")
-    return tpm.head_layout(H, cfg.n_kv_heads, cfg.head_dim, tp, pad_rep)
+def _core_pad(H: int, K: int, tp_size: int) -> tuple:
+    """Head-TP's transient padding of H q heads that do not divide over
+    "model": MHA pads q, k and v to the next multiple of the axis; GQA
+    pads each group's rep to the least rep_pad with K rep_pad a multiple
+    of it (the grouping kept). (groups, rep, rep_pad)."""
+    if K == H:
+        return (1, H, -(-H // tp_size) * tp_size)
+    rep = rep_pad = H // K
+    while (K * rep_pad) % tp_size:
+        rep_pad += 1
+    return (K, rep, rep_pad)
+
+
+def _tp_layout(cfg, tp, pad_rep):
+    """The layout of one attention call under `tp`, by the reference's
+    branch order: padded head-TP where `pad_rep` pads; head-TP where the
+    model asks for it (its heads padded for the core where they do not
+    divide over "model"); kv-SP otherwise."""
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    head_tp = tpm.resolve_head_tp(H, tp.head_tp)
+    if pad_rep is None and head_tp and H % tp.size:
+        pad_rep = _core_pad(H, K, tp.size)
+    if pad_rep is not None or head_tp:
+        return tpm.head_layout(H, K, hd, tp, pad_rep)
+    return tpm.kv_sp_layout(H, K, hd, tp)
+
+
+def _kv_block(lay, tp, n: int) -> Tuple[int, int]:
+    """[start, stop) of the sequence's keys a rank attends: kv-SP's block
+    (``TP.seq_block``), head-TP's whole sequence."""
+    return (tp.seq_block(n) if isinstance(lay, tpm.KvSpLayout)
+            else (0, n))
 
 
 def tp_kv(src: torch.Tensor, p: dict, cfg, tp) -> Tuple[torch.Tensor,
                                                          torch.Tensor]:
-    """Cross-attention's k, v under `tp`: the kv heads the rank's q heads
-    read, from the rank's ``wk`` / ``wv`` columns over the replicated
-    `src` (the encoder's output), (B, Se, n_kv, hd) each."""
+    """Cross-attention's k, v under `tp`, from the rank's ``wk`` / ``wv``
+    columns over the replicated `src` (the encoder's output): head-TP's
+    kv heads the rank's q heads read, (B, Se, n_kv, hd) each, or kv-SP's
+    block of the frames for every kv head, (B, Se_r, K, hd)."""
     lay = _tp_layout(cfg, tp, None)
-    return _tp_project_kv(tpm.enter(src, tp, "cross.kv"), p, cfg, tp, lay)
+    src = tpm.enter(src, tp, "cross.kv")
+    return _tp_project_kv(src, p, cfg, tp, lay,
+                          *_kv_block(lay, tp, src.shape[1]))
 
 
-def _tp_project_kv(x, p, cfg, tp, lay):
-    B, S, _ = x.shape
-    hd = cfg.head_dim
+def _tp_project_kv(x, p, cfg, tp, lay, a: int, b: int):
+    """k, v of `lay`'s kv heads (moved from the ranks' column blocks, or
+    computed whole where the rules replicate the columns) at positions
+    [a, b) of the sequence, (B, b - a, n_kv, hd) each: under kv-SP the
+    move gathers the full sequence's columns and the rank keeps its block
+    (gloo's all-gather needs equal sizes, so an uneven split moves
+    full-length tensors, and each block's gradient returns through the
+    move's all-reduce of a full-length one, zero outside the block)."""
+    B = x.shape[0]
     wk, wv = p["wk"], p["wv"]
     tp.check_local(wk, cfg.kv_dim, -1, "wk")
     if not lay.kv_split:
@@ -277,15 +331,16 @@ def _tp_project_kv(x, p, cfg, tp, lay):
         wk, wv = tpm.enter(wk, tp, "attn.wk"), tpm.enter(wv, tp, "attn.wv")
     out = []
     for w, name in ((wk, "attn.k"), (wv, "attn.v")):
-        t = tpm.reshard(x @ w, tp, lay.kv_move, name)
-        out.append(t.reshape(B, S, lay.n_kv, hd))
+        t = tpm.reshard(x @ w, tp, lay.kv_move, name)[:, a:b]
+        out.append(t.reshape(B, b - a, lay.n_kv, cfg.head_dim))
     return out[0], out[1]
 
 
 def _attend_tp(x, p, cfg, tp, *, positions, causal, window, use_rope,
                kv_override, pad_heads_to):
-    """``attend``'s forward without a cache on the rank's heads (see the
-    module's docstring)."""
+    """``attend``'s forward without a cache under `tp` (see the module's
+    docstring): head-TP's K7 on the rank's heads, or kv-SP's on every
+    head over the rank's block of the keys, merged over "model"."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pad_rep = None if kv_override is not None else _pad_rep(H, K,
@@ -300,17 +355,24 @@ def _attend_tp(x, p, cfg, tp, *, positions, causal, window, use_rope,
         q = layers.apply_rope(q, positions, cfg.rope_theta,
                               cfg.mrope_sections)
     if kv_override is not None:
-        k, v = kv_override
+        # cross-attention: no position enters its (non-causal) mask, so
+        # kv-SP's block of the frames goes in at offset 0
+        (k, v), a = kv_override, 0
         causal = False
     else:
-        k, v = _tp_project_kv(x, p, cfg, tp, lay)
+        a, b = _kv_block(lay, tp, S)
+        k, v = _tp_project_kv(x, p, cfg, tp, lay, a, b)
         if use_rope:
-            k = layers.apply_rope(k, positions, cfg.rope_theta,
+            k = layers.apply_rope(k, positions[..., a:b], cfg.rope_theta,
                                   cfg.mrope_sections)
     # K7 / K7b take contiguous inputs: a moved or padded tensor is a new
     # one (index_select), a rotated one too (apply_rope)
-    out = ops.flash_attention(q.contiguous(), k.contiguous(),
-                              v.contiguous(), causal=causal, window=window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if isinstance(lay, tpm.KvSpLayout):
+        out = tpm.kv_sp_attention(q, k, v, tp, causal=causal, window=window,
+                                  k_offset=a)
+    else:
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
     out = tpm.reshard(out.reshape(B, S, lay.n_q * hd), tp, lay.out_move,
                       "attn.out")
     return tpm.leave(out @ p["wo"], tp, "attn.wo"), None
@@ -339,13 +401,13 @@ def attend(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     (H not a multiple, no cross-attention): MHA pads q, k and v at the
     end, GQA each group's q heads; the padded heads' outputs are dropped,
     so the result is the unpadded one. Under `tp` (a mesh's "model" axis)
-    the call is head-parallel (the module's docstring); `kv_override` is
-    then ``tp_kv``'s, on the rank's kv heads."""
+    the call is head-parallel or kv-SP (the module's docstring);
+    `kv_override` is then ``tp_kv``'s."""
     if tp is not None:
         if cache is not None:
             raise NotImplementedError(
                 "attention against a cache under a mesh: serving under a "
-                "mesh is not ported (ROADMAP Queue 1 item 4)")
+                "mesh is not ported (ROADMAP Queue 1 item 1)")
         return _attend_tp(x, p, cfg, tp, positions=positions, causal=causal,
                           window=window, use_rope=use_rope,
                           kv_override=kv_override,

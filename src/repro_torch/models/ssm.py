@@ -304,7 +304,7 @@ def apply_ssm(x: torch.Tensor, p: dict, cfg, *,
         if state is not None:
             raise NotImplementedError(
                 "an SSM state under a mesh: serving under a mesh is not "
-                "ported (ROADMAP Queue 1 item 4)")
+                "ported (ROADMAP Queue 1 item 1)")
         return _apply_ssm_tp(x, p, cfg, tp)
     s = cfg.ssm
     Bsz, S, _ = x.shape

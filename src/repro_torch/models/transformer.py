@@ -62,14 +62,16 @@ calls them on a rank's blocks) the model is tensor-parallel over
 (``attention.attend``), column / row-parallel MLPs, expert-parallel MoE
 layers, head-parallel SSM blocks, and a vocab-parallel embedding, head
 and cross entropy (the rank's vocabulary rows; a vocabulary the rules
-leave replicated is computed whole). The reference decides its layout
-at build time from the literal 16, its production mesh's "model" size
-(``transformer.py:402-404``, ``attention.py:229,234``); the port decides
-it from the live mesh's "model" size, which at 16 gives the reference's
-choice for every config but Whisper-base (8 heads: the reference's
-kv-SP, which the port does not run). ``head_tp`` is the reference's
-argument: False asks for kv-SP and raises under such a mesh. Serving
-(``prefill``, ``decode_step``) under such a mesh is not ported.
+leave replicated is computed whole). Attention takes the reference's
+layout: padded head-TP where ``pad_heads_to`` pads, else head-TP where
+``head_tp``, else kv-SP (k and v split by sequence over "model", q
+whole on every rank). ``head_tp`` is the reference's argument and is
+resolved as the reference resolves it, at build time, from the literal
+16, its production mesh's "model" size, not the live mesh's
+(``transformer.py:402-404``): None means ``n_heads % 16 == 0``, and
+``LanguageModel.head_tp`` holds the resolved bool. On one device it
+changes no value. Serving (``prefill``, ``decode_step``) under such a
+mesh is not ported.
 """
 from __future__ import annotations
 
@@ -432,9 +434,10 @@ class LanguageModel:
     unrolled layers. `pad_heads_to` (``parallel.pad_attn_heads_to``) pads
     the attention heads of a forward without a cache, as the reference's
     does (``attention.attend``); the result is the same. `head_tp` is the
-    reference's choice of attention layout under a mesh (None: head-TP
-    where the heads split over "model"; False: kv-SP, not ported); on
-    one device neither changes a value."""
+    reference's choice of attention layout under a mesh (True: head-TP;
+    False: kv-SP; None: head-TP where the q heads are a multiple of 16,
+    the reference's rule), stored resolved; on one device neither
+    changes a value."""
 
     def __init__(self, cfg, *, head_tp: Optional[bool] = None,
                  chunk_k: int = 1024, remat: str = "none",
@@ -451,7 +454,7 @@ class LanguageModel:
         self.plan = segment_plan(cfg)
         self.chunk_k = chunk_k
         self.pad_heads_to = pad_heads_to
-        self.head_tp = head_tp
+        self.head_tp = tpm.resolve_head_tp(cfg.n_heads, head_tp)
         self.remat = remat
         self.scan_layers = False
         self.device = resolve_device(device)
@@ -713,7 +716,7 @@ class LanguageModel:
         if self._tp() is not None:
             raise NotImplementedError(
                 "prefill / decode under a mesh's 'model' axis: serving "
-                "under a mesh is not ported (ROADMAP Queue 1 item 4)")
+                "under a mesh is not ported (ROADMAP Queue 1 item 1)")
 
     def init_cache(self, batch_size: int, s_max: int) -> dict:
         """Zeroed caches matching the segment plan, length 0: a stacked

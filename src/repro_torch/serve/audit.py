@@ -89,7 +89,8 @@ def attach_serve(ctx, mutate: Optional[Callable] = None) -> None:
     if mc.family == "mlp":
         mc = reduced(get_config(STAND_IN).model, **REDUCED_OVERRIDES)
         stand_in = f"{STAND_IN}-reduced"
-    model = LanguageModel(mc, chunk_k=min(16, cfg.prompt_buckets[-1]),
+    model = LanguageModel(mc, head_tp=False,
+                          chunk_k=min(16, cfg.prompt_buckets[-1]),
                           device=ctx.device)
     params = model.init(torch.Generator(device=ctx.device).manual_seed(0))
     info, targets, _ = serve_audit(model, params, mutate)

@@ -453,11 +453,14 @@ def test_elastic_restore_continues_the_run(ranks, case, target):
 # -- the audit under a mesh -------------------------------------------------
 
 def test_mesh_audit_green_and_force_allgather_fails_the_budget(ranks):
-    """``--mesh 2x2`` on the small LM: every pass clean on every rank, the
-    record's collectives exactly the analytic all-reduce bytes; with
-    ``force-allgather`` exactly collective-budget fails."""
+    """``--mesh 2x2`` on the small LM, which attends in kv-SP as the
+    reference's reduced audit target does (its merge's collectives
+    made): every pass clean on every rank, the record's collectives
+    exactly the analytic all-reduce bytes; with ``force-allgather``
+    exactly collective-budget fails."""
     for r in ranks:
         a = r["audit"]
+        assert a["clean"]["merges"] > 0
         assert a["clean"]["failed"] == []
         assert a["clean"]["record"] == {"all_reduce": [1, a["clean"]
                                                        ["analytic"]]}

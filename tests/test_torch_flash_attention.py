@@ -8,6 +8,13 @@ depends on its tiling): fp32 within 2e-5 absolute (one softmax per row
 against the online softmax over 64-key tiles); bf16 within 2e-2 absolute
 (both compute in fp32 from the same bf16 inputs and round the output to
 bf16 once: one bf16 step, 2^-7 relative, at |out| < 2).
+
+The key offset (kv-SP: a rank's keys start at position ``k_offset``) is
+held to the reference's jnp core with ``k_positions = arange(Sk) +
+k_offset``, and the merge of the twins over 2 and 3 blocks of the keys to
+its attention over all of them and to ``jax.grad`` of it, fp32 within
+1e-5; the port's contract for a row that sees no key (out 0, log-sum-exp
+-1e30, dq 0) is pinned.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -107,8 +114,10 @@ def test_design_follows_dtype_and_head_size(dtype, d, monkeypatch):
     assert calls == ["flash_attention_bwd_wgmma" if wgmma
                      else "flash_attention_bwd"]
     assert kf.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0,
+                           "flash_attention_offset": 0,
                            "flash_attention_bwd": 1,
-                           "flash_attention_bwd_wgmma": int(wgmma)}
+                           "flash_attention_bwd_wgmma": int(wgmma),
+                           "flash_attention_bwd_offset": 0}
     assert kf._bwd_rows_shape(1, 4, 130, wgmma) == (
         (1, 4, 2, 256) if wgmma else (1, 4, 130))
 
@@ -122,4 +131,131 @@ def test_cpu_calls_count_no_launch_of_either_design():
     kf.flash_attention_bwd(q, q, q, q, q, None)
     assert kf.LAUNCHES == before
     assert set(before) == {"flash_attention", "flash_attention_wgmma",
-                           "flash_attention_bwd", "flash_attention_bwd_wgmma"}
+                           "flash_attention_offset", "flash_attention_bwd",
+                           "flash_attention_bwd_wgmma",
+                           "flash_attention_bwd_offset"}
+
+
+# -- the key offset (kv-SP's blocks of the keys) ------------------------------
+
+OFFSET_CASES = [                     # (B, Sq, Sk, H, K, d, causal, window)
+    (2, 48, 20, 4, 2, 32, True, 0),
+    (1, 40, 24, 4, 1, 16, True, 12),
+    (1, 33, 17, 2, 2, 64, False, 0),
+]
+
+
+def _ref_at_offset(q, k, v, causal, window, o):
+    """The reference's core over keys at positions o ... o + Sk - 1."""
+    from repro.models.attention import blockwise_attention
+
+    Sk = k.shape[1]
+    return np.asarray(blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, k_positions=jnp.arange(Sk) + o, kv_len=Sk + o,
+        chunk_k=16))
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES)
+@pytest.mark.parametrize("where", ["zero", "mid", "past"])
+def test_twin_at_a_key_offset_matches_reference(case, where):
+    """``flash_attention_ref(..., k_offset=o)`` against the reference's
+    ``blockwise_attention`` with ``k_positions = arange(Sk) + o``, fp32
+    within 1e-5, at o = 0, mid-sequence and past every query, over the
+    rows that see a key; the rows that see none are exactly 0."""
+    B, Sq, Sk, H, K, d, causal, window = case
+    o = {"zero": 0, "mid": Sq // 2, "past": Sq + 3}[where]
+    q, k, v = _inputs(B, Sq, Sk, H, K, d)
+    got = kf.flash_attention_ref(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 causal=causal, window=window, k_offset=o)
+    rows = kf._mask(Sq, Sk, causal, window, "cpu", o).any(dim=1).numpy()
+    want = _ref_at_offset(q, k, v, causal, window, o)
+    np.testing.assert_allclose(got.numpy()[:, rows], want[:, rows],
+                               rtol=0, atol=1e-5)
+    assert (got.numpy()[:, ~rows] == 0).all()
+    assert rows.any() == (where != "past" or not causal)
+
+
+def test_rows_that_see_no_key_follow_the_contract():
+    """A row that sees no key: out 0, log-sum-exp -1e30 (finite), dq 0,
+    through the twins' forward, log-sum-exp, autograd and K7b's formula
+    given an lse; here every query sees none (causal, the keys past every
+    query) or the first half does (the keys at mid-sequence)."""
+    q, k, v, g = (torch.from_numpy(x) for x in
+                  _inputs(1, 32, 16, 4, 2, 32) + [RNG.standard_normal(
+                      (1, 32, 4, 32), np.float32)])
+    for o, blind in ((32, slice(0, 32)), (16, slice(0, 16))):
+        out, lse = kf.flash_attention_lse(q, k, v, causal=True, k_offset=o)
+        assert (out[:, blind] == 0).all() and (lse[:, :, blind]
+                                                == kf.NEG_INF).all()
+        assert torch.isfinite(lse).all() and torch.isfinite(out).all()
+        for given in (None, lse):
+            dq, dk, dv = kf.flash_attention_bwd(q, k, v, out, g, given,
+                                                causal=True, k_offset=o)
+            assert (dq[:, blind] == 0).all()
+            assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
+        if o == 32:
+            assert (dk == 0).all() and (dv == 0).all()
+
+
+def _merged(q, k, v, causal, window, cuts):
+    """The twins' kv-SP over the key blocks cut at `cuts`: each block's
+    attention and log-sum-exp at its offset, merged by the log-sum-exps
+    (kernels/flash_attention's NEG_INF rows weigh 0), and the gradient of
+    <g, out> by K7b's formula on the merged out and lse per block: dq
+    summed over the blocks, dk and dv each block's."""
+    bounds = list(zip([0] + cuts, cuts + [k.shape[1]]))
+    parts = [kf.flash_attention_lse(q, k[:, a:b], v[:, a:b], causal=causal,
+                                    window=window, k_offset=a)
+             for a, b in bounds]
+    lses = torch.stack([lse for _, lse in parts])
+    L = torch.logsumexp(lses, dim=0)
+    out = sum(o * torch.exp(lse - L).transpose(1, 2)[..., None]
+              for o, lse in parts)
+    return out, L, bounds
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES)
+@pytest.mark.parametrize("cuts", [[10], [5, 13], [1, 2]])
+def test_kv_sp_merge_of_twins_matches_reference(case, cuts):
+    """Two and three blocks, odd lengths among them: the merge of the
+    blocks' twins equals the reference's attention over all the keys, and
+    K7b's formula per block on the merged out and lse (dq summed, dk and
+    dv concatenated) equals ``jax.grad`` of <g, reference>; fp32 within
+    1e-5 of each output's largest entry. A row that sees no key at all
+    (the window past the keys) is 0 here and the reference's mean of V,
+    outside its contract: g is 0 there, so that the reference's mean adds
+    nothing to its dv."""
+    import jax
+
+    from repro.models.attention import blockwise_attention
+
+    B, Sq, Sk, H, K, d, causal, window = case
+    q, k, v = _inputs(B, Sq, Sk, H, K, d)
+    rows = kf._mask(Sq, Sk, causal, window, "cpu").any(dim=1).numpy()
+    g = RNG.standard_normal((B, Sq, H, d), np.float32) * rows[:, None, None]
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    out, L, bounds = _merged(tq, tk, tv, causal, window, cuts)
+
+    def ref(q_, k_, v_):
+        return blockwise_attention(q_, k_, v_, causal=causal, window=window,
+                                   chunk_k=16)
+    want = np.asarray(ref(*map(jnp.asarray, (q, k, v))))
+    np.testing.assert_allclose(out.numpy()[:, rows], want[:, rows], rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    assert (out.numpy()[:, ~rows] == 0).all()
+    jg = jax.grad(lambda *a: jnp.sum(ref(*a) * g), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    dq = torch.zeros_like(tq)
+    dks, dvs = [], []
+    for a, b in bounds:
+        gq, gk, gv = kf.flash_attention_bwd(
+            tq, tk[:, a:b], tv[:, a:b], out, tg, L.contiguous(),
+            causal=causal, window=window, k_offset=a)
+        dq += gq
+        dks.append(gk)
+        dvs.append(gv)
+    for got, w in zip((dq, torch.cat(dks, 1), torch.cat(dvs, 1)), jg):
+        w = np.asarray(w)
+        np.testing.assert_allclose(got.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())

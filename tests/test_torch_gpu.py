@@ -325,7 +325,8 @@ def test_flash_wgmma_design_at_tile_edges(cuda, case):
     torch.cuda.synchronize()
     assert {k_: kf.LAUNCHES[k_] - before[k_] for k_ in before} == {
         "flash_attention": 2, "flash_attention_wgmma": 2,
-        "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0}
+        "flash_attention_offset": 0, "flash_attention_bwd": 0,
+        "flash_attention_bwd_wgmma": 0, "flash_attention_bwd_offset": 0}
     assert torch.equal(got, again)
     want = kf.flash_attention_ref(q, k, v, causal=causal, window=window)
     rows = _seen_rows(case[1], case[2], causal, window).to(cuda)
@@ -1256,7 +1257,8 @@ def test_flash_autograd_runs_k7_and_k7b(cuda):
     grads = torch.autograd.grad(out, leaves, dout)
     assert {n: kf.LAUNCHES[n] - before[n] for n in before} == {
         "flash_attention": 1, "flash_attention_wgmma": 1,
-        "flash_attention_bwd": 1, "flash_attention_bwd_wgmma": 1}
+        "flash_attention_offset": 0, "flash_attention_bwd": 1,
+        "flash_attention_bwd_wgmma": 1, "flash_attention_bwd_offset": 0}
     o2, lse = kf.flash_attention_lse(q, k, v)
     assert torch.equal(out.detach(), o2)
     for a, b in zip(grads, kf.flash_attention_bwd(q, k, v, o2, dout, lse)):

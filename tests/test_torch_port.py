@@ -279,6 +279,10 @@ ptxas info    : Used 40 registers, used 1 barriers, 512 bytes smem
     ("_ZN39_GLOBAL__N__13eb64e5_7_flat_cu_a4e5b7ab8row_partIfLi8ELb1EEEv",
      "row_part<float,8,vec=1>", 8),
     ("_Z11flash_wgmmaILi128EEvv", "flash_wgmma<128>", None),
+    ("_ZN6hopper11flash_wgmmaILi64EN12_GLOBAL__N_110ProblemLseEEEv14CUtensor"
+     "Map_stS3_S3_P13__nv_bfloat16T0_", "flash_wgmma<64,lse>", None),
+    ("_ZN6hopper11flash_wgmmaILi128EN12_GLOBAL__N_110ProblemOffEEEv14CUtenso"
+     "rMap_stS3_S3_P13__nv_bfloat16T0_", "flash_wgmma<128,off>", None),
     ("_ZN47_GLOBAL__N__d29a3f0f_12_flash_bwd_cu_f0d3f5b46hopper14bwd_dkdv_"
      "wgmmaILi64EEEv14CUtensorMap_stS2_S2_S2_P13__nv_bfloat16S4_NS_3BwdEi",
      "bwd_dkdv_wgmma<64>", None),

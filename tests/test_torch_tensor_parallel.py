@@ -5,8 +5,9 @@ against the one-process port and the reference on the same numpy inputs.
 One spawn for the file (``ranks``, a module fixture): every rank runs
 ``torch_tp_worker.tp_checks`` and the cases below read its results. The
 process group times out after 60 s and the spawn after 120 s. The
-reference side (``repro.models.transformer.LanguageModel(head_tp=True,
-pad_heads_to=...)`` on one device) runs here, in the test process.
+reference side (``repro.models.transformer.LanguageModel(head_tp=...,
+pad_heads_to=...)`` on one device, with the case's ``head_tp``) runs
+here, in the test process.
 
 Each case of ``torch_tp_worker.CASES`` is a small fp32 config of one
 layout: GQA with its kv heads split, MQA with its one kv head gathered,
@@ -14,7 +15,12 @@ an MHA padded 6 -> 8 whose heads move between the ranks, GQA padded and
 aligned, 4 experts over 2 ranks (and a dense-MoE pair with a shared
 expert), an SSM of 4 heads over 2 ranks (and Zamba's shared block),
 Gemma's window layers and soft-capped logits, Whisper's cross-attention;
-tied and untied heads, a padded vocabulary. Tolerance: the loss relative
+tied and untied heads, a padded vocabulary; then kv-SP (k and v split by
+sequence over "model", q whole on every rank): GQA causal on (2, 2) and
+on (1, 4) over 18 tokens (uneven blocks), Gemma's window layers, Whisper
+as its config lays it out (kv-SP in every attention, the encoder's and
+the cross-attention's over 15 frames), and head-TP with 6 heads over 4
+(the core's heads padded for the call). Tolerance: the loss relative
 1e-5 and each leaf's gradient 1e-5 of the leaf's largest entry, on the
 (2, 2) mesh against one process, and against the reference beyond one
 process's own distance from it (the port's SSD already sits up to 8e-6
@@ -35,6 +41,7 @@ import pytest
 
 import torch_tp_worker as W
 from repro.configs import get_config as j_get_config
+from repro.configs import list_archs as j_list_archs
 from repro.configs import reduced as j_reduced
 from repro.models.transformer import LanguageModel as JLM
 from repro_torch.configs import get_config
@@ -45,9 +52,18 @@ from repro_torch.launch.mesh import run_ranks
 TOL = 1e-5
 TRAIN_TOL = (1e-5, 2e-3)
 # the collectives that move heads or kv columns between the ranks, by case
-# (the others' layouts need none)
+# (the others' layouts need none); kv-SP all-gathers q to every head and
+# k, v to every kv head, and keeps its own columns of the output locally
 MOVES = {"mha-moved": {"attn.q", "attn.k", "attn.v", "attn.out"},
-         "mqa": {"attn.k", "attn.v"}}
+         "mqa": {"attn.k", "attn.v"},
+         "gqa-kvsp": {"attn.q", "attn.k", "attn.v"},
+         "gqa-kvsp-1x4": {"attn.q", "attn.k", "attn.v"},
+         "gemma-kvsp": {"attn.q", "attn.k", "attn.v"},
+         "whisper-kvsp": {"attn.q", "attn.k", "attn.v"},
+         "heads-6-over-4": {"attn.q", "attn.k", "attn.v", "attn.out"}}
+# the kv-SP cases: their merge's two all-reduces and dO's sum over "model"
+KV_SP = ("gqa-kvsp", "gqa-kvsp-1x4", "gemma-kvsp", "whisper-kvsp")
+MERGE = {"attn.merge.max", "attn.merge.sum", "attn.merge.dout"}
 
 
 def _j_model_cfg(name: str):
@@ -62,7 +78,7 @@ def _j_model_cfg(name: str):
 
 
 def _j_model(name: str):
-    return JLM(_j_model_cfg(name), head_tp=True, chunk_k=16,
+    return JLM(_j_model_cfg(name), head_tp=W.head_tp(name), chunk_k=16,
                pad_heads_to=W.CASES[name][2])
 
 
@@ -107,13 +123,15 @@ def test_tp_matches_one_process(ranks, name):
         moved = {"attn.q", "attn.k", "attn.v", "attn.out"} & set(
             res["sites"])
         assert moved == MOVES.get(name, set()), res["sites"]
+        assert (MERGE <= set(res["sites"])) == (name in KV_SP), res["sites"]
 
 
 @pytest.mark.parametrize("name", list(W.CASES))
 def test_tp_matches_reference(ranks, inputs, name):
-    """The (2, 2) mesh's loss and its gradient (every rank's blocks
-    gathered) against the reference's ``LanguageModel(head_tp=True,
-    pad_heads_to=...)`` on one device, from the same params and batch:
+    """The mesh's loss and its gradient (every rank's blocks gathered)
+    against the reference's ``LanguageModel(head_tp=..., pad_heads_to=...)``
+    on one device, built with the case's ``head_tp`` (its values do not
+    depend on the layout), from the same params and batch:
     each leaf within 1e-5 of its largest entry beyond one process's own
     distance from the reference."""
     loss, want = _ref(name, inputs[name])
@@ -131,13 +149,15 @@ def test_tp_matches_reference(ranks, inputs, name):
 @pytest.mark.parametrize("fault", list(W.FAULTS))
 def test_planted_faults_fail(ranks, fault):
     """The checks can fail: a row-parallel all-reduce dropped (the MLP's
-    w_out), and a replicated param's gradient sum over "model" dropped
-    (the SSM's norm_scale), each put a gradient off one process's by far
-    more than the tolerance."""
+    w_out), a replicated param's gradient sum over "model" dropped (the
+    SSM's norm_scale), kv-SP's merge without its weights (each rank keeps
+    the attention over its own keys) and kv-SP's dq without its sum over
+    "model" each put a gradient off one process's by far more than the
+    tolerance; the two that change the forward, its loss too."""
     for r in ranks:
         res = r["faults"][fault]
         assert max(res["grad_err"].values()) > 100 * TOL, res["grad_err"]
-    if fault == "drop-row-sum":
+    if fault in ("drop-row-sum", "kv-sp-unweighted-merge"):
         res = ranks[0]["faults"][fault]
         assert abs(res["loss"] - res["loss_one"]) > TOL * res["loss_one"]
 
@@ -155,15 +175,6 @@ def test_trainer_with_dmd_on_the_mesh(ranks):
     np.testing.assert_allclose(g, w, rtol=TRAIN_TOL[1])
     for r in ranks[1:]:
         assert r["train"]["losses"] == got["losses"]
-
-
-def test_kv_sp_raises(ranks):
-    """A mesh whose heads need kv-SP raises a ValueError that names it,
-    on every rank, instead of gathering the params: head_tp=False on (2,
-    2), and 6 unpadded heads over a "model" axis of 4."""
-    for r in ranks:
-        for key, msg in r["kv_sp"].items():
-            assert msg is not None and "kv-SP" in msg, (key, msg)
 
 
 # -- the launcher ------------------------------------------------------------
@@ -225,3 +236,50 @@ def test_check_fits_reckons_the_model_blocks_a_rank_reads():
                                  n_read=read)
     p = 2 if c.dtype == "bfloat16" else 4
     assert full - tp == (2 * p + 4) * (n - read)
+
+
+# -- the reference's choice of layout -----------------------------------------
+
+@pytest.mark.parametrize("arch", [a for a in j_list_archs()
+                                  if j_get_config(a).model.family != "mlp"])
+def test_head_tp_resolves_as_the_reference(arch):
+    """For every architecture and every ``head_tp`` argument, the port's
+    ``LanguageModel`` holds the layout the reference's resolves to: None is
+    head-TP where the q heads are a multiple of the reference's 16 (not
+    the live "model" axis), kv-SP otherwise."""
+    from repro_torch.models.transformer import LanguageModel
+
+    cfg, jcfg = get_config(arch).model, j_get_config(arch).model
+    for head_tp in (None, True, False):
+        got = LanguageModel(cfg, head_tp=head_tp, device="cpu").head_tp
+        assert got is JLM(jcfg, head_tp=head_tp).head_tp, (arch, head_tp)
+    assert LanguageModel(cfg, device="cpu").head_tp == (cfg.n_heads % 16
+                                                        == 0)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_launchers_and_audit_targets_choose_the_references_layout(reduced):
+    """``launch.train.make_model`` and ``launch.serve`` pass ``head_tp=not
+    reduced``, as the reference's launchers do; the audit targets' model
+    resolves as the reference's targets' (kv-SP when reduced, the rule
+    otherwise) and runs its remat, "none", for every architecture."""
+    from repro.audit import targets as j_targets
+    from repro_torch.audit import targets as t_targets
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    for arch in ("tinyllama-1.1b", "whisper-base", "minicpm-2b"):
+        acfg = launch_train.configure(arch, steps=1, reduced=reduced)
+        model = launch_train.make_model(acfg, reduced=reduced, device="cpu")
+        assert model.head_tp is (not reduced), arch
+    model, _ = launch_serve.model_and_params(
+        "tinyllama-1.1b", use_reduced=reduced, device="cpu", n_layers=1)
+    assert model.head_tp is (not reduced)
+    for arch in j_list_archs():
+        want = j_targets._build_model_and_config(arch, reduced)[0]
+        got = t_targets._build_model_and_config(arch, reduced, "cpu")[0]
+        if not hasattr(want, "head_tp"):
+            continue                                # the paper MLP
+        assert got.head_tp is want.head_tp, arch
+        assert got.remat == want.remat == "none", arch
+        assert got.chunk_k == want.chunk_k and got.pad_heads_to == 0, arch

@@ -5,10 +5,11 @@ Imports torch and the port only (no JAX): the test process holds the
 reference. ``tp_checks(rank, inputs, tmp)`` runs, for every case of
 ``CASES`` (small fp32 configs, one per attention / MLP / MoE / SSM /
 vocabulary layout), the loss and each leaf's gradient block on a (2, 2)
-mesh against one process here (``distributed/checks.py::tp_gradients``),
-the planted faults, a Trainer with DMD on (2, 2) and kv-SP's refusal; the
-inputs (the reference's initial params and the numpy batches) come from
-the test process, so both packages start from the same numbers.
+mesh (or, for the cases of ``MESH_OF``, a (1, 4) one) against one
+process here (``distributed/checks.py::tp_gradients``), the planted
+faults and a Trainer with DMD on (2, 2); the inputs (the reference's
+initial params and the numpy batches) come from the test process, so both
+packages start from the same numbers.
 """
 from __future__ import annotations
 
@@ -77,12 +78,43 @@ CASES = {
     # Whisper: the encoder over 16 frames, cross-attention, MHA
     "whisper": ("whisper-base", dict(SMALL, n_kv_heads=4, n_encoder_layers=2,
                                      encoder_seq_len=16), 0),
+    # kv-SP (head_tp=False): every head's queries on every rank, k and v
+    # split by sequence (rank 1's keys at offset 8), GQA causal
+    "gqa-kvsp": ("tinyllama-1.1b", dict(SMALL), 0),
+    # the same on (1, 4) over 18 tokens: blocks of 5, 5, 5 and 3 keys
+    "gqa-kvsp-1x4": ("tinyllama-1.1b", dict(SMALL), 0),
+    # Gemma3's window layers in kv-SP: the window (8) through the offset,
+    # a query's window across both blocks
+    "gemma-kvsp": ("gemma3-27b", dict(SMALL, n_layers=6, vocab_size=120,
+                                      sliding_window=8, logit_softcap=30.0),
+                   0),
+    # Whisper as its config lays it out (head_tp None: 4 heads are no
+    # multiple of 16; heads padded to 16, which neither package applies
+    # to the encoder's and decoder's blocks): kv-SP throughout, the
+    # encoder's self-attention and the cross-attention over 15 frames
+    # (blocks of 8 and 7), the decoder's causal over 16 tokens
+    "whisper-kvsp": ("whisper-base", dict(SMALL, n_kv_heads=4,
+                                          n_encoder_layers=2,
+                                          encoder_seq_len=15), 16),
+    # head-TP (head_tp=True) with 6 heads over a "model" axis of 4, no
+    # padding asked: the core's heads padded to 8 for the call, transiently
+    "heads-6-over-4": ("tinyllama-1.1b", dict(SMALL, n_heads=6), 0),
 }
+# each case's head_tp (the reference's argument; True where not listed)
+HEAD_TP = {"gqa-kvsp": False, "gqa-kvsp-1x4": False, "gemma-kvsp": False,
+           "whisper-kvsp": None}
+# the cases on a (1, 4) mesh ("model" 4, the batch whole on every rank);
+# the others run on (2, 2)
+MESH_OF = {"gqa-kvsp-1x4": "1x4", "heads-6-over-4": "1x4"}
+# a case's sequence length where it is not S
+SEQ = {"gqa-kvsp-1x4": 18}
 # the cases run with remat="block": their blocks recompute in the backward
 # inside the mesh's contexts (the MoE's batch statistics included)
-REMAT = ("moe-pair", "whisper")
+REMAT = ("moe-pair", "whisper", "whisper-kvsp")
 # the planted faults and the case each runs on
-FAULTS = {"drop-row-sum": "gqa-split", "drop-replicated-sum": "ssm"}
+FAULTS = {"drop-row-sum": "gqa-split", "drop-replicated-sum": "ssm",
+          "kv-sp-unweighted-merge": "gqa-kvsp",
+          "kv-sp-drop-dq-sum": "gqa-kvsp"}
 # the Trainer with DMD on (2, 2): the case, its steps (the first jump at 9)
 TRAIN_CASE, TRAIN_STEPS = "mha-moved", 12
 TRAIN_DMD = dict(enabled=True, m=4, s=10, tol=1e-4, warmup_steps=4,
@@ -101,7 +133,7 @@ def batches(name: str, n: int = 1, seed: int = 0) -> list:
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        t = rng.integers(1, cfg.vocab_size, (B, S + 1))
+        t = rng.integers(1, cfg.vocab_size, (B, SEQ.get(name, S) + 1))
         b = {"tokens": t[:, :-1].astype(np.int32),
              "labels": t[:, 1:].astype(np.int32)}
         if cfg.family == "encdec":
@@ -123,10 +155,14 @@ def train_cfg(name: str):
         train=TrainConfig(global_batch=B, seq_len=S))
 
 
-def _model(name: str, **kw) -> LanguageModel:
-    return LanguageModel(model_cfg(name), chunk_k=16, device="cpu",
-                         pad_heads_to=CASES[name][2],
-                         remat="block" if name in REMAT else "none", **kw)
+def head_tp(name: str):
+    return HEAD_TP.get(name, True)
+
+
+def _model(name: str) -> LanguageModel:
+    return LanguageModel(model_cfg(name), head_tp=head_tp(name), chunk_k=16,
+                         device="cpu", pad_heads_to=CASES[name][2],
+                         remat="block" if name in REMAT else "none")
 
 
 def _torch(b: dict) -> dict:
@@ -175,45 +211,23 @@ def _trainer(mesh, inputs) -> dict:
     return {"losses": losses, "jumps": jumps}
 
 
-def _kv_sp(meshes, inputs) -> dict:
-    """The refusals: head_tp=False (kv-SP asked for) on (2, 2), and 6 q
-    heads without padding on a (1, 4) mesh."""
-    out = {}
-    for key, name, mesh, kw in (
-            ("head_tp_false", "gqa-split", meshes["2x2"],
-             {"head_tp": False}),
-            ("heads_6_over_4", "gqa-padded", meshes["1x4"],
-             {"pad_heads_to": 0})):
-        params = dict(leaves_with_paths(params_from_jax(inputs[name],
-                                                        device="cpu")))
-        model = LanguageModel(model_cfg(name), chunk_k=16, device="cpu",
-                              **{"pad_heads_to": CASES[name][2], **kw})
-        try:
-            checks.tp_gradients(model, params, _torch(batches(name)[0]),
-                                mesh)
-            out[key] = None
-        except ValueError as e:
-            out[key] = str(e)
-    return out
-
-
 def tp_checks(rank: int, inputs: dict, tmp: str) -> dict:
     """Every rank-side check of tests/test_torch_tensor_parallel.py."""
     meshes = {"2x2": Mesh((2, 2), device="cpu"),
               "1x4": Mesh((1, 4), device="cpu")}
-    mesh = meshes["2x2"]
     out = {"rank": rank, "cases": {}, "faults": {}}
     for name in CASES:
-        res = _case(mesh, name, inputs)
+        res = _case(meshes[MESH_OF.get(name, "2x2")], name, inputs)
         if rank != 0:
             res.pop("grads")
             res.pop("grads_one")
         out["cases"][name] = res
     for fault, name in FAULTS.items():
-        out["faults"][fault] = _case(mesh, name, inputs, fault=fault)
+        out["faults"][fault] = _case(meshes[MESH_OF.get(name, "2x2")], name,
+                                     inputs, fault=fault)
+    mesh = meshes["2x2"]
     out["train"] = _trainer(mesh, inputs)
     if rank == 0:
         out["train_one"] = _trainer(None, inputs)
     mesh.barrier()
-    out["kv_sp"] = _kv_sp(meshes, inputs)
     return out
